@@ -1,14 +1,22 @@
 """One-command compression + artifact export, on the card.
 
-Runs the pipeline (tables → DP → merge) on a CNN of the zoo and publishes
-a merged-model artifact in the JAX package's ``.npz`` format:
+Runs the pipeline (tables → DP → merge) on a CNN of the zoo or a
+transformer config and publishes a merged-model artifact in the JAX
+package's ``.npz`` format:
 
   PYTHONPATH=src python -m repro_torch.compress --arch mobilenetv2 \
       --oracle wallclock --max-span 6 --budget-ratio 0.6 --out a.npz
+  PYTHONPATH=src python -m repro_torch.compress --arch smollm-135m \
+      --method depth --out lm.npz
 
+Transformer ids resolve through :func:`repro_torch.configs.get_config`,
+reduced to the CPU-sized toy variant unless ``--full``: the full width
+and depth, in fp32 (the published configs are bf16, which rank merging
+cannot factor yet: ROADMAP.md queue 3).
 ``--oracle wallclock`` times every distinct merged-segment shape on the
 card through the hand-written kernels; ``--oracle analytic`` prices them
-with the H100 roofline model.  ``--device cpu`` runs the plain PyTorch
+with the H100 roofline model (transformers: the JAX package's cost
+model).  ``--device cpu`` runs the plain PyTorch
 versions instead (the default, ``cuda``, raises where there is no card).
 Parameters are seed-initialised: the command demonstrates the
 plan→artifact path, a production run would load trained weights.
@@ -16,6 +24,7 @@ plan→artifact path, a production run would load trained weights.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 CNN_ARCHS = {
@@ -30,32 +39,52 @@ CNN_ARCHS = {
 }
 
 
-def build_host(arch: str, *, seed: int = 0, batch: int = 8,
-               max_span: int | None = None, device="cuda"):
-    """(host, source-dict) for a named CNN of the zoo, parameters drawn
-    from ``torch.Generator().manual_seed(seed)``."""
+def build_host(arch: str, *, seed: int = 0, batch: int = 8, seq: int = 128,
+               full: bool = False, max_span: int | None = None,
+               device="cuda"):
+    """(host, source-dict) for a named CNN of the zoo or a transformer
+    config id, parameters drawn from ``torch.Generator().manual_seed(seed)``."""
     import torch
 
     from repro_torch.device import resolve
-    from repro_torch.models import cnn, cnn_host, zoo
 
-    if arch not in CNN_ARCHS:
-        raise ValueError(f"unknown arch {arch!r}; the port has the CNN zoo "
-                         f"({', '.join(CNN_ARCHS)})")
     dev = resolve(device)
-    net = CNN_ARCHS[arch](zoo)
-    params = cnn.init_params(net, torch.Generator().manual_seed(seed),
-                             device=dev)
-    host = cnn_host.CNNHost(net, params, batch=batch, max_span=max_span,
-                            device=dev)
-    return host, {"arch": arch, "seed": seed, "family": "cnn"}
+    gen = torch.Generator().manual_seed(seed)
+    source = {"arch": arch, "seed": seed}
+    if arch in CNN_ARCHS:
+        from repro_torch.models import cnn, cnn_host, zoo
+
+        net = CNN_ARCHS[arch](zoo)
+        params = cnn.init_params(net, gen, device=dev)
+        host = cnn_host.CNNHost(net, params, batch=batch, max_span=max_span,
+                                device=dev)
+        source["family"] = "cnn"
+        return host, source
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer_host import CostEnv, TransformerHost
+
+    try:
+        cfg = get_config(arch)
+    except KeyError as e:
+        raise ValueError(f"unknown arch {arch!r}; the port has the CNN zoo "
+                         f"({', '.join(CNN_ARCHS)}) and {e}") from None
+    cfg = dataclasses.replace(cfg, dtype="float32", remat=False) if full \
+        else cfg.reduced()
+    params, _ = T.init_model(cfg, gen, device=dev)
+    host = TransformerHost(cfg, params, env=CostEnv(batch=batch, seq=seq),
+                           max_span=max_span, device=dev)
+    source.update(family="transformer", reduced=not full)
+    return host, source
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.compress",
         description="LayerMerge compression → merged-model artifact")
-    ap.add_argument("--arch", required=True, choices=tuple(CNN_ARCHS))
+    ap.add_argument("--arch", required=True,
+                    help=f"CNN zoo ({', '.join(CNN_ARCHS)}) or a "
+                         "transformer config id (smollm-135m)")
     ap.add_argument("--budget-ratio", type=float, default=0.6)
     ap.add_argument("--method", default="layermerge",
                     choices=("layermerge", "depth", "layeronly"))
@@ -66,7 +95,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--out", required=True, help="artifact path (.npz)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128,
+                    help="sequence length for the transformer cost env")
     ap.add_argument("--max-span", type=int, default=None)
+    ap.add_argument("--full", action="store_true",
+                    help="transformer: full config in fp32, not .reduced()")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
     args = ap.parse_args(argv)
@@ -74,6 +107,7 @@ def main(argv=None) -> dict:
     from repro_torch.core import WallClockOracle, compress
 
     host, source = build_host(args.arch, seed=args.seed, batch=args.batch,
+                              seq=args.seq, full=args.full,
                               max_span=args.max_span, device=args.device)
     oracle = WallClockOracle() if args.oracle == "wallclock" else None
     res = compress(host, budget_ratio=args.budget_ratio, P=args.P,

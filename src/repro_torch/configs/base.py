@@ -1,0 +1,128 @@
+"""Architecture configs — the JAX package's ``ArchConfig``, copied field for
+field.
+
+The field names, order and defaults are the JAX package's: a transformer
+artifact stores ``dataclasses.asdict(cfg)`` in its spec, and the spec
+enters the fingerprint, so a config that differs by one field would give
+another fingerprint.  :func:`get_config` resolves only the configs whose
+families the port runs; any other id raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                     # dense | moe | hybrid | ssm | audio | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int | None = None     # default d_model // num_heads
+    ffn_kind: str = "swiglu"        # swiglu | geglu | gelu
+    qkv_bias: bool = False
+    # MoE
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_dff: int = 0
+    capacity_factor: float = 1.25
+    # temporal structure: per-layer kinds, cycled/padded to num_layers
+    temporal_pattern: tuple[str, ...] = ("attn",)
+    local_window: int = 0           # for 'attn_local'
+    rnn_width: int = 0              # for 'rglru' (0 → d_model)
+    # embedding / modality frontend
+    frontend: str = "tokens"        # tokens | embeddings (stub frontend)
+    rope_kind: str = "rope"         # rope | mrope | none
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-6
+    # runtime
+    dtype: str = "bfloat16"
+    remat: bool = True
+    scan_layers: bool = True
+    decode_flash: bool = False   # flash-decoding LSE combine (sharded)
+    source: str = ""                # provenance note
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim",
+                               self.d_model // self.num_heads)
+
+    # -- derived -------------------------------------------------------------
+    def layer_kinds(self) -> tuple[str, ...]:
+        pat = self.temporal_pattern
+        return tuple(pat[i % len(pat)] for i in range(self.num_layers))
+
+    @property
+    def has_ffn(self) -> bool:
+        return self.d_ff > 0 or self.num_experts > 0
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    def param_count(self) -> int:
+        """Approximate parameter count."""
+        d, hd = self.d_model, self.head_dim
+        n = 0
+        kinds = self.layer_kinds()
+        for kind in kinds:
+            if kind in ("attn", "attn_local"):
+                n += d * hd * (self.num_heads * 2 + self.num_kv_heads * 2)
+            elif kind == "rglru":
+                dr = self.rnn_width or d
+                n += 2 * d * dr + 2 * dr * dr + 5 * dr
+            elif kind in ("mlstm", "slstm"):
+                n += 4 * d * d + d * d
+            if self.is_moe:
+                n += self.num_experts * 3 * d * self.moe_dff + d * self.num_experts
+            elif self.d_ff > 0:
+                mult = 3 if self.ffn_kind in ("swiglu", "geglu") else 2
+                n += mult * d * self.d_ff
+            n += 2 * d
+        n += self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return n
+
+    def reduced(self) -> "ArchConfig":
+        """Structurally identical toy config for CPU tests."""
+        pat = self.temporal_pattern
+        n_layers = max(len(pat), 2)
+        d = 32
+        heads = 2
+        kv = max(1, min(self.num_kv_heads, heads))
+        return dataclasses.replace(
+            self,
+            name=self.name + "-reduced",
+            num_layers=n_layers,
+            d_model=d, num_heads=heads, num_kv_heads=kv, head_dim=d // heads,
+            d_ff=(48 if self.d_ff > 0 else 0),
+            vocab_size=64,
+            num_experts=(4 if self.is_moe else 0),
+            experts_per_token=(2 if self.is_moe else 0),
+            moe_dff=(16 if self.is_moe else 0),
+            local_window=(8 if self.local_window else 0),
+            rnn_width=(32 if self.temporal_pattern.count("rglru") else 0),
+            dtype="float32", remat=False, scan_layers=True,
+        )
+
+
+#: Config ids whose families the port runs (dense transformers).  The
+#: JAX package's other ids (MoE, RG-LRU, xLSTM, M-RoPE models) wait for
+#: their blocks: ROADMAP.md queue 1.
+_MODULES = {
+    "smollm-135m": "smollm_135m",
+}
+
+
+def get_config(arch: str) -> ArchConfig:
+    if arch not in _MODULES:
+        raise KeyError(
+            f"arch {arch!r} is not ported; the port runs {sorted(_MODULES)} "
+            "(the other families wait in ROADMAP.md queue 1)")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+    return mod.CONFIG

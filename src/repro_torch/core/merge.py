@@ -13,6 +13,9 @@ merged group; depthwise convs are ``(kh, kw, 1, c)`` with
 * ``fuse_skip_add``    — ``x + conv(x)`` as one conv with a centred Dirac
   added (shape-preserving, odd kernel, stride 1).
 * ``fold_batchnorm``   — inference-time BN folding.
+* ``merge_linear_residual_pair`` / ``_chain``, ``truncate_rank``,
+  ``dense_residual`` — the transformer rank-merge: residual maps
+  ``x + (x·U)·V`` compose exactly into one of summed rank.
 
 The general case runs ``F.conv2d``; on a CUDA device that is cuDNN, so
 callers resolve the device through :func:`repro_torch.device.resolve`,
@@ -127,3 +130,68 @@ def fold_batchnorm(w: torch.Tensor, b: torch.Tensor | None, gamma, beta,
     w_f = w * scale[None, None, None, :]
     b0 = torch.zeros_like(mean) if b is None else b
     return w_f, beta + (b0 - mean) * scale
+
+
+# ---------------------------------------------------------------------------
+# Transformer rank-merge — the analogue of Eq. 1 for residual FFN maps
+# ---------------------------------------------------------------------------
+
+def merge_linear_residual_pair(u1: torch.Tensor, v1: torch.Tensor,
+                               u2: torch.Tensor, v2: torch.Tensor
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact factored merge of ``(I + U2·V2) ∘ (I + U1·V1)``.
+
+    Shapes: ``u: (d, r)``, ``v: (r, d)`` with the block acting as
+    ``x → x + (x @ u) @ v`` on row vectors.  The merged rank is ``r1 + r2``
+    and the merge is exact — no SVD:
+
+      ``x(I + U1V1)(I + U2V2) = x(I + [U1 | (I + U1V1)U2] · [V1 ; V2])``.
+    """
+    d = u1.shape[0]
+    if v1.shape[1] != d or u2.shape[0] != d or v2.shape[1] != d:
+        raise ValueError(f"merge_linear_residual_pair: {tuple(u1.shape)}, "
+                         f"{tuple(v1.shape)}, {tuple(u2.shape)}, "
+                         f"{tuple(v2.shape)}")
+    u2_eff = u2 + u1 @ (v1 @ u2)          # (d, r2): (I + U1V1)·U2
+    return torch.cat([u1, u2_eff], dim=1), torch.cat([v1, v2], dim=0)
+
+
+def merge_linear_residual_chain(factors) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fold ``(I + U_nV_n)∘…∘(I + U_1V_1)`` into one ``(U, V)`` pair."""
+    u, v = factors[0]
+    for un, vn in factors[1:]:
+        u, v = merge_linear_residual_pair(u, v, un, vn)
+    return u, v
+
+
+def truncate_rank(u: torch.Tensor, v: torch.Tensor, max_rank: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """SVD-truncate a factored residual map at ``max_rank``.
+
+    When the additive rank exceeds ``d_model`` the map is re-factored
+    through the SVD of the exact ``(d, d)`` product; at ``max_rank = d``
+    nothing is lost.  The SVD runs in float64: cuSOLVER's fp32 SVD
+    reconstructs a SmolLM FFN product far less exactly than LAPACK's,
+    and its error reached the logits.  The SVD's signs differ between
+    LAPACK, cuSOLVER and the JAX package's, so compare ``u @ v``, never
+    the factors.  bf16 raises here, as it does in the JAX package (no bf16
+    SVD).
+    """
+    r = u.shape[1]
+    if r <= max_rank:
+        return u, v
+    if u.dtype != torch.float32 or v.dtype != torch.float32:
+        raise NotImplementedError(
+            f"truncate_rank: no SVD for {u.dtype} factors, as in the JAX "
+            "package (ROADMAP.md queue 3); merge in float32")
+    m = u @ v                                          # (d, d) exact product
+    uu, ss, vv = torch.linalg.svd(m.double(), full_matrices=False)
+    k = max_rank
+    return ((uu[:, :k] * ss[:k][None, :]).float().contiguous(),
+            vv[:k, :].float().contiguous())
+
+
+def dense_residual(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Materialize ``I + U·V``."""
+    d = u.shape[0]
+    return torch.eye(d, dtype=u.dtype, device=u.device) + u @ v

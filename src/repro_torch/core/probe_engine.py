@@ -4,7 +4,8 @@ Latency depends on a merged segment's shapes only — never on its weight
 values — so every probe is bucketed by ``host.probe_signature(seg)`` and
 one representative per bucket is measured; the value is attributed to
 every entry of the bucket.  Under the wall-clock oracle that is one
-warmup + timing loop per distinct signature on the card.  The JAX
+warmup + timing loop per distinct signature on the card, once per oracle
+(:meth:`~.latency.WallClockOracle.time_signature`).  The JAX
 package's journal, retries and compile-overlap thread are not ported yet
 (ROADMAP queue 1).
 """
@@ -37,11 +38,14 @@ class EngineStats:
     num_timings: int = 0             # warmup/timing loops run on the card
 
 
-def _measure(host, seg: Segment, oracle: LatencyOracle, params,
+def _measure(host, seg: Segment, sig, oracle: LatencyOracle, params,
              stats: EngineStats) -> float:
     if isinstance(oracle, WallClockOracle):
-        stats.num_timings += 1
-        return oracle.time_callable(host.segment_probe(seg, params))
+        timed = len(oracle.measured)
+        sec = oracle.time_signature(
+            sig, lambda: host.segment_probe(seg, params))
+        stats.num_timings += len(oracle.measured) - timed
+        return sec
     return oracle.segment_latency(host.segment_cost(seg))
 
 
@@ -60,7 +64,8 @@ def measure_latencies(
     per_bucket: dict = {}
     for seg, sig in zip(segs, sigs):
         if sig not in per_bucket:
-            per_bucket[sig] = _measure(host, seg, oracle, params, stats)
+            per_bucket[sig] = _measure(host, seg, sig, oracle, params,
+                                       stats)
     stats.num_latency_buckets += len(per_bucket)
     return [per_bucket[sig] for sig in sigs]
 

@@ -7,7 +7,7 @@ package, into ``$XDG_CACHE_HOME/repro_torch`` (``~/.cache/repro_torch``) —
 named by a hash of its source and flags, so an edited source rebuilds and
 an unchanged one is reused.  :func:`build` starts one ``nvcc``
 per missing library and waits for all of them, which is how the smoke run
-builds both kernels in parallel.
+builds every kernel in parallel.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package, and this machine may have neither ``nvcc`` nor a card.
@@ -41,6 +41,8 @@ SIGNATURES = {
     # wo, act, stream
     "depthwise_conv": ("depthwise_conv_f32",
                        [_P, _P, _P, _P] + [_I] * 13 + [_P]),
+    # x, u, v, y, m, d, r, stream
+    "merged_ffn": ("merged_ffn_f32", [_P, _P, _P, _P] + [_I] * 3 + [_P]),
 }
 
 

@@ -1,14 +1,15 @@
-"""Public op wrappers for the merged-segment conv kernels.
+"""Public op wrappers for the merged-segment kernels.
 
 Each ``*_op`` takes the JAX package's layouts (NHWC activations, HWIO
-weights) and dispatches on where its input lies:
+weights; ``(..., D)`` activations and ``(D, R)``/``(R, D)`` factors for
+the rank-r residual) and dispatches on where its input lies:
 
 * a CPU tensor runs the op's plain PyTorch version (:mod:`.ref`) — this is
   how the CPU tests hold the port against the JAX package;
 * a CUDA tensor launches the hand-written kernel, or raises.  There is no
   fallback: a kernel that fails to build or launch is an error.
 
-The quantized paths (``w_scale`` / ``act_quant``) have plain versions
+The quantized paths (``w_scale`` / ``u_scale`` / ``act_quant``) have plain versions
 (``*_qref``) but no CUDA kernel yet; on a CUDA tensor they raise
 ``NotImplementedError`` naming the ROADMAP row that ports them.
 
@@ -23,10 +24,11 @@ import torch
 
 from . import depthwise_conv as _dw
 from . import merged_conv as _mc
+from . import merged_ffn as _mf
 from . import ref
 
 _QUANT_ROW = ("the quantized {name} kernel (int8 / w8a8 / fp8 weights with "
-              "w_scale) is not ported yet: ROADMAP.md queue 2, 'quantized "
+              "per-channel scales) is not ported yet: ROADMAP.md queue 2, 'quantized "
               "{name}'")
 
 
@@ -92,11 +94,32 @@ def depthwise_conv_op(x, w, b=None, *, stride: int = 1,
                               activation=activation)
 
 
+def merged_ffn_op(x, u, v, *, u_scale=None, v_scale=None,
+                  act_quant: str = "none"):
+    """``(..., D)`` rank-r residual ``x + (x@U)@V``.  ``u_scale``
+    (per-rank-column) and ``v_scale`` (per-output-column) mark ``u``/``v``
+    as narrow; ``act_quant="w8a8"`` also quantizes the activation feeding
+    the two products.  On the card the kernel takes fp32 only: another
+    dtype raises, it is never upcast silently."""
+    if not _on_cuda(x, "merged_ffn_op"):
+        if u_scale is not None:
+            return ref.merged_ffn_qref(x, u, v, u_scale, v_scale,
+                                       act_quant=act_quant)
+        return ref.merged_ffn_ref(x, u, v)
+    if u_scale is not None:
+        raise NotImplementedError(_QUANT_ROW.format(name="merged_ffn"))
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1]).contiguous()
+    return _mf.merged_ffn(x2, u.contiguous(), v.contiguous()).reshape(shape)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches in this process since the last reset."""
-    return {"merged_conv": _mc.launches, "depthwise_conv": _dw.launches}
+    return {"merged_conv": _mc.launches, "depthwise_conv": _dw.launches,
+            "merged_ffn": _mf.launches}
 
 
 def reset_launch_counts() -> None:
     _mc.launches = 0
     _dw.launches = 0
+    _mf.launches = 0

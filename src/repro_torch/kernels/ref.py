@@ -7,9 +7,10 @@ holds each CUDA kernel against it on the card.  Layouts are the JAX
 package's: NHWC activations, HWIO weights (grouped weights
 ``(kh, kw, Cin/g, Cout)``, group-major output channels).
 
-All math is fp32.  On the card these functions call ``F.conv2d``;
-callers disable TF32 first (:func:`repro_torch.device.resolve`), or
-cuDNN would round the operands to TF32.
+All math is fp32.  On the card these functions call ``F.conv2d`` and
+``torch.matmul``; callers disable TF32 first
+(:func:`repro_torch.device.resolve`), or cuDNN and cuBLAS would round
+the operands to TF32.
 """
 from __future__ import annotations
 
@@ -45,6 +46,30 @@ def depthwise_conv_ref(x, w, b=None, stride: int = 1,
     if b is not None:
         y = y + b.float()
     return y.to(x.dtype).contiguous()
+
+
+def merged_ffn_ref(x, u, v):
+    """LayerMerge rank-r residual ``x + (x@U)@V``: fp32 products and fp32
+    residual add, cast to ``x.dtype`` at the end."""
+    h = torch.matmul(x.float(), u.float())
+    y = torch.matmul(h, v.float())
+    return (x.float() + y).to(x.dtype)
+
+
+def merged_ffn_qref(x, uq, vq, u_scale, v_scale, *, act_quant="none"):
+    """Dequantizing version of the quantized ``merged_ffn`` path.
+
+    ``uq``/``vq`` are narrow (int8/fp8) with per-channel scales over the
+    rank / output-embed axes.  w8a8 fake-quantizes the activation for the
+    two products only — the residual adds the exact ``x``.
+    """
+    from . import quant
+    u = quant.dequantize(uq, u_scale, axis=1)
+    v = quant.dequantize(vq, v_scale, axis=1)
+    xd = _w8a8(x) if act_quant == "w8a8" else x
+    h = torch.matmul(xd.float(), u)
+    y = torch.matmul(h, v)
+    return (x.float() + y).to(x.dtype)
 
 
 def _w8a8(x):

@@ -1,0 +1,257 @@
+"""Host adapter: transformer stacks → the generic LayerMerge core.
+
+Sublayer chain (1-based): temporal and FFN blocks interleaved
+(``transformer.sublayer_kinds``), plus a virtual ``head`` boundary at the
+end (growth 0, zero latency, always kept) so segments may end at the top
+of the stack.  Block capabilities:
+
+* FFN / GLU-FFN — prunable, linearizable with growth = min(d_ff, d): the
+  rank of the residual map (the Eq. 1 analogue).  Linearization folds the
+  pre-norm scale ``(1 + g)`` into ``w_up``, drops ``w_gate`` and applies
+  the map to the un-normalized stream — the JAX package's semantics.
+* attention — prunable, not linearizable.
+
+A merged segment executes as one rank-k residual layer through
+``merged_ffn_op`` — the hand-written ``merged_ffn`` kernel on the card —
+and its latency probe runs it so (``segment_probe``), timed on the card
+by the wall-clock oracle.  Plans lower to the unit IR via ``lower_plan``
+and run through :mod:`repro_torch.runtime.executor`.
+
+The host runs fp32 configs only: a bf16 config cannot be compressed (the
+merged factors go through an SVD, which has no bf16 kernel in either
+package) and its artifacts would not reload with their fingerprint
+(ROADMAP.md queue 3).  With fp32 throughout, the probes' fp32 input and
+the weights never meet in mixed dtypes.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import merge as M
+from repro_torch.core.latency import CostBreakdown, matmul_cost, \
+    rank_ffn_cost
+from repro_torch.core.plan import CompressionPlan, LayerDesc, Segment
+from repro_torch.core.probe_engine import ProbeCallable
+from repro_torch.core.segments import SegmentEnumerator
+from repro_torch.device import resolve
+from repro_torch.runtime import executor, ir
+
+from . import transformer as T
+
+HEAD_KIND = "head"
+
+
+@dataclasses.dataclass
+class CostEnv:
+    """Workload context of the analytic latency table and the probes.
+
+    ``dtype_bytes`` stays the JAX package's 2 even for fp32 configs, so
+    the analytic latency column is bit-identical to the JAX package's
+    under its constants; it prices bf16 operands, not what the port
+    moves.
+    """
+    batch: int = 8
+    seq: int = 2048
+    dtype_bytes: int = 2
+
+
+@dataclasses.dataclass
+class TransformerHost:
+    cfg: object
+    params: dict                      # parameters on ``device``
+    env: CostEnv = dataclasses.field(default_factory=CostEnv)
+    max_span: int | None = None
+    device: str | torch.device = "cuda"
+
+    def __post_init__(self):
+        if self.cfg.dtype != "float32":
+            raise ValueError(
+                f"TransformerHost runs fp32 configs, got dtype="
+                f"{self.cfg.dtype!r}: bf16 factors cannot go through the "
+                "SVD of the rank-merge (ROADMAP.md queue 3)")
+        T.check_config(self.cfg)
+        self.device = resolve(self.device)
+        self.kinds = T.sublayer_kinds(self.cfg) + (HEAD_KIND,)
+        self.subparams = T.sublayer_params(self.cfg, self.params) + [None]
+        self._descs = self._build_descs()
+
+    # -- chain description -----------------------------------------------------
+    def _build_descs(self):
+        d = self.cfg.d_model
+        descs = []
+        for i, kind in enumerate(self.kinds):
+            idx = i + 1
+            if kind == HEAD_KIND:
+                descs.append(LayerDesc(index=idx, kind=kind, growth=0,
+                                       value=0.0, prunable=False,
+                                       linearizable=False))
+                continue
+            p = self.subparams[i]["p"]
+            val = float(sum(p[k].abs().sum() for k in sorted(p)))
+            if kind == "ffn":
+                descs.append(LayerDesc(
+                    index=idx, kind=kind, growth=min(self.cfg.d_ff, d),
+                    value=val, prunable=True, linearizable=True))
+            else:
+                descs.append(LayerDesc(index=idx, kind=kind, growth=0,
+                                       value=val, prunable=True,
+                                       linearizable=False))
+        return descs
+
+    def descs(self):
+        return self._descs
+
+    def enumerator(self, method: str = "layermerge") -> SegmentEnumerator:
+        return SegmentEnumerator(
+            self._descs, offset=0, cap=self.cfg.d_model,
+            depth_mode=(method == "depth"), max_span=self.max_span)
+
+    def original_k(self, l: int) -> int:
+        return 0        # offset-0 convention: singleton original has k = 0
+
+    def pruned_k(self, l: int) -> int:
+        return 0
+
+    # -- latency ------------------------------------------------------------
+    def _tokens(self) -> float:
+        return self.env.batch * self.env.seq / 1
+
+    def _block_cost(self, kind) -> CostBreakdown:
+        cfg, env = self.cfg, self.env
+        d = cfg.d_model
+        tokens = self._tokens()
+        by = env.dtype_bytes
+        if kind == HEAD_KIND:
+            return CostBreakdown(0.0, 0.0)
+        if kind in T.ATTN_KINDS:
+            hd = cfg.head_dim
+            qk = matmul_cost(tokens, d, (cfg.num_heads + cfg.num_kv_heads * 2)
+                             * hd, by) + matmul_cost(tokens, cfg.num_heads * hd,
+                                                     d, by)
+            span = min(cfg.local_window or env.seq, env.seq)
+            attn_flops = 4.0 * tokens * span * cfg.num_heads * hd
+            return qk + CostBreakdown(attn_flops, tokens * span * by / 64)
+        if kind == "ffn":
+            mult = 3 if cfg.ffn_kind in ("swiglu", "geglu") else 2
+            c = (matmul_cost(tokens, d, cfg.d_ff, by)
+                 + matmul_cost(tokens, cfg.d_ff, d, by))
+            return CostBreakdown(c.flops * mult / 2, c.hbm_bytes * mult / 2)
+        raise ValueError(kind)
+
+    def _rank(self, seg: Segment) -> int:
+        """Merged residual rank of ``seg``: ``min(k, d_model)``, 0 when
+        nothing is merged."""
+        interior_kept = [l for l in seg.kept if l != seg.j]
+        if interior_kept or seg.j - seg.i > 1:
+            return min(seg.k, self.cfg.d_model)
+        return 0
+
+    def segment_cost(self, seg: Segment) -> CostBreakdown:
+        """Analytic cost: the boundary block plus the merged rank map."""
+        cost = self._block_cost(self.kinds[seg.j - 1])
+        rank = self._rank(seg)
+        if rank > 0:
+            cost = cost + rank_ffn_cost(self._tokens(), self.cfg.d_model,
+                                        rank, self.env.dtype_bytes)
+        return cost
+
+    def probe_signature(self, seg: Segment):
+        """Latency-bucketing signature: boundary kind + effective rank,
+        with the config and workload that fix every shape — weight values
+        never enter, so one probe serves the bucket."""
+        return ("tseg", self.kinds[seg.j - 1], self._rank(seg),
+                self.env.batch, self.env.seq, self.env.dtype_bytes, self.cfg)
+
+    def segment_probe(self, seg: Segment, params=None) -> ProbeCallable:
+        """The merged segment's unit chain on a zero fp32 batch of
+        ``(batch, max(seq, 8), d_model)``, as (fn, args)."""
+        params = params or self.params
+        units = self._segment_units(seg, params)
+        x = torch.zeros((max(self.env.batch, 1), max(self.env.seq, 8),
+                         self.cfg.d_model), dtype=torch.float32,
+                        device=self.device)
+        return ProbeCallable(executor.run_units,
+                             (self.cfg, units, x, T.default_positions(x)))
+
+    # -- unit construction -----------------------------------------------------
+    def _linear_factors(self, sub):
+        """(U, V) of one linearized FFN: norm scale folded into W_up."""
+        g = sub["norm"]
+        return sub["p"]["w_up"] * (1.0 + g)[:, None], sub["p"]["w_down"]
+
+    def _sublayer_unit(self, sub) -> ir.SublayerUnit:
+        return ir.SublayerUnit(sub_kind=sub["kind"],
+                               params={"norm": sub["norm"], "p": sub["p"]})
+
+    def _segment_units(self, seg: Segment, params, merged: bool = True):
+        """Lower one segment to IR units: the merged (or unmerged) rank
+        maps of its kept linearizable interior + the kept boundary block."""
+        units: list = []
+        kept = set(seg.kept)
+        subs = T.sublayer_params(self.cfg, params) + [None]
+        boundary = None if self.kinds[seg.j - 1] == HEAD_KIND else seg.j
+        factors = [self._linear_factors(subs[l - 1]) for l in seg.layers
+                   if l != boundary and self.kinds[l - 1] != HEAD_KIND
+                   and l in kept]
+        if factors:
+            if merged:
+                u, v = M.merge_linear_residual_chain(factors)
+                u, v = M.truncate_rank(u, v, self.cfg.d_model)
+                units.append(ir.LowRankUnit(params={"u": u.contiguous(),
+                                                    "v": v.contiguous()}))
+            else:
+                units.extend(ir.LowRankUnit(params={"u": u, "v": v})
+                             for u, v in factors)
+        if boundary is not None and boundary in kept:
+            units.append(self._sublayer_unit(subs[boundary - 1]))
+        return units
+
+    def build_units(self, plan: CompressionPlan, params, merged: bool = True):
+        units: list = []
+        subs = T.sublayer_params(self.cfg, params)
+        for seg in plan.segments:
+            if seg.original:
+                if self.kinds[seg.j - 1] != HEAD_KIND:
+                    units.append(self._sublayer_unit(subs[seg.j - 1]))
+                continue
+            units.extend(self._segment_units(seg, params, merged=merged))
+        return units
+
+    # -- plan lowering / network builders ------------------------------------------
+    def lower_plan(self, plan: CompressionPlan, params=None,
+                   merged: bool = True) -> ir.UnitGraph:
+        """Lower a plan to the unit IR, with frontend/head attached.
+
+        ``merged=False`` keeps each kept FFN as its own rank map (the
+        *replaced* network of Algorithm 2); ``merged=True`` composes them
+        per segment (the deployed form).
+        """
+        params = params or self.params
+        cfg = self.cfg
+        units = tuple(self.build_units(plan, params, merged=merged))
+        gparams = {"final_norm": params["final_norm"]}
+        if cfg.frontend == "tokens":
+            gparams["embed"] = params["embed"]
+        if not cfg.tie_embeddings or cfg.frontend != "tokens":
+            gparams["unembed"] = params["unembed"]
+        return ir.annotate_axes(ir.UnitGraph(
+            family="transformer", units=units, params=gparams,
+            meta={"config": cfg}))
+
+    def replaced_apply(self, plan: CompressionPlan, params=None):
+        params = params or self.params
+
+        def apply_fn(p, batch):
+            return executor.execute(self.lower_plan(plan, p, merged=False),
+                                    batch, device=self.device)
+        return apply_fn, params
+
+    def merged_apply(self, plan: CompressionPlan, params=None):
+        params = params or self.params
+
+        def apply_fn(p, batch):
+            return executor.execute(self.lower_plan(plan, p, merged=True),
+                                    batch, device=self.device)
+        return apply_fn, params

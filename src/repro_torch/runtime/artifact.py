@@ -3,13 +3,15 @@
 One ``.npz`` file holds everything needed to run a compressed network:
 
 * ``__spec__`` — JSON: format version, graph family, static unit records
-  (:func:`repro_torch.runtime.ir.unit_static`), graph meta, global axes,
+  (:func:`repro_torch.runtime.ir.unit_static`), graph meta (the
+  transformer ``ArchConfig`` as a plain dict), global axes,
   the compression plan (``CompressionPlan.to_json`` payload) and caller
   metadata (certifying oracle, latencies, source);
 * ``u<i>/<keypath>`` — the merged weights of unit ``i`` (``i`` zero-padded
   to four digits), flattened by key path (``a/b/0/c``: dict keys and list
   indices joined by ``/``);
-* ``g/<keypath>`` — graph-level params (the classifier head);
+* ``g/<keypath>`` — graph-level params (the classifier head; embed,
+  final norm and unembed);
 * ``__fingerprint__`` — sha256 over the spec JSON (sorted keys) and every
   array's key, dtype, shape and raw bytes, keys in sorted order.
 
@@ -83,11 +85,30 @@ def _to_numpy(t) -> np.ndarray:
     return np.asarray(t)
 
 
+def _meta_to_spec(meta: dict) -> dict:
+    out = dict(meta)
+    cfg = out.get("config")
+    if cfg is not None and dataclasses.is_dataclass(cfg):
+        out["config"] = dataclasses.asdict(cfg)
+    return out
+
+
+def _meta_from_spec(spec_meta: dict) -> dict:
+    out = dict(spec_meta)
+    if isinstance(out.get("config"), dict):
+        from repro_torch.configs.base import ArchConfig
+
+        d = dict(out["config"])
+        d["temporal_pattern"] = tuple(d.get("temporal_pattern", ("attn",)))
+        out["config"] = ArchConfig(**d)
+    return out
+
+
 def _payload(graph: ir.UnitGraph, plan=None, meta: dict | None = None):
     spec = {
         "format": FORMAT_VERSION,
         "family": graph.family,
-        "graph_meta": dict(graph.meta),
+        "graph_meta": _meta_to_spec(graph.meta),
         "global_axes": graph.axes,
         "meta": meta or {},
         "plan": json.loads(plan.to_json()) if plan is not None else None,
@@ -132,9 +153,23 @@ class CompressedArtifact:
     device: torch.device = torch.device("cpu")
 
     def apply(self, inputs):
-        """Forward pass of an NHWC image batch."""
+        """Forward pass: an NHWC image batch (cnn) or a token batch
+        ``{"tokens": (B, S)}`` (transformer prefill)."""
         from . import executor
         return executor.execute(self.graph, inputs, device=self.device)
+
+    def init_cache(self, batch_size: int, seq_len: int):
+        """Fresh per-unit decode state (transformer family)."""
+        from . import executor
+        return executor.init_cache(self.graph, batch_size, seq_len)
+
+    def decode(self, cache, tokens):
+        """One decode step: ``tokens`` (B, 1) → ``(logits, cache)``, the
+        cache updated in place (transformer family)."""
+        from . import executor
+        return executor.decode_step(
+            self.graph, cache, {"tokens": torch.as_tensor(
+                tokens, device=self.device)})
 
 
 def save(path: str, graph: ir.UnitGraph, plan=None,
@@ -178,10 +213,9 @@ def load(path: str, device="cuda") -> CompressedArtifact:
     if _digest(spec, data) != stored_fp:
         raise ArtifactError(f"artifact {path} failed fingerprint "
                             "verification (corrupt weights or tampered spec)")
-    if spec["family"] != "cnn":
-        raise NotImplementedError(
-            f"artifact family {spec['family']!r} is not ported (only 'cnn' "
-            "is; see ROADMAP queue 1)")
+    if spec["family"] not in ("cnn", "transformer"):
+        raise ArtifactError(f"artifact {path} has unknown family "
+                            f"{spec['family']!r}")
     unit_arrays: list[dict] = [{} for _ in spec["units"]]
     global_arrays: dict = {}
     for key, arr in data.items():
@@ -195,7 +229,7 @@ def load(path: str, device="cuda") -> CompressedArtifact:
                   for static, flat in zip(spec["units"], unit_arrays))
     graph = ir.UnitGraph(family=spec["family"], units=units,
                          params=unflatten_tree(global_arrays),
-                         meta=dict(spec["graph_meta"]),
+                         meta=_meta_from_spec(spec["graph_meta"]),
                          axes=spec.get("global_axes", {}))
     plan = None
     if spec.get("plan") is not None:

@@ -1,14 +1,19 @@
-"""UnitGraph interpreter for merged CNNs.
+"""UnitGraph interpreter for merged CNNs and transformers.
 
-Every conv unit runs through the public kernel entry points
+Every conv and lowrank unit runs through the public kernel entry points
 (:mod:`repro_torch.kernels`): the hand-written CUDA kernels on the card,
 their plain PyTorch versions on the CPU — so serving exercises exactly the
-kernels the latency tables timed.  The epilogue order is the JAX package's
-(``runtime/executor.py``): the kernel is called without an activation,
-then skip-add (through the 1×1 projection when the unit has one), concat,
-group norm, and the boundary activation.
+kernels the latency tables timed.  The CNN epilogue order is the JAX
+package's (``runtime/executor.py``): the kernel is called without an
+activation, then skip-add (through the 1×1 projection when the unit has
+one), concat, group norm, and the boundary activation.
 
-* :func:`execute` — full forward of an NHWC image batch.
+* :func:`execute` — full forward: an NHWC image batch (cnn) or a token
+  batch ``{"tokens": (B, S)}`` (transformer prefill).
+* :func:`run_units` — a bare transformer unit chain, no embed/unembed
+  (the segment probes).
+* :func:`init_cache` / :func:`decode_step` — one-token KV-cache decode
+  through a compressed transformer; lowrank units carry no state.
 * :class:`GraphModule` — an ``nn.Module`` holding a graph's tensors as
   buffers (so ``.to(device)`` moves them), whose ``forward`` is
   :func:`execute`.
@@ -21,24 +26,29 @@ from torch import nn
 from repro_torch import kernels
 from repro_torch.device import resolve
 from repro_torch.models import cnn as _cnn
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 
 from . import ir
 from .artifact import flatten_tree, unflatten_tree
 
 
 def execute(graph: ir.UnitGraph, inputs, params=None, *, device="cuda"):
-    """Run a CNN UnitGraph on ``device`` (the card by default; raises where
-    there is none).  ``inputs``: NHWC batch (tensor or numpy array);
-    ``params`` optionally rebinds the graph's tensors
-    (:func:`repro_torch.runtime.ir.graph_params` structure)."""
+    """Run a UnitGraph on ``device`` (the card by default; raises where
+    there is none); the graph's tensors must lie there.  ``inputs``: an
+    NHWC batch (cnn; tensor or numpy array) or a batch dict with
+    ``tokens`` (B, S) (transformer); ``params`` optionally rebinds the
+    graph's tensors (:func:`repro_torch.runtime.ir.graph_params`
+    structure)."""
     dev = resolve(device)
     if params is not None:
         graph = ir.bind_params(graph, params)
-    if graph.family != "cnn":
-        raise NotImplementedError(
-            f"graph family {graph.family!r} is not ported (only 'cnn' is)")
-    x = torch.as_tensor(inputs, dtype=torch.float32, device=dev)
-    return _execute_cnn(graph, x)
+    if graph.family == "cnn":
+        x = torch.as_tensor(inputs, dtype=torch.float32, device=dev)
+        return _execute_cnn(graph, x)
+    if graph.family == "transformer":
+        return _execute_transformer(graph, _batch_on(inputs, dev))
+    raise ValueError(f"unknown graph family {graph.family!r}")
 
 
 def _proj(x, pr, stride: int):
@@ -98,6 +108,99 @@ def _execute_cnn(graph: ir.UnitGraph, x):
         head = graph.params["head"]
         x = x.mean(dim=(1, 2)) @ head["w"] + head["b"]
     return x
+
+
+# ---------------------------------------------------------------------------
+# Transformer family
+# ---------------------------------------------------------------------------
+
+def _batch_on(batch, dev) -> dict:
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def _apply_unit(cfg, u, x, positions):
+    """One prefill/probe unit: lowrank residual or kept sublayer."""
+    if u.kind == "lowrank":
+        us, vs = u.params.get("u_scale"), u.params.get("v_scale")
+        aq = u.quant if (us is not None and u.quant == "w8a8") else "none"
+        return kernels.merged_ffn_op(x, u.params["u"], u.params["v"],
+                                     u_scale=us, v_scale=vs, act_quant=aq)
+    if u.kind != "sublayer":
+        raise ValueError(f"unit kind {u.kind!r} in transformer graph")
+    sub = u.params
+    h = L.rms_norm(x, sub["norm"], cfg.norm_eps)
+    if u.sub_kind == "ffn":
+        t = L.ffn(sub["p"], h, cfg.ffn_kind)
+    else:
+        t = T.temporal_apply(cfg, u.sub_kind, sub["p"], h, positions)
+    return x + t
+
+
+def run_units(cfg, units, x, positions=None):
+    """Bare unit chain, no embed/unembed — the segment-probe forward."""
+    if positions is None:
+        positions = T.default_positions(x)
+    for u in units:
+        x = _apply_unit(cfg, u, x, positions)
+    return x
+
+
+def _execute_transformer(graph: ir.UnitGraph, batch):
+    cfg = graph.meta["config"]
+    gp = graph.params
+    x = T.embed_in(cfg, gp, batch)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = T.default_positions(x)
+    for u in graph.units:
+        x = _apply_unit(cfg, u, x, positions)
+    x = L.rms_norm(x, gp["final_norm"], cfg.norm_eps)
+    return T.unembed(cfg, gp, x)
+
+
+def _is_temporal(u) -> bool:
+    return u.kind == "sublayer" and u.sub_kind in ir.TEMPORAL_KINDS
+
+
+def init_cache(graph: ir.UnitGraph, batch_size: int, seq_len: int):
+    """Per-unit decode state: a KV cache for each attention sublayer,
+    ``{}`` for stateless units; on the device of the graph's tensors."""
+    cfg = graph.meta["config"]
+    dev = graph.params["final_norm"].device
+    caches = []
+    for u in graph.units:
+        if not _is_temporal(u):
+            caches.append({})
+        elif u.sub_kind in T.ATTN_KINDS:
+            window = cfg.local_window if u.sub_kind == "attn_local" else 0
+            caches.append(L.init_cache(cfg, batch_size, seq_len,
+                                       T._dtype(cfg), window=window,
+                                       device=dev))
+        else:
+            raise NotImplementedError(L._NOT_PORTED.format(
+                what=f"decode state of {u.sub_kind!r}"))
+    return caches
+
+
+def decode_step(graph: ir.UnitGraph, cache, batch):
+    """One-token decode through the compressed unit chain: ``batch``
+    ``{'tokens': (B, 1)}`` → ``(logits, cache)``, the caches updated in
+    place.  Lowrank units are position-independent residual maps, so
+    each applies to the one-token activation directly (M = B rows)."""
+    cfg = graph.meta["config"]
+    gp = graph.params
+    x = T.embed_in(cfg, gp, batch)
+    for i, u in enumerate(graph.units):
+        if _is_temporal(u):
+            h = L.rms_norm(x, u.params["norm"], cfg.norm_eps)
+            window = cfg.local_window if u.sub_kind == "attn_local" else 0
+            t, cache[i] = L.attention_decode(u.params["p"], h, cfg, cache[i],
+                                             window=window)
+            x = x + t
+        else:
+            x = _apply_unit(cfg, u, x, None)
+    x = L.rms_norm(x, gp["final_norm"], cfg.norm_eps)
+    return T.unembed(cfg, gp, x), cache
 
 
 class GraphModule(nn.Module):

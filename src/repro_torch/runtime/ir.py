@@ -1,17 +1,17 @@
-"""Unit IR for merged (compressed) CNNs — the JAX package's record format.
+"""Unit IR for merged (compressed) networks — the JAX package's record format.
 
 A :class:`UnitGraph` is the executable form of a compression plan: an
 ordered chain of typed *units*, each a record of STATIC configuration
 (strides, activation epilogue, skip wiring) plus a ``params`` tree of
-tensors (merged weights).  ``CNNHost.lower_plan`` builds it, the executor
-(:mod:`.executor`) runs it and the artifact layer (:mod:`.artifact`)
-serializes it.  Field names, defaults and the ``axes`` records are the JAX
-package's, so unit statics and artifacts cross between the two packages
-unchanged.  Only the CNN family is ported; the transformer units
-(``lowrank``, ``sublayer``) are ROADMAP queue 1.
+tensors (merged weights).  The hosts' ``lower_plan`` builds it, the
+executor (:mod:`.executor`) runs it and the artifact layer
+(:mod:`.artifact`) serializes it.  Field names, defaults and the ``axes``
+records are the JAX package's, so unit statics and artifacts cross between
+the two packages unchanged (the statics and axes enter the fingerprint).
 
 CNN unit semantics: conv → skip-add → concat → group-norm → boundary
-activation → save.
+activation → save.  Transformer units: ``lowrank`` (a merged rank-r
+residual map) and ``sublayer`` (one kept pre-norm block).
 """
 from __future__ import annotations
 
@@ -78,21 +78,60 @@ class AttnUnit:
     params: dict = dataclasses.field(default_factory=dict)
 
 
+@dataclasses.dataclass
+class LowRankUnit:
+    """Rank-``r`` residual map ``x + (x·U)·V`` — a merged FFN segment.
+
+    ``params``: ``u`` (D,r), ``v`` (r,D); runs through ``merged_ffn_op``.
+    ``quant`` != 'none': ``u``/``v`` narrow plus per-output-channel
+    ``u_scale`` (r,) and ``v_scale`` (D,).
+    """
+
+    kind = "lowrank"
+    quant: str = "none"             # 'none' | 'int8' | 'w8a8' | 'fp8'
+    axes: dict = dataclasses.field(default_factory=dict)
+    params: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class SublayerUnit:
+    """One kept transformer sublayer: pre-norm → block → residual add.
+
+    ``sub_kind``: 'attn' | 'attn_local' | 'ffn' (the kinds the port runs;
+    the JAX package's 'moe', 'rglru', 'mlstm', 'slstm' load but raise when
+    executed).  ``params``: {'norm': rmsnorm scale, 'p': the block's
+    params}.  Temporal kinds carry a KV cache in the decode path.
+    """
+
+    kind = "sublayer"
+    sub_kind: str = "ffn"
+    axes: dict = dataclasses.field(default_factory=dict)
+    params: dict = dataclasses.field(default_factory=dict)
+
+
 UNIT_TYPES = {
     "conv": ConvUnit,
     "pool": PoolUnit,
     "upsample": UpsampleUnit,
     "attn": AttnUnit,
+    "lowrank": LowRankUnit,
+    "sublayer": SublayerUnit,
 }
+
+#: temporal sublayer kinds that carry decode state in the serve path
+TEMPORAL_KINDS = ("attn", "attn_local", "rglru", "mlstm", "slstm")
 
 
 @dataclasses.dataclass
 class UnitGraph:
     """Executable form of a plan: ordered units + graph-level params.
 
-    ``family`` is 'cnn'.  ``params``: optional ``head`` {w, b}.  ``meta``:
-    ``save_input`` (boundary 0 feeds a skip) and ``head`` ('classifier' |
-    'none').  ``axes``: logical axes of the graph-level params.
+    ``family``: 'cnn' | 'transformer'.  ``params``: cnn — optional
+    ``head`` {w, b}; transformer — ``final_norm``, optional ``embed`` and
+    ``unembed``.  ``meta``: cnn — ``save_input`` (boundary 0 feeds a skip)
+    and ``head`` ('classifier' | 'none'); transformer — ``config`` (the
+    :class:`~repro_torch.configs.ArchConfig`, a plain dict in the artifact
+    spec).  ``axes``: logical axes of the graph-level params.
     """
 
     family: str
@@ -112,10 +151,6 @@ def unit_static(unit) -> dict:
 
 
 def unit_from_static(static: dict, params: dict):
-    if static["kind"] not in UNIT_TYPES:
-        raise NotImplementedError(
-            f"unit kind {static['kind']!r} is not ported (only the CNN "
-            "family is; see ROADMAP queue 1)")
     cls = UNIT_TYPES[static["kind"]]
     kwargs = {k: v for k, v in static.items() if k != "kind"}
     return cls(params=params, **kwargs)
@@ -137,10 +172,15 @@ def bind_params(graph: UnitGraph, params: dict) -> UnitGraph:
 
 
 def count_units(graph: UnitGraph) -> dict[str, int]:
-    """Unit census: kind → count (depthwise convs counted as 'dwconv')."""
+    """Unit census: kind → count (depthwise convs counted as 'dwconv',
+    sublayers as 'sublayer:<sub_kind>')."""
     out: dict[str, int] = {}
     for u in graph.units:
-        key = "dwconv" if u.kind == "conv" and u.depthwise else u.kind
+        key = u.kind
+        if u.kind == "conv" and u.depthwise:
+            key = "dwconv"
+        elif u.kind == "sublayer":
+            key = f"sublayer:{u.sub_kind}"
         out[key] = out.get(key, 0) + 1
     return out
 
@@ -152,7 +192,44 @@ _CONV_W = [None, None, "conv_in", "conv_out"]
 _CONV_W_DW = [None, None, None, "conv_out"]        # (K,K,1,C) depthwise
 
 
-def default_unit_axes(unit) -> dict:
+def _flat_names(tree, prefix: str = "") -> dict:
+    """Flatten a nested {key: names-tuple} tree to the flat-dict form."""
+    out: dict = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_names(v, f"{prefix}{k}/"))
+        elif v:
+            out[f"{prefix}{k}"] = list(v)
+    return out
+
+
+def _sublayer_axes(u, cfg) -> dict:
+    from repro_torch.models import layers as L
+
+    if u.sub_kind in ("attn", "attn_local"):
+        block = L.attention_axes(cfg)
+    elif u.sub_kind == "ffn":
+        block = L.ffn_axes(cfg.ffn_kind)
+    else:
+        raise NotImplementedError(L._NOT_PORTED.format(
+            what=f"sublayer kind {u.sub_kind!r}"))
+    ax = {"norm": ["embed"]}
+    ax.update(_flat_names({"p": block}))
+    return ax
+
+
+def default_unit_axes(unit, cfg=None) -> dict:
+    """The canonical logical-axes record of one unit; ``cfg`` (the
+    transformer config) is needed for sublayer units only."""
+    if unit.kind == "lowrank":
+        ax = {"u": ["embed", "rank"], "v": ["rank", "embed"]}
+        if "u_scale" in unit.params:
+            ax["u_scale"] = ["rank"]
+        if "v_scale" in unit.params:
+            ax["v_scale"] = ["embed"]
+        return ax
+    if unit.kind == "sublayer":
+        return _sublayer_axes(unit, cfg)
     if unit.kind == "conv":
         ax = {"w": list(_CONV_W_DW if unit.depthwise else _CONV_W),
               "b": ["conv_out"]}
@@ -172,17 +249,26 @@ def default_unit_axes(unit) -> dict:
 
 
 def graph_global_axes(graph: UnitGraph) -> dict:
-    if "head" in graph.params:
-        return {"head/w": ["conv_in", "vocab"], "head/b": ["vocab"]}
-    return {}
+    out: dict = {}
+    if graph.family == "transformer":
+        if "embed" in graph.params:
+            out["embed"] = ["vocab", "embed"]
+        out["final_norm"] = ["embed"]
+        if "unembed" in graph.params:
+            out["unembed"] = ["embed", "vocab"]
+    elif "head" in graph.params:
+        out["head/w"] = ["conv_in", "vocab"]
+        out["head/b"] = ["vocab"]
+    return out
 
 
 def annotate_axes(graph: UnitGraph) -> UnitGraph:
     """Fill in the canonical axes records on a freshly lowered graph
     (records already present, e.g. from an artifact, are kept)."""
+    cfg = graph.meta.get("config")
     for u in graph.units:
         if not u.axes:
-            u.axes = default_unit_axes(u)
+            u.axes = default_unit_axes(u, cfg)
     if not graph.axes:
         graph.axes = graph_global_axes(graph)
     return graph

@@ -1,10 +1,15 @@
 """Shared inputs of the ``test_torch_*`` parity tests: networks of the zoo
-at CI size and their parameters made with numpy from a seed, in the JAX
-package's parameter structure, handed to both packages."""
+and transformer configs at CI size, and their parameters made with numpy
+from a seed, in the JAX package's parameter structure, handed to both
+packages."""
+import dataclasses
+
 import jax
 import numpy as np
 
+from repro.configs import get_config as j_get_config
 from repro.models import cnn as jcnn
+from repro.models import transformer as jtr
 
 ZOO = {
     "tiny_resnet": dict(num_classes=4, in_hw=16, width=8, blocks=(2, 2)),
@@ -33,4 +38,42 @@ def np_params(net, seed=0):
             return (rng.standard_normal(leaf.shape) * np.sqrt(1.0 / fan)
                     ).astype(np.float32)
         return (0.1 * rng.standard_normal(leaf.shape)).astype(np.float32)
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def lm_configs():
+    """``(name, JAX config, port config)`` at CI size, fp32: the reduced
+    smollm (d 32, 2 layers), a 4-layer d 96 variant and a local-attention
+    variant with a 4-token ring buffer."""
+    from repro_torch.configs import get_config as t_get_config
+
+    jbase = j_get_config("smollm-135m").reduced()
+    tbase = t_get_config("smollm-135m").reduced()
+    variants = {
+        "reduced": {},
+        "d96": dict(num_layers=4, d_model=96, num_heads=3, num_kv_heads=1,
+                    head_dim=32, d_ff=160, vocab_size=80),
+        "local": dict(temporal_pattern=("attn", "attn_local"),
+                      local_window=4),
+    }
+    return {name: (dataclasses.replace(jbase, **kw),
+                   dataclasses.replace(tbase, **kw))
+            for name, kw in variants.items()}
+
+
+def np_lm_params(cfg, seed=0):
+    """The structure of ``repro.models.transformer.init_model(cfg)`` filled
+    from ``np.random.default_rng(seed)``: 1/sqrt(fan-in) weights and
+    non-zero norm scales, so the ``(1 + g)`` fold is exercised."""
+    shapes = jax.eval_shape(
+        lambda: jtr.init_model(cfg, jax.random.PRNGKey(0))[0])
+    rng = np.random.default_rng(seed)
+    fan = {"w_down": cfg.d_ff, "wo": cfg.num_heads * cfg.head_dim}
+
+    def fill(path, leaf):
+        name = str(getattr(path[-1], "key", ""))
+        if "norm" in name:
+            return (0.2 * rng.standard_normal(leaf.shape)).astype(np.float32)
+        scale = 1.0 / np.sqrt(fan.get(name, cfg.d_model))
+        return (rng.standard_normal(leaf.shape) * scale).astype(np.float32)
     return jax.tree_util.tree_map_with_path(fill, shapes)

@@ -204,6 +204,36 @@ def test_bucketed_latencies_equal_the_sequential_walk():
     assert stats.num_latency_buckets < len(segs)
 
 
+def test_wallclock_oracle_times_each_signature_once():
+    """``T_orig`` and the tables of one compress call read the same
+    timing of each shape; the artifact's oracle token leaves the held
+    timings out."""
+    import json
+
+    from repro_torch.core import compress, probe_engine
+
+    class CountingOracle(tlat.WallClockOracle):
+        calls = 0
+
+        def time_callable(self, fn):       # the card's timing, stubbed
+            CountingOracle.calls += 1
+            return 1e-3 + 1e-6 * CountingOracle.calls
+
+    _, th = _hosts("tiny_resnet")
+    ora = CountingOracle()
+    token = tlat.oracle_token(ora)
+    res = compress(th, budget_ratio=0.8, latency_oracle=ora)
+    assert CountingOracle.calls == len(ora.measured) == \
+        res.tables.stats.num_latency_buckets
+    layer_sigs = {th.probe_signature(s) for s in res.plan.segments
+                  if s.original}
+    assert layer_sigs <= set(ora.measured)
+    probe_engine.layer_latencies(th, ora)
+    assert CountingOracle.calls == len(ora.measured)
+    assert tlat.oracle_token(ora) == token
+    json.loads(token)
+
+
 def test_probe_signatures_and_costs_match():
     jh, th = _hosts("tiny_mobilenet")
     from repro_torch.core.tables import enumerate_probes

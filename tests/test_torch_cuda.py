@@ -58,7 +58,39 @@ def test_kernels_match_plain_versions(stride, k):
         np.testing.assert_allclose(y.cpu().numpy(), yr.numpy(), rtol=1e-4,
                                    atol=1e-4)
     after = tk.launch_counts()
-    assert all(after[name] > before[name] for name in after)
+    assert all(after[name] > before[name]
+               for name in ("merged_conv", "depthwise_conv"))
+
+
+@pytest.mark.parametrize("m,d,r", [(1, 32, 1), (8, 576, 576), (37, 96, 24),
+                                   (130, 96, 1152), (1024, 576, 576),
+                                   (5, 1100, 70), (3, 2100, 40)])
+def test_merged_ffn_matches_plain_version(m, d, r):
+    dev = _card()
+    rng = np.random.default_rng(m + d + r)
+    x = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32))
+    u = torch.from_numpy((rng.standard_normal((d, r)) / np.sqrt(d))
+                         .astype(np.float32))
+    v = torch.from_numpy((rng.standard_normal((r, d)) / np.sqrt(r))
+                         .astype(np.float32))
+    before = tk.launch_counts()["merged_ffn"]
+    y = tk.merged_ffn_op(x.to(dev), u.to(dev), v.to(dev))
+    assert tk.launch_counts()["merged_ffn"] == before + 1
+    yr = tk.merged_ffn_ref(x, u, v)
+    np.testing.assert_allclose(y.cpu().numpy(), yr.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_merged_ffn_refuses_other_dtypes_and_scales():
+    dev = _card()
+    x = torch.ones(4, 32, device=dev)
+    u, v = torch.ones(32, 8, device=dev), torch.ones(8, 32, device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        tk.merged_ffn_op(x.bfloat16(), u.bfloat16(), v.bfloat16())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tk.merged_ffn_op(x, u.to(torch.int8), v.to(torch.int8),
+                         u_scale=torch.ones(8, device=dev),
+                         v_scale=torch.ones(32, device=dev))
 
 
 def test_quantized_paths_raise_on_the_card():
@@ -82,7 +114,26 @@ def test_tiny_network_on_the_card_matches_the_cpu(tmp_path):
     x = torch.randn(4, 16, 16, 3, generator=torch.Generator().manual_seed(0))
     tk.reset_launch_counts()
     y = runtime.load(out).apply(x.to(dev))
-    assert all(v > 0 for v in tk.launch_counts().values())
+    counts = tk.launch_counts()
+    assert counts["merged_conv"] > 0 and counts["depthwise_conv"] > 0
     y_cpu = runtime.load(out, device="cpu").apply(x)
+    np.testing.assert_allclose(y.cpu().numpy(), y_cpu.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_tiny_lm_on_the_card_matches_the_cpu(tmp_path):
+    dev = _card()
+    from repro_torch import runtime
+    from repro_torch.compress import main
+    out = str(tmp_path / "lm.npz")
+    main(["--arch", "smollm-135m", "--method", "depth", "--budget-ratio",
+          "0.9", "--seq", "16", "--out", out])
+    art = runtime.load(out)
+    toks = torch.randint(0, 64, (2, 6),
+                         generator=torch.Generator().manual_seed(0))
+    tk.reset_launch_counts()
+    y = art.apply({"tokens": toks})
+    assert tk.launch_counts()["merged_ffn"] > 0
+    y_cpu = runtime.load(out, device="cpu").apply({"tokens": toks})
     np.testing.assert_allclose(y.cpu().numpy(), y_cpu.numpy(), rtol=1e-4,
                                atol=1e-4)

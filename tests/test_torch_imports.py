@@ -38,6 +38,10 @@ def _imported_roots(path):
 def test_every_module_imports_with_jax_and_repro_blocked():
     mods = _port_modules()
     assert len(mods) >= 20, mods
+    for m in ("repro_torch.configs.base", "repro_torch.models.transformer",
+              "repro_torch.models.transformer_host",
+              "repro_torch.runtime.serving", "repro_torch.kernels.merged_ffn"):
+        assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -116,7 +120,8 @@ def test_wallclock_oracle_refuses_the_cpu():
 def test_cuda_kernels_build_lazily():
     """Importing the kernel modules neither builds nor needs nvcc."""
     from repro_torch.kernels import cuda_build
-    assert set(cuda_build.SIGNATURES) == {"merged_conv", "depthwise_conv"}
+    assert set(cuda_build.SIGNATURES) == {"merged_conv", "depthwise_conv",
+                                          "merged_ffn"}
     for name in cuda_build.SIGNATURES:
         src = cuda_build.CSRC / f"{name}.cu"
         assert src.exists()
