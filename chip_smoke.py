@@ -7,15 +7,22 @@
 Phases, each printing its own line with the seconds it took:
 
 1. card    — ``nvidia-smi`` name and power limit; TF32 off.
-2. build   — the three hand-written kernels from
+2. build   — the three hand-written kernel sources from
              ``src/repro_torch/kernels/csrc`` with ``nvcc`` (in parallel),
-             with ``-Xptxas -v`` resources.
+             each with its fp32 and quantized entry points, with
+             ``-Xptxas -v`` resources.
 3. kernels — each kernel against its plain PyTorch version on the card:
              the convs over strides {1,2,3} × k {1,2,3,5,7,11}, ragged
              shapes, every activation, no bias, and the depthwise /
              channel-multiplier / grouped cases; merged_ffn over
              M {1,8,37,1024} × D {32,96,576} × R {1,24,576,1152,1536}
-             (1536: the replaced path's unmerged SmolLM FFN).
+             (1536: the replaced path's unmerged SmolLM FFN).  Then the
+             quantized variants in int8, w8a8 and fp8 against ``*_qref``:
+             the convs over strides {1,2,3} × k {1,3,5,7} with the same
+             cases, merged_ffn over M {1,8,37,1024} × D {96,576} ×
+             R {24,576}, within the same tolerance over the dequantized
+             operands; and ``quant.quantize_int8`` on the card bitwise
+             equal to the CPU's.
 4. compress — the main path: ``python -m repro_torch.compress`` on
              MobileNetV2 at full width (224², width 1.0, 1000 classes,
              batch 8, ``--max-span 6``, budget 0.6), latency tables timed
@@ -53,8 +60,46 @@ Phases, each printing its own line with the seconds it took:
              unit at M = 8, one decode step; one at M = 1024, a probe):
              kernel, plain version, ``torch.addmm(x, x @ U, V)`` (two
              cuBLAS calls) and the bound, as device times (phase 6).
+11. q serve — the quantized CNN path: MobileNetV2 as in phase 4 through
+             the CLI with ``--quantize w8a8`` and phase 4's oracle (no
+             signature timed twice), budgets 0.6, 0.5, 0.4 until the plan
+             quantizes a dense and a depthwise unit; the v3 artifact
+             classifies the seeded batches on the card, held against (a)
+             the CPU port of the same artifact within NET_RTOL + 2·δ, δ
+             being the CPU port's own activation rounding (its logits
+             against the same artifact with w8a8 units run as int8): an
+             activation code can differ by one step between the two
+             devices where fp32 reassociation moved a value across a
+             rounding boundary, and each device's rounding error is of
+             δ's size, so the two differ by at most about 2·δ; (a') the
+             CPU port fed the card's activation codes (:class:`ActCodes`)
+             within NET_RTOL; (b) the fp lowering of the same plan within
+             0.25 (the reference's criterion).  Launch counts of the
+             quantized kernels over this phase must be > 0.
+12. quantized conv units — each quantized unit of one forward, on its
+             card input: kernel against plain version (phase-3
+             tolerance), and the kernel, the activation quantization pass,
+             the whole op, the fp32 kernel, the plain version and
+             ``F.conv2d`` on the dequantized operands beside the bound at
+             narrow widths, as device times.
+13. lm q serve — SmolLM-135M w8a8 with ``method="depth"`` under the
+             decode-shaped ``CostEnv(batch=8, seq=1)`` (phase 8's env
+             prices every segment compute-bound and gets no sibling); if
+             the DP picks no w8a8 lowrank unit at any budget, phase 8's
+             plan with its lowrank segments set to w8a8.  The v3 artifact
+             serves the prompts of phase 9; every step's logits,
+             teacher-forced, are held against the CPU port as in phase 11
+             (a) and (a'), and each unit of the last step against its
+             plain version on its card input; merged_ffn_q's launches over
+             this phase must be > 0; decode tok/s beside the fp plan's.
+14. merged_ffn_q shapes — each quantized lowrank unit at M = 8 timed as
+             in phase 12 (``torch.addmm`` on the dequantized operands),
+             and one unit's kernel alone in each variant (fp32, int8,
+             w8a8, fp8).
 
-Any failed check raises, so the script exits non-zero.  It exits non-zero
+Any failed check raises, so the script exits non-zero.  Per-unit shapes
+and times of the quantized phases land in ``build/chip_smoke/qunits.json``
+and ``qffn.json``.  It exits non-zero
 without a result where ``torch.cuda.is_available()`` is false or the repo's
 ``src/`` is missing.  The last lines are the ``kernels`` JSON line, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -83,6 +128,15 @@ RTOL, ATOL = 1e-4, 1e-6
 NET_RTOL = 1e-4
 # Depth-compression budgets tried for SmolLM-135M, tightest first.
 LM_BUDGETS = (0.6, 0.7, 0.8, 0.9, 1.0)
+# w8a8 MobileNetV2 budgets, until the plan quantizes a dense and a
+# depthwise unit.
+Q_BUDGETS = (0.6, 0.5, 0.4)
+# Quantized network vs the fp lowering of the same plan: the reference's
+# own criterion (tests/test_quant_pipeline.py), max |Δ| / max |y| < 0.25.
+Q_FP_RTOL = 0.25
+# Per-unit timings of the quantized kernels summed over a forward / step.
+Q_FIELDS = ("ms", "plain_ms", "library_ms", "fp32_ms", "op_ms", "qpass_ms",
+            "flops_ms", "bytes_ms", "bound_ms")
 
 IMPORT_ERROR = ("chip_smoke.py runs from a checkout of the repository: "
                 "src/repro_torch is missing")
@@ -161,6 +215,197 @@ def compare_kernel(kind, x, w, b, stride, groups=None, activation=None):
           f"g={groups} act={activation}: max|Δ|={float(err.max()):.3g} "
           f"rel={rel:.3g} beyond rtol={RTOL}")
     return float(err.max()), rel
+
+
+# ---------------------------------------------------------------------------
+# Quantized kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+#: Quantized sweep modes: weight dtype of ``quant.quantize_weight`` and the
+#: op's ``act_quant``.  fp8 is not a CLI mode, but the kernels take it.
+QMODES = {"int8": ("int8", "none"), "w8a8": ("int8", "w8a8"),
+          "fp8": ("fp8", "none")}
+
+
+def print_profile(label, fn, arg, ms) -> None:
+    """One line: device-busy share of ``fn(arg)`` against ``ms`` (its
+    measured time per call) and its heaviest kernels (torch.profiler)."""
+    busy_us, rows = device_kernels(lambda: fn(arg))
+    if not rows:
+        print(f"  {label}, torch.profiler: no device activity seen (busy "
+              "share not measured)", flush=True)
+        return
+    print(f"  {label}, torch.profiler: device busy {busy_us:.1f} us per "
+          f"call = {busy_us / (ms * 1e3):.3f} of its {ms:.3f} ms; by kernel: "
+          + "; ".join(f"{name[:60]} {us:.1f}us x{n}"
+                      for us, n, name in rows[:8]), flush=True)
+
+
+def dequantized_input(x, act_quant):
+    """The activation the quantized kernel sees, dequantized: the codes
+    ``quant.quantize_int8`` gives for ``x`` on its device times their
+    scale under w8a8 (the op quantizes the same ``x`` with the same
+    function, so both sides see the same integers), else ``x``."""
+    from repro_torch.kernels import quant
+    if act_quant != "w8a8":
+        return x
+    return quant.dequantize(*quant.quantize_int8(x))
+
+
+def compare_qkernel(kind, x, wq, ws, b, stride, act_quant, groups=None,
+                    activation=None):
+    """The quantized conv op against its plain version (``*_qref``) on the
+    same card inputs: |Δ| ≤ RTOL · (|x̂| ⋆ |ŵ| + |b|) + ATOL per output,
+    over the dequantized operands; returns (max |Δ|, max |Δ| / scale)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import quant, ref
+
+    xd, wd = dequantized_input(x, act_quant), quant.dequantize(wq, ws, axis=3)
+    bb = None if b is None else b.abs()
+    if kind == "merged_conv":
+        y = kernels.merged_conv_op(x, wq, b, stride=stride, w_scale=ws,
+                                   act_quant=act_quant, activation=activation)
+        yr = ref.merged_conv_qref(x, wq, b, ws, stride=stride,
+                                  act_quant=act_quant)
+        scale = ref.merged_conv_ref(xd.abs(), wd.abs(), bb, stride=stride)
+    else:
+        y = kernels.depthwise_conv_op(x, wq, b, stride=stride, groups=groups,
+                                      w_scale=ws, act_quant=act_quant,
+                                      activation=activation)
+        yr = ref.depthwise_conv_qref(x, wq, b, ws, stride=stride,
+                                     groups=groups, act_quant=act_quant)
+        scale = ref.depthwise_conv_ref(xd.abs(), wd.abs(), bb, stride=stride,
+                                       groups=groups)
+    yr = ref.apply_activation(yr, activation)
+    torch.cuda.synchronize()
+    check(y.shape == yr.shape and y.dtype == torch.float32,
+          f"{kind} quantized: {tuple(y.shape)} {y.dtype} vs "
+          f"{tuple(yr.shape)}")
+    check(bool(torch.isfinite(y).all()), f"{kind} quantized: non-finite")
+    err = (y - yr).abs()
+    rel = float((err / (scale + ATOL)).max())
+    check(not bool((err > RTOL * scale + ATOL).any()),
+          f"{kind} quantized x={tuple(x.shape)} w={tuple(wq.shape)} "
+          f"{wq.dtype} s={stride} g={groups} act={activation} "
+          f"act_quant={act_quant}: max|Δ|={float(err.max()):.3g} "
+          f"rel={rel:.3g} beyond rtol={RTOL}")
+    return float(err.max()), rel
+
+
+def qkernel_sweep(dev) -> dict:
+    """Each quantized conv kernel over modes × strides {1,2,3} × k
+    {1,3,5,7}, ragged shapes, every activation, no bias on a third, and the
+    depthwise / channel-multiplier / grouped cases."""
+    import torch
+    from repro_torch.kernels import quant
+    g = torch.Generator().manual_seed(4)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(dev)
+
+    acts = [None, "relu", "relu6", "silu"]
+    worst = {"merged_conv_q": [0.0, 0.0, 0], "depthwise_conv_q": [0.0, 0.0, 0]}
+
+    def note(kind, res):
+        w = worst[kind]
+        w[0], w[1], w[2] = max(w[0], res[0]), max(w[1], res[1]), w[2] + 1
+
+    n = 0
+    for mode, (wmode, aq) in QMODES.items():
+        for s in (1, 2, 3):
+            for k in (1, 3, 5, 7):
+                act = acts[n % 4]
+                hw = (k + 5 * s + 1, k + 3 * s + 2)
+                for cin, cout in ((5, 3), (19, 70), (64, 129)):
+                    bias = None if n % 3 == 0 else rnd(cout)
+                    wq, ws = quant.quantize_weight(
+                        rnd(k, k, cin, cout) / (k * cin ** 0.5), wmode, axis=3)
+                    note("merged_conv_q", compare_qkernel(
+                        "merged_conv", rnd(2, *hw, cin), wq, ws, bias, s, aq,
+                        activation=act))
+                    n += 1
+                for groups, cin_g, cout_g in ((13, 1, 1), (6, 1, 3),
+                                              (3, 4, 5)):
+                    cout = groups * cout_g
+                    bias = None if n % 3 == 0 else rnd(cout)
+                    wq, ws = quant.quantize_weight(
+                        rnd(k, k, cin_g, cout) / k, wmode, axis=3)
+                    note("depthwise_conv_q", compare_qkernel(
+                        "depthwise_conv", rnd(2, *hw, groups * cin_g), wq, ws,
+                        bias, s, aq, groups=groups, activation=act))
+                    n += 1
+    return worst
+
+
+def compare_qffn(x, uq, us, vq, vs, act_quant):
+    """The quantized merged_ffn op against ``merged_ffn_qref`` on the same
+    card inputs: |Δ| ≤ RTOL · (|x| + (|x̂|·|Û|)·|V̂|) + ATOL per output,
+    over the dequantized operands; returns (max |Δ|, max |Δ| / scale)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import quant, ref
+
+    y = kernels.merged_ffn_op(x, uq, vq, u_scale=us, v_scale=vs,
+                              act_quant=act_quant)
+    yr = ref.merged_ffn_qref(x, uq, vq, us, vs, act_quant=act_quant)
+    scale = x.abs() + (dequantized_input(x, act_quant).abs()
+                       @ quant.dequantize(uq, us, axis=1).abs()
+                       ) @ quant.dequantize(vq, vs, axis=1).abs()
+    torch.cuda.synchronize()
+    check(y.shape == yr.shape, f"merged_ffn quantized: {tuple(y.shape)}")
+    check(bool(torch.isfinite(y).all()), "merged_ffn quantized: non-finite")
+    err = (y - yr).abs()
+    rel = float((err / (scale + ATOL)).max())
+    check(not bool((err > RTOL * scale + ATOL).any()),
+          f"merged_ffn quantized x={tuple(x.shape)} u={tuple(uq.shape)} "
+          f"{uq.dtype} act_quant={act_quant}: max|Δ|={float(err.max()):.3g} "
+          f"rel={rel:.3g} beyond rtol={RTOL}")
+    return float(err.max()), rel
+
+
+def qffn_sweep(dev):
+    """Quantized merged_ffn over modes × M {1,8,37,1024} × D {96,576} ×
+    R {24,576}."""
+    import torch
+    from repro_torch.kernels import quant
+    g = torch.Generator().manual_seed(5)
+    worst = [0.0, 0.0, 0]
+    for mode, (wmode, aq) in QMODES.items():
+        for m in (1, 8, 37, 1024):
+            for d in (96, 576):
+                for r in (24, 576):
+                    x = torch.randn(m, d, generator=g).to(dev)
+                    uq, us = quant.quantize_weight(
+                        (torch.randn(d, r, generator=g) / d ** 0.5).to(dev),
+                        wmode, axis=1)
+                    vq, vs = quant.quantize_weight(
+                        (torch.randn(r, d, generator=g) / r ** 0.5).to(dev),
+                        wmode, axis=1)
+                    err, rel = compare_qffn(x, uq, us, vq, vs, aq)
+                    worst = [max(worst[0], err), max(worst[1], rel),
+                             worst[2] + 1]
+    return worst
+
+
+def quantize_matches_cpu(dev) -> int:
+    """``quant.quantize_int8`` on the card gives bitwise the CPU's codes
+    and scale for the same fp32 input (per tensor and per channel);
+    returns the number of inputs checked."""
+    import torch
+    from repro_torch.kernels import quant
+    g = torch.Generator().manual_seed(6)
+    n = 0
+    for shape in ((8, 576), (8, 58, 58, 144), (37, 96), (3, 3, 96, 24)):
+        x = torch.randn(*shape, generator=g) * 3.0
+        for axis in (None, len(shape) - 1):
+            q_c, s_c = quant.quantize_int8(x, axis=axis)
+            q_d, s_d = quant.quantize_int8(x.to(dev), axis=axis)
+            check(torch.equal(q_d.cpu(), q_c) and torch.equal(s_d.cpu(), s_c),
+                  f"quantize_int8 {shape} axis={axis}: the card's codes or "
+                  "scale differ from the CPU's")
+            n += 1
+    return n
 
 
 def kernel_sweep(dev) -> dict:
@@ -400,6 +645,518 @@ def unit_census(graph) -> str:
 
 
 # ---------------------------------------------------------------------------
+# The quantized path: captured units, bounds, timing
+# ---------------------------------------------------------------------------
+
+class QuantCalls:
+    """Records every quantized op call the executor makes while active
+    (the package attributes it calls through are wrapped), with its
+    arguments and output, so that each quantized unit can be checked and
+    timed on the input it had on the main path."""
+
+    NAMES = ("merged_conv_op", "depthwise_conv_op", "merged_ffn_op")
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch import kernels
+        self._orig = {n: getattr(kernels, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(kernels, n, self._wrap(n, self._orig[n]))
+        return self
+
+    def _wrap(self, name, fn):
+        def op(*args, **kw):
+            y = fn(*args, **kw)
+            if kw.get("w_scale") is not None or kw.get("u_scale") is not None:
+                self.calls.append((name, args, kw, y))
+            return y
+        return op
+
+    def __exit__(self, *exc):
+        from repro_torch import kernels
+        for n, fn in self._orig.items():
+            setattr(kernels, n, fn)
+
+
+class ActCodes:
+    """While active, records the per-tensor int8 activation codes and
+    scales that ``quant.quantize_int8`` gives (w8a8 units), or — given a
+    record — replays them in the same order in place of the codes it
+    computes, counting the codes that differ (``flips``): a CPU run of an
+    artifact fed the card's activation codes computes what the card did,
+    up to fp32 reassociation."""
+
+    def __init__(self, replay=None):
+        self.codes = [] if replay is None else replay
+        self.replay = replay is not None
+        self.used = self.flips = self.total = 0
+
+    def __enter__(self):
+        from repro_torch.kernels import quant
+        self._orig = orig = quant.quantize_int8
+
+        def quantize_int8(x, axis=None):
+            q, s = orig(x, axis)
+            if axis is not None:                     # a weight's channels
+                return q, s
+            if not self.replay:
+                self.codes.append((q.cpu(), s.cpu()))
+                return q, s
+            qr, sr = self.codes[self.used]
+            self.used += 1
+            # (the card's op flattens leading axes, the plain version not)
+            check(qr.numel() == q.numel(), "replayed activation codes out "
+                  "of step with the run")
+            qr = qr.reshape(q.shape)
+            self.flips += int((qr != q.cpu()).sum())
+            self.total += q.numel()
+            return qr.to(q.device), sr.to(s.device)
+        quant.quantize_int8 = quantize_int8
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import quant
+        quant.quantize_int8 = self._orig
+
+
+def act_unquantized(art):
+    """``art`` with its w8a8 units run as int8 ones (narrow weights, fp32
+    activations): the same network without activation rounding."""
+    import dataclasses
+    units = tuple(dataclasses.replace(u, quant="int8")
+                  if getattr(u, "quant", "none") == "w8a8" else u
+                  for u in art.graph.units)
+    return dataclasses.replace(art, graph=dataclasses.replace(
+        art.graph, units=units))
+
+
+def rel_diff(a, b) -> float:
+    """max |a − b| / max |b|, on the CPU."""
+    a, b = a.detach().cpu(), b.detach().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def conv_call_parts(name, args, kw):
+    """(kind, x, wq, ws, b, stride, groups, act_quant) of a recorded conv
+    op call (the executor passes x, w, b positionally)."""
+    x, wq, b = args
+    kind = "depthwise_conv" if name == "depthwise_conv_op" else "merged_conv"
+    groups = x.shape[-1] // wq.shape[2] if kind == "depthwise_conv" else 1
+    return (kind, x, wq, kw["w_scale"], b, kw.get("stride", 1), groups,
+            kw.get("act_quant", "none"))
+
+
+def time_qconv(kind, x, wq, ws, b, stride, groups, aq) -> dict:
+    """One quantized conv unit at its main-path shape: the kernel alone
+    (on the codes and folded scale the op computes), the eager activation
+    quantization pass, the whole op, the fp32 kernel on the dequantized
+    weight, the plain version, and the library yardstick (one ``F.conv2d``
+    on the dequantized operands: no PyTorch call takes int8 weights with a
+    channel-scale epilogue), beside the bound at narrow widths."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.kernels import depthwise_conv as dw_mod
+    from repro_torch.kernels import merged_conv as mc_mod
+    from repro_torch.kernels import quant, ref
+
+    xq, folded = x, ws
+    if aq == "w8a8":
+        xq, xs = quant.quantize_int8(x)
+        folded = (ws * xs).contiguous()
+    wd = quant.dequantize(wq, ws, axis=3)
+    xd = dequantized_input(x, aq)
+    if kind == "depthwise_conv":
+        def run():
+            return dw_mod.depthwise_conv(xq, wq, b, stride=stride,
+                                         groups=groups, w_scale=folded)
+
+        def op():
+            return kernels.depthwise_conv_op(x, wq, b, stride=stride,
+                                             groups=groups, w_scale=ws,
+                                             act_quant=aq)
+
+        def fp32():
+            return kernels.depthwise_conv_op(x, wd, b, stride=stride,
+                                             groups=groups)
+
+        def plain():
+            return ref.depthwise_conv_qref(x, wq, b, ws, stride=stride,
+                                           groups=groups, act_quant=aq)
+    else:
+        def run():
+            return mc_mod.merged_conv(xq, wq, b, stride=stride,
+                                      w_scale=folded)
+
+        def op():
+            return kernels.merged_conv_op(x, wq, b, stride=stride,
+                                          w_scale=ws, act_quant=aq)
+
+        def fp32():
+            return kernels.merged_conv_op(x, wd, b, stride=stride)
+
+        def plain():
+            return ref.merged_conv_qref(x, wq, b, ws, stride=stride,
+                                        act_quant=aq)
+    x_cl = xd.permute(0, 3, 1, 2)
+    w_oihw = wd.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+
+    def library():
+        return F.conv2d(x_cl, w_oihw, b, stride=stride, groups=groups)
+    n, hp, wp, _ = x.shape
+    kh, kw, cin_g, cout = wq.shape
+    ho, wo = (hp - kh) // stride + 1, (wp - kw) // stride + 1
+    flops = 2.0 * n * ho * wo * cout * kh * kw * cin_g
+    nbytes = (x.numel() * (1 if aq == "w8a8" else 4) + wq.numel()
+              + 4.0 * (ws.numel() + (0 if b is None else b.numel()))
+              + 4.0 * n * ho * wo * cout)
+    out = {"kind": kind, "x": list(x.shape), "w": list(wq.shape),
+           "w_dtype": str(wq.dtype), "stride": stride, "act_quant": aq,
+           "ms": kernel_time(run), "plain_ms": kernel_time(plain),
+           "library_ms": kernel_time(library), "fp32_ms": kernel_time(fp32),
+           "op_ms": kernel_time(op),
+           "qpass_ms": (kernel_time(lambda: quant.quantize_int8(x))
+                        if aq == "w8a8" else 0.0),
+           "flops_ms": flops / H100_FP32_FLOPS * 1e3,
+           "bytes_ms": nbytes / H100_HBM_BW * 1e3}
+    out["bound_ms"] = max(out["flops_ms"], out["bytes_ms"])
+    return out
+
+
+def time_qffn(x, uq, us, vq, vs, aq) -> dict:
+    """One quantized merged_ffn unit at M = x.shape[0]: the kernel alone,
+    the activation quantization pass, the whole op, the fp32 kernel on the
+    dequantized factors, the plain version and ``torch.addmm(x, x̂ @ Û,
+    V̂)`` on the dequantized operands (two cuBLAS calls), beside the
+    bound at narrow widths."""
+    from repro_torch import kernels
+    from repro_torch.kernels import merged_ffn as mf_mod
+    from repro_torch.kernels import quant, ref
+    import torch
+
+    xq, folded = None, us
+    if aq == "w8a8":
+        xq, xs = quant.quantize_int8(x)
+        folded = (us * xs).contiguous()
+    ud, vd = quant.dequantize(uq, us, axis=1), quant.dequantize(vq, vs, axis=1)
+    xd = dequantized_input(x, aq)
+    err, rel = compare_qffn(x, uq, us, vq, vs, aq)
+    m, d = x.shape
+    r = uq.shape[1]
+    nbytes = (4.0 * 2 * m * d + (m * d if aq == "w8a8" else 0)
+              + uq.numel() + vq.numel() + 4.0 * (r + d))
+    out = {"m": m, "d": d, "r": r, "w_dtype": str(uq.dtype), "act_quant": aq,
+           "max_abs_err": err, "max_rel_err": rel,
+           "ms": kernel_time(lambda: mf_mod.merged_ffn(
+               x, uq, vq, u_scale=folded, v_scale=vs, xq=xq)),
+           "op_ms": kernel_time(lambda: kernels.merged_ffn_op(
+               x, uq, vq, u_scale=us, v_scale=vs, act_quant=aq)),
+           "qpass_ms": (kernel_time(lambda: quant.quantize_int8(x))
+                        if aq == "w8a8" else 0.0),
+           "fp32_ms": kernel_time(lambda: kernels.merged_ffn_op(x, ud, vd)),
+           "plain_ms": kernel_time(lambda: ref.merged_ffn_qref(
+               x, uq, vq, us, vs, act_quant=aq)),
+           "library_ms": kernel_time(lambda: torch.addmm(x, xd @ ud, vd)),
+           "flops_ms": 4.0 * m * d * r / H100_FP32_FLOPS * 1e3,
+           "bytes_ms": nbytes / H100_HBM_BW * 1e3}
+    out["bound_ms"] = max(out["flops_ms"], out["bytes_ms"])
+    return out
+
+
+def cnn_quant_phases(compress_main, cnn_argv, oracle, host, batches,
+                     orig_graph, dev, out_shape):
+    """Phases 11-12: the w8a8 MobileNetV2 path (compress through the CLI
+    with phase 4's oracle, artifact, served batches held against the CPU
+    port and the plan's fp lowering), then each quantized unit checked and
+    timed at its card input.  Returns (totals by kernel, launches)."""
+    import torch
+    from repro_torch import kernels, runtime
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    q_path = os.path.join(WORK, "mobilenetv2_w8a8.npz")
+    ladder = []
+    for ratio in Q_BUDGETS:
+        summary = compress_main(cnn_argv + [
+            "--budget-ratio", str(ratio), "--quantize", "w8a8", "--out",
+            q_path], latency_oracle=oracle)
+        art = runtime.load(q_path, device=dev)
+        census = quant_census(art.graph)
+        ladder.append(f"{ratio}: {json.dumps(census, sort_keys=True)}, "
+                      f"predicted {summary['predicted_speedup']:.4f}")
+        if census.get("conv_w8a8") and census.get("dwconv_w8a8"):
+            break
+    check(bool(census.get("conv_w8a8") and census.get("dwconv_w8a8")),
+          f"w8a8: no budget in {Q_BUDGETS} gives a plan with a quantized "
+          f"dense and depthwise unit ({'; '.join(ladder)})")
+    with QuantCalls() as qcalls, ActCodes() as codes:
+        outs = [art.apply(xb.to(dev)) for xb in batches]
+        torch.cuda.synchronize()
+    launch = kernels.launch_counts()
+    art_cpu = runtime.load(q_path, device="cpu")
+    fp_graph = host.lower_plan(fp_plan(art.plan))
+    d_cpu = d_rep = d_act = d_fp = 0.0
+    with ActCodes(codes.codes) as replay:
+        rep_outs = [art_cpu.apply(xb) for xb in batches]
+    for xb, y, y_rep in zip(batches, outs, rep_outs):
+        check(tuple(y.shape) == out_shape and bool(torch.isfinite(y).all()),
+              f"quantized network: logits {tuple(y.shape)} or non-finite")
+        y_cpu = art_cpu.apply(xb)
+        d_cpu = max(d_cpu, rel_diff(y, y_cpu))
+        d_rep = max(d_rep, rel_diff(y, y_rep))
+        d_act = max(d_act, rel_diff(y_cpu, act_unquantized(art_cpu).apply(xb)))
+        d_fp = max(d_fp, rel_diff(y, runtime.execute(fp_graph, xb.to(dev),
+                                                     device=dev)))
+    n_fwd = len(qcalls.calls) // len(batches)
+    parts = [conv_call_parts(name, args, kw)
+             for name, args, kw, _ in qcalls.calls[:n_fwd]]
+    bound = NET_RTOL + 2.0 * d_act
+    xb = batches[0].to(dev)
+    ms_q = cuda_time(lambda: art.apply(xb), iters=20)
+    ms_fp = cuda_time(lambda: runtime.execute(fp_graph, xb, device=dev),
+                      iters=20)
+    ms_o = cuda_time(lambda: runtime.execute(orig_graph, xb, device=dev),
+                     iters=20)
+    log("q serve", t0, f"w8a8 budgets {'; '.join(ladder)}; census "
+        f"{json.dumps(census, sort_keys=True)}; {len(batches)} batches, "
+        f"worst logits vs CPU port {d_cpu:.3g} (bound {bound:.3g}: "
+        f"{NET_RTOL} + 2 x {d_act:.3g}, the CPU port's activation rounding;"
+        f" {replay.flips} of {replay.total} activation codes differ), vs "
+        f"the CPU port fed the card's codes {d_rep:.3g} (limit {NET_RTOL}),"
+        f" vs the fp lowering of the plan {d_fp:.3g} (limit {Q_FP_RTOL}); "
+        f"forward quantized "
+        f"{ms_q:.3f} ms, fp plan {ms_fp:.3f} ms, original {ms_o:.3f} ms "
+        f"(measured {ms_o / ms_q:.3f}x, predicted "
+        f"{summary['predicted_speedup']:.4f}x); launches phase 11 {launch}")
+    print_profile("quantized forward", art.apply, xb, ms_q)
+    check(d_cpu <= bound, f"quantized network: card vs CPU port differ by "
+          f"{d_cpu} > {bound}")
+    check(replay.used == len(codes.codes) and d_rep <= NET_RTOL,
+          f"quantized network: card vs CPU port on the card's activation "
+          f"codes differ by {d_rep} > {NET_RTOL}")
+    check(d_fp < Q_FP_RTOL, f"quantized network: vs fp lowering {d_fp} >= "
+          f"{Q_FP_RTOL}")
+    for k in ("merged_conv_q", "depthwise_conv_q"):
+        check(launch[k] > 0, f"kernel {k} never launched on the quantized "
+              "path")
+
+    # 12. each quantized unit of one forward, at its card input
+    t0 = time.perf_counter()
+    units = []
+    for kind, x, wq, ws, b, st, g, aq in parts:
+        err, rel = compare_qkernel(kind, x, wq, ws, b, st, aq, groups=g)
+        units.append(dict(time_qconv(kind, x, wq, ws, b, st, g, aq),
+                          max_abs_err=err, max_rel_err=rel))
+    tot = {}
+    for k, kind in (("merged_conv_q", "merged_conv"),
+                    ("depthwise_conv_q", "depthwise_conv")):
+        rows = [r for r in units if r["kind"] == kind]
+        tot[k] = {f: sum(r[f] for r in rows) for f in Q_FIELDS}
+        tot[k]["units"] = len(rows)
+        tot[k]["max_abs_err"] = max((r["max_abs_err"] for r in rows),
+                                    default=0.0)
+    with open(os.path.join(WORK, "qunits.json"), "w") as f:
+        json.dump(units, f, indent=1)
+    log("quantized conv units", t0, " ".join(
+        f"{k}: {v['units']} units ms={v['ms']:.4f} (fp32 kernel "
+        f"{v['fp32_ms']:.4f}; activation quantization {v['qpass_ms']:.4f}; "
+        f"op {v['op_ms']:.4f}) plain={v['plain_ms']:.4f} "
+        f"library(F.conv2d, dequantized)={v['library_ms']:.4f} "
+        f"bound={v['bound_ms']:.4f} max|Δ|={v['max_abs_err']:.3g};"
+        for k, v in tot.items()))
+    return tot, launch
+
+
+def lm_quant_phases(host, fp_res, oracle, lm_source, prompt, new_tokens,
+                    fp_decode_s, dev):
+    """Phases 13-14: the w8a8 transformer path under the decode-shaped
+    ``CostEnv(batch=B, seq=1)`` (depth ladder; phase 8's plan with its
+    lowrank segments set to w8a8 if the DP picks no w8a8 unit), the v3
+    artifact served and held against the CPU port step by step, then each
+    quantized merged_ffn unit timed at decode.  Returns (decode-step
+    totals, launches)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels, runtime
+    from repro_torch.core import compress
+    from repro_torch.core.tables import build_tables, quant_sibling_entries
+    from repro_torch.kernels import merged_ffn as mf_mod
+    from repro_torch.kernels import quant
+    from repro_torch.models.transformer_host import CostEnv, TransformerHost
+    from repro_torch.runtime import serving
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    B, P = prompt.shape
+    N = new_tokens
+    cfg = host.cfg
+    sib_fp = quant_sibling_entries(host, fp_res.tables.entries, "w8a8")[1]
+    host_q = TransformerHost(cfg, host.params, env=CostEnv(batch=B, seq=1),
+                             device=dev)
+    wide, sib = quant_sibling_entries(host_q, build_tables(
+        host_q, method="depth", latency_oracle=oracle).entries, "w8a8")
+    ratios = [row[k][1] / row[k[0]][1] for row in wide.values()
+              for k in row if isinstance(k, tuple)]
+    res, ladder = None, []
+    for ratio in LM_BUDGETS:
+        r = compress(host_q, budget_ratio=ratio, method="depth",
+                     latency_oracle=oracle, quantize="w8a8")
+        n_q = 0 if r is None else quant_census(r.lower()).get(
+            "lowrank_w8a8", 0)
+        ladder.append(f"{ratio}: " + ("infeasible" if r is None else
+                                      f"{n_q} w8a8 lowrank, predicted "
+                                      f"{r.speedup:.4f}"))
+        if n_q:
+            res = r
+            break
+    if res is not None:
+        plan, chosen = res.plan, f"chosen by the DP, predicted " \
+            f"{res.speedup:.4f}"
+    else:
+        # The DP picked no w8a8 unit: serve phase 8's plan with its lowrank
+        # segments set to w8a8 (a plan is data; lower_plan takes it).
+        # (a segment has a merged rank map where it has a quantized cost)
+        plan = dataclasses.replace(fp_res.plan, segments=tuple(
+            dataclasses.replace(sg, quant="w8a8")
+            if host_q.segment_cost(sg, quant="w8a8") is not None else sg
+            for sg in fp_res.plan.segments))
+        chosen = "not chosen by the DP: phase 8's plan, lowrank set to w8a8"
+    path = os.path.join(WORK, "smollm135m_w8a8.npz")
+    runtime.save(path, host_q.lower_plan(plan), plan=plan, meta={
+        "source": lm_source, "quantized_units": sum(
+            1 for sg in plan.segments if sg.quant != "none")})
+    art = runtime.load(path, device=dev)
+
+    def step(c, t):
+        return art.decode(c, t)
+    with QuantCalls() as calls:
+        q_pre, q_dec, _, seqs = serving.serve_loop(
+            step, lambda: art.init_cache(B, P + N), prompt, N)
+    launch = kernels.launch_counts()
+    check(tuple(seqs.shape) == (B, N), f"served ids {tuple(seqs.shape)}")
+    fed = torch.cat([prompt, seqs[:, :-1]], dim=1)
+    with ActCodes() as codes:
+        lg = forced_logits(step, art.init_cache(B, P + N), fed)
+        torch.cuda.synchronize()
+    check(bool(torch.isfinite(lg).all()), "non-finite quantized logits")
+    check(bool((lg[:, P - 1:].argmax(-1) == seqs).all()),
+          "quantized served ids are not the argmax of the forced logits")
+
+    def cpu_logits(a):
+        return forced_logits(lambda c, t: a.decode(c, t),
+                             a.init_cache(B, P + N), fed.cpu())
+
+    def worst_step(a, b):
+        return float(((a.cpu() - b).abs().amax(dim=(0, 2))
+                      / b.abs().amax(dim=(0, 2))).max())
+    art_cpu = runtime.load(path, device="cpu")
+    lg_cpu = cpu_logits(art_cpu)
+    with ActCodes(codes.codes) as replay:
+        lg_rep = cpu_logits(art_cpu)
+    d_cpu, d_rep = worst_step(lg, lg_cpu), worst_step(lg, lg_rep)
+    d_act = worst_step(lg_cpu, cpu_logits(act_unquantized(art_cpu)))
+    bound = NET_RTOL + 2.0 * d_act
+    # (c): each w8a8 unit of the last served step, on its card input
+    n_units = sum(1 for u in art.graph.units if u.kind == "lowrank")
+    unit_err = max(compare_qffn(x, uq, kw["u_scale"], vq, kw["v_scale"],
+                                kw["act_quant"])[1]
+                   for _, (x, uq, vq), kw, _ in calls.calls[-n_units:])
+    n_qlr = quant_census(art.graph).get("lowrank_w8a8", 0)
+    steps = N - 1
+    log("lm q serve", t0, f"w8a8, CostEnv(batch={B}, seq=1): {sib} w8a8 "
+        f"siblings (T_q / T_fp {min(ratios, default=1):.4f}-"
+        f"{max(ratios, default=1):.4f}; phase 8's seq=128 env: {sib_fp}); "
+        f"depth budgets {'; '.join(ladder)}; served: {n_qlr} w8a8 lowrank "
+        f"units, {chosen}; {B} prompts x {P} tokens, {N} new; worst step "
+        f"logits vs CPU port {d_cpu:.3g} (bound {bound:.3g}: {NET_RTOL} + "
+        f"2 x {d_act:.3g}, the CPU port's activation rounding; "
+        f"{replay.flips} of {replay.total} activation codes differ), vs "
+        f"the CPU port fed the card's codes {d_rep:.3g} (limit {NET_RTOL});"
+        f" units of the last step vs plain versions on their card inputs: "
+        f"max |Δ| / scale {unit_err:.3g} (limit {RTOL}); decode "
+        f"{q_dec * 1e3:.3f} ms "
+        f"({serving.decode_tok_s(steps, B, q_dec):.1f} tok/s) against the "
+        f"fp plan's {fp_decode_s * 1e3:.3f} ms "
+        f"({serving.decode_tok_s(steps, B, fp_decode_s):.1f} tok/s); "
+        f"prefill {q_pre * 1e3:.3f} ms; launches phase 13 {launch}")
+    cache = art.init_cache(B, P + N)
+    print_profile("quantized decode step", lambda t: step(cache, t),
+                  prompt[:, :1], q_dec / steps * 1e3)
+    check(n_qlr >= 1, "the served plan has no w8a8 lowrank unit")
+    check(d_cpu <= bound, f"quantized lm: card vs CPU port differ by "
+          f"{d_cpu} > {bound}")
+    check(replay.used == len(codes.codes) and d_rep <= NET_RTOL,
+          f"quantized lm: card vs CPU port on the card's activation codes "
+          f"differ by {d_rep} > {NET_RTOL}")
+    check(launch["merged_ffn_q"] > 0,
+          "merged_ffn_q never launched on the quantized transformer path")
+
+    # 14. each quantized merged_ffn unit at decode (M = B)
+    t0 = time.perf_counter()
+    x = torch.randn(B, cfg.d_model,
+                    generator=torch.Generator().manual_seed(3)).to(dev)
+    rows = [time_qffn(x, u.params["u"], u.params["u_scale"], u.params["v"],
+                      u.params["v_scale"], u.quant)
+            for u in art.graph.units
+            if u.kind == "lowrank" and u.quant != "none"]
+    tot = {f: sum(r[f] for r in rows) for f in Q_FIELDS}
+    tot["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    # the first unit's factors in each variant the kernel takes, alone
+    u0 = next(u for u in art.graph.units if u.kind == "lowrank")
+    ud = quant.dequantize(u0.params["u"], u0.params["u_scale"], axis=1)
+    vd = quant.dequantize(u0.params["v"], u0.params["v_scale"], axis=1)
+    variants = {"fp32": kernel_time(lambda: mf_mod.merged_ffn(x, ud, vd))}
+    xq, xs = quant.quantize_int8(x)
+    for name, wmode, panel in (("int8", "int8", None), ("w8a8", "int8", xq),
+                               ("fp8", "fp8", None)):
+        uq, us = quant.quantize_weight(ud, wmode, axis=1)
+        vq, vs = quant.quantize_weight(vd, wmode, axis=1)
+        if panel is not None:
+            us = us * xs
+        variants[name] = kernel_time(lambda: mf_mod.merged_ffn(
+            x, uq, vq, u_scale=us, v_scale=vs, xq=panel))
+    with open(os.path.join(WORK, "qffn.json"), "w") as f:
+        json.dump({"decode_units": rows, "decode_step": tot,
+                   "variants_ms": variants}, f, indent=1)
+    r = rows[0]
+    log("merged_ffn_q shapes", t0, f"M={r['m']} D={r['d']} R={r['r']} "
+        f"{r['w_dtype']} {r['act_quant']}: ms={r['ms']:.4f} (fp32 kernel "
+        f"{r['fp32_ms']:.4f}; activation quantization {r['qpass_ms']:.4f}; "
+        f"op {r['op_ms']:.4f}) plain={r['plain_ms']:.4f} "
+        f"library(addmm, dequantized)={r['library_ms']:.4f} "
+        f"bound={r['bound_ms']:.5f}; decode step ({len(rows)} units): "
+        f"ms={tot['ms']:.4f} op={tot['op_ms']:.4f} "
+        f"fp32={tot['fp32_ms']:.4f} plain={tot['plain_ms']:.4f} "
+        f"library={tot['library_ms']:.4f} bound={tot['bound_ms']:.5f}; one "
+        f"unit's kernel by variant (ms): {json.dumps(variants)}")
+    return tot, launch
+
+
+def quant_census(graph) -> dict:
+    """Units by precision, and the quantized ones by kind."""
+    out = {"fp": 0, "int8": 0, "w8a8": 0}
+    for u in graph.units:
+        q = getattr(u, "quant", "none")
+        out["fp" if q == "none" else q] += 1
+        if q != "none":
+            key = ("dwconv" if u.kind == "conv" and u.depthwise
+                   else u.kind) + "_" + q
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def fp_plan(plan):
+    """The same plan with every segment at full precision."""
+    import dataclasses
+    return dataclasses.replace(plan, segments=tuple(
+        dataclasses.replace(s, quant="none") for s in plan.segments))
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv) -> int:
     import torch
@@ -412,6 +1169,7 @@ def main(argv) -> int:
     try:
         from repro_torch import kernels, runtime
         from repro_torch.compress import build_host, main as compress_main
+        from repro_torch.core import WallClockOracle, compress
         from repro_torch.core.plan import identity_plan
         from repro_torch.device import resolve
         from repro_torch.kernels import cuda_build
@@ -451,9 +1209,13 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     sweep = kernel_sweep(dev)
     sweep["merged_ffn"] = ffn_sweep(dev)
+    sweep.update(qkernel_sweep(dev))
+    sweep["merged_ffn_q"] = qffn_sweep(dev)
+    n_q = quantize_matches_cpu(dev)
     log("kernels", t0, json.dumps(
         {k: {"cases": v[2], "max_abs_err": v[0], "max_rel_err": v[1]}
-         for k, v in sweep.items()}))
+         for k, v in sweep.items()}) + f"; quantize_int8 card == CPU "
+        f"bitwise on {n_q} inputs")
     if quick:
         print(smi_line)
         return 0
@@ -465,7 +1227,10 @@ def main(argv) -> int:
     argv_c = ["--arch", "mobilenetv2", "--oracle", "wallclock",
               "--max-span", "6", "--budget-ratio", "0.6", "--batch", "8",
               "--out", art_path]
-    summary = compress_main(argv_c)
+    # One oracle times each MobileNetV2 signature once, for this phase and
+    # the quantized compress of phase 11.
+    cnn_oracle = WallClockOracle()
+    summary = compress_main(argv_c, latency_oracle=cnn_oracle)
     log("compress", t0, f"plan: {summary['segments']} segments, "
         f"{summary['kept_layers']}/{summary['layers']} layers kept, "
         f"{summary['latency_probes']} probes in "
@@ -487,18 +1252,18 @@ def main(argv) -> int:
         check(bool(torch.isfinite(y).all()), "non-finite logits")
         outs.append(y)
     art_cpu = runtime.load(art_path, device="cpu")
-    host, _ = build_host("mobilenetv2", seed=0, batch=8, max_span=6,
-                         device="cuda")
+    cnn_h, _ = build_host("mobilenetv2", seed=0, batch=8, max_span=6,
+                          device="cuda")
     d_cpu = d_rep = 0.0                 # worst over the served batches
     for xb, y in zip(batches, outs):
         y_cpu = art_cpu.apply(xb)
         d_cpu = max(d_cpu, float((y.cpu() - y_cpu).abs().max()
                                  / y_cpu.abs().max()))
-        y_rep = cnn.apply_replaced(host.net, host.params, xb.to(dev),
+        y_rep = cnn.apply_replaced(cnn_h.net, cnn_h.params, xb.to(dev),
                                    art.plan)
         d_rep = max(d_rep, float((y - y_rep).abs().max()
                                  / y_rep.abs().max()))
-    orig_graph = host.lower_plan(identity_plan(host.net.L, host.descs()))
+    orig_graph = cnn_h.lower_plan(identity_plan(cnn_h.net.L, cnn_h.descs()))
     xb = batches[0].to(dev)
     ms_merged = cuda_time(lambda: art.apply(xb), iters=20)
     ms_orig = cuda_time(lambda: runtime.execute(orig_graph, xb), iters=20)
@@ -562,7 +1327,6 @@ def main(argv) -> int:
     check(d_r <= NET_RTOL, f"resnet34: card vs CPU port differ by {d_r}")
 
     # 8. transformer compress ---------------------------------------------------
-    from repro_torch.core import WallClockOracle, compress
     from repro_torch.models import transformer as T
     from repro_torch.runtime import serving
 
@@ -724,6 +1488,19 @@ def main(argv) -> int:
         f"bound={step_tot['bound_ms']:.5f}")
     tot["merged_ffn"] = step_tot
     launches["merged_ffn"] = lm_launches["merged_ffn"]
+
+    # 11-12. the quantized CNN path ---------------------------------------------
+    q_tot, q_launch = cnn_quant_phases(
+        compress_main, ["--arch", "mobilenetv2", "--oracle", "wallclock",
+                        "--max-span", "6", "--batch", "8"],
+        cnn_oracle, cnn_h, batches, orig_graph, dev, (8, 1000))
+    tot.update(q_tot)
+    launches.update({k: q_launch[k] for k in q_tot})
+
+    # 13-14. the quantized transformer path -------------------------------------
+    tot["merged_ffn_q"], lq_launch = lm_quant_phases(
+        host, res, oracle, lm_source, prompt, N, c_dec, dev)
+    launches["merged_ffn_q"] = lq_launch["merged_ffn_q"]
     sweep_err = {k: v[0] for k, v in sweep.items()}
 
     srcs = {"merged_conv": ("src/repro_torch/kernels/csrc/merged_conv.cu",
@@ -733,6 +1510,8 @@ def main(argv) -> int:
                                "src/repro/kernels/depthwise_conv.py:280"),
             "merged_ffn": ("src/repro_torch/kernels/csrc/merged_ffn.cu",
                            "src/repro/kernels/merged_ffn.py:128")}
+    for k in ("merged_conv", "depthwise_conv", "merged_ffn"):
+        srcs[k + "_q"] = srcs[k]          # the same pallas_call, quant=True
     line = {"kernels": [{
         "name": k, "route": "cuda", "source": srcs[k][0],
         "replaces": srcs[k][1], "launches": launches[k],

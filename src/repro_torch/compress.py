@@ -8,6 +8,8 @@ package's ``.npz`` format:
       --oracle wallclock --max-span 6 --budget-ratio 0.6 --out a.npz
   PYTHONPATH=src python -m repro_torch.compress --arch smollm-135m \
       --method depth --out lm.npz
+  PYTHONPATH=src python -m repro_torch.compress --arch tiny_mobilenet \
+      --device cpu --quantize w8a8 --budget-ratio 0.5 --out q.npz
 
 Transformer ids resolve through :func:`repro_torch.configs.get_config`,
 reduced to the CPU-sized toy variant unless ``--full``: the full width
@@ -16,7 +18,9 @@ cannot factor yet: ROADMAP.md queue 3).
 ``--oracle wallclock`` times every distinct merged-segment shape on the
 card through the hand-written kernels; ``--oracle analytic`` prices them
 with the H100 roofline model (transformers: the JAX package's cost
-model).  ``--device cpu`` runs the plain PyTorch
+model).  ``--quantize int8|w8a8`` lets the DP choose per-unit precision
+(int8 weights, or int8 weights and activations); the units it picks run
+the kernels' quantized variants.  ``--device cpu`` runs the plain PyTorch
 versions instead (the default, ``cuda``, raises where there is no card).
 Parameters are seed-initialised: the command demonstrates the
 plan→artifact path, a production run would load trained weights.
@@ -78,7 +82,10 @@ def build_host(arch: str, *, seed: int = 0, batch: int = 8, seq: int = 128,
     return host, source
 
 
-def main(argv=None) -> dict:
+def main(argv=None, *, latency_oracle=None) -> dict:
+    """Run the command; ``latency_oracle`` replaces the one ``--oracle``
+    names (a caller's ``WallClockOracle`` then times each signature once
+    for several runs)."""
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.compress",
         description="LayerMerge compression → merged-model artifact")
@@ -92,6 +99,12 @@ def main(argv=None) -> dict:
                     choices=("analytic", "wallclock"))
     ap.add_argument("--P", type=int, default=200,
                     help="latency discretization steps (Algorithm 1)")
+    ap.add_argument("--quantize", default="none",
+                    choices=("none", "int8", "w8a8"),
+                    help="let the DP pick per-unit precision: widens the "
+                         "tables with int8-weight (int8) or int8-weight+"
+                         "activation (w8a8) candidates; chosen segments "
+                         "lower to narrow-weight units (artifact v3)")
     ap.add_argument("--out", required=True, help="artifact path (.npz)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=8)
@@ -109,9 +122,12 @@ def main(argv=None) -> dict:
     host, source = build_host(args.arch, seed=args.seed, batch=args.batch,
                               seq=args.seq, full=args.full,
                               max_span=args.max_span, device=args.device)
-    oracle = WallClockOracle() if args.oracle == "wallclock" else None
+    oracle = latency_oracle
+    if oracle is None and args.oracle == "wallclock":
+        oracle = WallClockOracle()
     res = compress(host, budget_ratio=args.budget_ratio, P=args.P,
-                   method=args.method, latency_oracle=oracle)
+                   method=args.method, latency_oracle=oracle,
+                   quantize=args.quantize)
     if res is None:
         raise SystemExit(
             f"[repro_torch.compress] infeasible: no plan fits "
@@ -134,6 +150,9 @@ def main(argv=None) -> dict:
         "original_latency_s": res.original_latency,
         "compressed_latency_s": res.compressed_latency,
         "predicted_speedup": res.speedup,
+        "quantize": args.quantize,
+        "quantized_units": sum(1 for s in plan.segments
+                               if s.quant != "none"),
         "artifact": args.out,
         "fingerprint": fp[:16],
     }

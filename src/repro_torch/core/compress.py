@@ -80,9 +80,22 @@ def compress(
     method: str = "layermerge",
     latency_oracle: LatencyOracle | None = None,
     params=None,
+    quantize: str | None = None,
+    ratio_oracle: AnalyticOracle | None = None,
 ) -> CompressResult | None:
     """Run LayerMerge (or a baseline) at ``T0 = budget_ratio · T_orig``
-    with magnitude importance; ``None`` when no plan fits the budget."""
+    with magnitude importance; ``None`` when no plan fits the budget.
+
+    ``quantize`` ('int8' | 'w8a8') widens every span's candidate row with
+    derived precision siblings (:func:`.tables.quant_sibling_entries`,
+    their latency ratio priced by ``ratio_oracle``), so the DP chooses
+    merge structure and per-unit precision under one budget; segments it
+    picks quantized lower to narrow-weight units.  None / 'none' leaves
+    tables, DP visit order and plans bit-identical to an fp-only run.
+    """
+    if quantize and quantize != "none" and method == "layeronly":
+        raise ValueError("quantize is a merged-segment feature; "
+                         "method='layeronly' has no merged units")
     oracle = latency_oracle or AnalyticOracle()
     layer_lats = probe_engine.layer_latencies(host, oracle, params)
     t_orig = sum(layer_lats)
@@ -93,7 +106,8 @@ def compress(
         return _layer_only(host, T0, P, oracle, params, t_orig, layer_lats)
 
     tables = build_tables(host, method=method, latency_oracle=oracle,
-                          params=params)
+                          params=params, quantize=quantize,
+                          ratio_oracle=ratio_oracle)
     t0 = time.perf_counter()
     res = solve_dp(L, tables.fn(), T0, P, method=method,
                    original_k=host.original_k)

@@ -148,7 +148,9 @@ def oracle_token(oracle) -> str:
 def conv2d_cost(h: int, w: int, cin: int, cout: int, k: int, stride: int = 1,
                 depthwise: bool = False, dtype_bytes: int = 4,
                 batch: int = 1,
-                tile_budget: float | None = None) -> CostBreakdown:
+                tile_budget: float | None = None,
+                w_bytes: int | None = None,
+                act_bytes: int | None = None) -> CostBreakdown:
     """Analytic cost of one (possibly merged) conv layer: the FLOPs of the
     merged conv and its bytes, the weight once plus per image:
 
@@ -163,45 +165,63 @@ def conv2d_cost(h: int, w: int, cin: int, cout: int, k: int, stride: int = 1,
       input_traffic_model`: halo re-reads at tile seams and the
       phase-major relayout of a strided segment).  The parity tests pass
       the JAX package's budget and reproduce its costs bit for bit.
+
+    ``w_bytes`` / ``act_bytes`` split the byte widths for quantized units
+    (int8 or fp8 weights: ``w_bytes=1``; w8a8 also ``act_bytes=1``); both
+    default to ``dtype_bytes``, which leaves every fp cost bit-identical.
+    The weight term is priced at ``w_bytes``.  Under the default pricing
+    the input and pad-copy terms are priced at ``act_bytes`` and the
+    output at ``dtype_bytes``, since the quantized kernels write fp32;
+    under a ``tile_budget`` every activation term is priced at
+    ``act_bytes``, as the JAX package prices it.
     """
     from repro_torch.kernels.merged_conv import input_traffic_model
 
+    wb = dtype_bytes if w_bytes is None else w_bytes
+    ab = dtype_bytes if act_bytes is None else act_bytes
     ho, wo = -(-h // stride), -(-w // stride)
     if depthwise:
         flops = 2.0 * batch * ho * wo * cin * k * k
-        wbytes = cin * k * k * dtype_bytes
+        wbytes = cin * k * k * wb
     else:
         flops = 2.0 * batch * ho * wo * cin * cout * k * k
-        wbytes = cin * cout * k * k * dtype_bytes
-    in_bytes = float(h * w * cin * dtype_bytes)
+        wbytes = cin * cout * k * k * wb
+    in_bytes = float(h * w * cin * ab)
+    out_b = ab
     if tile_budget is None:
+        out_b = dtype_bytes
         if k > 1:
-            in_bytes += 2.0 * (h + k - 1) * (w + k - 1) * cin * dtype_bytes
+            in_bytes += 2.0 * (h + k - 1) * (w + k - 1) * cin * ab
     elif k > 1 or stride > 1:
         traffic = input_traffic_model(
-            h + k - 1, w + k - 1, cin, k, k, stride, dtype_bytes,
+            h + k - 1, w + k - 1, cin, k, k, stride, ab,
             groups=cin if depthwise else 1, budget_bytes=tile_budget)
         in_bytes = (max(in_bytes, traffic["dma_bytes"])
                     + traffic["relayout_bytes"])
-    abytes = batch * (in_bytes + ho * wo * cout * dtype_bytes)
+    abytes = batch * (in_bytes + ho * wo * cout * out_b)
     return CostBreakdown(flops, wbytes + abytes)
 
 
-def matmul_cost(m: int, kdim: int, n: int, dtype_bytes: int = 2
-                ) -> CostBreakdown:
+def matmul_cost(m: int, kdim: int, n: int, dtype_bytes: int = 2,
+                w_bytes: int | None = None,
+                act_bytes: int | None = None) -> CostBreakdown:
     """``(m, kdim) @ (kdim, n)``: its FLOPs, and each operand read and the
-    output written once."""
+    output written once.  The ``(kdim, n)`` operand is the weight
+    (``w_bytes``), the ``(m, kdim)`` input and the ``(m, n)`` output are
+    activations (``act_bytes``); both default to ``dtype_bytes``."""
+    wb = dtype_bytes if w_bytes is None else w_bytes
+    ab = dtype_bytes if act_bytes is None else act_bytes
     flops = 2.0 * m * kdim * n
-    bytes_ = m * kdim * dtype_bytes + kdim * n * dtype_bytes \
-        + m * n * dtype_bytes
+    bytes_ = m * kdim * ab + kdim * n * wb + m * n * ab
     return CostBreakdown(flops, bytes_)
 
 
 def rank_ffn_cost(tokens: int, d: int, rank: int,
-                  dtype_bytes: int = 2) -> CostBreakdown:
+                  dtype_bytes: int = 2, w_bytes: int | None = None,
+                  act_bytes: int | None = None) -> CostBreakdown:
     """Merged rank-``r`` residual layer: ``x + (x·U)·V`` (two thin GEMMs,
     as the JAX package prices it: ``P`` is counted as written and read
     although the ``merged_ffn`` kernel keeps it on chip)."""
     r = min(rank, d)
-    return (matmul_cost(tokens, d, r, dtype_bytes)
-            + matmul_cost(tokens, r, d, dtype_bytes))
+    return (matmul_cost(tokens, d, r, dtype_bytes, w_bytes, act_bytes)
+            + matmul_cost(tokens, r, d, dtype_bytes, w_bytes, act_bytes))

@@ -9,6 +9,8 @@ A metadata-only pass enumerates every ``(i, j, k)`` probe; the latency
 column goes through :mod:`.probe_engine` (one measurement per shape
 signature), the importance column is the magnitude proxy, and options
 Pareto-dominated within their span are dropped before the DP sees them.
+With ``quantize`` each span's row is then widened with derived ``(k,
+mode)`` precision siblings (:func:`quant_sibling_entries`).
 """
 from __future__ import annotations
 
@@ -53,16 +55,85 @@ def pareto_prune(entries) -> tuple[dict, int]:
     return out, dropped
 
 
+# Relative importance penalty of a precision sibling: strictly below its fp
+# twin, so the DP keeps fp while the budget is slack and trades precision
+# only when latency binds (the pair is mutually non-dominated).
+QUANT_IMPORTANCE_PENALTY = 1e-4
+
+
+def quant_sibling_entries(host, entries, quantize: str,
+                          ratio_oracle: AnalyticOracle | None = None
+                          ) -> tuple[dict, int]:
+    """Widen each span's candidate row with ``(k, mode)`` precision
+    siblings; returns ``(entries, #added)``.
+
+    Each fp entry whose segment the host can quantize
+    (``host.segment_cost(seg, quant=mode)`` is not ``None``) gains one
+    sibling keyed ``(k, mode)``, kept only when it is predicted faster:
+
+    * ``T_q = T_fp × (analytic quantized / analytic fp latency)`` — the
+      measured fp latency keeps its measurement and only the relative
+      effect of the narrow bytes is modelled, by ``ratio_oracle`` (the
+      H100 roofline by default; the parity tests pass the JAX package's
+      constants);
+    * ``I_q = I_fp − |I_fp|·penalty − ε`` (strictly below the fp twin).
+
+    Siblings are derived, never probed: the probes stay fp-only.
+    """
+    if not quantize or quantize == "none":
+        return entries, 0
+    from repro_torch.kernels.quant import MODES
+    if quantize not in MODES:
+        raise ValueError(f"unknown quantization mode {quantize!r}")
+    ora = ratio_oracle or AnalyticOracle()
+    added = 0
+    out: dict = {}
+    for (i, j), row in entries.items():
+        new_row = dict(row)
+        for key, (imp, lat, kept) in row.items():
+            if isinstance(key, tuple):
+                continue                      # already a sibling
+            seg = Segment(i=i, j=j, k=key, kept=kept)
+            cost_q = host.segment_cost(seg, quant=quantize)
+            if cost_q is None:
+                continue
+            lat_f = ora.segment_latency(host.segment_cost(seg))
+            lat_q = ora.segment_latency(cost_q)
+            if not lat_q < lat_f:
+                continue                      # no predicted win, no sibling
+            imp_q = imp - abs(imp) * QUANT_IMPORTANCE_PENALTY - 1e-12
+            new_row[(key, quantize)] = (imp_q, lat * (lat_q / lat_f), kept)
+            added += 1
+        out[(i, j)] = new_row
+    return out, added
+
+
+def with_quant_siblings(tables: Tables, host, quantize: str | None,
+                        ratio_oracle: AnalyticOracle | None = None
+                        ) -> Tables:
+    """``tables`` widened with precision siblings (itself for fp)."""
+    if not quantize or quantize == "none":
+        return tables
+    entries, _ = quant_sibling_entries(host, tables.entries, quantize,
+                                       ratio_oracle)
+    return dataclasses.replace(tables, entries=entries)
+
+
 def build_tables(
     host,
     *,
     method: str = "layermerge",
     latency_oracle: LatencyOracle | None = None,
     params=None,
+    quantize: str | None = None,
+    ratio_oracle: AnalyticOracle | None = None,
 ) -> Tables:
     """Construct both lookup tables for ``host`` (Algorithm 2, lines 1-8)
     with the magnitude importance proxy (the Eq. 4 fine-tune is ROADMAP
-    queue 1)."""
+    queue 1).  ``quantize`` ('int8' / 'w8a8') widens the pruned fp rows
+    with precision siblings priced by ``ratio_oracle``
+    (:func:`quant_sibling_entries`); None / 'none' leaves the tables
+    bit-identical to an fp-only build."""
     oracle = latency_oracle or AnalyticOracle()
     enum = host.enumerator(method)
     total_value = sum(d.value for d in enum.descs)
@@ -83,9 +154,10 @@ def build_tables(
     t_imp = time.perf_counter() - t0
 
     entries, dropped = pareto_prune(entries)
-    return Tables(entries=entries, build_seconds_latency=t_lat,
-                  build_seconds_importance=t_imp, num_pruned=dropped,
-                  stats=stats)
+    return with_quant_siblings(
+        Tables(entries=entries, build_seconds_latency=t_lat,
+               build_seconds_importance=t_imp, num_pruned=dropped,
+               stats=stats), host, quantize, ratio_oracle)
 
 
 def enumerate_probes(host, method: str = "layermerge", enum=None):

@@ -24,11 +24,36 @@
 // L1/L2 rather than HBM; the compulsory traffic is one read of the input and
 // one write of the output.  Staging the halo window in shared memory is later
 // work.
+//
+// Quantized variant (depthwise_conv_q, the TPU kernel's `quant=True` body):
+// the same kernel instantiated on the element types of x and w -- an int8
+// input under w8a8, int8 or fp8-e4m3 (cuda_fp8.h) weights -- each element
+// converted to fp32 as it is read, the sum in fp32, then multiplied by the
+// per-output-channel fp32 scale (w8a8: the activation's per-tensor scale
+// folded in on the device by the op) before the bias and the activation.
+// Bound as above: fewer bytes of input and weight, the same fp32 output.
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace {
 
 constexpr int THREADS = 256;
+
+// One element of x or w as fp32 (read-only path).
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+// int8 without the quarter-rate I2F convert: the bits 0x4B000000 + k are
+// the float 2^23 + k exactly for 0 <= k < 2^23, so with k = v + 128 one
+// integer add and one float subtraction give v exactly.
+__device__ __forceinline__ float load_f32(const int8_t* p) {
+  const int v = __ldg(reinterpret_cast<const signed char*>(p));
+  return __int_as_float(0x4B000080 + v) - 8388736.f;
+}
+__device__ __forceinline__ float load_f32(const __nv_fp8_e4m3* p) {
+  const __nv_fp8_storage_t bits =
+      __ldg(reinterpret_cast<const unsigned char*>(p));
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(bits, __NV_E4M3)));
+}
 
 __device__ __forceinline__ float activate(float v, int act) {
   switch (act) {
@@ -39,8 +64,11 @@ __device__ __forceinline__ float activate(float v, int act) {
   }
 }
 
+// XT / WT: element types of x and w; QUANT: multiply the sum by scale[co].
+template <typename XT, typename WT, bool QUANT>
 __global__ void __launch_bounds__(THREADS)
-depthwise_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
+depthwise_conv_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
+                      const float* __restrict__ scale,
                       const float* __restrict__ bias, float* __restrict__ y,
                       int H, int W, int Cin, int KH, int KW, int cin_g,
                       int Cout, int cout_g, int stride, int Ho, int Wo,
@@ -55,19 +83,35 @@ depthwise_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int img = (int)(p / Ho);
   const int ci0 = (co / cout_g) * cin_g;
 
-  const float* xp =
+  const XT* xp =
       x + ((size_t)(img * H + ho * stride) * W + wo * stride) * Cin + ci0;
   float acc = 0.f;
   for (int u = 0; u < KH; ++u) {
     for (int v = 0; v < KW; ++v) {
-      const float* xr = xp + ((size_t)u * W + v) * Cin;
-      const float* wr = w + (size_t)((u * KW + v) * cin_g) * Cout + co;
+      const XT* xr = xp + ((size_t)u * W + v) * Cin;
+      const WT* wr = w + (size_t)((u * KW + v) * cin_g) * Cout + co;
       for (int ci = 0; ci < cin_g; ++ci)
-        acc = fmaf(__ldg(xr + ci), __ldg(wr + (size_t)ci * Cout), acc);
+        acc = fmaf(load_f32(xr + ci), load_f32(wr + (size_t)ci * Cout), acc);
     }
   }
+  if constexpr (QUANT) acc *= scale[co];
   if (bias != nullptr) acc += bias[co];
   y[idx] = activate(acc, act);
+}
+
+template <typename XT, typename WT, bool QUANT>
+int launch(const void* x, const void* w, const float* scale,
+           const float* bias, float* y, int n, int h, int wd, int cin, int kh,
+           int kw, int cin_g, int cout, int groups, int stride, int ho,
+           int wo, int act, void* stream) {
+  const long long total = (long long)n * ho * wo * cout;
+  const long long blocks = (total + THREADS - 1) / THREADS;
+  depthwise_conv_kernel<XT, WT, QUANT>
+      <<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const XT*>(x), static_cast<const WT*>(w), scale, bias,
+          y, h, wd, cin, kh, kw, cin_g, cout, cout / groups, stride, ho, wo,
+          total, act);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -80,11 +124,39 @@ extern "C" int depthwise_conv_f32(const float* x, const float* w,
                                   int wd, int cin, int kh, int kw, int cin_g,
                                   int cout, int groups, int stride, int ho,
                                   int wo, int act, void* stream) {
-  const long long total = (long long)n * ho * wo * cout;
-  const long long blocks = (total + THREADS - 1) / THREADS;
-  depthwise_conv_kernel<<<(unsigned)blocks, THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      x, w, bias, y, h, wd, cin, kh, kw, cin_g, cout, cout / groups, stride,
-      ho, wo, total, act);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float, float, false>(x, w, nullptr, bias, y, n, h, wd, cin,
+                                     kh, kw, cin_g, cout, groups, stride, ho,
+                                     wo, act, stream);
+}
+
+// The quantized variant: x fp32 (x_type 0) or int8 (1); w int8 (w_type 1)
+// or fp8-e4m3 (2); scale (Cout) fp32, applied to the sum before the bias.
+// Other shapes and arguments as depthwise_conv_f32.  Returns the launch's
+// cudaError_t, or cudaErrorInvalidValue for a type pair it does not take.
+extern "C" int depthwise_conv_q(const void* x, const void* w,
+                                const float* scale, const float* bias,
+                                float* y, int n, int h, int wd, int cin,
+                                int kh, int kw, int cin_g, int cout,
+                                int groups, int stride, int ho, int wo,
+                                int act, int x_type, int w_type,
+                                void* stream) {
+  if (x_type == 0 && w_type == 1)
+    return launch<float, int8_t, true>(x, w, scale, bias, y, n, h, wd, cin,
+                                       kh, kw, cin_g, cout, groups, stride,
+                                       ho, wo, act, stream);
+  if (x_type == 1 && w_type == 1)
+    return launch<int8_t, int8_t, true>(x, w, scale, bias, y, n, h, wd, cin,
+                                        kh, kw, cin_g, cout, groups, stride,
+                                        ho, wo, act, stream);
+  if (x_type == 0 && w_type == 2)
+    return launch<float, __nv_fp8_e4m3, true>(x, w, scale, bias, y, n, h, wd,
+                                              cin, kh, kw, cin_g, cout,
+                                              groups, stride, ho, wo, act,
+                                              stream);
+  if (x_type == 1 && w_type == 2)
+    return launch<int8_t, __nv_fp8_e4m3, true>(x, w, scale, bias, y, n, h,
+                                               wd, cin, kh, kw, cin_g, cout,
+                                               groups, stride, ho, wo, act,
+                                               stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -31,7 +31,22 @@
 // read, and the loads coalesce along the NHWC channel axis and the HWIO Cout
 // axis.  Tensor cores (TF32/bf16 wgmma) and a cp.async/TMA pipeline are later
 // work.
+//
+// Quantized variant (merged_conv_q, the TPU kernel's `quant=True` body):
+// the same kernel instantiated on the element types of x and w.  Narrow
+// weights (int8, or fp8-e4m3 through cuda_fp8.h) and, under w8a8, an int8
+// input are converted to fp32 by the loaders as they stage a slice in
+// shared memory; the sum is fp32 as before, and the epilogue multiplies
+// it by a per-output-channel fp32 scale before the bias and the
+// activation (w8a8: the activation's per-tensor scale is already folded
+// into that vector, on the device, by the op).  Scaling after the sum is
+// exact against dequantizing each weight first, since the scale is
+// constant over the (u, v, c) reduction.  The loaders read one element
+// per thread, so the 1-byte input and weight need no other vector width;
+// what narrow operands save is device-memory bytes, not FFMA work.
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace {
 
@@ -46,6 +61,21 @@ constexpr int B_ROWS_PER_THREAD = BN * BK / THREADS;   // 4
 constexpr int A_ROW_STEP = THREADS / BK;               // 16
 constexpr int B_ROW_STEP = THREADS / BN;               // 4
 
+// One element of x or w as fp32 (read-only path).
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+// int8 without the quarter-rate I2F convert: the bits 0x4B000000 + k are
+// the float 2^23 + k exactly for 0 <= k < 2^23, so with k = v + 128 one
+// integer add and one float subtraction give v exactly.
+__device__ __forceinline__ float load_f32(const int8_t* p) {
+  const int v = __ldg(reinterpret_cast<const signed char*>(p));
+  return __int_as_float(0x4B000080 + v) - 8388736.f;
+}
+__device__ __forceinline__ float load_f32(const __nv_fp8_e4m3* p) {
+  const __nv_fp8_storage_t bits =
+      __ldg(reinterpret_cast<const unsigned char*>(p));
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(bits, __NV_E4M3)));
+}
+
 __device__ __forceinline__ float activate(float v, int act) {
   switch (act) {
     case 1: return fmaxf(v, 0.f);                       // relu
@@ -55,8 +85,11 @@ __device__ __forceinline__ float activate(float v, int act) {
   }
 }
 
+// XT / WT: element types of x and w; QUANT: multiply the sum by scale[co].
+template <typename XT, typename WT, bool QUANT>
 __global__ void __launch_bounds__(THREADS)
-merged_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
+merged_conv_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
+                   const float* __restrict__ scale,
                    const float* __restrict__ bias, float* __restrict__ y,
                    int H, int W, int Cin, int KW, int Cout, int stride,
                    int Ho, int Wo, int M, int Ktot, int act) {
@@ -115,13 +148,14 @@ merged_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int i = 0; i < A_ROWS_PER_THREAD; ++i) {
       const bool ok = a_off >= 0 && a_base[i] >= 0;
-      As[ak][am0 + A_ROW_STEP * i] = ok ? __ldg(x + a_base[i] + a_off) : 0.f;
+      As[ak][am0 + A_ROW_STEP * i] = ok ? load_f32(x + a_base[i] + a_off) : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < B_ROWS_PER_THREAD; ++i) {
       const int kr = k0 + bk0 + B_ROW_STEP * i;
       Bs[bk0 + B_ROW_STEP * i][bn] =
-          (b_ok && kr < Ktot) ? __ldg(w + (size_t)kr * Cout + n0 + bn) : 0.f;
+          (b_ok && kr < Ktot) ? load_f32(w + (size_t)kr * Cout + n0 + bn)
+                              : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -138,7 +172,8 @@ merged_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
     __syncthreads();
   }
 
-  // Epilogue: bias, activation, masked NHWC store (row m is pixel m).
+  // Epilogue: (scale,) bias, activation, masked NHWC store (row m is
+  // pixel m).
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + ty * TM + i;
@@ -147,11 +182,28 @@ merged_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int j = 0; j < TN; ++j) {
       const int co = n0 + tx * TN + j;
       if (co < Cout) {
-        const float v = acc[i][j] + (bias != nullptr ? bias[co] : 0.f);
+        float v = acc[i][j];
+        if constexpr (QUANT) v *= scale[co];
+        v += bias != nullptr ? bias[co] : 0.f;
         y[(size_t)m * Cout + co] = activate(v, act);
       }
     }
   }
+}
+
+template <typename XT, typename WT, bool QUANT>
+int launch(const void* x, const void* w, const float* scale,
+           const float* bias, float* y, int n, int h, int wd, int cin, int kh,
+           int kw, int cout, int stride, int ho, int wo, int act,
+           void* stream) {
+  const int M = n * ho * wo;
+  const int ktot = kh * kw * cin;
+  const dim3 grid((M + BM - 1) / BM, (cout + BN - 1) / BN);
+  merged_conv_kernel<XT, WT, QUANT>
+      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const XT*>(x), static_cast<const WT*>(w), scale, bias,
+          y, h, wd, cin, kw, cout, stride, ho, wo, M, ktot, act);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -164,10 +216,35 @@ extern "C" int merged_conv_f32(const float* x, const float* w,
                                int wd, int cin, int kh, int kw, int cout,
                                int stride, int ho, int wo, int act,
                                void* stream) {
-  const int M = n * ho * wo;
-  const int ktot = kh * kw * cin;
-  const dim3 grid((M + BM - 1) / BM, (cout + BN - 1) / BN);
-  merged_conv_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w, bias, y, h, wd, cin, kw, cout, stride, ho, wo, M, ktot, act);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float, float, false>(x, w, nullptr, bias, y, n, h, wd, cin,
+                                     kh, kw, cout, stride, ho, wo, act,
+                                     stream);
+}
+
+// The quantized variant: x fp32 (x_type 0) or int8 (1); w int8 (w_type 1)
+// or fp8-e4m3 (2); scale (Cout) fp32, applied to the sum before the bias.
+// Other shapes and arguments as merged_conv_f32.  Returns the launch's
+// cudaError_t, or cudaErrorInvalidValue for a type pair it does not take.
+extern "C" int merged_conv_q(const void* x, const void* w, const float* scale,
+                             const float* bias, float* y, int n, int h,
+                             int wd, int cin, int kh, int kw, int cout,
+                             int stride, int ho, int wo, int act, int x_type,
+                             int w_type, void* stream) {
+  if (x_type == 0 && w_type == 1)
+    return launch<float, int8_t, true>(x, w, scale, bias, y, n, h, wd, cin,
+                                       kh, kw, cout, stride, ho, wo, act,
+                                       stream);
+  if (x_type == 1 && w_type == 1)
+    return launch<int8_t, int8_t, true>(x, w, scale, bias, y, n, h, wd, cin,
+                                        kh, kw, cout, stride, ho, wo, act,
+                                        stream);
+  if (x_type == 0 && w_type == 2)
+    return launch<float, __nv_fp8_e4m3, true>(x, w, scale, bias, y, n, h, wd,
+                                              cin, kh, kw, cout, stride, ho,
+                                              wo, act, stream);
+  if (x_type == 1 && w_type == 2)
+    return launch<int8_t, __nv_fp8_e4m3, true>(x, w, scale, bias, y, n, h,
+                                               wd, cin, kh, kw, cout, stride,
+                                               ho, wo, act, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

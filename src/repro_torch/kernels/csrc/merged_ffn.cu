@@ -41,8 +41,24 @@
 // V, and of each block's 32 rows only 8 are live (their threads skip the
 // FFMAs of the others).  Tensor cores (3xTF32 or wgmma), a TMA pipeline
 // and more blocks at decode are later work.
+//
+// Quantized variant (merged_ffn_q, the TPU kernel's `quant=True` body):
+// the same kernel instantiated on the element types of the panel that
+// feeds P and of U and V.  U and V are narrow (int8, or fp8-e4m3 through
+// cuda_fp8.h), prefetched narrow into registers and converted to fp32 as
+// each slice is stored to shared memory; the P panel is built from the
+// int8 activation xq under w8a8 (its per-tensor scale folded into u_scale
+// on the device by the op) or from x itself (int8 weights only), and each
+// chunk of P is multiplied by u_scale[r] as it is written to shared
+// memory (the TPU kernel's "dequant P panel").  The
+// second product runs over narrow V; the epilogue multiplies acc by
+// v_scale[n] and adds the residual, always from the fp32 x.  The sums stay
+// fp32.  At decode the narrow U and V are a quarter of the fp32 kernel's
+// bytes, but its time there is latency, not bytes (PERF.md has both).
 #include <cooperative_groups.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace cg = cooperative_groups;
 
@@ -66,9 +82,51 @@ static_assert(BR == BN, "one loader and one thread map serve P and acc");
 static_assert(BR % BK == 0 && THREADS % BK == 0 && THREADS % BN == 0,
               "the loaders cover whole slices");
 
+// Narrow<T>: the register type an element of T is prefetched in (read-only
+// path) and its conversion to fp32.  The loaders convert when they store a
+// slice to shared memory, not when they load it: a conversion right after
+// the load would stall the warp on the load, and the prefetch of the next
+// slice would no longer overlap the current slice's FFMAs.
+template <typename T> struct Narrow;
+template <> struct Narrow<float> {
+  using raw = float;
+  static __device__ __forceinline__ raw load(const float* p) {
+    return __ldg(p);
+  }
+  static __device__ __forceinline__ float f32(raw v) { return v; }
+};
+template <> struct Narrow<int8_t> {
+  using raw = int;
+  static __device__ __forceinline__ raw load(const int8_t* p) {
+    return __ldg(reinterpret_cast<const signed char*>(p));
+  }
+  // Without the quarter-rate I2F convert: the bits 0x4B000000 + k are the
+  // float 2^23 + k exactly for 0 <= k < 2^23, so with k = v + 128 one
+  // integer add and one float subtraction give v exactly.
+  static __device__ __forceinline__ float f32(raw v) {
+    return __int_as_float(0x4B000080 + v) - 8388736.f;
+  }
+};
+template <> struct Narrow<__nv_fp8_e4m3> {
+  using raw = unsigned int;
+  static __device__ __forceinline__ raw load(const __nv_fp8_e4m3* p) {
+    return __ldg(reinterpret_cast<const unsigned char*>(p));
+  }
+  static __device__ __forceinline__ float f32(raw v) {
+    return __half2float(__half(__nv_cvt_fp8_to_halfraw(
+        static_cast<__nv_fp8_storage_t>(v), __NV_E4M3)));
+  }
+};
+
+// XQ: element type of the panel xq that feeds P = xq @ U (x itself in the
+// fp32 instance); WT: element type of U and V; QUANT: apply u_scale to P
+// and v_scale to acc.
+template <typename XQ, typename WT, bool QUANT>
 __global__ void __launch_bounds__(THREADS)
-merged_ffn_kernel(const float* __restrict__ x, const float* __restrict__ u,
-                  const float* __restrict__ v, float* __restrict__ y,
+merged_ffn_kernel(const float* __restrict__ x, const XQ* __restrict__ xq,
+                  const WT* __restrict__ u, const WT* __restrict__ v,
+                  const float* __restrict__ u_scale,
+                  const float* __restrict__ v_scale, float* __restrict__ y,
                   int M, int D, int R) {
   __shared__ __align__(16) float Xs[BK][BM + 4];   // x slice, transposed
   __shared__ __align__(16) float Ws[BK][BN];       // U slice, then V slice
@@ -115,28 +173,31 @@ merged_ffn_kernel(const float* __restrict__ x, const float* __restrict__ u,
         for (int j = 0; j < TN; ++j) p[i][j] = 0.f;
       const int ur = c * BR + wc;
       // The next slice is loaded into registers while this one computes.
-      float xr[X_ROWS_PER_THREAD], wr[W_ROWS_PER_THREAD];
+      typename Narrow<XQ>::raw xr[X_ROWS_PER_THREAD];
+      typename Narrow<WT>::raw wr[W_ROWS_PER_THREAD];
       auto load_u_slice = [&](int k0) {
         const int d = k0 + xk;
 #pragma unroll
         for (int i = 0; i < X_ROWS_PER_THREAD; ++i) {
           const int m = m0 + xm0 + X_ROW_STEP * i;
-          xr[i] = (m < M && d < D) ? __ldg(x + (size_t)m * D + d) : 0.f;
+          xr[i] = (m < M && d < D) ? Narrow<XQ>::load(xq + (size_t)m * D + d)
+                                   : 0;
         }
 #pragma unroll
         for (int i = 0; i < W_ROWS_PER_THREAD; ++i) {
           const int kr = k0 + wk0 + W_ROW_STEP * i;
-          wr[i] = (kr < D && ur < R) ? __ldg(u + (size_t)kr * R + ur) : 0.f;
+          wr[i] = (kr < D && ur < R) ? Narrow<WT>::load(u + (size_t)kr * R + ur)
+                                     : 0;
         }
       };
       load_u_slice(0);
       for (int k0 = 0; k0 < D; k0 += BK) {
 #pragma unroll
         for (int i = 0; i < X_ROWS_PER_THREAD; ++i)
-          Xs[xk][xm0 + X_ROW_STEP * i] = xr[i];
+          Xs[xk][xm0 + X_ROW_STEP * i] = Narrow<XQ>::f32(xr[i]);
 #pragma unroll
         for (int i = 0; i < W_ROWS_PER_THREAD; ++i)
-          Ws[wk0 + W_ROW_STEP * i][wc] = wr[i];
+          Ws[wk0 + W_ROW_STEP * i][wc] = Narrow<WT>::f32(wr[i]);
         __syncthreads();
         if (k0 + BK < D) load_u_slice(k0 + BK);
         if (live) {
@@ -159,9 +220,15 @@ merged_ffn_kernel(const float* __restrict__ x, const float* __restrict__ u,
       }
       // Rank-major: row r of Ps holds P[m-tile, c*BR + r].
 #pragma unroll
-      for (int j = 0; j < TN; ++j)
-        *reinterpret_cast<float4*>(&Ps[tx * TN + j][ty * TM]) =
-            make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
+      for (int j = 0; j < TN; ++j) {
+        float sc = 1.f;                            // fp32: P as summed
+        if constexpr (QUANT) {
+          const int r = c * BR + tx * TN + j;
+          sc = r < R ? u_scale[r] : 0.f;
+        }
+        *reinterpret_cast<float4*>(&Ps[tx * TN + j][ty * TM]) = make_float4(
+            p[0][j] * sc, p[1][j] * sc, p[2][j] * sc, p[3][j] * sc);
+      }
     }
     // Every chunk of this pass is in its owner's shared memory.
     cluster.sync();
@@ -178,19 +245,20 @@ merged_ffn_kernel(const float* __restrict__ x, const float* __restrict__ u,
         // (the __syncthreads after the first V slice load publishes Pl;
         // the one closing the previous chunk's loop freed it)
         const int rq = (c0 + q) * BR;
-        float vr[W_ROWS_PER_THREAD];
+        typename Narrow<WT>::raw vr[W_ROWS_PER_THREAD];
         auto load_v_slice = [&](int k0) {
 #pragma unroll
           for (int i = 0; i < W_ROWS_PER_THREAD; ++i) {
             const int r = rq + k0 + wk0 + W_ROW_STEP * i;
-            vr[i] = (r < R && vn < D) ? __ldg(v + (size_t)r * D + vn) : 0.f;
+            vr[i] = (r < R && vn < D) ? Narrow<WT>::load(v + (size_t)r * D + vn)
+                                      : 0;
           }
         };
         load_v_slice(0);
         for (int k0 = 0; k0 < BR; k0 += BK) {
 #pragma unroll
           for (int i = 0; i < W_ROWS_PER_THREAD; ++i)
-            Ws[wk0 + W_ROW_STEP * i][wc] = vr[i];
+            Ws[wk0 + W_ROW_STEP * i][wc] = Narrow<WT>::f32(vr[i]);
           __syncthreads();
           if (k0 + BK < BR) load_v_slice(k0 + BK);
           if (live) {
@@ -218,7 +286,8 @@ merged_ffn_kernel(const float* __restrict__ x, const float* __restrict__ u,
     cluster.sync();
   }
 
-  // Epilogue: the residual x[m, n] added in fp32, masked store.
+  // Epilogue: (acc * v_scale[n],) the residual x[m, n] added in fp32,
+  // masked store.
   if (!has_out) return;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -229,31 +298,30 @@ merged_ffn_kernel(const float* __restrict__ x, const float* __restrict__ u,
       const int n = n0 + tx * TN + j;
       if (n < D) {
         const size_t o = (size_t)m * D + n;
-        y[o] = acc[i][j] + __ldg(x + o);
+        float a = acc[i][j];
+        if constexpr (QUANT) a *= v_scale[n];
+        y[o] = a + __ldg(x + o);
       }
     }
   }
 }
 
-}  // namespace
-
-// x (M,D), u (D,R), v (R,D), y (M,D); all fp32, contiguous, on the device
-// of `stream`; ceil(M/32) <= 65535.  Returns the launch's cudaError_t
-// (0 on success).
-extern "C" int merged_ffn_f32(const float* x, const float* u, const float* v,
-                              float* y, int m, int d, int r, void* stream) {
+template <typename XQ, typename WT, bool QUANT>
+int launch(const float* x, const void* xq, const void* u, const void* v,
+           const float* u_scale, const float* v_scale, float* y, int m,
+           int d, int r, void* stream) {
   const int n_tiles = (d + BN - 1) / BN;
   const int cs = n_tiles < MAX_CLUSTER ? n_tiles : MAX_CLUSTER;
   if (cs > 8) {
-    // Once per device, so that a launch inside CUDA-graph capture makes
-    // no call that capture forbids.
+    // Once per device and instance, so that a launch inside CUDA-graph
+    // capture makes no call that capture forbids.
     static bool allowed[64] = {};
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
     if (!allowed[dev]) {
-      e = cudaFuncSetAttribute(merged_ffn_kernel,
+      e = cudaFuncSetAttribute(merged_ffn_kernel<XQ, WT, QUANT>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
       if (e != cudaSuccess) return static_cast<int>(e);
@@ -272,8 +340,45 @@ extern "C" int merged_ffn_f32(const float* x, const float* u, const float* v,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, merged_ffn_kernel, x, u, v, y, m, d, r);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, merged_ffn_kernel<XQ, WT, QUANT>, x, static_cast<const XQ*>(xq),
+      static_cast<const WT*>(u), static_cast<const WT*>(v), u_scale, v_scale,
+      y, m, d, r);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x (M,D), u (D,R), v (R,D), y (M,D); all fp32, contiguous, on the device
+// of `stream`; ceil(M/32) <= 65535.  Returns the launch's cudaError_t
+// (0 on success).
+extern "C" int merged_ffn_f32(const float* x, const float* u, const float* v,
+                              float* y, int m, int d, int r, void* stream) {
+  return launch<float, float, false>(x, x, u, v, nullptr, nullptr, y, m, d,
+                                     r, stream);
+}
+
+// The quantized variant: x (M,D) fp32 (the residual); xq (M,D) the panel
+// feeding P, fp32 (xq_type 0: x itself) or int8 (1, w8a8); u (D,R) and
+// v (R,D) int8 (w_type 1) or fp8-e4m3 (2); u_scale (R) and v_scale (D)
+// fp32.  Returns the launch's cudaError_t, or cudaErrorInvalidValue for a
+// type pair it does not take.
+extern "C" int merged_ffn_q(const float* x, const void* xq, const void* u,
+                            const void* v, const float* u_scale,
+                            const float* v_scale, float* y, int m, int d,
+                            int r, int xq_type, int w_type, void* stream) {
+  if (xq_type == 0 && w_type == 1)
+    return launch<float, int8_t, true>(x, xq, u, v, u_scale, v_scale, y, m,
+                                       d, r, stream);
+  if (xq_type == 1 && w_type == 1)
+    return launch<int8_t, int8_t, true>(x, xq, u, v, u_scale, v_scale, y, m,
+                                        d, r, stream);
+  if (xq_type == 0 && w_type == 2)
+    return launch<float, __nv_fp8_e4m3, true>(x, xq, u, v, u_scale, v_scale,
+                                              y, m, d, r, stream);
+  if (xq_type == 1 && w_type == 2)
+    return launch<int8_t, __nv_fp8_e4m3, true>(x, xq, u, v, u_scale,
+                                               v_scale, y, m, d, r, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

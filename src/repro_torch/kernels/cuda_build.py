@@ -1,13 +1,15 @@
 """Build the hand-written CUDA kernels with ``nvcc`` and bind them with ctypes.
 
-Every kernel source under ``csrc/`` exposes a plain C function, so it builds
-in seconds without PyTorch's headers.  A library is built at first use into
+Every kernel source under ``csrc/`` exposes plain C functions (an fp32
+entry point and its quantized variant), so it builds in seconds without
+PyTorch's headers.  A library is built at first use into
 ``build/repro_torch/`` at the root of the checkout — or, for an installed
 package, into ``$XDG_CACHE_HOME/repro_torch`` (``~/.cache/repro_torch``) —
 named by a hash of its source and flags, so an edited source rebuilds and
 an unchanged one is reused.  :func:`build` starts one ``nvcc``
 per missing library and waits for all of them, which is how the smoke run
-builds every kernel in parallel.
+builds every kernel in parallel.  One library holds both entry points of
+its source.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package, and this machine may have neither ``nvcc`` nor a card.
@@ -32,18 +34,39 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
-#: C entry point and argument types of each kernel library.
+#: Each kernel entry point: its source (``csrc/<source>.cu``, one library),
+#: its C function and the C function's argument types.
 SIGNATURES = {
     # x, w, bias, y, n, h, w, cin, kh, kw, cout, stride, ho, wo, act, stream
-    "merged_conv": ("merged_conv_f32",
+    "merged_conv": ("merged_conv", "merged_conv_f32",
                     [_P, _P, _P, _P] + [_I] * 11 + [_P]),
+    # x, w, scale, bias, y, n, h, w, cin, kh, kw, cout, stride, ho, wo, act,
+    # x_type, w_type, stream
+    "merged_conv_q": ("merged_conv", "merged_conv_q",
+                      [_P, _P, _P, _P, _P] + [_I] * 13 + [_P]),
     # x, w, bias, y, n, h, w, cin, kh, kw, cin_g, cout, groups, stride, ho,
     # wo, act, stream
-    "depthwise_conv": ("depthwise_conv_f32",
+    "depthwise_conv": ("depthwise_conv", "depthwise_conv_f32",
                        [_P, _P, _P, _P] + [_I] * 13 + [_P]),
+    # x, w, scale, bias, y, n, h, w, cin, kh, kw, cin_g, cout, groups,
+    # stride, ho, wo, act, x_type, w_type, stream
+    "depthwise_conv_q": ("depthwise_conv", "depthwise_conv_q",
+                         [_P, _P, _P, _P, _P] + [_I] * 15 + [_P]),
     # x, u, v, y, m, d, r, stream
-    "merged_ffn": ("merged_ffn_f32", [_P, _P, _P, _P] + [_I] * 3 + [_P]),
+    "merged_ffn": ("merged_ffn", "merged_ffn_f32",
+                   [_P, _P, _P, _P] + [_I] * 3 + [_P]),
+    # x, xq, u, v, u_scale, v_scale, y, m, d, r, xq_type, w_type, stream
+    "merged_ffn_q": ("merged_ffn", "merged_ffn_q",
+                     [_P] * 7 + [_I] * 5 + [_P]),
 }
+
+#: The kernel sources, one library each.
+SOURCES = tuple(sorted({src for src, _, _ in SIGNATURES.values()}))
+
+#: Element-type codes of the quantized entry points' ``x_type`` (the
+#: activation: fp32, or int8 under w8a8) and ``w_type`` (narrow weights).
+X_TYPES = {torch.float32: 0, torch.int8: 1}
+W_TYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 
 
 class BuildError(RuntimeError):
@@ -80,6 +103,7 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Path of the library built from ``csrc/<name>.cu``."""
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -87,8 +111,9 @@ def library_path(name: str) -> Path:
 
 
 def build(names=None) -> dict[str, BuildResult]:
-    """Build the named kernel libraries (all by default), in parallel."""
-    names = list(SIGNATURES if names is None else names)
+    """Build the named kernel libraries (``SOURCES`` by default), in
+    parallel."""
+    names = list(SOURCES if names is None else names)
     out: dict[str, BuildResult] = {}
     procs = []
     for name in names:
@@ -120,12 +145,13 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def kernel(name: str):
-    """The bound C entry point of kernel ``name`` (built on first use)."""
-    if name not in _LIBS:
-        path = build([name])[name].path
-        _LIBS[name] = ctypes.CDLL(str(path))
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(_LIBS[name], fn_name)
+    """The bound C entry point ``name`` of ``SIGNATURES`` (its library
+    built on first use)."""
+    src, fn_name, argtypes = SIGNATURES[name]
+    if src not in _LIBS:
+        path = build([src])[src].path
+        _LIBS[src] = ctypes.CDLL(str(path))
+    fn = getattr(_LIBS[src], fn_name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
@@ -137,19 +163,22 @@ ACT_CODES = {None: 0, "none": 0, "relu": 1, "relu6": 2, "silu": 3}
 _INT32_MAX = 2 ** 31 - 1
 
 
-def check_operands(name: str, *tensors) -> None:
-    """Raise unless every given tensor is fp32, contiguous, on one CUDA
-    device, and small enough for the kernels' 32-bit offsets."""
+def check_operands(name: str, *tensors, dtypes=None) -> None:
+    """Raise unless every given tensor is contiguous, on one CUDA device,
+    small enough for the kernels' 32-bit offsets, and fp32 — or, where
+    ``dtypes`` (one entry per tensor) is given, of a dtype in its entry."""
     dev = tensors[0].device
-    for t in tensors:
+    for i, t in enumerate(tensors):
         if t is None:
             continue
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: operands must share one CUDA device, "
                              f"got {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the CUDA kernel takes float32, got "
-                            f"{t.dtype}")
+        allowed = (torch.float32,) if dtypes is None else tuple(dtypes[i])
+        if t.dtype not in allowed:
+            raise TypeError(f"{name}: the CUDA kernel takes "
+                            f"{' or '.join(str(d)[6:] for d in allowed)} "
+                            f"for operand {i}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
         if t.numel() > _INT32_MAX:

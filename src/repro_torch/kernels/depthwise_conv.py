@@ -9,6 +9,9 @@ epilogue as the dense kernel.  It covers depthwise (cin_g = cout_g = 1),
 channel-multiplier (cin_g = 1, cout_g > 1) and general grouped (cin_g > 1)
 convolutions, and reads the HWIO weight directly, so neither the TPU
 kernel's group-blocked weight relayout nor its channel padding is needed.
+Its quantized variant (``w_scale``) takes int8 or fp8-e4m3 weights and an
+fp32 or int8 input, and multiplies the fp32 sum by the per-channel scale
+before the bias.
 
 :func:`choose_group_block` and :func:`choose_tiles_grouped` stay as plain
 Python for the JAX package's tiled traffic model
@@ -21,8 +24,10 @@ import torch
 from . import cuda_build
 from .merged_conv import _round8
 
-#: Kernel launches made by :func:`depthwise_conv` in this process.
+#: Kernel launches made by :func:`depthwise_conv` in this process: fp32,
+#: and the quantized variant.
 launches = 0
+launches_q = 0
 
 
 def choose_group_block(groups: int, cin_g: int, cout_g: int,
@@ -68,16 +73,20 @@ def choose_tiles_grouped(h: int, w: int, cin_g: int, cout_g: int,
 
 def depthwise_conv(x: torch.Tensor, w: torch.Tensor,
                    b: torch.Tensor | None = None, *, stride: int = 1,
-                   groups: int, activation: str | None = None
-                   ) -> torch.Tensor:
+                   groups: int, activation: str | None = None,
+                   w_scale: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the CUDA kernel: x (N,H,W,G·cin_g), w (kh,kw,cin_g,G·cout_g)
     → (N,Ho,Wo,G·cout_g).
 
-    fp32, contiguous tensors on one CUDA device; ``b`` (Cout,) or None.
-    The output is allocated here; the launch is asynchronous on the
-    current stream and raises if the launch is refused.
+    Contiguous tensors on one CUDA device; ``b`` (Cout,) fp32 or None.
+    Without ``w_scale`` every operand is fp32.  With ``w_scale`` (Cout,)
+    fp32 the quantized variant runs: ``w`` int8 or float8_e4m3fn, ``x``
+    fp32 or int8, and the sum is multiplied by ``w_scale`` before the
+    bias.  The output (fp32) is allocated here; the launch is
+    asynchronous on the current stream and raises if the launch is
+    refused.
     """
-    global launches
+    global launches, launches_q
     n, h, wd, cin = x.shape
     kh, kw, cin_g, cout = w.shape
     if (groups < 1 or cin != groups * cin_g or cout % groups or stride < 1
@@ -87,7 +96,16 @@ def depthwise_conv(x: torch.Tensor, w: torch.Tensor,
     if b is not None and tuple(b.shape) != (cout,):
         raise ValueError(f"depthwise_conv: bias {tuple(b.shape)} for "
                          f"Cout={cout}")
-    cuda_build.check_operands("depthwise_conv", x, w, b)
+    if w_scale is None:
+        cuda_build.check_operands("depthwise_conv", x, w, b)
+    else:
+        if tuple(w_scale.shape) != (cout,):
+            raise ValueError(f"depthwise_conv: w_scale "
+                             f"{tuple(w_scale.shape)} for Cout={cout}")
+        f32 = (torch.float32,)
+        cuda_build.check_operands(
+            "depthwise_conv", x, w, w_scale, b,
+            dtypes=(cuda_build.X_TYPES, cuda_build.W_TYPES, f32, f32))
     ho = (h - kh) // stride + 1
     wo = (wd - kw) // stride + 1
     y = torch.empty((n, ho, wo, cout), device=x.device, dtype=torch.float32)
@@ -95,10 +113,19 @@ def depthwise_conv(x: torch.Tensor, w: torch.Tensor,
         raise ValueError("depthwise_conv: output exceeds 32-bit indexing")
     if y.numel() == 0:
         return y
-    cuda_build.launch(
-        "depthwise_conv", x.device, x.data_ptr(), w.data_ptr(),
-        None if b is None else b.data_ptr(), y.data_ptr(), n, h, wd, cin, kh,
-        kw, cin_g, cout, groups, stride, ho, wo,
-        cuda_build.ACT_CODES[activation])
-    launches += 1
+    bias = None if b is None else b.data_ptr()
+    act = cuda_build.ACT_CODES[activation]
+    if w_scale is None:
+        cuda_build.launch("depthwise_conv", x.device, x.data_ptr(),
+                          w.data_ptr(), bias, y.data_ptr(), n, h, wd, cin,
+                          kh, kw, cin_g, cout, groups, stride, ho, wo, act)
+        launches += 1
+    else:
+        cuda_build.launch("depthwise_conv_q", x.device, x.data_ptr(),
+                          w.data_ptr(), w_scale.data_ptr(), bias,
+                          y.data_ptr(), n, h, wd, cin, kh, kw, cin_g, cout,
+                          groups, stride, ho, wo, act,
+                          cuda_build.X_TYPES[x.dtype],
+                          cuda_build.W_TYPES[w.dtype])
+        launches_q += 1
     return y

@@ -5,7 +5,10 @@ The kernel (``csrc/merged_conv.cu``) replaces the JAX package's Pallas
 ``merged_conv``: an implicit GEMM over the kh·kw·Cin reduction with an
 fp32 accumulator and a fused bias + activation epilogue.  It reads the
 NHWC input with stride s directly, so the phase-major relayout the TPU
-kernel needed for contiguous DMA windows is not carried over.
+kernel needed for contiguous DMA windows is not carried over.  Its
+quantized variant (``w_scale``) takes int8 or fp8-e4m3 weights and an
+fp32 or int8 input, and multiplies the fp32 sum by the per-channel scale
+before the bias.
 
 The arithmetic below — :func:`phase_extents`, :func:`choose_tiles`,
 :func:`input_traffic_model` — is the JAX package's tiled traffic model
@@ -22,8 +25,10 @@ import torch
 
 from . import cuda_build
 
-#: Kernel launches made by :func:`merged_conv` in this process.
+#: Kernel launches made by :func:`merged_conv` in this process: fp32, and
+#: the quantized variant.
 launches = 0
+launches_q = 0
 
 
 def phase_extents(kh: int, kw: int, stride: int) -> tuple[int, int, int, int]:
@@ -118,15 +123,19 @@ def input_traffic_model(h: int, w: int, cin: int, kh: int, kw: int,
 
 
 def merged_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
-                *, stride: int = 1, activation: str | None = None
-                ) -> torch.Tensor:
+                *, stride: int = 1, activation: str | None = None,
+                w_scale: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the CUDA kernel: x (N,H,W,Cin), w (kh,kw,Cin,Cout) → (N,Ho,Wo,Cout).
 
-    fp32, contiguous tensors on one CUDA device; ``b`` (Cout,) or None.
-    The output is allocated here; the launch is asynchronous on the
-    current stream and raises if the launch is refused.
+    Contiguous tensors on one CUDA device; ``b`` (Cout,) fp32 or None.
+    Without ``w_scale`` every operand is fp32.  With ``w_scale`` (Cout,)
+    fp32 the quantized variant runs: ``w`` int8 or float8_e4m3fn, ``x``
+    fp32 or int8, and the sum is multiplied by ``w_scale`` before the
+    bias.  The output (fp32) is allocated here; the launch is
+    asynchronous on the current stream and raises if the launch is
+    refused.
     """
-    global launches
+    global launches, launches_q
     n, h, wd, cin = x.shape
     kh, kw, cin_w, cout = w.shape
     if cin_w != cin or stride < 1 or h < kh or wd < kw:
@@ -134,7 +143,16 @@ def merged_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
                          f" stride {stride}")
     if b is not None and tuple(b.shape) != (cout,):
         raise ValueError(f"merged_conv: bias {tuple(b.shape)} for Cout={cout}")
-    cuda_build.check_operands("merged_conv", x, w, b)
+    if w_scale is None:
+        cuda_build.check_operands("merged_conv", x, w, b)
+    else:
+        if tuple(w_scale.shape) != (cout,):
+            raise ValueError(f"merged_conv: w_scale {tuple(w_scale.shape)} "
+                             f"for Cout={cout}")
+        f32 = (torch.float32,)
+        cuda_build.check_operands(
+            "merged_conv", x, w, w_scale, b,
+            dtypes=(cuda_build.X_TYPES, cuda_build.W_TYPES, f32, f32))
     ho = (h - kh) // stride + 1
     wo = (wd - kw) // stride + 1
     y = torch.empty((n, ho, wo, cout), device=x.device, dtype=torch.float32)
@@ -142,9 +160,18 @@ def merged_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
         raise ValueError("merged_conv: output exceeds 32-bit indexing")
     if y.numel() == 0:
         return y
-    cuda_build.launch(
-        "merged_conv", x.device, x.data_ptr(), w.data_ptr(),
-        None if b is None else b.data_ptr(), y.data_ptr(), n, h, wd, cin, kh,
-        kw, cout, stride, ho, wo, cuda_build.ACT_CODES[activation])
-    launches += 1
+    bias = None if b is None else b.data_ptr()
+    act = cuda_build.ACT_CODES[activation]
+    if w_scale is None:
+        cuda_build.launch("merged_conv", x.device, x.data_ptr(), w.data_ptr(),
+                          bias, y.data_ptr(), n, h, wd, cin, kh, kw, cout,
+                          stride, ho, wo, act)
+        launches += 1
+    else:
+        cuda_build.launch("merged_conv_q", x.device, x.data_ptr(),
+                          w.data_ptr(), w_scale.data_ptr(), bias, y.data_ptr(),
+                          n, h, wd, cin, kh, kw, cout, stride, ho, wo, act,
+                          cuda_build.X_TYPES[x.dtype],
+                          cuda_build.W_TYPES[w.dtype])
+        launches_q += 1
     return y

@@ -9,14 +9,20 @@ the rank-r residual) and dispatches on where its input lies:
 * a CUDA tensor launches the hand-written kernel, or raises.  There is no
   fallback: a kernel that fails to build or launch is an error.
 
-The quantized paths (``w_scale`` / ``u_scale`` / ``act_quant``) have plain versions
-(``*_qref``) but no CUDA kernel yet; on a CUDA tensor they raise
-``NotImplementedError`` naming the ROADMAP row that ports them.
+The quantized paths (``w_scale`` / ``u_scale`` / ``act_quant``) launch
+each kernel's quantized variant on the card (narrow weights, fp32 sums,
+the per-channel scale applied after the sum) and the plain ``*_qref``
+versions on the CPU.  With ``act_quant="w8a8"`` the op quantizes the
+activation per tensor (:func:`.quant.quantize_int8`) and folds its scale
+into the weight's channel scale — plain PyTorch on the device, as the
+JAX package does it with ``jnp`` outside its Pallas kernels.  The scale
+never leaves the device: the kernel reads the folded vector from device
+memory, so the op makes no host sync and can be captured in a CUDA graph.
 
 Launch counts: each kernel wrapper adds one to its module's ``launches``
-per launch; :func:`launch_counts` reads them and
-:func:`reset_launch_counts` sets them to zero, so a run can show that its
-path went through the kernels.
+(fp32) or ``launches_q`` (quantized variant) per launch;
+:func:`launch_counts` reads them and :func:`reset_launch_counts` sets them
+to zero, so a run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
@@ -25,11 +31,7 @@ import torch
 from . import depthwise_conv as _dw
 from . import merged_conv as _mc
 from . import merged_ffn as _mf
-from . import ref
-
-_QUANT_ROW = ("the quantized {name} kernel (int8 / w8a8 / fp8 weights with "
-              "per-channel scales) is not ported yet: ROADMAP.md queue 2, 'quantized "
-              "{name}'")
+from . import quant, ref
 
 
 def _on_cuda(x: torch.Tensor, name: str) -> bool:
@@ -50,6 +52,17 @@ def channel_tile(cout: int, requested: int | None) -> int:
     return -(-max(cout, 8) // 8) * 8
 
 
+def _quantized_activation(x, scale, act_quant: str):
+    """``(x, scale)`` as the quantized kernels take them: under w8a8 the
+    int8 activation and the channel scale times its per-tensor scale (both
+    computed on x's device), else ``x`` and the channel scale in fp32."""
+    scale = scale.float()
+    if act_quant == "w8a8":
+        x, x_scale = quant.quantize_int8(x)
+        scale = scale * x_scale
+    return x, scale.contiguous()
+
+
 def merged_conv_op(x, w, b=None, *, stride: int = 1,
                    activation: str | None = None, w_scale=None,
                    act_quant: str = "none"):
@@ -63,11 +76,12 @@ def merged_conv_op(x, w, b=None, *, stride: int = 1,
         else:
             y = ref.merged_conv_ref(x, w, b, stride=stride)
         return ref.apply_activation(y, activation)
+    ws = None
     if w_scale is not None:
-        raise NotImplementedError(_QUANT_ROW.format(name="merged_conv"))
+        x, ws = _quantized_activation(x, w_scale, act_quant)
     return _mc.merged_conv(x.contiguous(), w.contiguous(),
                            None if b is None else b.contiguous(),
-                           stride=stride, activation=activation)
+                           stride=stride, activation=activation, w_scale=ws)
 
 
 def depthwise_conv_op(x, w, b=None, *, stride: int = 1,
@@ -86,12 +100,13 @@ def depthwise_conv_op(x, w, b=None, *, stride: int = 1,
         else:
             y = ref.depthwise_conv_ref(x, w, b, stride=stride, groups=groups)
         return ref.apply_activation(y, activation)
+    ws = None
     if w_scale is not None:
-        raise NotImplementedError(_QUANT_ROW.format(name="depthwise_conv"))
+        x, ws = _quantized_activation(x, w_scale, act_quant)
     return _dw.depthwise_conv(x.contiguous(), w.contiguous(),
                               None if b is None else b.contiguous(),
                               stride=stride, groups=groups,
-                              activation=activation)
+                              activation=activation, w_scale=ws)
 
 
 def merged_ffn_op(x, u, v, *, u_scale=None, v_scale=None,
@@ -99,27 +114,36 @@ def merged_ffn_op(x, u, v, *, u_scale=None, v_scale=None,
     """``(..., D)`` rank-r residual ``x + (x@U)@V``.  ``u_scale``
     (per-rank-column) and ``v_scale`` (per-output-column) mark ``u``/``v``
     as narrow; ``act_quant="w8a8"`` also quantizes the activation feeding
-    the two products.  On the card the kernel takes fp32 only: another
-    dtype raises, it is never upcast silently."""
+    the two products (the residual stays the fp32 ``x``).  On the card
+    the fp32 kernel takes fp32 only: another dtype raises, it is never
+    upcast silently."""
     if not _on_cuda(x, "merged_ffn_op"):
         if u_scale is not None:
             return ref.merged_ffn_qref(x, u, v, u_scale, v_scale,
                                        act_quant=act_quant)
         return ref.merged_ffn_ref(x, u, v)
-    if u_scale is not None:
-        raise NotImplementedError(_QUANT_ROW.format(name="merged_ffn"))
     shape = x.shape
     x2 = x.reshape(-1, shape[-1]).contiguous()
-    return _mf.merged_ffn(x2, u.contiguous(), v.contiguous()).reshape(shape)
+    if u_scale is None:
+        return _mf.merged_ffn(x2, u.contiguous(),
+                              v.contiguous()).reshape(shape)
+    xq, us = _quantized_activation(x2, u_scale, act_quant)
+    return _mf.merged_ffn(x2, u.contiguous(), v.contiguous(), u_scale=us,
+                          v_scale=v_scale.float().contiguous(),
+                          xq=None if xq is x2 else xq.contiguous()
+                          ).reshape(shape)
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches in this process since the last reset."""
+    """Kernel launches in this process since the last reset: each fp32
+    kernel and (``*_q``) its quantized variant."""
     return {"merged_conv": _mc.launches, "depthwise_conv": _dw.launches,
-            "merged_ffn": _mf.launches}
+            "merged_ffn": _mf.launches, "merged_conv_q": _mc.launches_q,
+            "depthwise_conv_q": _dw.launches_q,
+            "merged_ffn_q": _mf.launches_q}
 
 
 def reset_launch_counts() -> None:
-    _mc.launches = 0
-    _dw.launches = 0
-    _mf.launches = 0
+    for mod in (_mc, _dw, _mf):
+        mod.launches = 0
+        mod.launches_q = 0

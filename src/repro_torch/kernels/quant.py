@@ -5,7 +5,11 @@ Same semantics as the JAX package's ``kernels/quant.py``:
 (``q ∈ [-127, 127]``), per-tensor (``axis=None``, scalar scale) or
 per-channel (``axis=i``, one scale per slice along axis ``i``).
 ``torch.round`` rounds half to even, as ``jnp.round`` does, so the two
-packages produce the same integers from the same floats.
+packages produce the same integers from the same floats.  The scale is a
+true division by a tensor of 127 (or 448) on the input's device: PyTorch's
+CUDA division by a Python number multiplies by its reciprocal, which
+differs from the division in the last bit for some inputs, so codes and
+scales would differ between the card and the CPU.
 
 fp8 (``float8_e4m3fn``) scales by ``amax / 448`` (the e4m3 finite max);
 the cast rounds to nearest even.
@@ -49,9 +53,14 @@ def _divisor(scale: torch.Tensor, ndim: int, axis):
     return scale.reshape(shape)
 
 
+def _scale(x: torch.Tensor, axis, qmax: float) -> torch.Tensor:
+    amax = torch.clamp(_amax(x, axis), min=1e-30)
+    return amax / torch.full_like(amax, qmax)
+
+
 def quantize_int8(x: torch.Tensor, axis: int | None = None):
     """Symmetric int8: returns ``(q, scale)`` (see module docstring)."""
-    scale = torch.clamp(_amax(x, axis), min=1e-30) / INT8_QMAX
+    scale = _scale(x, axis, INT8_QMAX)
     q = torch.clamp(torch.round(x.float() / _divisor(scale, x.ndim, axis)),
                     -INT8_QMAX, INT8_QMAX)
     return q.to(torch.int8), scale
@@ -60,7 +69,7 @@ def quantize_int8(x: torch.Tensor, axis: int | None = None):
 def quantize_fp8(x: torch.Tensor, axis: int | None = None):
     """Symmetric float8_e4m3fn: same scale layout as int8; the cast's
     round-to-nearest-even does the rounding."""
-    scale = torch.clamp(_amax(x, axis), min=1e-30) / FP8_E4M3_MAX
+    scale = _scale(x, axis, FP8_E4M3_MAX)
     q = (x.float() / _divisor(scale, x.ndim, axis)).to(torch.float8_e4m3fn)
     return q, scale
 

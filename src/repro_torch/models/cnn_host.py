@@ -43,6 +43,11 @@ class CNNHost:
     # working set (see core.latency.conv2d_cost).
     tile_budget: float | None = None
     device: str | torch.device = "cuda"
+    # Split weight / activation byte widths of the cost model; None is
+    # ``dtype_bytes`` (bit-identical fp costs).  A quantized segment
+    # overrides both through ``segment_cost(seg, quant=...)``.
+    w_bytes: int | None = None
+    act_bytes: int | None = None
 
     def __post_init__(self):
         self.device = resolve(self.device)
@@ -73,12 +78,23 @@ class CNNHost:
             if l in kept and self.net.spec(l).kind == "conv")
 
     # -- latency ----------------------------------------------------------------
-    def segment_cost(self, seg: Segment) -> CostBreakdown:
-        """Analytic cost of the merged segment at its true input shape."""
+    def segment_cost(self, seg: Segment, quant: str = "none"
+                     ) -> CostBreakdown | None:
+        """Analytic cost of the merged segment at its true input shape.
+
+        ``quant`` (or ``seg.quant``) prices it at narrow byte widths —
+        int8 / fp8 weights, int8 activations under 'w8a8'.  ``None`` when
+        a quantized cost is asked of a segment the quantized kernels do
+        not run (a pool, upsample or attention barrier): the table
+        builder's signal that the span has no quantized sibling.
+        """
+        q = quant if quant != "none" else seg.quant
         h, w, cin = self._shapes[seg.i]
         _, _, cout = self._shapes[seg.j]
         s_last = self.net.spec(seg.j)
         if s_last.kind != "conv":
+            if q != "none":
+                return None
             if s_last.kind == "attn":
                 n = h * w
                 flops = 4 * 2 * n * cin * cin + 2 * n * n * cin * 2
@@ -91,21 +107,27 @@ class CNNHost:
         return conv2d_cost(h, w, cin, cout, K, stride=S,
                            depthwise=self._is_depthwise(seg),
                            dtype_bytes=self.dtype_bytes, batch=self.batch,
-                           tile_budget=self.tile_budget)
+                           tile_budget=self.tile_budget,
+                           w_bytes=kernels.quant.weight_bytes(q)
+                           or self.w_bytes,
+                           act_bytes=kernels.quant.act_bytes(q)
+                           or self.act_bytes)
 
     def probe_signature(self, seg: Segment):
         """Shape signature bucketing this segment's latency probe: every
-        input of ``segment_cost`` and of the probe's shapes."""
+        input of ``segment_cost`` and of the probe's shapes, ending in the
+        host's byte widths (the JAX package's signature)."""
         h, w, cin = self._shapes[seg.i]
         _, _, cout = self._shapes[seg.j]
         s_last = self.net.spec(seg.j)
         if s_last.kind != "conv":
             return (s_last.kind, h, w, cin, s_last.k, s_last.stride,
-                    self.batch, self.dtype_bytes)
+                    self.batch, self.dtype_bytes, self.w_bytes,
+                    self.act_bytes)
         K, S = cnn.segment_geometry(self.net, seg)
         dw = self._is_depthwise(seg)
         return ("conv", h, w, cin, cout, K, S, dw, cin if dw else 1,
-                self.batch, self.dtype_bytes)
+                self.batch, self.dtype_bytes, self.w_bytes, self.act_bytes)
 
     def segment_probe(self, seg: Segment, params=None) -> ProbeCallable:
         """The merged segment's forward on a zero batch, as (fn, args)."""

@@ -36,6 +36,7 @@ from repro_torch.core.plan import CompressionPlan, LayerDesc, Segment
 from repro_torch.core.probe_engine import ProbeCallable
 from repro_torch.core.segments import SegmentEnumerator
 from repro_torch.device import resolve
+from repro_torch.kernels import quant as Q
 from repro_torch.runtime import executor, ir
 
 from . import transformer as T
@@ -50,11 +51,15 @@ class CostEnv:
     ``dtype_bytes`` stays the JAX package's 2 even for fp32 configs, so
     the analytic latency column is bit-identical to the JAX package's
     under its constants; it prices bf16 operands, not what the port
-    moves.
+    moves.  ``w_bytes`` / ``act_bytes`` split the merged rank maps'
+    weight and activation widths (None is ``dtype_bytes``); a quantized
+    segment overrides both through ``segment_cost(seg, quant=...)``.
     """
     batch: int = 8
     seq: int = 2048
     dtype_bytes: int = 2
+    w_bytes: int | None = None
+    act_bytes: int | None = None
 
 
 @dataclasses.dataclass
@@ -148,21 +153,37 @@ class TransformerHost:
             return min(seg.k, self.cfg.d_model)
         return 0
 
-    def segment_cost(self, seg: Segment) -> CostBreakdown:
-        """Analytic cost: the boundary block plus the merged rank map."""
+    def segment_cost(self, seg: Segment, quant: str = "none"
+                     ) -> CostBreakdown | None:
+        """Analytic cost: the boundary block plus the merged rank map.
+
+        ``quant`` (or ``seg.quant``) prices the rank map at narrow byte
+        widths; ``None`` when a quantized cost is asked of a segment with
+        no merged rank map (the kept boundary sublayer is never
+        quantized): the table builder's signal that it has no quantized
+        sibling."""
+        q = quant if quant != "none" else seg.quant
+        env = self.env
         cost = self._block_cost(self.kinds[seg.j - 1])
         rank = self._rank(seg)
         if rank > 0:
-            cost = cost + rank_ffn_cost(self._tokens(), self.cfg.d_model,
-                                        rank, self.env.dtype_bytes)
+            cost = cost + rank_ffn_cost(
+                self._tokens(), self.cfg.d_model, rank, env.dtype_bytes,
+                w_bytes=Q.weight_bytes(q) or env.w_bytes,
+                act_bytes=Q.act_bytes(q) or env.act_bytes)
+        elif q != "none":
+            return None
         return cost
 
     def probe_signature(self, seg: Segment):
         """Latency-bucketing signature: boundary kind + effective rank,
-        with the config and workload that fix every shape — weight values
-        never enter, so one probe serves the bucket."""
-        return ("tseg", self.kinds[seg.j - 1], self._rank(seg),
-                self.env.batch, self.env.seq, self.env.dtype_bytes, self.cfg)
+        with the workload, the byte widths and the config that fix every
+        shape — weight values never enter, so one probe serves the
+        bucket."""
+        env = self.env
+        return ("tseg", self.kinds[seg.j - 1], self._rank(seg), env.batch,
+                env.seq, env.dtype_bytes, env.w_bytes, env.act_bytes,
+                self.cfg)
 
     def segment_probe(self, seg: Segment, params=None) -> ProbeCallable:
         """The merged segment's unit chain on a zero fp32 batch of
@@ -199,8 +220,14 @@ class TransformerHost:
             if merged:
                 u, v = M.merge_linear_residual_chain(factors)
                 u, v = M.truncate_rank(u, v, self.cfg.d_model)
-                units.append(ir.LowRankUnit(params={"u": u.contiguous(),
-                                                    "v": v.contiguous()}))
+                qp = {"u": u.contiguous(), "v": v.contiguous()}
+                if seg.quant != "none":
+                    # Deployed form only: narrow u / v with a scale per
+                    # output column (the replaced path stays fp).
+                    uq, us = Q.quantize_weight(u, seg.quant, axis=1)
+                    vq, vs = Q.quantize_weight(v, seg.quant, axis=1)
+                    qp = {"u": uq, "v": vq, "u_scale": us, "v_scale": vs}
+                units.append(ir.LowRankUnit(quant=seg.quant, params=qp))
             else:
                 units.extend(ir.LowRankUnit(params={"u": u, "v": v})
                              for u, v in factors)

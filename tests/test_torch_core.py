@@ -238,10 +238,7 @@ def test_probe_signatures_and_costs_match():
     jh, th = _hosts("tiny_mobilenet")
     from repro_torch.core.tables import enumerate_probes
     for *_, seg in enumerate_probes(th):
-        # The JAX signature ends in its quantization byte widths (None
-        # here): the port has no quantized plans yet.
-        assert jh.probe_signature(seg)[-2:] == (None, None)
-        assert th.probe_signature(seg) == jh.probe_signature(seg)[:-2]
+        assert th.probe_signature(seg) == jh.probe_signature(seg)
         a, b = th.segment_cost(seg), jh.segment_cost(seg)
         assert (a.flops, a.hbm_bytes) == (b.flops, b.hbm_bytes)
 

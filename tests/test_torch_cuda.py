@@ -5,7 +5,10 @@ JAX nor the JAX package, so it runs on a machine with only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Kernel vs plain version: ``rtol = atol = 1e-4`` (fp32 sums in another
-order; an indexing fault is O(1)).
+order; an indexing fault is O(1)).  The quantized variants are held
+against the plain ``*_qref`` versions on the same card inputs (the same
+integer codes on both sides), with the same tolerance relative to the
+largest output.
 """
 import itertools
 
@@ -87,22 +90,109 @@ def test_merged_ffn_refuses_other_dtypes_and_scales():
     u, v = torch.ones(32, 8, device=dev), torch.ones(8, 32, device=dev)
     with pytest.raises(TypeError, match="float32"):
         tk.merged_ffn_op(x.bfloat16(), u.bfloat16(), v.bfloat16())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="u_scale"):
         tk.merged_ffn_op(x, u.to(torch.int8), v.to(torch.int8),
-                         u_scale=torch.ones(8, device=dev),
+                         u_scale=torch.ones(9, device=dev),
+                         v_scale=torch.ones(32, device=dev))
+    with pytest.raises(TypeError, match="int8"):
+        tk.merged_ffn_op(x, u, v, u_scale=torch.ones(8, device=dev),
                          v_scale=torch.ones(32, device=dev))
 
 
-def test_quantized_paths_raise_on_the_card():
+#: (weight mode of ``quant.quantize_weight``, the op's ``act_quant``)
+QMODES = {"int8": ("int8", "none"), "w8a8": ("int8", "w8a8"),
+          "fp8": ("fp8", "none")}
+
+
+def _close_to(y, yr):
+    """|y − yr| ≤ 1e-4 · max |yr| + 1e-4 (fp32 sums in another order)."""
+    y, yr = y.cpu().numpy(), yr.cpu().numpy()
+    assert y.shape == yr.shape and np.isfinite(y).all()
+    assert np.abs(y - yr).max() <= 1e-4 * np.abs(yr).max() + 1e-4
+
+
+@pytest.mark.parametrize("mode,stride,k", itertools.product(
+    QMODES, (1, 2, 3), (1, 3, 5, 7)))
+def test_quantized_kernels_match_plain_versions(mode, stride, k):
     dev = _card()
-    x, w, b = _data(0, (1, 5, 5, 4), (3, 3, 4, 6))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.merged_conv_op(x.to(dev), w.to(dev), b.to(dev),
-                          w_scale=torch.ones(6, device=dev))
-    xd, wd, bd = _data(0, (1, 5, 5, 6), (3, 3, 1, 6))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.depthwise_conv_op(xd.to(dev), wd.to(dev), bd.to(dev),
-                             w_scale=torch.ones(6, device=dev))
+    wmode, aq = QMODES[mode]
+    before = tk.launch_counts()
+    x, w, b = _data(k + stride, (2, k + 4 * stride, k + 3 * stride, 19),
+                    (k, k, 19, 70))
+    x = x.to(dev)
+    wq, ws = tk.quant.quantize_weight(w.to(dev), wmode, axis=3)
+    y = tk.merged_conv_op(x, wq, b.to(dev), stride=stride, w_scale=ws,
+                          act_quant=aq, activation="relu6")
+    _close_to(y, tk.apply_activation(tk.merged_conv_qref(
+        x, wq, b.to(dev), ws, stride=stride, act_quant=aq), "relu6"))
+    for groups, cin_g, cout_g in ((13, 1, 1), (6, 1, 3), (3, 4, 5)):
+        x, w, b = _data(k, (2, k + 4 * stride, k + 3 * stride,
+                            groups * cin_g), (k, k, cin_g, groups * cout_g))
+        x = x.to(dev)
+        wq, ws = tk.quant.quantize_weight(w.to(dev), wmode, axis=3)
+        y = tk.depthwise_conv_op(x, wq, None, stride=stride, groups=groups,
+                                 w_scale=ws, act_quant=aq, activation="silu")
+        _close_to(y, tk.apply_activation(tk.depthwise_conv_qref(
+            x, wq, None, ws, stride=stride, groups=groups, act_quant=aq),
+            "silu"))
+    after = tk.launch_counts()
+    assert after["merged_conv_q"] == before["merged_conv_q"] + 1
+    assert after["depthwise_conv_q"] == before["depthwise_conv_q"] + 3
+    assert after["merged_conv"] == before["merged_conv"]
+
+
+@pytest.mark.parametrize("mode,m,d,r", [
+    (mode, *shape) for mode in QMODES
+    for shape in ((1, 96, 24), (8, 576, 576), (37, 96, 576), (1024, 576, 576),
+                  (3, 1100, 70))])
+def test_quantized_merged_ffn_matches_plain_version(mode, m, d, r):
+    dev = _card()
+    wmode, aq = QMODES[mode]
+    rng = np.random.default_rng(m + d + r)
+    x = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32))
+    u = torch.from_numpy((rng.standard_normal((d, r)) / np.sqrt(d))
+                         .astype(np.float32))
+    v = torch.from_numpy((rng.standard_normal((r, d)) / np.sqrt(r))
+                         .astype(np.float32))
+    x = x.to(dev)
+    uq, us = tk.quant.quantize_weight(u.to(dev), wmode, axis=1)
+    vq, vs = tk.quant.quantize_weight(v.to(dev), wmode, axis=1)
+    before = tk.launch_counts()["merged_ffn_q"]
+    y = tk.merged_ffn_op(x, uq, vq, u_scale=us, v_scale=vs, act_quant=aq)
+    assert tk.launch_counts()["merged_ffn_q"] == before + 1
+    _close_to(y, tk.merged_ffn_qref(x, uq, vq, us, vs, act_quant=aq))
+
+
+def test_w8a8_activation_quantization_stays_on_the_card():
+    """The op quantizes the activation and folds its scale on the device:
+    the whole quantized op can be captured in a CUDA graph (a host sync
+    would fail the capture)."""
+    dev = _card()
+    x = torch.randn(8, 576, device=dev)
+    uq, us = tk.quant.quantize_weight(torch.randn(576, 64, device=dev) / 24,
+                                      "int8", axis=1)
+    vq, vs = tk.quant.quantize_weight(torch.randn(64, 576, device=dev) / 8,
+                                      "int8", axis=1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tk.merged_ffn_op(x, uq, vq, u_scale=us, v_scale=vs, act_quant="w8a8")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = tk.merged_ffn_op(x, uq, vq, u_scale=us, v_scale=vs,
+                             act_quant="w8a8")
+    graph.replay()
+    _close_to(y, tk.merged_ffn_qref(x, uq, vq, us, vs, act_quant="w8a8"))
+
+
+def test_quantize_int8_is_bitwise_the_cpus():
+    dev = _card()
+    x = torch.randn(64, 576, generator=torch.Generator().manual_seed(0)) * 3
+    for axis in (None, 1):
+        q, s_ = tk.quant.quantize_int8(x, axis=axis)
+        qd, sd = tk.quant.quantize_int8(x.to(dev), axis=axis)
+        assert torch.equal(qd.cpu(), q) and torch.equal(sd.cpu(), s_)
 
 
 def test_tiny_network_on_the_card_matches_the_cpu(tmp_path):
@@ -119,6 +209,25 @@ def test_tiny_network_on_the_card_matches_the_cpu(tmp_path):
     y_cpu = runtime.load(out, device="cpu").apply(x)
     np.testing.assert_allclose(y.cpu().numpy(), y_cpu.numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+def test_tiny_quantized_network_on_the_card(tmp_path):
+    dev = _card()
+    from repro_torch import runtime
+    from repro_torch.compress import main
+    out = str(tmp_path / "tq.npz")
+    summary = main(["--arch", "tiny_mobilenet", "--quantize", "w8a8",
+                    "--out", out])
+    assert summary["quantized_units"] > 0
+    x = torch.randn(4, 16, 16, 3, generator=torch.Generator().manual_seed(0))
+    tk.reset_launch_counts()
+    y = runtime.load(out).apply(x.to(dev))
+    assert tk.launch_counts()["depthwise_conv_q"] > 0
+    y_cpu = runtime.load(out, device="cpu").apply(x)
+    # an int8 code can differ by one step where fp32 reassociation moved
+    # an activation across a rounding boundary: 1/127 of its range, rare
+    np.testing.assert_allclose(y.cpu().numpy(), y_cpu.numpy(), rtol=1e-2,
+                               atol=1e-2)
 
 
 def test_tiny_lm_on_the_card_matches_the_cpu(tmp_path):

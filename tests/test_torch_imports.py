@@ -40,7 +40,13 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert len(mods) >= 20, mods
     for m in ("repro_torch.configs.base", "repro_torch.models.transformer",
               "repro_torch.models.transformer_host",
-              "repro_torch.runtime.serving", "repro_torch.kernels.merged_ffn"):
+              "repro_torch.runtime.serving", "repro_torch.kernels.merged_ffn",
+              "repro_torch.kernels.merged_conv",
+              "repro_torch.kernels.depthwise_conv",
+              "repro_torch.kernels.cuda_build", "repro_torch.kernels.ops",
+              "repro_torch.kernels.quant", "repro_torch.core.latency",
+              "repro_torch.core.tables", "repro_torch.core.compress",
+              "repro_torch.models.cnn_host", "repro_torch.compress"):
         assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -120,12 +126,17 @@ def test_wallclock_oracle_refuses_the_cpu():
 def test_cuda_kernels_build_lazily():
     """Importing the kernel modules neither builds nor needs nvcc."""
     from repro_torch.kernels import cuda_build
-    assert set(cuda_build.SIGNATURES) == {"merged_conv", "depthwise_conv",
-                                          "merged_ffn"}
-    for name in cuda_build.SIGNATURES:
+    assert cuda_build.SOURCES == ("depthwise_conv", "merged_conv",
+                                  "merged_ffn")
+    assert set(cuda_build.SIGNATURES) == {
+        f"{s}{q}" for s in cuda_build.SOURCES for q in ("", "_q")}
+    for name in cuda_build.SOURCES:
         src = cuda_build.CSRC / f"{name}.cu"
         assert src.exists()
-        assert "extern \"C\"" in src.read_text()
+        text = src.read_text()
+        for entry, (source, c_name, _) in cuda_build.SIGNATURES.items():
+            if source == name:
+                assert f"extern \"C\" int {c_name}(" in text, entry
         assert cuda_build.library_path(name).name.startswith(f"lib{name}-")
 
 
