@@ -7,22 +7,30 @@
 Phases, each printing its own line with the seconds it took:
 
 1. card    — ``nvidia-smi`` name and power limit; TF32 off.
-2. build   — the three hand-written kernel sources from
-             ``src/repro_torch/kernels/csrc`` with ``nvcc`` (in parallel),
-             each with its fp32 and quantized entry points, with
-             ``-Xptxas -v`` resources.
+2. build   — the six hand-written kernel sources from
+             ``src/repro_torch/kernels/csrc`` with ``nvcc`` (in parallel;
+             the three merged-segment kernels with their fp32 and
+             quantized entry points), with ``-Xptxas -v`` resources.
 3. kernels — each kernel against its plain PyTorch version on the card:
              the convs over strides {1,2,3} × k {1,2,3,5,7,11}, ragged
              shapes, every activation, no bias, and the depthwise /
              channel-multiplier / grouped cases; merged_ffn over
              M {1,8,37,1024} × D {32,96,576} × R {1,24,576,1152,1536}
-             (1536: the replaced path's unmerged SmolLM FFN).  Then the
+             (1536: the replaced path's unmerged SmolLM FFN) and at
+             D 2560 × R {24,2560,7680} × M {8,1024} (RecurrentGemma; the
+             multi-cluster path).  Then the
              quantized variants in int8, w8a8 and fp8 against ``*_qref``:
              the convs over strides {1,2,3} × k {1,3,5,7} with the same
              cases, merged_ffn over M {1,8,37,1024} × D {96,576} ×
              R {24,576}, within the same tolerance over the dequantized
-             operands; and ``quant.quantize_int8`` on the card bitwise
-             equal to the CPU's.
+             operands; ``quant.quantize_int8`` on the card bitwise
+             equal to the CPU's; rmsnorm over M {1,8,37,1024} ×
+             D {32,512,576,2560,2561}; rglru_scan over B {1,8} ×
+             S {1,7,128,512} × C {32,256,2560,2561} (also bitwise);
+             flash_attention over BH {1,8,80} × S {1,7,16,128,256,1000} ×
+             D {32,64,256}, causal and not, with grouped and multi-query
+             kv heads; ``benchmarks/run.py``'s three shapes; and the
+             gradient of ``flash_attention_op`` through the kernel.
 4. compress — the main path: ``python -m repro_torch.compress`` on
              MobileNetV2 at full width (224², width 1.0, 1000 classes,
              batch 8, ``--max-span 6``, budget 0.6), latency tables timed
@@ -37,8 +45,10 @@ Phases, each printing its own line with the seconds it took:
              its shape and weights: kernel against plain version, and the
              time of kernel, plain version and the one-call library
              yardstick (``F.conv2d``, cuDNN, TF32 off) beside the bound.
-             Times are device times: 50 calls captured in a CUDA graph
-             and replayed (:func:`kernel_time`).
+             Times are device times with a cold L2: 50 calls, each after
+             a read that evicts the L2, captured in a CUDA graph and
+             replayed, less the evicting reads alone (:func:`kernel_time`);
+             so the inputs come from HBM, as the byte bound prices them.
 7. resnet34 — ResNet34 at full width with the analytic oracle: lower,
              execute on the card (pool, projection shortcuts, the 7×7
              stride-2 stem), and hold against the CPU port.
@@ -97,9 +107,34 @@ Phases, each printing its own line with the seconds it took:
              and one unit's kernel alone in each variant (fp32, int8,
              w8a8, fp8).
 
+15. rg compress — RecurrentGemma-2B at full size in fp32 (26 layers:
+             rglru, rglru, attn_local; d 2560, 10 heads over 1 kv head,
+             GeGLU 7680, vocab 256000; random weights, seed 0),
+             ``CostEnv(batch=8, seq=128)``, ``method="depth"``, tables
+             timed on the card (probes through rmsnorm, rglru_scan,
+             flash_attention and merged_ffn), phase 8's budget ladder to
+             the first plan that merges an FFN — or, where the card's
+             tables merge none, the tightest merging plan under the H100
+             roofline (the line says which); the artifact is saved.
+16. rg serve — the artifact on the card serves phase 9's protocol (8
+             prompts x 16 tokens, 32 greedy tokens, RG-LRU state and the
+             local KV ring buffer); every step's logits, teacher-forced,
+             against the CPU port of the artifact, and the prefill
+             forward against ``replaced_apply``; CUDA-event prefill and
+             decode beside the original model; launches per decode step
+             and per prefill forward.  The launches of rmsnorm,
+             rglru_scan, flash_attention and merged_ffn over phases 15-16
+             (counted from zero) must each be > 0.
+17. rg kernels — rmsnorm, rglru_scan and flash_attention at the path's
+             shapes (and SmolLM's), merged_ffn at D 2560: kernel, plain
+             version, library yardstick (``F.rms_norm``,
+             ``F.scaled_dot_product_attention``, ``addmm``; none for the
+             scan) and bound, as device times; the new kernels' rows of
+             the ``kernels`` line are their probe shapes.
+
 Any failed check raises, so the script exits non-zero.  Per-unit shapes
 and times of the quantized phases land in ``build/chip_smoke/qunits.json``
-and ``qffn.json``.  It exits non-zero
+and ``qffn.json``, RecurrentGemma's in ``rg.json``.  It exits non-zero
 without a result where ``torch.cuda.is_available()`` is false or the repo's
 ``src/`` is missing.  The last lines are the ``kernels`` JSON line, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -117,6 +152,7 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 
 H100_FP32_FLOPS = 67e12          # fp32 outside the tensor cores, data sheet
 H100_HBM_BW = 3.35e12            # bytes/s, data sheet
+H100_L2_BYTES = 50 * 2**20       # data sheet
 
 # Kernel vs plain version: |y − ref| ≤ RTOL · (|x| ⋆ |w| + |b|) + ATOL per
 # output.  Both sides accumulate in fp32 in different orders (the kernel
@@ -152,13 +188,39 @@ def check(ok: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
+_L2_EVICT = []
+
+
+def l2_evict():
+    """Read a buffer of four times the L2, so that nothing an earlier call
+    left there is still cached."""
+    import torch
+    if not _L2_EVICT:
+        # fp32: 4 bytes an element, so four L2s of bytes
+        _L2_EVICT.append(torch.ones(H100_L2_BYTES, device="cuda"))
+    return _L2_EVICT[0].sum()
+
+
 def kernel_time(fn) -> float:
-    """Device milliseconds per call of ``fn``: 50 calls captured in a
-    CUDA graph and replayed 5 times (the wall-clock oracle's protocol), so
-    that host dispatch does not hide a kernel's own time."""
+    """Device milliseconds per call of ``fn`` with a cold L2: 50 calls,
+    each after :func:`l2_evict`, captured in a CUDA graph and replayed 10
+    times (the wall-clock oracle's protocol, so that host dispatch does
+    not hide a kernel's own time), less the same for the evicting reads
+    alone.  Each call then reads its inputs from HBM, as the byte bound
+    (``H100_HBM_BW``) prices them; replaying warm inputs would let L2
+    serve inputs under 50 MB and beat that bound."""
     from repro_torch.core import WallClockOracle
-    return WallClockOracle(warmup=3, iters=250, groups=5).time_callable(
-        fn) * 1e3
+    oracle = WallClockOracle(warmup=3, iters=500, groups=10)
+    both = oracle.time_callable(lambda: (l2_evict(), fn()))
+    alone = oracle.time_callable(l2_evict)
+    return (both - alone) * 1e3
+
+
+def check_bound(name: str, ms: float, bound_ms: float) -> None:
+    """A kernel cannot beat its bound: a share above 1 means the byte or
+    operation count, or the timing, is wrong."""
+    check(bound_ms <= ms, f"{name}: {ms:.5f} ms is under its bound "
+          f"{bound_ms:.5f} ms (share {bound_ms / ms:.3f})")
 
 
 def cuda_time(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -181,10 +243,25 @@ def cuda_time(fn, iters: int = 50, warmup: int = 5) -> float:
 # Kernel against plain version
 # ---------------------------------------------------------------------------
 
+def held(name, y, yr, scale, case) -> tuple[float, float]:
+    """|y − yr| ≤ RTOL · scale + ATOL per output on the same card inputs;
+    returns (max |Δ|, max |Δ| / scale)."""
+    import torch
+    torch.cuda.synchronize()
+    check(y.shape == yr.shape, f"{name} {case}: shape {tuple(y.shape)} vs "
+          f"{tuple(yr.shape)}")
+    check(bool(torch.isfinite(y).all()), f"{name} {case}: non-finite output")
+    err = (y - yr).abs()
+    rel = float((err / (scale + ATOL)).max())
+    check(not bool((err > RTOL * scale + ATOL).any()),
+          f"{name} {case}: max|Δ|={float(err.max()):.3g} rel={rel:.3g} "
+          f"beyond rtol={RTOL}")
+    return float(err.max()), rel
+
+
 def compare_kernel(kind, x, w, b, stride, groups=None, activation=None):
     """Run the kernel op and its plain version on the same card inputs;
     returns (max |Δ|, max |Δ| / scale); raises beyond the tolerance."""
-    import torch
     from repro_torch import kernels
     from repro_torch.kernels import ref
 
@@ -202,19 +279,9 @@ def compare_kernel(kind, x, w, b, stride, groups=None, activation=None):
         scale = ref.depthwise_conv_ref(x.abs(), w.abs(),
                                        None if b is None else b.abs(),
                                        stride=stride, groups=groups)
-    yr = ref.apply_activation(yr, activation)
-    torch.cuda.synchronize()
-    check(y.shape == yr.shape, f"{kind}: shape {tuple(y.shape)} vs "
-          f"{tuple(yr.shape)}")
-    check(bool(torch.isfinite(y).all()), f"{kind}: non-finite output")
-    err = (y - yr).abs()
-    bad = err > RTOL * scale + ATOL
-    rel = float((err / (scale + ATOL)).max())
-    check(not bool(bad.any()),
-          f"{kind} x={tuple(x.shape)} w={tuple(w.shape)} s={stride} "
-          f"g={groups} act={activation}: max|Δ|={float(err.max()):.3g} "
-          f"rel={rel:.3g} beyond rtol={RTOL}")
-    return float(err.max()), rel
+    return held(kind, y, ref.apply_activation(yr, activation), scale,
+                f"x={tuple(x.shape)} w={tuple(w.shape)} s={stride} "
+                f"g={groups} act={activation}")
 
 
 # ---------------------------------------------------------------------------
@@ -277,20 +344,11 @@ def compare_qkernel(kind, x, wq, ws, b, stride, act_quant, groups=None,
                                      groups=groups, act_quant=act_quant)
         scale = ref.depthwise_conv_ref(xd.abs(), wd.abs(), bb, stride=stride,
                                        groups=groups)
-    yr = ref.apply_activation(yr, activation)
-    torch.cuda.synchronize()
-    check(y.shape == yr.shape and y.dtype == torch.float32,
-          f"{kind} quantized: {tuple(y.shape)} {y.dtype} vs "
-          f"{tuple(yr.shape)}")
-    check(bool(torch.isfinite(y).all()), f"{kind} quantized: non-finite")
-    err = (y - yr).abs()
-    rel = float((err / (scale + ATOL)).max())
-    check(not bool((err > RTOL * scale + ATOL).any()),
-          f"{kind} quantized x={tuple(x.shape)} w={tuple(wq.shape)} "
-          f"{wq.dtype} s={stride} g={groups} act={activation} "
-          f"act_quant={act_quant}: max|Δ|={float(err.max()):.3g} "
-          f"rel={rel:.3g} beyond rtol={RTOL}")
-    return float(err.max()), rel
+    check(y.dtype == torch.float32, f"{kind} quantized: {y.dtype} output")
+    return held(f"{kind} quantized", y, ref.apply_activation(yr, activation),
+                scale, f"x={tuple(x.shape)} w={tuple(wq.shape)} {wq.dtype} "
+                f"s={stride} g={groups} act={activation} "
+                f"act_quant={act_quant}")
 
 
 def qkernel_sweep(dev) -> dict:
@@ -342,7 +400,6 @@ def compare_qffn(x, uq, us, vq, vs, act_quant):
     """The quantized merged_ffn op against ``merged_ffn_qref`` on the same
     card inputs: |Δ| ≤ RTOL · (|x| + (|x̂|·|Û|)·|V̂|) + ATOL per output,
     over the dequantized operands; returns (max |Δ|, max |Δ| / scale)."""
-    import torch
     from repro_torch import kernels
     from repro_torch.kernels import quant, ref
 
@@ -352,16 +409,9 @@ def compare_qffn(x, uq, us, vq, vs, act_quant):
     scale = x.abs() + (dequantized_input(x, act_quant).abs()
                        @ quant.dequantize(uq, us, axis=1).abs()
                        ) @ quant.dequantize(vq, vs, axis=1).abs()
-    torch.cuda.synchronize()
-    check(y.shape == yr.shape, f"merged_ffn quantized: {tuple(y.shape)}")
-    check(bool(torch.isfinite(y).all()), "merged_ffn quantized: non-finite")
-    err = (y - yr).abs()
-    rel = float((err / (scale + ATOL)).max())
-    check(not bool((err > RTOL * scale + ATOL).any()),
-          f"merged_ffn quantized x={tuple(x.shape)} u={tuple(uq.shape)} "
-          f"{uq.dtype} act_quant={act_quant}: max|Δ|={float(err.max()):.3g} "
-          f"rel={rel:.3g} beyond rtol={RTOL}")
-    return float(err.max()), rel
+    return held("merged_ffn quantized", y, yr, scale,
+                f"x={tuple(x.shape)} u={tuple(uq.shape)} {uq.dtype} "
+                f"act_quant={act_quant}")
 
 
 def qffn_sweep(dev):
@@ -441,6 +491,85 @@ def kernel_sweep(dev) -> dict:
                     rnd(k, k, cin_g, cout) / k, bias, s, groups=groups,
                     activation=act))
                 n += 1
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm, rglru_scan, flash_attention: sweeps against the plain versions
+# ---------------------------------------------------------------------------
+
+def compare_attention(q, k, v, causal):
+    """flash_attention kernel vs the plain version on k, v expanded to q's
+    heads; the scale is the same softmax applied to |v|, which bounds
+    every output."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    return held("flash_attention", kernels.flash_attention_op(q, k, v, causal),
+                ops._attention_plain(q, k, v, causal),
+                ops._attention_plain(q, k, v.abs(), causal),
+                f"q={tuple(q.shape)} kv={tuple(k.shape)} causal={causal}")
+
+
+def norm_scan_attention_sweep(dev) -> dict:
+    """rmsnorm over M {1,8,37,1024} × D {32,512,576,2560,2561}; rglru_scan
+    over B {1,8} × S {1,7,128,512} × C {32,256,2560,2561} with a in
+    (0.5, 1), also held bitwise; flash_attention over BH {1,8,80} ×
+    S {1,7,16,128,256,1000} × D {32,64,256}, causal and not (BH 8 as
+    B 2 × H 4 over 2 kv heads, BH 80 as B 8 × H 10 over 1, the MQA of
+    RecurrentGemma); ``benchmarks/run.py``'s three shapes; and the
+    gradient of ``flash_attention_op`` through the kernel's forward."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(7)
+    worst = {k: [0.0, 0.0, 0] for k in ("rmsnorm", "rglru_scan",
+                                        "flash_attention")}
+
+    def note(kind, res):
+        w = worst[kind]
+        w[0], w[1], w[2] = max(w[0], res[0]), max(w[1], res[1]), w[2] + 1
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(dev)
+
+    for m, d in [(m, d) for m in (1, 8, 37, 1024)
+                 for d in (32, 512, 576, 2560, 2561)]:
+        x, w = rnd(m, d) * 3.0, rnd(d) * 0.2
+        yr = ref.rmsnorm_ref(x, w, 1e-6)
+        note("rmsnorm", held("rmsnorm", kernels.rmsnorm_op(x, w, eps=1e-6),
+                             yr, yr.abs(), f"x={(m, d)}"))
+    scans = [(b, s, c) for b in (1, 8) for s in (1, 7, 128, 512)
+             for c in (32, 256, 2560, 2561)] + [(4, 512, 256)]
+    for b, s, c in scans:
+        a = (torch.rand(b, s, c, generator=g) * 0.5 + 0.5).to(dev)
+        x = rnd(b, s, c) * 0.1
+        h, hr = kernels.rglru_scan_op(a, x), ref.rglru_scan_ref(a, x)
+        note("rglru_scan", held("rglru_scan", h, hr,
+                                ref.rglru_scan_ref(a, x.abs()),
+                                f"a={(b, s, c)}"))
+        check(torch.equal(h, hr), f"rglru_scan {(b, s, c)}: the kernel and "
+              "its plain version round alike, yet differ bitwise")
+    heads = {1: (1, 1, 1), 8: (2, 4, 2), 80: (8, 10, 1)}
+    for bh, (b, h, kvh) in heads.items():
+        for s in (1, 7, 16, 128, 256, 1000):
+            for d in (32, 64, 256):
+                q, k, v = rnd(b, s, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d)
+                for causal in (True, False):
+                    note("flash_attention", compare_attention(q, k, v, causal))
+    q, k, v = (rnd(2, 256, 4, 64) for _ in range(3))      # benchmarks/run.py
+    note("flash_attention", compare_attention(q, k, v, True))
+    # the gradient: the op's backward is the plain version's, recomputed
+    q, k, v, w = (rnd(2, 19, 2, 64) for _ in range(4))
+    grads = []
+    for fn in (lambda *t: kernels.flash_attention_op(*t, True),
+               lambda *t: ref.flash_attention_ref(*t, causal=True)):
+        args = [t.clone().requires_grad_() for t in (q, k, v)]
+        (fn(*args) * w).sum().backward()
+        grads.append([t.grad for t in args])
+    for name, got, want in zip("qkv", *grads):
+        note("flash_attention", held(
+            "flash_attention", got, want, want.abs().amax(),
+            f"gradient wrt {name}"))
     return worst
 
 
@@ -568,37 +697,32 @@ def compare_ffn(x, u, v):
     """merged_ffn kernel vs ``merged_ffn_ref`` on the same card inputs:
     |Δ| ≤ RTOL · (|x| + (|x|·|U|)·|V|) + ATOL per output; returns
     (max |Δ|, max |Δ| / scale)."""
-    import torch
     from repro_torch import kernels
     from repro_torch.kernels import ref
 
-    y = kernels.merged_ffn_op(x, u, v)
-    yr = ref.merged_ffn_ref(x, u, v)
-    scale = ref.merged_ffn_ref(x.abs(), u.abs(), v.abs())
-    torch.cuda.synchronize()
-    check(y.shape == yr.shape, f"merged_ffn: shape {tuple(y.shape)}")
-    check(bool(torch.isfinite(y).all()), "merged_ffn: non-finite output")
-    err = (y - yr).abs()
-    rel = float((err / (scale + ATOL)).max())
-    check(not bool((err > RTOL * scale + ATOL).any()),
-          f"merged_ffn x={tuple(x.shape)} u={tuple(u.shape)}: max|Δ|="
-          f"{float(err.max()):.3g} rel={rel:.3g} beyond rtol={RTOL}")
-    return float(err.max()), rel
+    return held("merged_ffn", kernels.merged_ffn_op(x, u, v),
+                ref.merged_ffn_ref(x, u, v),
+                ref.merged_ffn_ref(x.abs(), u.abs(), v.abs()),
+                f"x={tuple(x.shape)} u={tuple(u.shape)}")
 
 
 def ffn_sweep(dev):
-    """merged_ffn against its plain version over ragged M, D and R."""
+    """merged_ffn against its plain version over ragged M, D and R, and at
+    RecurrentGemma's D = 2560 (the multi-cluster path: 40 n-tiles over 3
+    clusters) with R 24, 2560 (a merged unit) and 7680 (the replaced
+    path's unmerged FFN) at M 8 and 1024."""
     import torch
     g = torch.Generator().manual_seed(2)
     worst = [0.0, 0.0, 0]
-    for m in (1, 8, 37, 1024):
-        for d in (32, 96, 576):
-            for r in (1, 24, 576, 1152, 1536):
-                x = torch.randn(m, d, generator=g).to(dev)
-                u = (torch.randn(d, r, generator=g) / d ** 0.5).to(dev)
-                v = (torch.randn(r, d, generator=g) / r ** 0.5).to(dev)
-                err, rel = compare_ffn(x, u, v)
-                worst = [max(worst[0], err), max(worst[1], rel), worst[2] + 1]
+    cases = [(m, d, r) for m in (1, 8, 37, 1024) for d in (32, 96, 576)
+             for r in (1, 24, 576, 1152, 1536)]
+    cases += [(m, 2560, r) for m in (8, 1024) for r in (24, 2560, 7680)]
+    for m, d, r in cases:
+        x = torch.randn(m, d, generator=g).to(dev)
+        u = (torch.randn(d, r, generator=g) / d ** 0.5).to(dev)
+        v = (torch.randn(r, d, generator=g) / r ** 0.5).to(dev)
+        err, rel = compare_ffn(x, u, v)
+        worst = [max(worst[0], err), max(worst[1], rel), worst[2] + 1]
     return worst
 
 
@@ -620,13 +744,16 @@ def time_ffn(x, u, v) -> dict:
 
     err, rel = compare_ffn(x, u, v)
     f_ms, b_ms = ffn_bound(x.shape[0], x.shape[1], u.shape[1])
-    return {"m": x.shape[0], "d": x.shape[1], "r": u.shape[1],
-            "max_abs_err": err, "max_rel_err": rel,
-            "ms": kernel_time(lambda: kernels.merged_ffn_op(x, u, v)),
-            "plain_ms": kernel_time(lambda: ref.merged_ffn_ref(x, u, v)),
-            "library_ms": kernel_time(lambda: torch.addmm(x, x @ u, v)),
-            "eager_ms": cuda_time(lambda: kernels.merged_ffn_op(x, u, v)),
-            "flops_ms": f_ms, "bytes_ms": b_ms, "bound_ms": max(f_ms, b_ms)}
+    row = {"m": x.shape[0], "d": x.shape[1], "r": u.shape[1],
+           "max_abs_err": err, "max_rel_err": rel,
+           "ms": kernel_time(lambda: kernels.merged_ffn_op(x, u, v)),
+           "plain_ms": kernel_time(lambda: ref.merged_ffn_ref(x, u, v)),
+           "library_ms": kernel_time(lambda: torch.addmm(x, x @ u, v)),
+           "eager_ms": cuda_time(lambda: kernels.merged_ffn_op(x, u, v)),
+           "flops_ms": f_ms, "bytes_ms": b_ms, "bound_ms": max(f_ms, b_ms)}
+    check_bound(f"merged_ffn {tuple(x.shape)}x{tuple(u.shape)}", row["ms"],
+                row["bound_ms"])
+    return row
 
 
 def forced_logits(step, cache, tokens):
@@ -1157,6 +1284,297 @@ def fp_plan(plan):
 
 
 # ---------------------------------------------------------------------------
+# RecurrentGemma-2B: compress, serve, the path's kernel shapes
+# ---------------------------------------------------------------------------
+
+def merged_segments(host, plan) -> int:
+    """Segments of ``plan`` that lower to a lowrank unit, counted without
+    lowering (at d 2560 each merged segment costs an SVD to lower)."""
+    return sum(1 for sg in plan.segments
+               if not sg.original and host._rank(sg) > 0)
+
+
+def norm_bound(m: int, d: int) -> tuple[float, float]:
+    """(operations ms, bytes ms) of rmsnorm on (M, D): 5 FLOPs an element;
+    x read and y written once, g read once."""
+    return (5.0 * m * d / H100_FP32_FLOPS * 1e3,
+            4.0 * (2 * m * d + d) / H100_HBM_BW * 1e3)
+
+
+def scan_bound(b: int, s: int, c: int) -> tuple[float, float]:
+    """rglru_scan on (B, S, C): a multiply and an add an element; a and b
+    read once, h written once."""
+    return (2.0 * b * s * c / H100_FP32_FLOPS * 1e3,
+            12.0 * b * s * c / H100_HBM_BW * 1e3)
+
+
+def attention_bound(b, s, h, kvh, d, causal=True) -> tuple[float, float]:
+    """flash_attention: 4·D FLOPs (q·k and p·v) for each (query, key) pair
+    the mask keeps, S(S+1)/2 per head when causal; q and o at H heads, k
+    and v at the KVH heads the kernel reads."""
+    pairs = s * (s + 1) / 2 if causal else s * s
+    return (4.0 * b * h * d * pairs / H100_FP32_FLOPS * 1e3,
+            4.0 * (2 * b * s * h * d + 2 * b * s * kvh * d) / H100_HBM_BW
+            * 1e3)
+
+
+def time_row(kernel, shape, run, plain, library, bound, err) -> dict:
+    """Device times of the kernel op, its plain version and the library
+    yardstick (None: no one PyTorch call computes the function)."""
+    f_ms, b_ms = bound
+    row = {"kernel": kernel, "shape": shape, "max_abs_err": err,
+           "ms": kernel_time(run), "plain_ms": kernel_time(plain),
+           "library_ms": None if library is None else kernel_time(library),
+           "flops_ms": f_ms, "bytes_ms": b_ms, "bound_ms": max(f_ms, b_ms)}
+    check_bound(f"{kernel} {shape}", row["ms"], row["bound_ms"])
+    return row
+
+
+def time_rg_kernels(dev, cfg, art, host) -> list:
+    """rmsnorm, rglru_scan and flash_attention at RecurrentGemma-2B's
+    shapes (probe: batch 8 × seq 128; prefill: 8 × 16; decode: 8 rows)
+    and SmolLM-135M's, and merged_ffn at D 2560 (each served lowrank unit
+    at M 8, 128, 1024; the replaced path's R 7680 unit at M 128): the
+    kernel, the plain version and the library yardstick
+    (``F.rms_norm``; ``F.scaled_dot_product_attention`` on k, v expanded,
+    TF32 off; ``torch.addmm(x, x @ U, V)``), as device times, beside the
+    bound.  The first row of each kernel is the probe shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator().manual_seed(8)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(dev)
+
+    rows = []
+    eps = cfg.norm_eps
+    for m, d in ((1024, cfg.d_model), (128, cfg.d_model), (8, cfg.d_model),
+                 (1024, 576)):
+        x, w = rnd(m, d), rnd(d) * 0.2
+        w1 = 1.0 + w
+        yr = ref.rmsnorm_ref(x, w, eps)
+        err = held("rmsnorm", kernels.rmsnorm_op(x, w, eps=eps), yr,
+                   yr.abs(), f"x={(m, d)}")[0]
+        rows.append(time_row(
+            "rmsnorm", [m, d], lambda: kernels.rmsnorm_op(x, w, eps=eps),
+            lambda: ref.rmsnorm_ref(x, w, eps),
+            lambda: F.rms_norm(x, (d,), w1, eps), norm_bound(m, d), err))
+    dr = cfg.rnn_width or cfg.d_model
+    for b, s in ((8, 128), (8, 16)):
+        a = (torch.rand(b, s, dr, generator=g) * 0.5 + 0.5).to(dev)
+        x = rnd(b, s, dr) * 0.1
+        err = held("rglru_scan", kernels.rglru_scan_op(a, x),
+                   ref.rglru_scan_ref(a, x), ref.rglru_scan_ref(a, x.abs()),
+                   f"a={(b, s, dr)}")[0]
+        rows.append(time_row(
+            "rglru_scan", [b, s, dr], lambda: kernels.rglru_scan_op(a, x),
+            lambda: ref.rglru_scan_ref(a, x), None, scan_bound(b, s, dr),
+            err))
+    for b, s, h, kvh, d in ((8, 128, cfg.num_heads, cfg.num_kv_heads,
+                             cfg.head_dim),
+                            (8, 16, cfg.num_heads, cfg.num_kv_heads,
+                             cfg.head_dim),
+                            (8, 128, 9, 3, 64), (8, 16, 9, 3, 64)):
+        q, k, v = rnd(b, s, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d)
+        err = compare_attention(q, k, v, True)[0]
+        qt, kt, vt = (t.repeat_interleave(h // t.shape[2], dim=2)
+                      .transpose(1, 2) for t in (q, k, v))
+        rows.append(time_row(
+            "flash_attention", [b, s, h, kvh, d],
+            lambda: kernels.flash_attention_op(q, k, v, True),
+            lambda: ops._attention_plain(q, k, v, True),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True),
+            attention_bound(b, s, h, kvh, d), err))
+    units = [u for u in art.graph.units if u.kind == "lowrank"]
+    shapes = sorted({tuple(u.params["u"].shape) for u in units})
+    for m in (1024, 128, 8):
+        for shp in shapes:
+            u = next(u for u in units if tuple(u.params["u"].shape) == shp)
+            r = time_ffn(rnd(m, cfg.d_model), u.params["u"], u.params["v"])
+            rows.append(dict(r, kernel="merged_ffn", shape=[m, *shp]))
+    sub = next(s for s in host.subparams if s is not None
+               and s["kind"] == "ffn")
+    uf, vf = host._linear_factors(sub)
+    r = time_ffn(rnd(128, cfg.d_model), uf.contiguous(), vf.contiguous())
+    rows.append(dict(r, kernel="merged_ffn", shape=[128, *uf.shape],
+                     note="replaced path: one linearized FFN, unmerged"))
+    return rows
+
+
+def rg_phases(dev, build_host):
+    """Phases 15-17: RecurrentGemma-2B at full size in fp32 compressed on
+    card-timed tables, its artifact served and held against the CPU port
+    and ``replaced_apply``, and the path's kernels at its shapes.
+    Returns (rows of :func:`time_rg_kernels`, launches over 15-16)."""
+    import shutil
+
+    import torch
+    from repro_torch import kernels, runtime
+    from repro_torch.core import WallClockOracle, compress
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import serving
+    from repro_torch.runtime.artifact import flatten_tree
+
+    # 15. RecurrentGemma-2B compress --------------------------------------------
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    # 26 layers (rglru, rglru, attn_local; window 2048), d 2560, 10 heads
+    # over 1 kv head of 256, GeGLU 7680, vocab 256000, tied embeddings:
+    # full size, fp32, weights from seed 0; costed and probed at batch 8 x
+    # seq 128 (probes at M = 1024)
+    host, source = build_host("recurrentgemma-2b", seed=0, batch=8, seq=128,
+                              full=True, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    cfg = host.cfg
+    n_params = sum(t.numel() for t in flatten_tree(host.params).values())
+    oracle = WallClockOracle()
+    res, ladder, served = None, [], ""
+    for ratio in LM_BUDGETS:
+        r = compress(host, budget_ratio=ratio, method="depth",
+                     latency_oracle=oracle)
+        n_m = 0 if r is None else merged_segments(host, r.plan)
+        ladder.append(f"{ratio}: " + ("infeasible" if r is None else
+                                      f"{n_m} merged, predicted speedup "
+                                      f"{r.speedup:.4f}"))
+        if n_m:
+            res, served = r, f"card-timed tables, budget {ratio}"
+            break
+    t_tables = time.perf_counter() - t0 - t_init
+    print("  signature timings (device, CUDA graph): " + "; ".join(
+        f"{sig[1]} rank {sig[2]} {sec * 1e3:.4f} ms"
+        for sig, sec in oracle.measured.items()), flush=True)
+    if res is None:
+        # The card's tables merge no FFN at any budget: serve the tightest
+        # plan that merges under the H100 roofline (as phase 7 runs
+        # ResNet34), so that the served path still runs merged units.
+        for ratio in LM_BUDGETS:
+            r = compress(host, budget_ratio=ratio, method="depth")
+            n_m = 0 if r is None else merged_segments(host, r.plan)
+            ladder.append(f"analytic {ratio}: " + (
+                "infeasible" if r is None else f"{n_m} merged, predicted "
+                f"speedup {r.speedup:.4f}"))
+            if n_m:
+                res, served = r, (
+                    f"the H100 roofline (AnalyticOracle), budget {ratio}: "
+                    "the card-timed tables merge no FFN at any budget")
+                break
+    check(res is not None, f"recurrentgemma-2b depth: no plan merges an FFN "
+          f"({'; '.join(ladder)})")
+    free_gb = shutil.disk_usage(WORK).free / 1e9
+    rg_path = os.path.join(WORK, "recurrentgemma2b_depth.npz")
+    t_save = time.perf_counter()
+    res.save(rg_path, extra_meta={"source": source})
+    t_save = time.perf_counter() - t_save
+    build_launches = kernels.launch_counts()
+    st = res.tables.stats
+    log("rg compress", t0, f"recurrentgemma-2b fp32 full size, "
+        f"{n_params / 1e9:.3f} B parameters (init {t_init:.2f}s, tables and "
+        f"DP {t_tables:.2f}s); depth budgets {'; '.join(ladder)}; served: "
+        f"{served}, {len(res.plan.segments)} segments, "
+        f"{merged_segments(host, res.plan)} merged, {st.num_latency_probes} "
+        f"probes in {st.num_latency_buckets} signatures, "
+        f"{len(oracle.measured)} timed on the card, predicted speedup "
+        f"{res.speedup:.4f}; artifact {os.path.getsize(rg_path) / 1e9:.2f} "
+        f"GB saved in {t_save:.2f}s ({free_gb:.1f} GB free before); table "
+        f"builds' launches {build_launches}")
+
+    # 16. RecurrentGemma-2B serve -----------------------------------------------
+    t0 = time.perf_counter()
+    art = runtime.load(rg_path, device="cuda")
+    t_load = time.perf_counter() - t0
+    census = runtime.count_units(art.graph)
+    B, P, N = 8, 16, 32
+    prompt = serving.random_prompts(11, B, P, cfg.vocab_size, device=dev)
+
+    def c_step(c, t):
+        return art.decode(c, t)
+
+    def o_step(c, t):
+        return T.decode_step(cfg, host.params, c, {"tokens": t})
+    c_pre, c_dec, c_logits, seqs = serving.serve_loop(
+        c_step, lambda: art.init_cache(B, P + N), prompt, N)
+    o_pre, o_dec, _, _ = serving.serve_loop(
+        o_step, lambda: T.init_cache(cfg, B, P + N, device=dev), prompt, N)
+    check(tuple(seqs.shape) == (B, N), f"rg served ids {tuple(seqs.shape)}")
+    fed = torch.cat([prompt, seqs[:, :-1]], dim=1)
+    lg = forced_logits(c_step, art.init_cache(B, P + N), fed)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(lg).all()), "rg: non-finite served logits")
+    check(bool((lg[:, P - 1:].argmax(-1) == seqs).all()),
+          "rg: served ids are not the argmax of the teacher-forced logits")
+    d_fed = rel_diff(lg[:, P - 1], c_logits)
+    check(d_fed <= 1e-6, f"rg: prefill logits of serve_loop and the forced "
+          f"run differ by {d_fed}")
+    y_merged = art.apply({"tokens": prompt})
+    fn, p = host.replaced_apply(res.plan)
+    y_rep = fn(p, {"tokens": prompt})
+    check(tuple(y_merged.shape) == (B, P, cfg.vocab_size)
+          and bool(torch.isfinite(y_merged).all()),
+          f"rg prefill logits {tuple(y_merged.shape)}")
+    d_rep = rel_diff(y_merged, y_rep)
+    rg_launches = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    art.decode(art.init_cache(B, P + N), prompt[:, :1])
+    per_step = {k: n for k, n in kernels.launch_counts().items() if n}
+    kernels.reset_launch_counts()
+    art.apply({"tokens": prompt})
+    per_prefill = {k: n for k, n in kernels.launch_counts().items() if n}
+    t_cpu = time.perf_counter()
+    cpu = runtime.load(rg_path, device="cpu")
+    lg_cpu = forced_logits(lambda c, t: cpu.decode(c, t),
+                           cpu.init_cache(B, P + N), fed.cpu())
+    t_cpu = time.perf_counter() - t_cpu
+    del cpu
+    d_steps = ((lg.cpu() - lg_cpu).abs().amax(dim=(0, 2))
+               / lg_cpu.abs().amax(dim=(0, 2)))
+    d_cpu, d_last = float(d_steps.max()), float(d_steps[-1])
+    steps = N - 1
+    log("rg serve", t0, f"artifact loaded on the card in {t_load:.2f}s, "
+        f"units {json.dumps(census, sort_keys=True)}; {B} prompts x {P} "
+        f"tokens, {N} new; worst step logits vs CPU port {d_cpu:.3g} (last "
+        f"step {d_last:.3g}; {B} prompts x {P + N - 1} steps on the CPU in "
+        f"{t_cpu:.2f}s), prefill forward vs replaced_apply {d_rep:.3g} "
+        f"(limit {NET_RTOL}); compressed prefill {c_pre * 1e3:.3f} ms, "
+        f"decode {c_dec * 1e3:.3f} ms "
+        f"({serving.decode_tok_s(steps, B, c_dec):.1f} tok/s); original "
+        f"prefill {o_pre * 1e3:.3f} ms, decode {o_dec * 1e3:.3f} ms "
+        f"({serving.decode_tok_s(steps, B, o_dec):.1f} tok/s); decode "
+        f"speedup {o_dec / c_dec:.3f}x (predicted {res.speedup:.4f}x); "
+        f"launches per decode step {per_step}, per prefill forward "
+        f"{per_prefill}; phases 15-16 launches {rg_launches}")
+    cache = art.init_cache(B, P + N)
+    print_profile("rg compressed decode step", lambda t: c_step(cache, t),
+                  prompt[:, :1], c_dec / steps * 1e3)
+    check(census.get("lowrank", 0) >= 1, "rg: the served plan merges nothing")
+    check(d_cpu <= NET_RTOL, f"rg: card vs CPU port differ by {d_cpu}")
+    check(d_rep <= NET_RTOL, f"rg: merged vs replaced differ by {d_rep}")
+    for k in ("rmsnorm", "rglru_scan", "flash_attention", "merged_ffn"):
+        check(rg_launches[k] > 0, f"kernel {k} never launched on the "
+              "RecurrentGemma path")
+
+    # 17. the path's kernels at its shapes --------------------------------------
+    t0 = time.perf_counter()
+    rows = time_rg_kernels(dev, cfg, art, host)
+    with open(os.path.join(WORK, "rg.json"), "w") as f:
+        json.dump({"rows": rows, "launches_per_decode_step": per_step,
+                   "launches_per_prefill_forward": per_prefill,
+                   "launches_phases_15_16": rg_launches,
+                   "ladder": ladder, "served": served}, f, indent=1)
+    log("rg kernels", t0, " ".join(
+        f"{r['kernel']} {r['shape']}: ms={r['ms']:.4f} "
+        f"plain={r['plain_ms']:.4f} library="
+        + ("none" if r["library_ms"] is None else f"{r['library_ms']:.4f}")
+        + f" bound={r['bound_ms']:.5f} ("
+        f"{'bytes' if r['bytes_ms'] >= r['flops_ms'] else 'operations'}, "
+        f"share {r['bound_ms'] / r['ms']:.3f});" for r in rows))
+    return rows, rg_launches
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv) -> int:
     import torch
@@ -1211,6 +1629,7 @@ def main(argv) -> int:
     sweep["merged_ffn"] = ffn_sweep(dev)
     sweep.update(qkernel_sweep(dev))
     sweep["merged_ffn_q"] = qffn_sweep(dev)
+    sweep.update(norm_scan_attention_sweep(dev))
     n_q = quantize_matches_cpu(dev)
     log("kernels", t0, json.dumps(
         {k: {"cases": v[2], "max_abs_err": v[0], "max_rel_err": v[1]}
@@ -1501,6 +1920,12 @@ def main(argv) -> int:
     tot["merged_ffn_q"], lq_launch = lm_quant_phases(
         host, res, oracle, lm_source, prompt, N, c_dec, dev)
     launches["merged_ffn_q"] = lq_launch["merged_ffn_q"]
+
+    # 15-17. RecurrentGemma-2B ----------------------------------------------------
+    rg_rows, rg_launch = rg_phases(dev, build_host)
+    for k in ("rmsnorm", "rglru_scan", "flash_attention"):
+        tot[k] = next(r for r in rg_rows if r["kernel"] == k)
+        launches[k] = rg_launch[k]
     sweep_err = {k: v[0] for k, v in sweep.items()}
 
     srcs = {"merged_conv": ("src/repro_torch/kernels/csrc/merged_conv.cu",
@@ -1509,7 +1934,14 @@ def main(argv) -> int:
                                "depthwise_conv.cu",
                                "src/repro/kernels/depthwise_conv.py:280"),
             "merged_ffn": ("src/repro_torch/kernels/csrc/merged_ffn.cu",
-                           "src/repro/kernels/merged_ffn.py:128")}
+                           "src/repro/kernels/merged_ffn.py:128"),
+            "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                        "src/repro/kernels/rmsnorm.py:32"),
+            "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
+                           "src/repro/kernels/rglru_scan.py:45"),
+            "flash_attention": ("src/repro_torch/kernels/csrc/"
+                                "flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:78")}
     for k in ("merged_conv", "depthwise_conv", "merged_ffn"):
         srcs[k + "_q"] = srcs[k]          # the same pallas_call, quant=True
     line = {"kernels": [{
@@ -1521,6 +1953,8 @@ def main(argv) -> int:
         "bound_by": "bytes" if v["bytes_ms"] >= v["flops_ms"]
         else "operations",
         "library_ms": v["library_ms"]} for k, v in tot.items()]}
+    for v in line["kernels"]:
+        check_bound(v["name"], v["ms"], v["bound_ms"])
     print(f"[total] {time.perf_counter() - t_all:.2f}s", flush=True)
     print(json.dumps(line))
     print(smi_line)

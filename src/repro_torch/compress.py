@@ -8,6 +8,8 @@ package's ``.npz`` format:
       --oracle wallclock --max-span 6 --budget-ratio 0.6 --out a.npz
   PYTHONPATH=src python -m repro_torch.compress --arch smollm-135m \
       --method depth --out lm.npz
+  PYTHONPATH=src python -m repro_torch.compress --arch recurrentgemma-2b \
+      --device cpu --method depth --budget-ratio 0.9 --out rg.npz
   PYTHONPATH=src python -m repro_torch.compress --arch tiny_mobilenet \
       --device cpu --quantize w8a8 --budget-ratio 0.5 --out q.npz
 
@@ -91,7 +93,8 @@ def main(argv=None, *, latency_oracle=None) -> dict:
         description="LayerMerge compression → merged-model artifact")
     ap.add_argument("--arch", required=True,
                     help=f"CNN zoo ({', '.join(CNN_ARCHS)}) or a "
-                         "transformer config id (smollm-135m)")
+                         "transformer config id (smollm-135m, "
+                         "recurrentgemma-2b)")
     ap.add_argument("--budget-ratio", type=float, default=0.6)
     ap.add_argument("--method", default="layermerge",
                     choices=("layermerge", "depth", "layeronly"))

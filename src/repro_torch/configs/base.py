@@ -111,10 +111,11 @@ class ArchConfig:
         )
 
 
-#: Config ids whose families the port runs (dense transformers).  The
-#: JAX package's other ids (MoE, RG-LRU, xLSTM, M-RoPE models) wait for
-#: their blocks: ROADMAP.md queue 1.
+#: Config ids whose families the port runs (dense attention transformers
+#: and the RG-LRU hybrid).  The JAX package's other ids (MoE, xLSTM,
+#: M-RoPE models) wait for their blocks: ROADMAP.md queue 1.
 _MODULES = {
+    "recurrentgemma-2b": "recurrentgemma_2b",
     "smollm-135m": "smollm_135m",
 }
 

@@ -49,6 +49,9 @@ class CostBreakdown:
         return CostBreakdown(self.flops + other.flops,
                              self.hbm_bytes + other.hbm_bytes)
 
+    def __mul__(self, scale: float) -> "CostBreakdown":
+        return CostBreakdown(self.flops * scale, self.hbm_bytes * scale)
+
 
 class LatencyOracle:
     def segment_latency(self, cost: CostBreakdown) -> float:  # pragma: no cover

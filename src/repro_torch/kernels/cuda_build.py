@@ -1,14 +1,14 @@
 """Build the hand-written CUDA kernels with ``nvcc`` and bind them with ctypes.
 
 Every kernel source under ``csrc/`` exposes plain C functions (an fp32
-entry point and its quantized variant), so it builds in seconds without
-PyTorch's headers.  A library is built at first use into
+entry point and, for the three merged-segment kernels, its quantized
+variant), so it builds in seconds without PyTorch's headers.  A library is built at first use into
 ``build/repro_torch/`` at the root of the checkout — or, for an installed
 package, into ``$XDG_CACHE_HOME/repro_torch`` (``~/.cache/repro_torch``) —
 named by a hash of its source and flags, so an edited source rebuilds and
 an unchanged one is reused.  :func:`build` starts one ``nvcc``
 per missing library and waits for all of them, which is how the smoke run
-builds every kernel in parallel.  One library holds both entry points of
+builds every kernel in parallel.  One library holds every entry point of
 its source.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 #: Each kernel entry point: its source (``csrc/<source>.cu``, one library),
 #: its C function and the C function's argument types.
@@ -58,6 +58,13 @@ SIGNATURES = {
     # x, xq, u, v, u_scale, v_scale, y, m, d, r, xq_type, w_type, stream
     "merged_ffn_q": ("merged_ffn", "merged_ffn_q",
                      [_P] * 7 + [_I] * 5 + [_P]),
+    # x, g, y, m, d, eps, vec, stream
+    "rmsnorm": ("rmsnorm", "rmsnorm_f32", [_P] * 3 + [_I, _I, _F, _I, _P]),
+    # a, b, h, batch, s, c, stream
+    "rglru_scan": ("rglru_scan", "rglru_scan_f32", [_P] * 3 + [_I] * 3 + [_P]),
+    # q, k, v, o, b, s, h, kvh, d, causal, stream
+    "flash_attention": ("flash_attention", "flash_attention_f32",
+                        [_P] * 4 + [_I] * 6 + [_P]),
 }
 
 #: The kernel sources, one library each.

@@ -2,7 +2,8 @@
 
 Each ``*_op`` takes the JAX package's layouts (NHWC activations, HWIO
 weights; ``(..., D)`` activations and ``(D, R)``/``(R, D)`` factors for
-the rank-r residual) and dispatches on where its input lies:
+the rank-r residual; ``(..., D)`` rows for the norm, ``(B, S, H, D)``
+attention, ``(B, S, C)`` scans) and dispatches on where its input lies:
 
 * a CPU tensor runs the op's plain PyTorch version (:mod:`.ref`) — this is
   how the CPU tests hold the port against the JAX package;
@@ -19,6 +20,13 @@ JAX package does it with ``jnp`` outside its Pallas kernels.  The scale
 never leaves the device: the kernel reads the folded vector from device
 memory, so the op makes no host sync and can be captured in a CUDA graph.
 
+The norm, scan and attention ops take their CUDA operands as they are:
+a non-contiguous or non-fp32 CUDA tensor raises, it is never copied or
+cast behind the caller's back.  ``flash_attention_op`` is a
+``torch.autograd.Function``: the forward is the kernel, the backward the
+plain version's gradient recomputed from the saved q, k and v (the JAX
+package's ``_fa_bwd``; there is no backward kernel).
+
 Launch counts: each kernel wrapper adds one to its module's ``launches``
 (fp32) or ``launches_q`` (quantized variant) per launch;
 :func:`launch_counts` reads them and :func:`reset_launch_counts` sets them
@@ -29,9 +37,12 @@ from __future__ import annotations
 import torch
 
 from . import depthwise_conv as _dw
+from . import flash_attention as _fa
 from . import merged_conv as _mc
 from . import merged_ffn as _mf
 from . import quant, ref
+from . import rglru_scan as _rg
+from . import rmsnorm as _rn
 
 
 def _on_cuda(x: torch.Tensor, name: str) -> bool:
@@ -134,16 +145,76 @@ def merged_ffn_op(x, u, v, *, u_scale=None, v_scale=None,
                           ).reshape(shape)
 
 
+def rmsnorm_op(x, g, *, eps: float = 1e-6):
+    """``x · rsqrt(mean x² + eps) · (1 + g)`` over the last axis of ``x``
+    (any leading shape).  On the card x and g must be contiguous fp32."""
+    if not _on_cuda(x, "rmsnorm_op"):
+        return ref.rmsnorm_ref(x, g, eps)
+    if not x.is_contiguous():          # before the (M, D) view
+        raise ValueError(f"rmsnorm_op: the CUDA kernel takes contiguous "
+                         f"operands, got strides {x.stride()}")
+    shape = x.shape
+    return _rn.rmsnorm(x.view(-1, shape[-1]), g, eps).view(shape)
+
+
+def rglru_scan_op(a, b):
+    """``h_t = a_t ⊙ h_{t-1} + b_t`` over axis 1 of (B, S, C), h₀ = 0,
+    fp32.  On the card a and b must be contiguous fp32."""
+    if not _on_cuda(a, "rglru_scan_op"):
+        return ref.rglru_scan_ref(a, b)
+    return _rg.rglru_scan(a, b)
+
+
+def _attention_plain(q, k, v, causal):
+    """The plain version on k and v repeated to q's heads in the grouping
+    of the transformer's attention: query head h reads kv head
+    ``h // (H / KVH)``."""
+    group = q.shape[2] // k.shape[2]
+    return ref.flash_attention_ref(q, k.repeat_interleave(group, dim=2),
+                                   v.repeat_interleave(group, dim=2),
+                                   causal=causal)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        if not _on_cuda(q, "flash_attention_op"):
+            return _attention_plain(q, k, v, causal)
+        return _fa.flash_attention(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = _attention_plain(*saved, ctx.causal)
+        grads = torch.autograd.grad(out, saved, g)
+        return (*grads, None)
+
+
+def flash_attention_op(q, k, v, causal: bool = True):
+    """Softmax attention over (B, S, H, D) q and (B, S, KVH, D) k, v with
+    KVH dividing H (the JAX op's contract when KVH == H: it equals the
+    plain version on k and v expanded to H heads).  On the card the
+    operands must be contiguous fp32.  Differentiable: the backward is
+    the plain version's gradient."""
+    return _FlashAttention.apply(q, k, v, bool(causal))
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches in this process since the last reset: each fp32
-    kernel and (``*_q``) its quantized variant."""
+    kernel and (``*_q``) the quantized variants."""
     return {"merged_conv": _mc.launches, "depthwise_conv": _dw.launches,
             "merged_ffn": _mf.launches, "merged_conv_q": _mc.launches_q,
             "depthwise_conv_q": _dw.launches_q,
-            "merged_ffn_q": _mf.launches_q}
+            "merged_ffn_q": _mf.launches_q, "rmsnorm": _rn.launches,
+            "rglru_scan": _rg.launches, "flash_attention": _fa.launches}
 
 
 def reset_launch_counts() -> None:
     for mod in (_mc, _dw, _mf):
         mod.launches = 0
         mod.launches_q = 0
+    for mod in (_rn, _rg, _fa):
+        mod.launches = 0

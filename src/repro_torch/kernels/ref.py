@@ -5,7 +5,8 @@ wrappers in :mod:`repro_torch.kernels.ops` run it for tensors on the CPU,
 the CPU tests hold it against the JAX package, and ``chip_smoke.py``
 holds each CUDA kernel against it on the card.  Layouts are the JAX
 package's: NHWC activations, HWIO weights (grouped weights
-``(kh, kw, Cin/g, Cout)``, group-major output channels).
+``(kh, kw, Cin/g, Cout)``, group-major output channels), ``(..., D)``
+rows for the norm, ``(B, S, H, D)`` attention and ``(B, S, C)`` scans.
 
 All math is fp32.  On the card these functions call ``F.conv2d`` and
 ``torch.matmul``; callers disable TF32 first
@@ -13,6 +14,8 @@ All math is fp32.  On the card these functions call ``F.conv2d`` and
 the operands to TF32.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -46,6 +49,45 @@ def depthwise_conv_ref(x, w, b=None, stride: int = 1,
     if b is not None:
         y = y + b.float()
     return y.to(x.dtype).contiguous()
+
+
+def rmsnorm_ref(x, scale, eps: float = 1e-6):
+    """``x · rsqrt(mean x² + eps) · (1 + g)`` row-wise in fp32, cast to
+    ``x.dtype`` at the end."""
+    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+    y = x.float() * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def flash_attention_ref(q, k, v, causal: bool = True):
+    """``(B, S, H, D)`` attention with the same heads for q, k and v: fp32
+    logits over ``sqrt(D)``, the causal mask at ``finfo.min``, fp32
+    softmax."""
+    s, d = q.shape[1], q.shape[3]
+    logits = torch.einsum("bshd,bthd->bhst", q.float(),
+                          k.float()) / math.sqrt(d)
+    if causal:
+        mask = torch.tril(torch.ones((s, s), dtype=torch.bool,
+                                     device=q.device))
+        logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", w, v.float())
+    return out.to(q.dtype)
+
+
+def rglru_scan_ref(a, gated, h0=None):
+    """``h_t = a_t ⊙ h_{t-1} + gated_t`` over axis 1, sequentially in fp32
+    (each step a rounded product, then a rounded sum); ``h0`` (B, C)
+    defaults to zeros."""
+    b, s, c = a.shape
+    a, gated = a.float(), gated.float()
+    h = torch.zeros((b, c), dtype=torch.float32, device=a.device) \
+        if h0 is None else h0.float()
+    out = torch.empty((b, s, c), dtype=torch.float32, device=a.device)
+    for t in range(s):
+        h = a[:, t] * h + gated[:, t]
+        out[:, t] = h
+    return out
 
 
 def merged_ffn_ref(x, u, v):

@@ -7,10 +7,16 @@ and logical-axis records: attention weights ``wq (D, H, hd)``,
 returns ``(params, axes)`` and draws from an explicit
 ``torch.Generator``.
 
-Attention, the norms, the FFN and the embedding stay plain PyTorch, as
-they are plain ``jnp`` in the JAX package: no fused attention call, so the
-numerics (fp32 softmax, GQA by reshape) are the reference's.  M-RoPE and
-the sharded flash-decoding path are not ported (ROADMAP.md queue 1).
+The norms and prefill attention go through the port's kernel ops:
+:func:`rms_norm` through ``rmsnorm_op`` and :func:`attention` through
+``flash_attention_op`` whenever its mask is plain causal — the hand-written
+``rmsnorm`` and ``flash_attention`` kernels on the card, their plain
+versions on the CPU (where the JAX package's layers are plain ``jnp``: the
+two agree to fp32 reassociation).  A local-window prefill longer than its
+window keeps the plain masked softmax (:func:`_sdpa`), and one-token
+decode against the KV cache stays plain.  The FFN and the embedding are
+plain PyTorch.  M-RoPE and the sharded flash-decoding path are not ported
+(ROADMAP.md queue 1).
 
 Decode caches are updated in place (the JAX package returns new arrays):
 ``attention_decode`` writes the new key and value into the cache tensors
@@ -23,8 +29,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import flash_attention_op, rmsnorm_op
+
 _NOT_PORTED = ("{what} is not ported: the port runs dense attention "
-               "transformers (ROADMAP.md queue 1)")
+               "and RG-LRU transformers (ROADMAP.md queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -32,11 +40,11 @@ _NOT_PORTED = ("{what} is not ported: the port runs dense attention "
 # ---------------------------------------------------------------------------
 
 def rms_norm(x, scale, eps: float = 1e-6):
-    """``x · rsqrt(mean x² + eps) · (1 + g)``: the variance in fp32, the
-    rsqrt cast to ``x.dtype`` before it multiplies (the reference's order)."""
-    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
-    y = x * torch.rsqrt(var + eps).to(x.dtype)
-    return y * (1.0 + scale.to(x.dtype))
+    """``x · rsqrt(mean x² + eps) · (1 + g)`` through ``rmsnorm_op``: fp32
+    throughout, cast to ``x.dtype`` at the end.  The JAX package's layer
+    casts the rsqrt to ``x.dtype`` first; at fp32, the only dtype the
+    port's transformer host runs, the two are the same function."""
+    return rmsnorm_op(x.contiguous(), scale.contiguous(), eps=eps)
 
 
 def init_rmsnorm(d, dtype):
@@ -138,10 +146,21 @@ def causal_mask(sq, skv, offset=0, window: int = 0, device=None):
 
 
 def attention(p, x, cfg, positions, *, window: int = 0):
-    """Full (prefill) causal attention."""
+    """Full (prefill) causal attention.
+
+    The mask decides the route, from the shape alone: with no window, or
+    a window no shorter than the sequence, the mask is plain causal and
+    the attention goes through ``flash_attention_op`` (k and v keep their
+    KVH heads; query head h reads kv head ``h // (H / KVH)``, the grouping
+    of :func:`_sdpa`).  A sequence longer than its local window takes the
+    plain masked softmax.  Neither is a fallback for the other."""
     q, k, v = _qkv(p, x, cfg, positions)
-    mask = causal_mask(x.shape[1], x.shape[1], 0, window, x.device)
-    out = _sdpa(q, k, v, mask)
+    s = x.shape[1]
+    if window == 0 or s <= window:
+        out = flash_attention_op(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=True)
+    else:
+        out = _sdpa(q, k, v, causal_mask(s, s, 0, window, x.device))
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 

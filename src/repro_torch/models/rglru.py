@@ -1,0 +1,121 @@
+"""RG-LRU recurrence block (RecurrentGemma / Griffin, arXiv:2402.19427).
+
+The JAX package's ``models/rglru.py`` in PyTorch, with its parameter
+names, layouts and logical axes.  The temporal mixing block is: linear in
+and out projections, a width-4 depthwise causal conv, and the Real-Gated
+Linear Recurrence Unit::
+
+    r_t = σ(x_t W_a)                     (recurrence gate)
+    i_t = σ(x_t W_x)                     (input gate)
+    a_t = exp(-c · softplus(Λ) · r_t)    (per-channel decay, c = 8)
+    h_t = a_t ⊙ h_{t-1} + √(1 − a_t²) ⊙ (i_t ⊙ x_t)
+
+For prefill and the probes the recurrence runs through
+:func:`repro_torch.kernels.rglru_scan_op` — the hand-written ``rglru_scan``
+kernel on the card, a sequential loop on the CPU — where the JAX package
+uses ``lax.associative_scan``: the two agree to fp32 reassociation, not
+bitwise.  Decode is one fused state update in plain PyTorch (the JAX
+package keeps it in XLA).  The conv is plain PyTorch too; it is no kernel
+in the JAX package either.
+
+``jax.nn.gelu`` defaults to the tanh approximation and ``jax.nn.softplus``
+is ``logaddexp(x, 0)``: so are these.  LayerMerge: the gates depend on the
+input, so the block is prunable and not linearizable.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import rglru_scan_op
+
+C_DECAY = 8.0
+
+
+def rglru_axes():
+    return {"w_in": ("embed", "ffn"), "w_out": ("ffn", "embed"),
+            "conv_w": (None, "ffn"), "conv_b": ("ffn",),
+            "w_a": ("ffn", "ffn_in"), "w_x": ("ffn", "ffn_in"),
+            "lam": ("ffn",)}
+
+
+def _normal(gen, shape, dtype, scale):
+    return (torch.randn(shape, generator=gen) * scale).to(dtype)
+
+
+def init_rglru(cfg, gen: torch.Generator, dtype):
+    """``(params, axes)`` drawn from ``gen`` on the CPU: the JAX package's
+    scales, and Λ such that ``-log a`` (at r = 1) is ``C_DECAY`` times
+    ``-log`` of a uniform draw in (0.9^C, 0.999^C)."""
+    d = cfg.d_model
+    dr = cfg.rnn_width or d
+    u = torch.empty((dr,)).uniform_(0.9 ** C_DECAY, 0.999 ** C_DECAY,
+                                    generator=gen)
+    p = {
+        "w_in": _normal(gen, (d, dr), dtype, 1.0 / math.sqrt(d)),
+        "w_out": _normal(gen, (dr, d), dtype, 1.0 / math.sqrt(dr)),
+        "conv_w": _normal(gen, (4, dr), dtype, 0.1),
+        "conv_b": torch.zeros((dr,), dtype=dtype),
+        "w_a": _normal(gen, (dr, dr), dtype, 1.0 / math.sqrt(dr)),
+        "w_x": _normal(gen, (dr, dr), dtype, 1.0 / math.sqrt(dr)),
+        "lam": torch.log(torch.expm1(-torch.log(u))).to(dtype),
+    }
+    return p, rglru_axes()
+
+
+def _softplus(x):
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _gates(p, u):
+    r = torch.sigmoid(u @ p["w_a"])
+    i = torch.sigmoid(u @ p["w_x"])
+    log_a = -C_DECAY * _softplus(p["lam"].float()) * r.float()
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
+        * (i.float() * u.float())
+    return a, gated
+
+
+def _causal_conv1d(p, u, state=None):
+    """Width-4 depthwise causal conv over (B, S, Dr); ``state`` (B, 3, Dr)
+    holds the trailing inputs of the previous call (zeros at the start)."""
+    w, b = p["conv_w"], p["conv_b"]
+    k = w.shape[0]
+    if state is None:
+        pad = F.pad(u, (0, 0, k - 1, 0))
+    else:
+        pad = torch.cat([state.to(u.dtype), u], dim=1)
+    out = sum(pad[:, i:i + u.shape[1]] * w[i] for i in range(k)) + b
+    return out, pad[:, -(k - 1):]
+
+
+def rglru_block(p, x, cfg):
+    """Full temporal block for prefill: (B, S, D) → (B, S, D)."""
+    u = x @ p["w_in"]
+    u, _ = _causal_conv1d(p, u)
+    a, gated = _gates(p, u)
+    h = rglru_scan_op(a.contiguous(), gated.contiguous())
+    return (h.to(x.dtype) * F.gelu(u, approximate="tanh")) @ p["w_out"]
+
+
+def rglru_decode(p, x, cfg, state):
+    """One-step decode: x (B, 1, D); state ``{"h": (B, Dr) fp32, "conv":
+    (B, 3, Dr)}`` → ``(y, new state)``."""
+    u = x @ p["w_in"]
+    u, conv_state = _causal_conv1d(p, u, state["conv"])
+    a, gated = _gates(p, u)
+    h = a[:, 0] * state["h"] + gated[:, 0]
+    y = (h[:, None].to(x.dtype) * F.gelu(u, approximate="tanh")) @ p["w_out"]
+    return y, {"h": h, "conv": conv_state}
+
+
+def init_rglru_state(cfg, batch, dtype, device=None):
+    dr = cfg.rnn_width or cfg.d_model
+    return {"h": torch.zeros((batch, dr), dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, 3, dr), dtype=dtype, device=device)}
+
+
+RGLRU_STATE_AXES = {"h": ("batch", "ffn"), "conv": ("batch", None, "ffn")}

@@ -8,11 +8,12 @@ params tree crosses between the packages as numpy arrays
 (:func:`params_from_numpy` / :func:`params_to_numpy`).  Layers run in plain
 Python loops (no scan, no remat).
 
-Only attention layers (``attn``, ``attn_local``) with a dense FFN are
-ported; the kinds ``moe``, ``rglru``, ``mlstm`` and ``slstm`` raise
-``NotImplementedError`` (ROADMAP.md queue 1).  Decode caches are a list
-of per-layer dicts updated in place (:func:`repro_torch.models.layers.
-attention_decode`).
+Attention layers (``attn``, ``attn_local``) and RG-LRU layers
+(``rglru``, :mod:`.rglru`) with a dense FFN are ported; the kinds ``moe``,
+``mlstm`` and ``slstm`` raise ``NotImplementedError`` (ROADMAP.md queue
+1).  Decode caches are a list of per-layer dicts: a KV cache updated in
+place (:func:`repro_torch.models.layers.attention_decode`) or an RG-LRU
+state ``{"h", "conv"}`` replaced by each step.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch
 
 from ..device import resolve
 from . import layers as L
+from . import rglru as RG
 from .cnn import params_from_numpy, params_to_numpy
 
 __all__ = ["GroupSpec", "layer_groups", "init_model", "model_axes",
@@ -30,14 +32,16 @@ __all__ = ["GroupSpec", "layer_groups", "init_model", "model_axes",
            "sublayer_params", "params_from_numpy", "params_to_numpy"]
 
 ATTN_KINDS = ("attn", "attn_local")
+#: Temporal layer kinds the port runs.
+TEMPORAL_KINDS = ATTN_KINDS + ("rglru",)
 
 
 def check_config(cfg) -> None:
     """Raise unless the port runs every block of ``cfg``."""
     if cfg.is_moe:
         raise NotImplementedError(L._NOT_PORTED.format(what="MoE ('moe')"))
-    for kind in set(cfg.layer_kinds()):
-        if kind not in ATTN_KINDS:
+    for kind in sorted(set(cfg.layer_kinds())):
+        if kind not in TEMPORAL_KINDS:
             raise NotImplementedError(
                 L._NOT_PORTED.format(what=f"layer kind {kind!r}"))
 
@@ -78,6 +82,14 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def _stack_axes(ax):
+    """Prepend the stacked ``layers`` axis to every logical-axes tuple of
+    a (nested dict) axes tree; the tuples are the leaves."""
+    if isinstance(ax, dict):
+        return {k: _stack_axes(v) for k, v in ax.items()}
+    return ("layers",) + tuple(ax)
+
+
 def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
@@ -94,10 +106,13 @@ def _layer(gp, i):
 # ---------------------------------------------------------------------------
 
 def _init_layer(cfg, kind, gen, dtype):
+    """One layer's params (``check_config`` has vetted ``kind``)."""
     n1, n1_ax = L.init_rmsnorm(cfg.d_model, dtype)
     p = {"norm1": n1}
     ax = {"norm1": n1_ax}
-    p["temporal"], ax["temporal"] = L.init_attention(cfg, gen, dtype)
+    p["temporal"], ax["temporal"] = (
+        RG.init_rglru(cfg, gen, dtype) if kind == "rglru"
+        else L.init_attention(cfg, gen, dtype))
     if cfg.has_ffn:
         n2, n2_ax = L.init_rmsnorm(cfg.d_model, dtype)
         p["norm2"] = n2
@@ -108,7 +123,9 @@ def _init_layer(cfg, kind, gen, dtype):
 
 
 def _layer_axes(cfg, kind):
-    ax = {"norm1": ("embed",), "temporal": L.attention_axes(cfg)}
+    ax = {"norm1": ("embed",),
+          "temporal": RG.rglru_axes() if kind == "rglru"
+          else L.attention_axes(cfg)}
     if cfg.has_ffn:
         ax["norm2"] = ("embed",)
         ax["ffn"] = L.ffn_axes(cfg.ffn_kind)
@@ -118,8 +135,7 @@ def _layer_axes(cfg, kind):
 def model_axes(cfg):
     """Logical-axes tree mirroring :func:`init_model`'s params."""
     check_config(cfg)
-    axes = {"groups": [_tree_map(lambda a: ("layers",) + tuple(a),
-                                 _layer_axes(cfg, g.kind))
+    axes = {"groups": [_stack_axes(_layer_axes(cfg, g.kind))
                        for g in layer_groups(cfg)],
             "final_norm": ("embed",)}
     if cfg.frontend == "tokens":
@@ -158,11 +174,35 @@ def init_model(cfg, gen: torch.Generator | None = None, device="cuda"):
 # ---------------------------------------------------------------------------
 
 def temporal_apply(cfg, kind, lp, h, positions):
+    if kind == "rglru":
+        return RG.rglru_block(lp, h, cfg)
     if kind not in ATTN_KINDS:
         raise NotImplementedError(
             L._NOT_PORTED.format(what=f"layer kind {kind!r}"))
     window = cfg.local_window if kind == "attn_local" else 0
     return L.attention(lp, h, cfg, positions, window=window)
+
+
+def init_state(cfg, kind, batch_size, seq_len, device):
+    """Decode state of one temporal layer: a KV cache (a ring buffer of
+    ``local_window`` entries for ``attn_local``) or the RG-LRU state."""
+    if kind == "rglru":
+        return RG.init_rglru_state(cfg, batch_size, _dtype(cfg), device)
+    if kind not in ATTN_KINDS:
+        raise NotImplementedError(L._NOT_PORTED.format(
+            what=f"decode state of {kind!r}"))
+    return L.init_cache(cfg, batch_size, seq_len, _dtype(cfg),
+                        window=cfg.local_window if kind == "attn_local"
+                        else 0, device=device)
+
+
+def temporal_decode(cfg, kind, lp, h, state):
+    """One-token step of one temporal layer: ``(y, state)``, the KV cache
+    written in place, the RG-LRU state replaced."""
+    if kind == "rglru":
+        return RG.rglru_decode(lp, h, cfg, state)
+    window = cfg.local_window if kind == "attn_local" else 0
+    return L.attention_decode(lp, h, cfg, state, window=window)
 
 
 def _layer_fn(cfg, kind, positions, lp, x):
@@ -213,28 +253,25 @@ def forward(cfg, params, batch):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch_size, seq_len, device="cuda"):
-    """One KV cache per layer, in layer order, on ``device`` (the card by
-    default; raises without one)."""
+    """One decode state per layer (:func:`init_state`), in layer order, on
+    ``device`` (the card by default; raises without one)."""
     check_config(cfg)
     device = resolve(device)
-    return [L.init_cache(cfg, batch_size, seq_len, _dtype(cfg),
-                         window=cfg.local_window if kind == "attn_local"
-                         else 0, device=device)
+    return [init_state(cfg, kind, batch_size, seq_len, device)
             for kind in cfg.layer_kinds()]
 
 
 def decode_step(cfg, params, cache, batch):
     """One-token decode: batch ``{'tokens': (B, 1)}`` → ``(logits, cache)``;
-    the caches are updated in place."""
+    the cache list is updated in place."""
     x = embed_in(cfg, params, batch)
     li = 0
     for g, gp in zip(layer_groups(cfg), params["groups"]):
-        window = cfg.local_window if g.kind == "attn_local" else 0
         for i in range(g.count):
             lp = _layer(gp, i)
             h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
-            t, cache[li] = L.attention_decode(lp["temporal"], h, cfg,
-                                              cache[li], window=window)
+            t, cache[li] = temporal_decode(cfg, g.kind, lp["temporal"], h,
+                                           cache[li])
             x = x + t
             if cfg.has_ffn:
                 h = L.rms_norm(x, lp["norm2"], cfg.norm_eps)

@@ -9,7 +9,8 @@ of the stack.  Block capabilities:
   rank of the residual map (the Eq. 1 analogue).  Linearization folds the
   pre-norm scale ``(1 + g)`` into ``w_up``, drops ``w_gate`` and applies
   the map to the un-normalized stream — the JAX package's semantics.
-* attention — prunable, not linearizable.
+* attention and RG-LRU — prunable, not linearizable (the RG-LRU gates
+  depend on the input).
 
 A merged segment executes as one rank-k residual layer through
 ``merged_ffn_op`` — the hand-written ``merged_ffn`` kernel on the card —
@@ -138,6 +139,11 @@ class TransformerHost:
             span = min(cfg.local_window or env.seq, env.seq)
             attn_flops = 4.0 * tokens * span * cfg.num_heads * hd
             return qk + CostBreakdown(attn_flops, tokens * span * by / 64)
+        if kind == "rglru":
+            dr = cfg.rnn_width or d
+            return (matmul_cost(tokens, d, dr, by) * 2
+                    + matmul_cost(tokens, dr, 2 * dr, by)
+                    + CostBreakdown(8.0 * tokens * dr, 2 * tokens * dr * by))
         if kind == "ffn":
             mult = 3 if cfg.ffn_kind in ("swiglu", "geglu") else 2
             c = (matmul_cost(tokens, d, cfg.d_ff, by)

@@ -12,8 +12,9 @@ one), concat, group norm, and the boundary activation.
   batch ``{"tokens": (B, S)}`` (transformer prefill).
 * :func:`run_units` — a bare transformer unit chain, no embed/unembed
   (the segment probes).
-* :func:`init_cache` / :func:`decode_step` — one-token KV-cache decode
-  through a compressed transformer; lowrank units carry no state.
+* :func:`init_cache` / :func:`decode_step` — one-token decode through a
+  compressed transformer: a KV cache per attention sublayer, the
+  recurrent state per RG-LRU sublayer; lowrank units carry no state.
 * :class:`GraphModule` — an ``nn.Module`` holding a graph's tensors as
   buffers (so ``.to(device)`` moves them), whose ``forward`` is
   :func:`execute`.
@@ -163,28 +164,18 @@ def _is_temporal(u) -> bool:
 
 
 def init_cache(graph: ir.UnitGraph, batch_size: int, seq_len: int):
-    """Per-unit decode state: a KV cache for each attention sublayer,
-    ``{}`` for stateless units; on the device of the graph's tensors."""
+    """Per-unit decode state: a KV cache for each attention sublayer, the
+    RG-LRU state ``{h, conv}`` for each recurrent one, ``{}`` for
+    stateless units; on the device of the graph's tensors."""
     cfg = graph.meta["config"]
     dev = graph.params["final_norm"].device
-    caches = []
-    for u in graph.units:
-        if not _is_temporal(u):
-            caches.append({})
-        elif u.sub_kind in T.ATTN_KINDS:
-            window = cfg.local_window if u.sub_kind == "attn_local" else 0
-            caches.append(L.init_cache(cfg, batch_size, seq_len,
-                                       T._dtype(cfg), window=window,
-                                       device=dev))
-        else:
-            raise NotImplementedError(L._NOT_PORTED.format(
-                what=f"decode state of {u.sub_kind!r}"))
-    return caches
+    return [T.init_state(cfg, u.sub_kind, batch_size, seq_len, dev)
+            if _is_temporal(u) else {} for u in graph.units]
 
 
 def decode_step(graph: ir.UnitGraph, cache, batch):
     """One-token decode through the compressed unit chain: ``batch``
-    ``{'tokens': (B, 1)}`` → ``(logits, cache)``, the caches updated in
+    ``{'tokens': (B, 1)}`` → ``(logits, cache)``, the cache list updated in
     place.  Lowrank units are position-independent residual maps, so
     each applies to the one-token activation directly (M = B rows)."""
     cfg = graph.meta["config"]
@@ -193,9 +184,8 @@ def decode_step(graph: ir.UnitGraph, cache, batch):
     for i, u in enumerate(graph.units):
         if _is_temporal(u):
             h = L.rms_norm(x, u.params["norm"], cfg.norm_eps)
-            window = cfg.local_window if u.sub_kind == "attn_local" else 0
-            t, cache[i] = L.attention_decode(u.params["p"], h, cfg, cache[i],
-                                             window=window)
+            t, cache[i] = T.temporal_decode(cfg, u.sub_kind, u.params["p"],
+                                            h, cache[i])
             x = x + t
         else:
             x = _apply_unit(cfg, u, x, None)

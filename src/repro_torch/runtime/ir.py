@@ -97,10 +97,11 @@ class LowRankUnit:
 class SublayerUnit:
     """One kept transformer sublayer: pre-norm → block → residual add.
 
-    ``sub_kind``: 'attn' | 'attn_local' | 'ffn' (the kinds the port runs;
-    the JAX package's 'moe', 'rglru', 'mlstm', 'slstm' load but raise when
-    executed).  ``params``: {'norm': rmsnorm scale, 'p': the block's
-    params}.  Temporal kinds carry a KV cache in the decode path.
+    ``sub_kind``: 'attn' | 'attn_local' | 'rglru' | 'ffn' (the kinds the
+    port runs; the JAX package's 'moe', 'mlstm', 'slstm' load but raise
+    when executed).  ``params``: {'norm': rmsnorm scale, 'p': the block's
+    params}.  Temporal kinds carry decode state: a KV cache (attention)
+    or the recurrent state ``{h, conv}`` (RG-LRU).
     """
 
     kind = "sublayer"
@@ -205,9 +206,12 @@ def _flat_names(tree, prefix: str = "") -> dict:
 
 def _sublayer_axes(u, cfg) -> dict:
     from repro_torch.models import layers as L
+    from repro_torch.models import rglru as RG
 
     if u.sub_kind in ("attn", "attn_local"):
         block = L.attention_axes(cfg)
+    elif u.sub_kind == "rglru":
+        block = RG.rglru_axes()
     elif u.sub_kind == "ffn":
         block = L.ffn_axes(cfg.ffn_kind)
     else:

@@ -61,19 +61,42 @@ def lm_configs():
             for name, kw in variants.items()}
 
 
+def rg_configs():
+    """``(JAX config, port config)`` of RecurrentGemma-2B reduced to CI size
+    (3 layers: rglru, rglru, attn_local; d 32, rnn_width 32, window 8)."""
+    from repro_torch.configs import get_config as t_get_config
+
+    return (j_get_config("recurrentgemma-2b").reduced(),
+            t_get_config("recurrentgemma-2b").reduced())
+
+
+#: C_DECAY of the RG-LRU block (``a = exp(-C · softplus(Λ) · r)``).
+_C_DECAY = 8.0
+
+
 def np_lm_params(cfg, seed=0):
     """The structure of ``repro.models.transformer.init_model(cfg)`` filled
     from ``np.random.default_rng(seed)``: 1/sqrt(fan-in) weights and
-    non-zero norm scales, so the ``(1 + g)`` fold is exercised."""
+    non-zero norm scales, so the ``(1 + g)`` fold is exercised.  RG-LRU
+    leaves: Λ drawn as ``init_rglru`` draws it (``-log a`` at r = 1 is C
+    times ``-log`` of a uniform draw in (0.9^C, 0.999^C)), conv taps and
+    bias at 0.1."""
     shapes = jax.eval_shape(
         lambda: jtr.init_model(cfg, jax.random.PRNGKey(0))[0])
     rng = np.random.default_rng(seed)
-    fan = {"w_down": cfg.d_ff, "wo": cfg.num_heads * cfg.head_dim}
+    dr = cfg.rnn_width or cfg.d_model
+    fan = {"w_down": cfg.d_ff, "wo": cfg.num_heads * cfg.head_dim,
+           "w_out": dr, "w_a": dr, "w_x": dr}
 
     def fill(path, leaf):
         name = str(getattr(path[-1], "key", ""))
         if "norm" in name:
             return (0.2 * rng.standard_normal(leaf.shape)).astype(np.float32)
+        if name == "lam":
+            u = rng.uniform(0.9 ** _C_DECAY, 0.999 ** _C_DECAY, leaf.shape)
+            return np.log(np.expm1(-np.log(u))).astype(np.float32)
+        if name in ("conv_w", "conv_b"):
+            return (0.1 * rng.standard_normal(leaf.shape)).astype(np.float32)
         scale = 1.0 / np.sqrt(fan.get(name, cfg.d_model))
         return (rng.standard_normal(leaf.shape) * scale).astype(np.float32)
     return jax.tree_util.tree_map_with_path(fill, shapes)

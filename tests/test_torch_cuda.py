@@ -8,7 +8,9 @@ Kernel vs plain version: ``rtol = atol = 1e-4`` (fp32 sums in another
 order; an indexing fault is O(1)).  The quantized variants are held
 against the plain ``*_qref`` versions on the same card inputs (the same
 integer codes on both sides), with the same tolerance relative to the
-largest output.
+largest output.  ``rmsnorm``, ``rglru_scan`` and ``flash_attention``: 1e-5
+of the largest output (fp32 sums in another order; the scan rounds as its
+plain version does and is held bitwise).
 """
 import itertools
 
@@ -246,3 +248,112 @@ def test_tiny_lm_on_the_card_matches_the_cpu(tmp_path):
     y_cpu = runtime.load(out, device="cpu").apply({"tokens": toks})
     np.testing.assert_allclose(y.cpu().numpy(), y_cpu.numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+def _rel(y, yr):
+    y, yr = y.cpu(), yr.cpu()
+    assert y.shape == yr.shape and bool(torch.isfinite(y).all())
+    return float((y - yr).abs().max() / yr.abs().max())
+
+
+@pytest.mark.parametrize("m,d", [(8, 2560), (37, 2561)])
+def test_rmsnorm_matches_plain_version(m, d):
+    dev = _card()
+    g = torch.Generator().manual_seed(m + d)
+    x = (torch.randn(m, d, generator=g) * 3).to(dev)
+    w = (torch.randn(d, generator=g) * 0.2).to(dev)
+    before = tk.launch_counts()["rmsnorm"]
+    y = tk.rmsnorm_op(x, w, eps=1e-6)
+    assert tk.launch_counts()["rmsnorm"] == before + 1
+    assert _rel(y, tk.rmsnorm_ref(x, w, 1e-6)) <= 1e-5
+
+
+@pytest.mark.parametrize("b,s,c", [(8, 128, 2560), (1, 7, 2561)])
+def test_rglru_scan_matches_plain_version(b, s, c):
+    dev = _card()
+    g = torch.Generator().manual_seed(b + s + c)
+    a = (torch.rand(b, s, c, generator=g) * 0.5 + 0.5).to(dev)
+    x = torch.randn(b, s, c, generator=g).to(dev)
+    before = tk.launch_counts()["rglru_scan"]
+    h = tk.rglru_scan_op(a, x)
+    assert tk.launch_counts()["rglru_scan"] == before + 1
+    assert torch.equal(h, tk.rglru_scan_ref(a, x))
+
+
+@pytest.mark.parametrize("shape,kvh,causal", [
+    ((8, 128, 10, 256), 1, True), ((2, 37, 9, 64), 3, False),
+    ((1, 7, 2, 32), 2, True)])
+def test_flash_attention_matches_plain_version(shape, kvh, causal):
+    dev = _card()
+    b, s, h, d = shape
+    g = torch.Generator().manual_seed(s + d)
+    q = torch.randn(b, s, h, d, generator=g).to(dev)
+    k, v = (torch.randn(b, s, kvh, d, generator=g).to(dev) for _ in range(2))
+    before = tk.launch_counts()["flash_attention"]
+    y = tk.flash_attention_op(q, k, v, causal)
+    assert tk.launch_counts()["flash_attention"] == before + 1
+    ke, ve = (t.repeat_interleave(h // kvh, dim=2) for t in (k, v))
+    assert _rel(y, tk.flash_attention_ref(q, ke, ve, causal)) <= 1e-5
+
+
+def test_flash_attention_gradient_through_the_kernel():
+    dev = _card()
+    g = torch.Generator().manual_seed(0)
+    q, k, v, w = (torch.randn(2, 19, 2, 64, generator=g).to(dev)
+                  for _ in range(4))
+    grads = []
+    for fn in (lambda *a: tk.flash_attention_op(*a, True),
+               lambda *a: tk.flash_attention_ref(*a, causal=True)):
+        args = [t.clone().requires_grad_() for t in (q, k, v)]
+        (fn(*args) * w).sum().backward()
+        grads.append([a.grad for a in args])
+    for got, want in zip(*grads):
+        assert _rel(got, want) <= 1e-5
+
+
+def test_new_ops_refuse_other_layouts_and_dtypes():
+    dev = _card()
+    x = torch.randn(4, 64, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.rmsnorm_op(x.t(), torch.zeros(4, device=dev))
+    with pytest.raises(TypeError, match="float32"):
+        tk.rmsnorm_op(x.bfloat16(), torch.zeros(64, device=dev))
+    a = torch.rand(2, 5, 8, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.rglru_scan_op(a.transpose(1, 2), a.transpose(1, 2))
+    with pytest.raises(TypeError, match="float32"):
+        tk.rglru_scan_op(a.double(), a.double())
+    q = torch.randn(1, 6, 2, 16, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.flash_attention_op(q.transpose(1, 2), q.transpose(1, 2),
+                              q.transpose(1, 2))
+    with pytest.raises(TypeError, match="float32"):
+        tk.flash_attention_op(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.randn(1, 2, 1, 288, device=dev)
+        tk.flash_attention_op(big, big, big)
+
+
+def test_tiny_recurrentgemma_on_the_card_matches_the_cpu(tmp_path):
+    dev = _card()
+    from repro_torch import runtime
+    from repro_torch.compress import main
+    out = str(tmp_path / "rg.npz")
+    main(["--arch", "recurrentgemma-2b", "--method", "depth",
+          "--budget-ratio", "0.9", "--seq", "16", "--out", out])
+    art = runtime.load(out)
+    toks = torch.randint(0, 64, (2, 12),
+                         generator=torch.Generator().manual_seed(0))
+    tk.reset_launch_counts()
+    y = art.apply({"tokens": toks})
+    counts = tk.launch_counts()
+    assert all(counts[k] > 0 for k in ("rmsnorm", "rglru_scan",
+                                       "merged_ffn"))
+    cpu = runtime.load(out, device="cpu")
+    y_cpu = cpu.apply({"tokens": toks})
+    assert _rel(y, y_cpu) <= 1e-4
+    cache, cache_cpu = art.init_cache(2, 12), cpu.init_cache(2, 12)
+    for t in range(12):
+        lg, cache = art.decode(cache, toks[:, t:t + 1].to(dev))
+        lc, cache_cpu = cpu.decode(cache_cpu, toks[:, t:t + 1])
+        assert _rel(lg, lc) <= 1e-4

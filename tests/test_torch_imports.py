@@ -46,7 +46,11 @@ def test_every_module_imports_with_jax_and_repro_blocked():
               "repro_torch.kernels.cuda_build", "repro_torch.kernels.ops",
               "repro_torch.kernels.quant", "repro_torch.core.latency",
               "repro_torch.core.tables", "repro_torch.core.compress",
-              "repro_torch.models.cnn_host", "repro_torch.compress"):
+              "repro_torch.models.cnn_host", "repro_torch.compress",
+              "repro_torch.models.rglru", "repro_torch.kernels.rmsnorm",
+              "repro_torch.kernels.rglru_scan",
+              "repro_torch.kernels.flash_attention",
+              "repro_torch.configs.recurrentgemma_2b"):
         assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -126,10 +130,12 @@ def test_wallclock_oracle_refuses_the_cpu():
 def test_cuda_kernels_build_lazily():
     """Importing the kernel modules neither builds nor needs nvcc."""
     from repro_torch.kernels import cuda_build
-    assert cuda_build.SOURCES == ("depthwise_conv", "merged_conv",
-                                  "merged_ffn")
-    assert set(cuda_build.SIGNATURES) == {
-        f"{s}{q}" for s in cuda_build.SOURCES for q in ("", "_q")}
+    merged = ("depthwise_conv", "merged_conv", "merged_ffn")
+    assert cuda_build.SOURCES == ("depthwise_conv", "flash_attention",
+                                  "merged_conv", "merged_ffn", "rglru_scan",
+                                  "rmsnorm")
+    assert set(cuda_build.SIGNATURES) == set(cuda_build.SOURCES) | {
+        f"{s}_q" for s in merged}
     for name in cuda_build.SOURCES:
         src = cuda_build.CSRC / f"{name}.cu"
         assert src.exists()

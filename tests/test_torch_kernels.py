@@ -169,3 +169,93 @@ def test_tiles_and_traffic_exact(budget):
                 *args, bgroups=bg, budget_bytes=budget) == \
                 jdw.choose_tiles_grouped(*args, bgroups=bg,
                                          budget_bytes=budget)
+
+
+# -- the norm, the scan and attention -----------------------------------------
+
+def _rel(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    return float(np.abs(got - want).max()) / (float(np.abs(want).max())
+                                              + 1e-30)
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 37), (130, 64), (1, 2561),
+                                   (2, 1, 576)])
+def test_rmsnorm_matches_pallas(shape):
+    rng = np.random.default_rng(len(shape) + shape[-1])
+    x = (rng.standard_normal(shape) * 2).astype(np.float32)
+    g = (0.2 * rng.standard_normal(shape[-1])).astype(np.float32)
+    y = tk.rmsnorm_op(_t(x), _t(g), eps=1e-6)
+    yj = jk.rmsnorm_op(_j(x), _j(g), eps=1e-6, interpret=True)
+    assert _rel(y.numpy(), yj) <= 1e-6
+    assert _rel(tk.rmsnorm_ref(_t(x), _t(g)).numpy(),
+                jk.ref.rmsnorm_ref(_j(x), _j(g))) <= 1e-6
+
+
+@pytest.mark.parametrize("b,s,c", [(2, 7, 37), (1, 300, 130), (3, 1, 5)])
+def test_rglru_scan_matches_pallas(b, s, c):
+    rng = np.random.default_rng(s + c)
+    a = rng.uniform(0.5, 1.0, (b, s, c)).astype(np.float32)
+    x = rng.standard_normal((b, s, c)).astype(np.float32)
+    h = tk.rglru_scan_op(_t(a), _t(x))
+    hj = jk.rglru_scan_op(_j(a), _j(x), interpret=True)
+    assert _rel(h.numpy(), hj) <= 1e-6
+    # the plain version with h0 is the JAX oracle's
+    h0 = rng.standard_normal((b, c)).astype(np.float32)
+    assert _rel(tk.rglru_scan_ref(_t(a), _t(x), _t(h0)).numpy(),
+                jk.ref.rglru_scan_ref(_j(a), _j(x), _j(h0))) <= 1e-6
+
+
+ATTN_SHAPES = [(2, 7, 3, 16), (1, 37, 2, 8), (2, 1, 1, 32), (1, 16, 2, 64)]
+
+
+@pytest.mark.parametrize("shape,causal", itertools.product(ATTN_SHAPES,
+                                                           (True, False)))
+def test_flash_attention_matches_pallas(shape, causal):
+    rng = np.random.default_rng(sum(shape) + causal)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for _ in range(3))
+    y = tk.flash_attention_op(_t(q), _t(k), _t(v), causal)
+    yj = jk.flash_attention_op(_j(q), _j(k), _j(v), causal, True)
+    assert _rel(y.numpy(), yj) <= 1e-6
+
+
+def test_flash_attention_grouped_heads_equal_expanded():
+    """k and v with KVH < H heads: the op equals the plain version on k and
+    v expanded to H heads (query head h reads kv head h // (H / KVH)),
+    which is the JAX op on the expanded heads."""
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((2, 9, 6, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 9, 2, 16)).astype(np.float32)
+            for _ in range(2))
+    y = tk.flash_attention_op(_t(q), _t(k), _t(v), True)
+    ke, ve = np.repeat(k, 3, axis=2), np.repeat(v, 3, axis=2)
+    yj = jk.flash_attention_op(_j(q), _j(ke), _j(ve), True, True)
+    assert _rel(y.numpy(), yj) <= 1e-6
+
+
+@pytest.mark.parametrize("causal", (True, False))
+def test_flash_attention_gradient_matches_jax(causal):
+    import jax
+    rng = np.random.default_rng(11)
+    q, k, v, w = (rng.standard_normal((2, 11, 2, 8)).astype(np.float32)
+                  for _ in range(4))
+    tq, tk_, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    (tk.flash_attention_op(tq, tk_, tv, causal) * _t(w)).sum().backward()
+
+    def loss(q, k, v):
+        return (jk.flash_attention_op(q, k, v, causal, True) * _j(w)).sum()
+    grads = jax.grad(loss, argnums=(0, 1, 2))(_j(q), _j(k), _j(v))
+    for got, want in zip((tq.grad, tk_.grad, tv.grad), grads):
+        assert _rel(got.numpy(), want) <= 1e-5
+
+
+def test_the_new_ops_count_no_launch_on_the_cpu():
+    before = tk.launch_counts()
+    tk.rmsnorm_op(torch.ones(2, 4), torch.zeros(4))
+    tk.rglru_scan_op(torch.ones(1, 2, 3), torch.ones(1, 2, 3))
+    tk.flash_attention_op(torch.ones(1, 2, 1, 4), torch.ones(1, 2, 1, 4),
+                          torch.ones(1, 2, 1, 4))
+    assert tk.launch_counts() == before
+    assert {"rmsnorm", "rglru_scan", "flash_attention"} <= set(before)

@@ -137,9 +137,12 @@ def test_quantized_wrappers_check_operands_before_any_build():
 
 
 def test_launch_counts_cover_the_quantized_variants():
+    from repro_torch.kernels import flash_attention, rglru_scan, rmsnorm
     assert set(tk.launch_counts()) == {
         "merged_conv", "depthwise_conv", "merged_ffn", "merged_conv_q",
-        "depthwise_conv_q", "merged_ffn_q"}
+        "depthwise_conv_q", "merged_ffn_q", "rmsnorm", "rglru_scan",
+        "flash_attention"}
     tmc.launches_q = tdw.launches_q = tmf.launches_q = 3
+    rmsnorm.launches = rglru_scan.launches = flash_attention.launches = 2
     tk.reset_launch_counts()
     assert set(tk.launch_counts().values()) == {0}

@@ -306,7 +306,7 @@ def test_what_is_not_ported_raises():
     with pytest.raises(KeyError, match="queue 1"):
         t_get_config("qwen3-moe-30b-a3b")
     cfg = t_get_config("smollm-135m").reduced()
-    for bad in (dict(temporal_pattern=("rglru",)),
+    for bad in (dict(temporal_pattern=("mlstm",)),
                 dict(num_experts=4, experts_per_token=2, moe_dff=16)):
         with pytest.raises(NotImplementedError, match="queue 1"):
             tT.init_model(dataclasses.replace(cfg, **bad), device="cpu")
@@ -322,7 +322,8 @@ def test_what_is_not_ported_raises():
 def test_config_fields_are_the_reference_fields():
     """The config dict enters the artifact fingerprint."""
     from repro.configs import get_config as j_get_config
-    assert dataclasses.asdict(t_get_config("smollm-135m")) == \
-        dataclasses.asdict(j_get_config("smollm-135m"))
+    for arch in ("smollm-135m", "recurrentgemma-2b"):
+        assert dataclasses.asdict(t_get_config(arch)) == \
+            dataclasses.asdict(j_get_config(arch))
     jc, tc = CONFIGS["local"]
     assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
