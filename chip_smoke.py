@@ -16,13 +16,19 @@ Phases, each printing its own line with the seconds it took:
              shapes, every activation, no bias, and the depthwise /
              channel-multiplier / grouped cases; merged_ffn over
              M {1,8,37,1024} × D {32,96,576} × R {1,24,576,1152,1536}
-             (1536: the replaced path's unmerged SmolLM FFN) and at
-             D 2560 × R {24,2560,7680} × M {8,1024} (RecurrentGemma; the
-             multi-cluster path).  Then the
+             (1536: the replaced path's unmerged SmolLM FFN), at
+             D 2560 × R {24,2560,7680} × M {8,1024} (RecurrentGemma), at
+             D 2561 (rows not 16-byte aligned) × M {1,8,63,64,65,129,1024}
+             (both tiles and their boundary) × R {24,2560} and R 7680 at
+             M 8, and twice on the same inputs at D 2560, M {8,1024}:
+             bitwise equal (the split reductions sum in a fixed order).
+             Then the
              quantized variants in int8, w8a8 and fp8 against ``*_qref``:
              the convs over strides {1,2,3} × k {1,3,5,7} with the same
              cases, merged_ffn over M {1,8,37,1024} × D {96,576} ×
-             R {24,576}, within the same tolerance over the dequantized
+             R {24,576} and its four type pairs (fp32 or int8 panel × int8
+             or e4m3 factors) at D 2560 × M {8,1024} × R {24,2560},
+             within the same tolerance over the dequantized
              operands; ``quant.quantize_int8`` on the card bitwise
              equal to the CPU's; rmsnorm over M {1,8,37,1024} ×
              D {32,512,576,2560,2561}; rglru_scan over B {1,8} ×
@@ -69,7 +75,11 @@ Phases, each printing its own line with the seconds it took:
 10. merged_ffn shapes — the kernel at the path's shapes (each lowrank
              unit at M = 8, one decode step; one at M = 1024, a probe):
              kernel, plain version, ``torch.addmm(x, x @ U, V)`` (two
-             cuBLAS calls) and the bound, as device times (phase 6).
+             cuBLAS calls) and the bound, as device times (phase 6), and
+             the host microseconds an eager call takes.  merged_ffn's
+             operations are priced at the tensor-core rate that gives its
+             accuracy (``FFN_RATES``: 3xTF32 for fp32 × fp32), every other
+             kernel's at the fp32 FFMA rate; each row names its rate.
 11. q serve — the quantized CNN path: MobileNetV2 as in phase 4 through
              the CLI with ``--quantize w8a8`` and phase 4's oracle (no
              signature timed twice), budgets 0.6, 0.5, 0.4 until the plan
@@ -151,6 +161,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
 H100_FP32_FLOPS = 67e12          # fp32 outside the tensor cores, data sheet
+H100_TF32_FLOPS = 495e12         # TF32 tensor cores, dense, data sheet
+H100_FP16_FLOPS = 989e12         # fp16 tensor cores, dense, data sheet
+H100_INT8_OPS = 1979e12          # int8 tensor cores, dense, data sheet
 H100_HBM_BW = 3.35e12            # bytes/s, data sheet
 H100_L2_BYTES = 50 * 2**20       # data sheet
 
@@ -170,6 +183,17 @@ Q_BUDGETS = (0.6, 0.5, 0.4)
 # Quantized network vs the fp lowering of the same plan: the reference's
 # own criterion (tests/test_quant_pipeline.py), max |Δ| / max |y| < 0.25.
 Q_FP_RTOL = 0.25
+# merged_ffn's products priced at the tensor-core rate that gives the
+# result's accuracy, by operand types (the panel feeding the product, the
+# narrow or fp32 factor): fp32 x fp32 as 3xTF32, fp32 x narrow as 2xTF32
+# (a narrow value is exact in TF32), int8 x int8 at the int8 rate, int8 x
+# e4m3 at fp16's (both exact in fp16).
+FFN_RATES = {("fp32", "fp32"): (H100_TF32_FLOPS / 3, "3xTF32"),
+             ("fp32", "narrow"): (H100_TF32_FLOPS / 2, "2xTF32"),
+             ("int8", "int8"): (H100_INT8_OPS, "int8"),
+             ("int8", "e4m3"): (H100_FP16_FLOPS, "fp16")}
+# The rate every other kernel's operations are priced at.
+FFMA_RATE = f"fp32 FFMA, {H100_FP32_FLOPS / 1e12:g} TFLOP/s"
 # Per-unit timings of the quantized kernels summed over a forward / step.
 Q_FIELDS = ("ms", "plain_ms", "library_ms", "fp32_ms", "op_ms", "qpass_ms",
             "flops_ms", "bytes_ms", "bound_ms")
@@ -414,27 +438,32 @@ def compare_qffn(x, uq, us, vq, vs, act_quant):
                 f"act_quant={act_quant}")
 
 
+#: The quantized merged_ffn's four type pairs (the panel feeding P x the
+#: narrow factors): the weight mode and the op's ``act_quant``.
+QPAIRS = {"fp32 x int8": ("int8", "none"), "int8 x int8": ("int8", "w8a8"),
+          "fp32 x e4m3": ("fp8", "none"), "int8 x e4m3": ("fp8", "w8a8")}
+
+
 def qffn_sweep(dev):
     """Quantized merged_ffn over modes × M {1,8,37,1024} × D {96,576} ×
-    R {24,576}."""
+    R {24,576}, and each of the four type pairs at RecurrentGemma's
+    D 2560 × M {8,1024} × R {24,2560}."""
     import torch
     from repro_torch.kernels import quant
     g = torch.Generator().manual_seed(5)
     worst = [0.0, 0.0, 0]
-    for mode, (wmode, aq) in QMODES.items():
-        for m in (1, 8, 37, 1024):
-            for d in (96, 576):
-                for r in (24, 576):
-                    x = torch.randn(m, d, generator=g).to(dev)
-                    uq, us = quant.quantize_weight(
-                        (torch.randn(d, r, generator=g) / d ** 0.5).to(dev),
-                        wmode, axis=1)
-                    vq, vs = quant.quantize_weight(
-                        (torch.randn(r, d, generator=g) / r ** 0.5).to(dev),
-                        wmode, axis=1)
-                    err, rel = compare_qffn(x, uq, us, vq, vs, aq)
-                    worst = [max(worst[0], err), max(worst[1], rel),
-                             worst[2] + 1]
+    cases = [(wmode, aq, m, d, r) for wmode, aq in QMODES.values()
+             for m in (1, 8, 37, 1024) for d in (96, 576) for r in (24, 576)]
+    cases += [(wmode, aq, m, 2560, r) for wmode, aq in QPAIRS.values()
+              for m in (8, 1024) for r in (24, 2560)]
+    for wmode, aq, m, d, r in cases:
+        x = torch.randn(m, d, generator=g).to(dev)
+        uq, us = quant.quantize_weight(
+            (torch.randn(d, r, generator=g) / d ** 0.5).to(dev), wmode, axis=1)
+        vq, vs = quant.quantize_weight(
+            (torch.randn(r, d, generator=g) / r ** 0.5).to(dev), wmode, axis=1)
+        err, rel = compare_qffn(x, uq, us, vq, vs, aq)
+        worst = [max(worst[0], err), max(worst[1], rel), worst[2] + 1]
     return worst
 
 
@@ -707,16 +736,20 @@ def compare_ffn(x, u, v):
 
 
 def ffn_sweep(dev):
-    """merged_ffn against its plain version over ragged M, D and R, and at
-    RecurrentGemma's D = 2560 (the multi-cluster path: 40 n-tiles over 3
-    clusters) with R 24, 2560 (a merged unit) and 7680 (the replaced
-    path's unmerged FFN) at M 8 and 1024."""
+    """merged_ffn against its plain version over ragged M, D and R; at
+    RecurrentGemma's D = 2560 with R 24, 2560 (a merged unit) and 7680
+    (the replaced path's unmerged FFN) at M 8 and 1024; at D 2561 (rows
+    not 16-byte aligned: the element-wise copies) over M {1, 8, 63, 64,
+    65, 129, 1024}, across the small / large tile boundary, with R 24 and
+    2560, and R 7680 at M 8."""
     import torch
     g = torch.Generator().manual_seed(2)
     worst = [0.0, 0.0, 0]
     cases = [(m, d, r) for m in (1, 8, 37, 1024) for d in (32, 96, 576)
              for r in (1, 24, 576, 1152, 1536)]
     cases += [(m, 2560, r) for m in (8, 1024) for r in (24, 2560, 7680)]
+    cases += [(m, 2561, r) for m in (1, 8, 63, 64, 65, 129, 1024)
+              for r in (24, 2560)] + [(8, 2561, 7680)]
     for m, d, r in cases:
         x = torch.randn(m, d, generator=g).to(dev)
         u = (torch.randn(d, r, generator=g) / d ** 0.5).to(dev)
@@ -727,11 +760,99 @@ def ffn_sweep(dev):
 
 
 def ffn_bound(m: int, d: int, r: int) -> tuple[float, float]:
-    """(operations ms, bytes ms) of x + (x@U)@V: 4·M·D·R FLOPs at the fp32
-    peak; x, U, V read once and y written once at the HBM rate."""
+    """(operations ms, bytes ms) of x + (x@U)@V in fp32: 4·M·D·R FLOPs at
+    the 3xTF32 rate; x, U, V read once and y written once at the HBM rate
+    (P is not counted: the function does not need it)."""
     flops = 4.0 * m * d * r
     nbytes = 4.0 * (2 * m * d + 2 * d * r)
-    return flops / H100_FP32_FLOPS * 1e3, nbytes / H100_HBM_BW * 1e3
+    return (flops / FFN_RATES["fp32", "fp32"][0] * 1e3,
+            nbytes / H100_HBM_BW * 1e3)
+
+
+def ffn_rate_label(*pairs) -> str:
+    """The rate(s) a merged_ffn row's operations are priced at."""
+    return ", ".join(
+        f"{FFN_RATES[p][1]} {FFN_RATES[p][0] / 1e12:.6g} "
+        + ("TOP/s" if FFN_RATES[p][1] == "int8" else "TFLOP/s")
+        for p in pairs)
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per eager call of ``fn``: the time to enqueue
+    ``calls`` calls, the device left to catch up afterwards."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def host_split(x, u, v) -> dict:
+    """Host microseconds of one eager merged_ffn call at each layer: the op
+    (reshapes and the wrapper), the wrapper (checks, plan, the output and
+    workspace allocations, the launch), ``cuda_build.launch`` and the bare
+    C call (its two kernel launches)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import merged_ffn as mf_mod
+    import torch
+    m, d = x.shape
+    r = u.shape[1]
+    plan = mf_mod.launch_plan(m, d, r, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    y, p = kernels.merged_ffn_op(x, u, v), x.new_empty(plan.workspace)
+    args = (x.data_ptr(), u.data_ptr(), v.data_ptr(), y.data_ptr(),
+            p.data_ptr(), m, d, r, *plan.args())
+    fn = cuda_build.kernel("merged_ffn")
+    stream = torch.cuda.current_stream().cuda_stream
+    return {"op": host_us(lambda: kernels.merged_ffn_op(x, u, v)),
+            "wrapper": host_us(lambda: mf_mod.merged_ffn(x, u, v)),
+            "launch": host_us(lambda: cuda_build.launch(
+                "merged_ffn", x.device, *args)),
+            "c_call": host_us(lambda: fn(*args, stream))}
+
+
+def ffn_slots() -> tuple[dict, bool]:
+    """Blocks of each merged_ffn tile resident at once by cluster size (1
+    up to its most splits), as this card reports them
+    (``cudaOccupancyMaxActiveClusters``), and whether they are the launch
+    plan's model of an H100 (``merged_ffn.H100_SLOTS``; another SM count
+    takes the generic model, so it is not compared)."""
+    import torch
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import merged_ffn as mf_mod
+    fn = cuda_build.kernel("merged_ffn_slots")
+    out = {}
+    for name, tile in (("small", mf_mod.SMALL), ("large", mf_mod.LARGE)):
+        got = [fn(tile[0], tile[1], s) for s in range(1, tile[3] + 1)]
+        check(min(got) > 0, f"merged_ffn_slots {name}: error {-min(got)}")
+        out[name] = got
+    same = (torch.cuda.get_device_properties(0).multi_processor_count != 132
+            or all(tuple(out[n]) == mf_mod.H100_SLOTS[t] for n, t in
+                   (("small", mf_mod.SMALL), ("large", mf_mod.LARGE))))
+    return out, same
+
+
+def ffn_determinism(dev) -> int:
+    """Two calls of merged_ffn on the same inputs give bitwise the same y
+    (the split reductions sum in a fixed order): a D 2560 unit at M 8 (the
+    decode splits) and at M 1024; returns the cases checked."""
+    import torch
+    from repro_torch import kernels
+    g = torch.Generator().manual_seed(9)
+    for m in (8, 1024):
+        x = torch.randn(m, 2560, generator=g).to(dev)
+        u = (torch.randn(2560, 2560, generator=g) / 2560 ** 0.5).to(dev)
+        v = (torch.randn(2560, 2560, generator=g) / 2560 ** 0.5).to(dev)
+        y1, y2 = kernels.merged_ffn_op(x, u, v), kernels.merged_ffn_op(x, u, v)
+        torch.cuda.synchronize()
+        check(torch.equal(y1, y2), f"merged_ffn {(m, 2560, 2560)}: two "
+              "calls on the same inputs differ bitwise")
+    return 2
 
 
 def time_ffn(x, u, v) -> dict:
@@ -750,7 +871,9 @@ def time_ffn(x, u, v) -> dict:
            "plain_ms": kernel_time(lambda: ref.merged_ffn_ref(x, u, v)),
            "library_ms": kernel_time(lambda: torch.addmm(x, x @ u, v)),
            "eager_ms": cuda_time(lambda: kernels.merged_ffn_op(x, u, v)),
-           "flops_ms": f_ms, "bytes_ms": b_ms, "bound_ms": max(f_ms, b_ms)}
+           "host_us": host_us(lambda: kernels.merged_ffn_op(x, u, v)),
+           "flops_ms": f_ms, "bytes_ms": b_ms, "bound_ms": max(f_ms, b_ms),
+           "bound_rate": ffn_rate_label(("fp32", "fp32"))}
     check_bound(f"merged_ffn {tuple(x.shape)}x{tuple(u.shape)}", row["ms"],
                 row["bound_ms"])
     return row
@@ -975,6 +1098,12 @@ def time_qffn(x, uq, us, vq, vs, aq) -> dict:
     r = uq.shape[1]
     nbytes = (4.0 * 2 * m * d + (m * d if aq == "w8a8" else 0)
               + uq.numel() + vq.numel() + 4.0 * (r + d))
+    # phase A: the panel x U, phase B: fp32 P x V
+    pair_a = (("int8", "int8" if uq.dtype == torch.int8 else "e4m3")
+              if aq == "w8a8" else ("fp32", "narrow"))
+    pair_b = ("fp32", "narrow")
+    flops_ms = sum(2.0 * m * d * r / FFN_RATES[p][0] * 1e3
+                   for p in (pair_a, pair_b))
     out = {"m": m, "d": d, "r": r, "w_dtype": str(uq.dtype), "act_quant": aq,
            "max_abs_err": err, "max_rel_err": rel,
            "ms": kernel_time(lambda: mf_mod.merged_ffn(
@@ -987,8 +1116,8 @@ def time_qffn(x, uq, us, vq, vs, aq) -> dict:
            "plain_ms": kernel_time(lambda: ref.merged_ffn_qref(
                x, uq, vq, us, vs, act_quant=aq)),
            "library_ms": kernel_time(lambda: torch.addmm(x, xd @ ud, vd)),
-           "flops_ms": 4.0 * m * d * r / H100_FP32_FLOPS * 1e3,
-           "bytes_ms": nbytes / H100_HBM_BW * 1e3}
+           "flops_ms": flops_ms, "bytes_ms": nbytes / H100_HBM_BW * 1e3,
+           "bound_rate": ffn_rate_label(pair_a, pair_b)}
     out["bound_ms"] = max(out["flops_ms"], out["bytes_ms"])
     return out
 
@@ -1232,6 +1361,7 @@ def lm_quant_phases(host, fp_res, oracle, lm_source, prompt, new_tokens,
             if u.kind == "lowrank" and u.quant != "none"]
     tot = {f: sum(r[f] for r in rows) for f in Q_FIELDS}
     tot["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    tot["bound_rate"] = " / ".join(sorted({r["bound_rate"] for r in rows}))
     # the first unit's factors in each variant the kernel takes, alone
     u0 = next(u for u in art.graph.units if u.kind == "lowrank")
     ud = quant.dequantize(u0.params["u"], u0.params["u_scale"], axis=1)
@@ -1325,7 +1455,8 @@ def time_row(kernel, shape, run, plain, library, bound, err) -> dict:
     row = {"kernel": kernel, "shape": shape, "max_abs_err": err,
            "ms": kernel_time(run), "plain_ms": kernel_time(plain),
            "library_ms": None if library is None else kernel_time(library),
-           "flops_ms": f_ms, "bytes_ms": b_ms, "bound_ms": max(f_ms, b_ms)}
+           "flops_ms": f_ms, "bytes_ms": b_ms, "bound_ms": max(f_ms, b_ms),
+           "bound_rate": FFMA_RATE}
     check_bound(f"{kernel} {shape}", row["ms"], row["bound_ms"])
     return row
 
@@ -1570,7 +1701,9 @@ def rg_phases(dev, build_host):
         + ("none" if r["library_ms"] is None else f"{r['library_ms']:.4f}")
         + f" bound={r['bound_ms']:.5f} ("
         f"{'bytes' if r['bytes_ms'] >= r['flops_ms'] else 'operations'}, "
-        f"share {r['bound_ms'] / r['ms']:.3f});" for r in rows))
+        f"share {r['bound_ms'] / r['ms']:.3f})"
+        + (f" host {r['host_us']:.1f} us a call;" if "host_us" in r else ";")
+        for r in rows))
     return rows, rg_launches
 
 
@@ -1631,10 +1764,16 @@ def main(argv) -> int:
     sweep["merged_ffn_q"] = qffn_sweep(dev)
     sweep.update(norm_scan_attention_sweep(dev))
     n_q = quantize_matches_cpu(dev)
+    n_det = ffn_determinism(dev)
+    slots, slots_model = ffn_slots()
     log("kernels", t0, json.dumps(
         {k: {"cases": v[2], "max_abs_err": v[0], "max_rel_err": v[1]}
          for k, v in sweep.items()}) + f"; quantize_int8 card == CPU "
-        f"bitwise on {n_q} inputs")
+        f"bitwise on {n_q} inputs; merged_ffn bitwise run to run on "
+        f"{n_det} inputs; merged_ffn resident blocks by cluster size "
+        f"{json.dumps(slots)} ("
+        + ("launch_plan's model" if slots_model else "NOT launch_plan's "
+           "H100_SLOTS: its splits are planned for another card") + ")")
     if quick:
         print(smi_line)
         return 0
@@ -1890,13 +2029,16 @@ def main(argv) -> int:
                 for k in ("ms", "plain_ms", "library_ms", "flops_ms",
                           "bytes_ms", "bound_ms")}
     step_tot["max_abs_err"] = max(r["max_abs_err"] for r in per_unit)
+    step_tot["bound_rate"] = per_unit[0]["bound_rate"]
+    split = host_split(x8, ffn_units[0].params["u"], ffn_units[0].params["v"])
     with open(os.path.join(WORK, "ffn.json"), "w") as f:
         json.dump({"decode_units": per_unit, "decode_step": step_tot,
-                   "probe_m1024": probe}, f, indent=1)
+                   "probe_m1024": probe, "host_us_m8": split}, f, indent=1)
     d1 = per_unit[0]
     log("merged_ffn shapes", t0, " ".join(
         f"M={r['m']} D={r['d']} R={r['r']}: ms={r['ms']:.4f} (eager "
-        f"call {r['eager_ms']:.4f}) plain={r['plain_ms']:.4f} "
+        f"call {r['eager_ms']:.4f}, host {r['host_us']:.1f} us a call) "
+        f"plain={r['plain_ms']:.4f} "
         f"library(addmm, 2 cuBLAS calls)="
         f"{r['library_ms']:.4f} bound={r['bound_ms']:.5f} ("
         f"{'bytes' if r['bytes_ms'] >= r['flops_ms'] else 'operations'}, "
@@ -1904,7 +2046,8 @@ def main(argv) -> int:
         + f" decode step ({len(per_unit)} units): ms={step_tot['ms']:.4f} "
         f"plain={step_tot['plain_ms']:.4f} "
         f"library={step_tot['library_ms']:.4f} "
-        f"bound={step_tot['bound_ms']:.5f}")
+        f"bound={step_tot['bound_ms']:.5f}; host us a call at M=8 by layer: "
+        + json.dumps({k: round(t, 1) for k, t in split.items()}))
     tot["merged_ffn"] = step_tot
     launches["merged_ffn"] = lm_launches["merged_ffn"]
 
@@ -1951,7 +2094,7 @@ def main(argv) -> int:
         "ms": v["ms"], "plain_ms": v["plain_ms"],
         "bound_ms": v["bound_ms"],
         "bound_by": "bytes" if v["bytes_ms"] >= v["flops_ms"]
-        else "operations",
+        else "operations", "bound_rate": v.get("bound_rate", FFMA_RATE),
         "library_ms": v["library_ms"]} for k, v in tot.items()]}
     for v in line["kernels"]:
         check_bound(v["name"], v["ms"], v["bound_ms"])

@@ -1,60 +1,55 @@
-// Merged rank-r residual layer for Hopper (sm_90a), fp32:  y = x + (x @ U) @ V.
+// Merged rank-r residual layer for Hopper (sm_90a), fp32 result:
+//   y = x + ((xq @ U) · u_scale) @ V · v_scale
+// (fp32 entry: xq = x, no scales).
 //
 // Replaces the TPU kernel in src/repro/kernels/merged_ffn.py (`merged_ffn`,
-// body `_kernel`): the merged transformer segment that the rank-merge
-// produces, x (M, D), U (D, R), V (R, D), fp32 accumulation, the residual
-// add fused into the epilogue, P = x @ U never written to device memory.
+// body `_kernel`, and its `quant=True` body): x (M, D), U (D, R), V (R, D),
+// fp32 sums, the residual from the fp32 x added in the epilogue.
 //
-// The TPU kernel builds the P panel of an m-panel once, during its j == 0
-// sweep, and keeps it in VMEM scratch for the later j sweeps: the TPU grid
-// runs in order on one core.  CUDA blocks run in no order and share no
-// scratch, so that carry cannot be kept in one block's memory.  Hopper's
-// thread-block clusters take its place: the blocks of one 32-row m-panel
-// (one per 64-wide n-tile of the output, up to 16) form a cluster, each
-// computes a 64-wide chunk of P into its own shared memory, and every
-// block reads the chunks of the others through distributed shared memory:
+// Two launches of one tile core, in order on the caller's stream:
+//   phase A  P = xq @ U (· u_scale)      (M, R) fp32 workspace, written once
+//   phase B  y = x + (P @ V) (· v_scale) (M, D)
+// The TPU kernel carried its P panel across sequential j sweeps in VMEM.
+// CUDA blocks share no scratch, and a thread-block cluster holds at most 16
+// blocks, so keeping P on chip would mean recomputing it once per cluster
+// of output tiles at D > 1024 (8MDR FLOPs where the function needs 4MDR).
+// Here P makes one trip through L2 (10.5 MB at M 1024, R 2560; 80 KB at
+// decode), which costs far less.
 //
-//   for each pass over the rank (cluster size CS chunks per pass):
-//     P_b  = x[m-tile, :] @ U[:, chunk b]      (block b, own shared memory)
-//     cluster barrier
-//     for each chunk q of the pass:            (copied from block q)
-//       acc += P_q @ V[chunk q, n-tile]         (BM x BN, fp32 registers)
-//     cluster barrier
-//   y[m-tile, n-tile] = acc + x[m-tile, n-tile]
+// What bounds each phase on the H100, and what the design does about it:
+// - Operations, above about M = 64 (probes at M = 1024, prefill at M = 128).
+//   The products use the tensor cores (mma.sync m16n8k8 TF32, fp32
+//   accumulation) at fp32 accuracy: an fp32 operand a is split into
+//   hi = rna_tf32(a) and lo = rna_tf32(a - hi), and a·b is summed as
+//   lo·hi' + hi·lo' + hi·hi' (3xTF32; the dropped lo·lo' is 2^-22 of |a·b|).
+//   A narrow operand (int8, |v| <= 128; fp8-e4m3, 4 significant bits) is
+//   exact in TF32, so fp32 x narrow takes 2 products and narrow x narrow
+//   (w8a8's phase A) one.  3xTF32 runs at 495/3 TFLOP/s, 2.5x the fp32
+//   FFMA rate that bounds cuBLAS's fp32 SGEMM.
+//   Tiles are 128 x 128 over 32-deep k-slices, 8 warps of 64 x 32.
+// - Bytes, below about M = 64 (decode: U and V are 52 MB at D = R = 2560,
+//   2.65 MB at D 576).  Tiles are 16 x 64, 4 warps, and the reduction is
+//   split as well as the output (up to 16 ways), so that a phase runs
+//   hundreds of blocks, 5 resident per SM, each with 3 slices of loads in
+//   flight: far over the ~3 MB the HBM rate times its latency needs.
+// - Both: a ring of STAGES slices of A and B tiles in dynamic shared memory,
+//   filled by cp.async.cg 16-byte copies (zero-filled past the ragged M, D
+//   and R edges, so nothing is padded in Python); one __syncthreads per
+//   slice.  Where a row is not 16-byte aligned (odd D or R) the copies go
+//   element by element (cp.async of 4 bytes, or plain loads for 1-byte
+//   types): right, slower, and never on a model's main path.  Narrow values
+//   stay narrow in shared memory and are converted as fragments are built.
+// - Split reduction, deterministic: the blocks of one output tile's splits
+//   form a cluster; each writes its partial tile to its shared memory, and
+//   after a cluster barrier each block sums a 1/S share of the tile over
+//   the S partials through distributed shared memory, always in split
+//   order.  No float atomics: two calls on the same inputs give bitwise
+//   the same y.
 //
-// So P is computed once per m-panel (the function's 4MDR FLOPs, where
-// recomputing it per n-tile would cost (ceil(D/64) + 1) * 2MDR), shared
-// memory does not grow with R, and P never touches device memory.  Only a
-// model wider than 16 n-tiles (D > 1024) splits its n-tiles over several
-// clusters (grid z), each recomputing P.  Both products use the 4x4 FFMA
-// register tile of merged_conv.cu over 32-deep shared-memory slices, the
-// next slice loaded into registers while the current one computes; ragged
-// M, D and R are masked with zeros in the loads and skipped in the stores,
-// so nothing is padded (the TPU op padded every axis to 128).
-//
-// Bound: at the prefill/probe shape (M = 1024, D = R = 576) the 4MDR =
-// 1.36 GFLOP against 2.6 MB of operands is well above the fp32 ridge
-// (67 TFLOP/s FFMA over 3.35 TB/s, ~20 FLOP/byte): operations bound it
-// (32 m-tiles x 9 blocks = 288 blocks of 128 threads, about two per SM).
-// At decode (M = 8, one token per sequence) the 2.6 MB of U and V bound
-// it; the grid is one cluster of 9 blocks, each reading 1/9 of U and of
-// V, and of each block's 32 rows only 8 are live (their threads skip the
-// FFMAs of the others).  Tensor cores (3xTF32 or wgmma), a TMA pipeline
-// and more blocks at decode are later work.
-//
-// Quantized variant (merged_ffn_q, the TPU kernel's `quant=True` body):
-// the same kernel instantiated on the element types of the panel that
-// feeds P and of U and V.  U and V are narrow (int8, or fp8-e4m3 through
-// cuda_fp8.h), prefetched narrow into registers and converted to fp32 as
-// each slice is stored to shared memory; the P panel is built from the
-// int8 activation xq under w8a8 (its per-tensor scale folded into u_scale
-// on the device by the op) or from x itself (int8 weights only), and each
-// chunk of P is multiplied by u_scale[r] as it is written to shared
-// memory (the TPU kernel's "dequant P panel").  The
-// second product runs over narrow V; the epilogue multiplies acc by
-// v_scale[n] and adds the residual, always from the fp32 x.  The sums stay
-// fp32.  At decode the narrow U and V are a quarter of the fp32 kernel's
-// bytes, but its time there is latency, not bytes (PERF.md has both).
+// The launch plan (tile shape, splits, k-chunk per split, grid) is chosen
+// in Python (`launch_plan` in kernels/merged_ffn.py, where the CPU tests
+// check that it covers every output and reduction index once) and passed
+// in; this file checks it and derives the grid from it.
 #include <cooperative_groups.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -64,321 +59,524 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int BM = 32;                             // rows (tokens) per block
-constexpr int BN = 64;                             // output columns per block
-constexpr int BR = 64;                             // rank chunk (P columns)
-constexpr int BK = 32;                             // reduction slice depth
-constexpr int TM = 4;                              // rows per thread
-constexpr int TN = 4;                              // columns per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);     // 128
-constexpr int X_ROWS_PER_THREAD = BM * BK / THREADS;   // 8
-constexpr int W_ROWS_PER_THREAD = BN * BK / THREADS;   // 16
-constexpr int X_ROW_STEP = THREADS / BK;               // 4
-constexpr int W_ROW_STEP = THREADS / BN;               // 2
-constexpr int P_LD = BM + 4;                       // +4 keeps float4 rows aligned
-constexpr int P_VEC4 = BR * P_LD / 4;              // float4s in one P chunk
-constexpr int MAX_CLUSTER = 16;                    // H100, non-portable above 8
-static_assert(BR == BN, "one loader and one thread map serve P and acc");
-static_assert(BR % BK == 0 && THREADS % BK == 0 && THREADS % BN == 0,
-              "the loaders cover whole slices");
+constexpr int BK = 32;            // k-slice depth
+constexpr int MAX_SPLITS = 16;    // cluster size; non-portable above 8
 
-// Narrow<T>: the register type an element of T is prefetched in (read-only
-// path) and its conversion to fp32.  The loaders convert when they store a
-// slice to shared memory, not when they load it: a conversion right after
-// the load would stall the warp on the load, and the prefetch of the next
-// slice would no longer overlap the current slice's FFMAs.
-template <typename T> struct Narrow;
-template <> struct Narrow<float> {
-  using raw = float;
-  static __device__ __forceinline__ raw load(const float* p) {
-    return __ldg(p);
-  }
-  static __device__ __forceinline__ float f32(raw v) { return v; }
+// BM x BN block tile, WARPS_M x WARPS_N warps, STAGES slices in flight,
+// MIN_BLOCKS resident per SM (the launch bound).
+template <int BM_, int BN_, int WARPS_M_, int WARPS_N_, int STAGES_,
+          int MIN_BLOCKS_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, WARPS_M = WARPS_M_,
+                       WARPS_N = WARPS_N_, STAGES = STAGES_,
+                       MIN_BLOCKS = MIN_BLOCKS_;
+  static constexpr int THREADS = WARPS_M * WARPS_N * 32;
+  static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;  // warp tile
+  static constexpr int MT = WM / 16, NT = WN / 8;             // mma tiles
+  static_assert(WM % 16 == 0 && WN % 8 == 0, "whole mma tiles per warp");
 };
-template <> struct Narrow<int8_t> {
-  using raw = int;
-  static __device__ __forceinline__ raw load(const int8_t* p) {
-    return __ldg(reinterpret_cast<const signed char*>(p));
-  }
-  // Without the quarter-rate I2F convert: the bits 0x4B000000 + k are the
-  // float 2^23 + k exactly for 0 <= k < 2^23, so with k = v + 128 one
-  // integer add and one float subtraction give v exactly.
-  static __device__ __forceinline__ float f32(raw v) {
+using Small = Tile<16, 64, 1, 4, 4, 4>;     // M <= 64: bytes (5 fit an SM)
+using Large = Tile<128, 128, 2, 4, 4, 1>;   // M > 64: operations
+
+// Elem<T>: how an element of T is stored (shared memory keeps it at its
+// own width), whether it needs the hi/lo split, and its fp32 value.
+template <typename T> struct Elem;
+template <> struct Elem<float> {
+  using storage = float;
+  static constexpr bool wide = true;
+  static __device__ __forceinline__ float f32(float v) { return v; }
+};
+template <> struct Elem<int8_t> {
+  using storage = int8_t;
+  static constexpr bool wide = false;
+  // Without the quarter-rate I2F: the bits 0x4B000000 + k are the float
+  // 2^23 + k exactly for 0 <= k < 2^23, so with k = v + 128 one integer
+  // add and one float subtraction give v exactly.
+  static __device__ __forceinline__ float f32(int8_t v) {
     return __int_as_float(0x4B000080 + v) - 8388736.f;
   }
 };
-template <> struct Narrow<__nv_fp8_e4m3> {
-  using raw = unsigned int;
-  static __device__ __forceinline__ raw load(const __nv_fp8_e4m3* p) {
-    return __ldg(reinterpret_cast<const unsigned char*>(p));
-  }
-  static __device__ __forceinline__ float f32(raw v) {
+template <> struct Elem<__nv_fp8_e4m3> {
+  using storage = uint8_t;
+  static constexpr bool wide = false;
+  static __device__ __forceinline__ float f32(uint8_t v) {
     return __half2float(__half(__nv_cvt_fp8_to_halfraw(
         static_cast<__nv_fp8_storage_t>(v), __NV_E4M3)));
   }
 };
 
-// XQ: element type of the panel xq that feeds P = xq @ U (x itself in the
-// fp32 instance); WT: element type of U and V; QUANT: apply u_scale to P
-// and v_scale to acc.
-template <typename XQ, typename WT, bool QUANT>
-__global__ void __launch_bounds__(THREADS)
-merged_ffn_kernel(const float* __restrict__ x, const XQ* __restrict__ xq,
-                  const WT* __restrict__ u, const WT* __restrict__ v,
-                  const float* __restrict__ u_scale,
-                  const float* __restrict__ v_scale, float* __restrict__ y,
-                  int M, int D, int R) {
-  __shared__ __align__(16) float Xs[BK][BM + 4];   // x slice, transposed
-  __shared__ __align__(16) float Ws[BK][BN];       // U slice, then V slice
-  __shared__ __align__(16) float Ps[BR][P_LD];     // own P chunk, rank-major
-  __shared__ __align__(16) float Pl[BR][P_LD];     // chunk being consumed
+// Shared-memory layout of one instance.  Row pitches keep every row
+// 16-byte aligned for cp.async and make the fragment loads conflict-free
+// (A read as pairs of k, B rows 2t and 2t + 1, see the k-loop): A rows of
+// 40 floats (or 48 bytes), B rows of BN + 4 floats (or BN + 16 bytes).
+// After the k-loop the same memory holds the fp32 partial tile.
+template <class C, typename TA, typename TB> struct Layout {
+  using SA = typename Elem<TA>::storage;
+  using SB = typename Elem<TB>::storage;
+  static constexpr int A_LD = BK + (Elem<TA>::wide ? 8 : 16);
+  static constexpr int B_LD = C::BN + (Elem<TB>::wide ? 4 : 16);
+  static constexpr int A_BYTES = C::BM * A_LD * int(sizeof(SA));
+  static constexpr int STAGE = A_BYTES + BK * B_LD * int(sizeof(SB));
+  static constexpr int C_LD = C::BN + 4;
+  static constexpr int PIPE = C::STAGES * STAGE;
+  static constexpr int RED = C::BM * C_LD * 4;
+  static constexpr int BYTES = PIPE > RED ? PIPE : RED;
+  static_assert(A_BYTES % 16 == 0 && STAGE % 16 == 0, "16-byte stages");
+};
 
-  cg::cluster_group cluster = cg::this_cluster();
-  const int cs = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = (blockIdx.z * cs + rank) * BN;
-  const bool has_out = n0 < D;                     // uniform per block
-  const int n_chunks = (R + BR - 1) / BR;
+// One product C[M, N] (+)= A[M, K] @ B[K, N], both row-major; split s of
+// the grid's x axis sums k in [s * k_chunk, (s + 1) * k_chunk).
+struct Args {
+  const void* a;
+  const void* b;
+  const float* scale;   // per column of C (QUANT), else unused
+  const float* resid;   // (M, N) added after the scale (RESID), else unused
+  float* out;           // (M, N)
+  int M, N, K, k_chunk;
+  int a_vec, b_vec;     // 1: rows 16-byte aligned, copy in 16-byte chunks
+};
 
-  // x loader: column xk of the slice, rows xm0 + X_ROW_STEP*i.
-  const int xk = tid % BK;
-  const int xm0 = tid / BK;
-  // U / V loader: column wc of the tile, slice rows wk0 + W_ROW_STEP*i.
-  const int wc = tid % BN;
-  const int wk0 = tid / BN;
-  // Compute mapping: rows ty*TM.., columns tx*TN.. (of P, then of acc).
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  // Rows past M hold zeros: their threads load but skip the FFMA loops
-  // (a whole warp covers 8 rows, so at M = 8 three of four warps idle
-  // instead of multiplying zeros).
-  const bool live = m0 + ty * TM < M;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0));
+}
 
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
+}
 
-  for (int c0 = 0; c0 < n_chunks; c0 += cs) {
-    // Phase 1: this block's chunk, P_c = x[m-tile, :] @ U[:, c*BR...].
-    const int c = c0 + rank;
-    if (c < n_chunks) {
-      float p[TM][TN];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ROWS x COLS tile at (row0, col0) of a row-major matrix with row pitch ld
+// into shared memory of pitch LD; rows >= row_lim and columns >= col_lim
+// are zero-filled.
+template <typename S, int ROWS, int COLS, int LD, int THREADS>
+__device__ __forceinline__ void load_tile(S* dst, const S* src, int ld,
+                                          int row0, int col0, int row_lim,
+                                          int col_lim, bool vec, int tid) {
+  if (vec) {
+    constexpr int V = 16 / int(sizeof(S));
+    constexpr int CHUNKS = ROWS * COLS / V;
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) p[i][j] = 0.f;
-      const int ur = c * BR + wc;
-      // The next slice is loaded into registers while this one computes.
-      typename Narrow<XQ>::raw xr[X_ROWS_PER_THREAD];
-      typename Narrow<WT>::raw wr[W_ROWS_PER_THREAD];
-      auto load_u_slice = [&](int k0) {
-        const int d = k0 + xk;
-#pragma unroll
-        for (int i = 0; i < X_ROWS_PER_THREAD; ++i) {
-          const int m = m0 + xm0 + X_ROW_STEP * i;
-          xr[i] = (m < M && d < D) ? Narrow<XQ>::load(xq + (size_t)m * D + d)
-                                   : 0;
-        }
-#pragma unroll
-        for (int i = 0; i < W_ROWS_PER_THREAD; ++i) {
-          const int kr = k0 + wk0 + W_ROW_STEP * i;
-          wr[i] = (kr < D && ur < R) ? Narrow<WT>::load(u + (size_t)kr * R + ur)
-                                     : 0;
-        }
-      };
-      load_u_slice(0);
-      for (int k0 = 0; k0 < D; k0 += BK) {
-#pragma unroll
-        for (int i = 0; i < X_ROWS_PER_THREAD; ++i)
-          Xs[xk][xm0 + X_ROW_STEP * i] = Narrow<XQ>::f32(xr[i]);
-#pragma unroll
-        for (int i = 0; i < W_ROWS_PER_THREAD; ++i)
-          Ws[wk0 + W_ROW_STEP * i][wc] = Narrow<WT>::f32(wr[i]);
-        __syncthreads();
-        if (k0 + BK < D) load_u_slice(k0 + BK);
-        if (live) {
-#pragma unroll
-          for (int kk = 0; kk < BK; ++kk) {
-            const float4 a =
-                *reinterpret_cast<const float4*>(&Xs[kk][ty * TM]);
-            const float4 b =
-                *reinterpret_cast<const float4*>(&Ws[kk][tx * TN]);
-            const float av[TM] = {a.x, a.y, a.z, a.w};
-            const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-            for (int i = 0; i < TM; ++i)
-#pragma unroll
-              for (int j = 0; j < TN; ++j)
-                p[i][j] = fmaf(av[i], bv[j], p[i][j]);
-          }
-        }
-        __syncthreads();
-      }
-      // Rank-major: row r of Ps holds P[m-tile, c*BR + r].
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        float sc = 1.f;                            // fp32: P as summed
-        if constexpr (QUANT) {
-          const int r = c * BR + tx * TN + j;
-          sc = r < R ? u_scale[r] : 0.f;
-        }
-        *reinterpret_cast<float4*>(&Ps[tx * TN + j][ty * TM]) = make_float4(
-            p[0][j] * sc, p[1][j] * sc, p[2][j] * sc, p[3][j] * sc);
+    for (int i = 0; i < (CHUNKS + THREADS - 1) / THREADS; ++i) {
+      const int c = tid + i * THREADS;
+      if (CHUNKS % THREADS == 0 || c < CHUNKS) {
+        const int r = c / (COLS / V), cc = (c % (COLS / V)) * V;
+        const int gr = row0 + r, gc = col0 + cc;
+        const bool ok = gr < row_lim && gc < col_lim;
+        cp_async16(dst + r * LD + cc, ok ? src + (size_t)gr * ld + gc : src,
+                   ok);
       }
     }
-    // Every chunk of this pass is in its owner's shared memory.
-    cluster.sync();
-
-    // Phase 2: acc += P_q @ V[q*BR..., n-tile] for each chunk q of the pass.
-    if (has_out) {
-      const int last = min(cs, n_chunks - c0);
-      const int vn = n0 + wc;
-      for (int q = 0; q < last; ++q) {
-        const float4* src = reinterpret_cast<const float4*>(
-            cluster.map_shared_rank(&Ps[0][0], q));
-        float4* dst = reinterpret_cast<float4*>(&Pl[0][0]);
-        for (int i = tid; i < P_VEC4; i += THREADS) dst[i] = src[i];
-        // (the __syncthreads after the first V slice load publishes Pl;
-        // the one closing the previous chunk's loop freed it)
-        const int rq = (c0 + q) * BR;
-        typename Narrow<WT>::raw vr[W_ROWS_PER_THREAD];
-        auto load_v_slice = [&](int k0) {
-#pragma unroll
-          for (int i = 0; i < W_ROWS_PER_THREAD; ++i) {
-            const int r = rq + k0 + wk0 + W_ROW_STEP * i;
-            vr[i] = (r < R && vn < D) ? Narrow<WT>::load(v + (size_t)r * D + vn)
-                                      : 0;
-          }
-        };
-        load_v_slice(0);
-        for (int k0 = 0; k0 < BR; k0 += BK) {
-#pragma unroll
-          for (int i = 0; i < W_ROWS_PER_THREAD; ++i)
-            Ws[wk0 + W_ROW_STEP * i][wc] = Narrow<WT>::f32(vr[i]);
-          __syncthreads();
-          if (k0 + BK < BR) load_v_slice(k0 + BK);
-          if (live) {
-#pragma unroll
-            for (int kk = 0; kk < BK; ++kk) {
-              const float4 a =
-                  *reinterpret_cast<const float4*>(&Pl[k0 + kk][ty * TM]);
-              const float4 b =
-                  *reinterpret_cast<const float4*>(&Ws[kk][tx * TN]);
-              const float av[TM] = {a.x, a.y, a.z, a.w};
-              const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-              for (int i = 0; i < TM; ++i)
-#pragma unroll
-                for (int j = 0; j < TN; ++j)
-                  acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-            }
-          }
-          __syncthreads();
+  } else {
+    constexpr int ELEMS = ROWS * COLS;
+#pragma unroll 4
+    for (int i = 0; i < (ELEMS + THREADS - 1) / THREADS; ++i) {
+      const int e = tid + i * THREADS;
+      if (ELEMS % THREADS == 0 || e < ELEMS) {
+        const int r = e / COLS, cc = e % COLS;
+        const int gr = row0 + r, gc = col0 + cc;
+        const bool ok = gr < row_lim && gc < col_lim;
+        if constexpr (sizeof(S) == 4) {
+          cp_async4(dst + r * LD + cc, ok ? src + (size_t)gr * ld + gc : src,
+                    ok);
+        } else {
+          dst[r * LD + cc] = ok ? src[(size_t)gr * ld + gc] : S(0);
         }
-      }
-    }
-    // No block overwrites its chunk (next pass) or exits (last pass) while
-    // another block of the cluster may still be reading it.
-    cluster.sync();
-  }
-
-  // Epilogue: (acc * v_scale[n],) the residual x[m, n] added in fp32,
-  // masked store.
-  if (!has_out) return;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx * TN + j;
-      if (n < D) {
-        const size_t o = (size_t)m * D + n;
-        float a = acc[i][j];
-        if constexpr (QUANT) a *= v_scale[n];
-        y[o] = a + __ldg(x + o);
       }
     }
   }
 }
 
-template <typename XQ, typename WT, bool QUANT>
-int launch(const float* x, const void* xq, const void* u, const void* v,
-           const float* u_scale, const float* v_scale, float* y, int m,
-           int d, int r, void* stream) {
-  const int n_tiles = (d + BN - 1) / BN;
-  const int cs = n_tiles < MAX_CLUSTER ? n_tiles : MAX_CLUSTER;
-  if (cs > 8) {
-    // Once per device and instance, so that a launch inside CUDA-graph
-    // capture makes no call that capture forbids.
-    static bool allowed[64] = {};
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-    if (!allowed[dev]) {
-      e = cudaFuncSetAttribute(merged_ffn_kernel<XQ, WT, QUANT>,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed,
-                               1);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      allowed[dev] = true;
+// hi (and, for a wide operand, lo) of one fragment element.  The mma
+// reads the top 19 bits of a TF32 operand and ignores the low 13, so
+// adding half a TF32 ulp (0x1000) to the bits rounds to nearest (ties
+// away from zero, as cvt.rna.tf32.f32, which sm_90 emulates in four
+// instructions).  hi's exact value (the bits masked) gives lo = f - hi
+// exactly, and lo is rounded the same way: 4 instructions an element.
+template <bool WIDE>
+__device__ __forceinline__ void split(float f, uint32_t& hi, uint32_t& lo) {
+  if constexpr (WIDE) {
+    const uint32_t h = __float_as_uint(f) + 0x1000u;
+    hi = h;
+    lo = __float_as_uint(f - __uint_as_float(h & 0xFFFFE000u)) + 0x1000u;
+  } else {
+    hi = __float_as_uint(f);   // exact in TF32
+    lo = 0u;
+  }
+}
+
+// Not volatile: the compiler may interleave independent products.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <bool QUANT, bool RESID>
+__device__ __forceinline__ void store(const Args& p, int row, int col,
+                                      float v) {
+  if (row < p.M && col < p.N) {
+    if constexpr (QUANT) v *= __ldg(p.scale + col);
+    const size_t o = (size_t)row * p.N + col;
+    if constexpr (RESID) v += __ldg(p.resid + o);
+    p.out[o] = v;
+  }
+}
+
+// QUANT: scale the sum by scale[col]; RESID: add resid (phase B).
+template <class C, typename TA, typename TB, bool QUANT, bool RESID>
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
+ffn_gemm(const Args p) {
+  using L = Layout<C, TA, TB>;
+  using SA = typename L::SA;
+  using SB = typename L::SB;
+  constexpr bool WA = Elem<TA>::wide, WB = Elem<TB>::wide;
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm0 = (warp / C::WARPS_N) * C::WM;
+  const int wn0 = (warp % C::WARPS_N) * C::WN;
+  const int m0 = blockIdx.z * C::BM, n0 = blockIdx.y * C::BN;
+  const int k_begin = blockIdx.x * p.k_chunk;
+  const int k_end = min(p.K, k_begin + p.k_chunk);
+  const int n_slices = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  const SA* A = static_cast<const SA*>(p.a);
+  const SB* B = static_cast<const SB*>(p.b);
+
+  auto a_tile = [&](int s) {
+    return reinterpret_cast<SA*>(smem + s * L::STAGE);
+  };
+  auto b_tile = [&](int s) {
+    return reinterpret_cast<SB*>(smem + s * L::STAGE + L::A_BYTES);
+  };
+  auto load = [&](int s, int k0) {
+    load_tile<SA, C::BM, BK, L::A_LD, C::THREADS>(
+        a_tile(s), A, p.K, m0, k0, p.M, k_end, p.a_vec, tid);
+    load_tile<SB, BK, C::BN, L::B_LD, C::THREADS>(
+        b_tile(s), B, p.N, k0, n0, k_end, p.N, p.b_vec, tid);
+  };
+
+  float acc[C::MT][C::NT][4];
+#pragma unroll
+  for (int i = 0; i < C::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < C::STAGES - 1; ++s) {
+    if (s < n_slices) load(s, k_begin + s * BK);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_slices; ++i) {
+    cp_async_wait<C::STAGES - 2>();   // slice i has landed
+    // ... and every warp is done with slice i - 1, whose buffer is next
+    __syncthreads();
+    const int nxt = i + C::STAGES - 1;
+    if (nxt < n_slices) load(nxt % C::STAGES, k_begin + nxt * BK);
+    cp_async_commit();
+
+    const SA* As = a_tile(i % C::STAGES);
+    const SB* Bs = b_tile(i % C::STAGES);
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8) {
+      uint32_t ah[C::MT][4], al[C::MT][4], bh[C::NT][2], bl[C::NT][2];
+#pragma unroll
+      for (int mt = 0; mt < C::MT; ++mt) {
+        // The mma's k index t of a lane reads k-slice column kk + 2t, its
+        // k index t + 4 column kk + 2t + 1 (B below likewise), so that a
+        // lane reads its two A columns as one pair.
+        const SA* r = As + (wm0 + mt * 16 + g) * L::A_LD + kk + 2 * t;
+        float f[4];
+        if constexpr (WA) {
+          const float2 lo8 = *reinterpret_cast<const float2*>(r);
+          const float2 hi8 =
+              *reinterpret_cast<const float2*>(r + 8 * L::A_LD);
+          f[0] = lo8.x, f[2] = lo8.y, f[1] = hi8.x, f[3] = hi8.y;
+        } else {
+          f[0] = Elem<TA>::f32(r[0]), f[2] = Elem<TA>::f32(r[1]);
+          f[1] = Elem<TA>::f32(r[8 * L::A_LD]);
+          f[3] = Elem<TA>::f32(r[8 * L::A_LD + 1]);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) split<WA>(f[j], ah[mt][j], al[mt][j]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < C::NT; ++nt) {
+        const SB* c = Bs + (kk + 2 * t) * L::B_LD + wn0 + nt * 8 + g;
+        split<WB>(Elem<TB>::f32(c[0]), bh[nt][0], bl[nt][0]);
+        split<WB>(Elem<TB>::f32(c[L::B_LD]), bh[nt][1], bl[nt][1]);
+      }
+      // The small terms first, then hi·hi; each term over every tile
+      // before the next, so that no product waits on the one before it.
+      if constexpr (WA) {
+#pragma unroll
+        for (int mt = 0; mt < C::MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < C::NT; ++nt)
+            mma(acc[mt][nt], al[mt], bh[nt]);
+      }
+      if constexpr (WB) {
+#pragma unroll
+        for (int mt = 0; mt < C::MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < C::NT; ++nt)
+            mma(acc[mt][nt], ah[mt], bl[nt]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < C::MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < C::NT; ++nt) mma(acc[mt][nt], ah[mt], bh[nt]);
     }
   }
+  cp_async_wait<0>();
+
+  if (gridDim.x == 1) {   // no split: the epilogue straight from registers
+#pragma unroll
+    for (int mt = 0; mt < C::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < C::NT; ++nt) {
+        const int r = m0 + wm0 + mt * 16 + g;
+        const int c = n0 + wn0 + nt * 8 + 2 * t;
+        store<QUANT, RESID>(p, r, c, acc[mt][nt][0]);
+        store<QUANT, RESID>(p, r, c + 1, acc[mt][nt][1]);
+        store<QUANT, RESID>(p, r + 8, c, acc[mt][nt][2]);
+        store<QUANT, RESID>(p, r + 8, c + 1, acc[mt][nt][3]);
+      }
+    return;
+  }
+
+  // Split reduction through the cluster (the x axis of the grid).
+  __syncthreads();   // the pipeline's memory becomes the partial tile
+  float* Cs = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int mt = 0; mt < C::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < C::NT; ++nt) {
+      const int r = wm0 + mt * 16 + g, c = wn0 + nt * 8 + 2 * t;
+      *reinterpret_cast<float2*>(Cs + r * L::C_LD + c) =
+          make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(Cs + (r + 8) * L::C_LD + c) =
+          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();   // every split's partial is in its block's memory
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int q = static_cast<int>(cluster.block_rank());
+  constexpr int V4 = C::BM * C::BN / 4;
+  const int share = (V4 + S - 1) / S;
+  const int lo = q * share, hi = min(V4, lo + share);
+  for (int i = lo + tid; i < hi; i += C::THREADS) {
+    const int r = i / (C::BN / 4), c = (i % (C::BN / 4)) * 4;
+    float* own = Cs + r * L::C_LD + c;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < S; ++s) {   // split order: deterministic
+      const float4 v =
+          *reinterpret_cast<const float4*>(cluster.map_shared_rank(own, s));
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    store<QUANT, RESID>(p, m0 + r, n0 + c, sum.x);
+    store<QUANT, RESID>(p, m0 + r, n0 + c + 1, sum.y);
+    store<QUANT, RESID>(p, m0 + r, n0 + c + 2, sum.z);
+    store<QUANT, RESID>(p, m0 + r, n0 + c + 3, sum.w);
+  }
+  cluster.sync();   // no block leaves while another may read its partial
+}
+
+// One phase's plan as the wrapper computed it.
+struct Plan {
+  int bm, bn, splits, k_chunk;
+};
+
+// The splits cover [0, K) once, in whole k-slices.
+bool plan_ok(const Plan& pl, int K) {
+  if (pl.splits < 1 || pl.splits > MAX_SPLITS) return false;
+  if (K == 0) return pl.splits == 1;
+  if (pl.k_chunk <= 0 || pl.k_chunk % BK) return false;
+  return (long long)(pl.splits - 1) * pl.k_chunk < K &&
+         (long long)pl.splits * pl.k_chunk >= K;
+}
+
+bool vec_ok(const void* ptr, int ld, int elem_bytes) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 &&
+         ((long long)ld * elem_bytes) % 16 == 0;
+}
+
+// The kernel instance, its dynamic shared memory and cluster size
+// attributes set once per device, so that a launch inside CUDA-graph
+// capture makes no call that capture forbids.
+template <class C, typename TA, typename TB, bool QUANT, bool RESID>
+cudaError_t prepared(void (**kernel)(Args)) {
+  *kernel = ffn_gemm<C, TA, TB, QUANT, RESID>;
+  static bool ready[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    e = cudaFuncSetAttribute(*kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Layout<C, TA, TB>::BYTES);
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(
+        *kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    ready[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+// A launch as a cluster of `splits` blocks along x.
+template <class C, typename TA, typename TB>
+cudaLaunchConfig_t config(dim3 grid, int splits, cudaStream_t stream,
+                          cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs, (m + BM - 1) / BM, (n_tiles + cs - 1) / cs);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(C::THREADS);
+  cfg.dynamicSmemBytes = Layout<C, TA, TB>::BYTES;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = splits;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, merged_ffn_kernel<XQ, WT, QUANT>, x, static_cast<const XQ*>(xq),
-      static_cast<const WT*>(u), static_cast<const WT*>(v), u_scale, v_scale,
-      y, m, d, r);
+  return cfg;
+}
+
+template <class C, typename TA, typename TB, bool QUANT, bool RESID>
+int launch_gemm(const Args& a, int splits, cudaStream_t stream) {
+  void (*kernel)(Args) = nullptr;
+  cudaError_t e = prepared<C, TA, TB, QUANT, RESID>(&kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long ny = (a.N + C::BN - 1) / C::BN;
+  const long long nz = (a.M + C::BM - 1) / C::BM;
+  if (ny > 65535 || nz > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config<C, TA, TB>(
+      dim3(splits, static_cast<unsigned>(ny), static_cast<unsigned>(nz)),
+      splits, stream, &attr);
+  e = cudaLaunchKernelEx(&cfg, kernel, a);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Blocks of the fp32 instance of tile C resident at once in clusters of
+// `splits` (cudaOccupancyMaxActiveClusters times the cluster size).
+template <class C>
+int slots(int splits) {
+  void (*kernel)(Args) = nullptr;
+  cudaError_t e = prepared<C, float, float, false, false>(&kernel);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      config<C, float, float>(dim3(splits), splits, nullptr, &attr);
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  return e == cudaSuccess ? clusters * splits : -static_cast<int>(e);
+}
+
+// C = A @ B (M, N, K) with the tile the plan names.
+template <typename TA, typename TB, bool QUANT, bool RESID>
+int phase(const Plan& pl, const void* a, const void* b, const float* scale,
+          const float* resid, float* out, int M, int N, int K,
+          cudaStream_t stream) {
+  if (!plan_ok(pl, K)) return static_cast<int>(cudaErrorInvalidValue);
+  Args args{a, b, scale, resid, out, M, N, K, pl.k_chunk,
+            vec_ok(a, K, int(sizeof(TA))), vec_ok(b, N, int(sizeof(TB)))};
+  if (pl.bm == Small::BM && pl.bn == Small::BN)
+    return launch_gemm<Small, TA, TB, QUANT, RESID>(args, pl.splits, stream);
+  if (pl.bm == Large::BM && pl.bn == Large::BN)
+    return launch_gemm<Large, TA, TB, QUANT, RESID>(args, pl.splits, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Phase A into the workspace p (skipped at R = 0), then phase B into y.
+template <typename XQ, typename WT, bool QUANT>
+int run(const float* x, const void* xq, const void* u, const void* v,
+        const float* u_scale, const float* v_scale, float* y, float* p,
+        int m, int d, int r, const Plan& pa, const Plan& pb, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (r > 0) {
+    const int e = phase<XQ, WT, QUANT, false>(pa, xq, u, u_scale, nullptr, p,
+                                             m, r, d, st);
+    if (e != 0) return e;
+  }
+  return phase<float, WT, QUANT, true>(pb, p, v, v_scale, x, y, m, d, r, st);
+}
+
 }  // namespace
 
-// x (M,D), u (D,R), v (R,D), y (M,D); all fp32, contiguous, on the device
-// of `stream`; ceil(M/32) <= 65535.  Returns the launch's cudaError_t
-// (0 on success).
+// x (M,D), u (D,R), v (R,D), y (M,D), p (M,R) the workspace; all fp32,
+// contiguous, on the device of `stream`.  The plan of each phase (A:
+// P = x@U, B: y = x + P@V): tile rows and columns (16 x 64 or 128 x 128),
+// splits of the reduction (1-16, a cluster) and the k-chunk of a split (a
+// multiple of 32).  Returns the launches' cudaError_t (0 on success), or
+// cudaErrorInvalidValue for a plan that does not cover the product.
 extern "C" int merged_ffn_f32(const float* x, const float* u, const float* v,
-                              float* y, int m, int d, int r, void* stream) {
-  return launch<float, float, false>(x, x, u, v, nullptr, nullptr, y, m, d,
-                                     r, stream);
+                              float* y, float* p, int m, int d, int r,
+                              int bm_a, int bn_a, int splits_a, int kc_a,
+                              int bm_b, int bn_b, int splits_b, int kc_b,
+                              void* stream) {
+  return run<float, float, false>(x, x, u, v, nullptr, nullptr, y, p, m, d,
+                                  r, Plan{bm_a, bn_a, splits_a, kc_a},
+                                  Plan{bm_b, bn_b, splits_b, kc_b}, stream);
 }
 
 // The quantized variant: x (M,D) fp32 (the residual); xq (M,D) the panel
 // feeding P, fp32 (xq_type 0: x itself) or int8 (1, w8a8); u (D,R) and
 // v (R,D) int8 (w_type 1) or fp8-e4m3 (2); u_scale (R) and v_scale (D)
-// fp32.  Returns the launch's cudaError_t, or cudaErrorInvalidValue for a
-// type pair it does not take.
+// fp32; the plan as above.  Returns the launches' cudaError_t, or
+// cudaErrorInvalidValue for a type pair or plan it does not take.
 extern "C" int merged_ffn_q(const float* x, const void* xq, const void* u,
                             const void* v, const float* u_scale,
-                            const float* v_scale, float* y, int m, int d,
-                            int r, int xq_type, int w_type, void* stream) {
+                            const float* v_scale, float* y, float* p, int m,
+                            int d, int r, int xq_type, int w_type, int bm_a,
+                            int bn_a, int splits_a, int kc_a, int bm_b,
+                            int bn_b, int splits_b, int kc_b, void* stream) {
+  const Plan pa{bm_a, bn_a, splits_a, kc_a}, pb{bm_b, bn_b, splits_b, kc_b};
   if (xq_type == 0 && w_type == 1)
-    return launch<float, int8_t, true>(x, xq, u, v, u_scale, v_scale, y, m,
-                                       d, r, stream);
+    return run<float, int8_t, true>(x, xq, u, v, u_scale, v_scale, y, p, m,
+                                    d, r, pa, pb, stream);
   if (xq_type == 1 && w_type == 1)
-    return launch<int8_t, int8_t, true>(x, xq, u, v, u_scale, v_scale, y, m,
-                                        d, r, stream);
+    return run<int8_t, int8_t, true>(x, xq, u, v, u_scale, v_scale, y, p, m,
+                                     d, r, pa, pb, stream);
   if (xq_type == 0 && w_type == 2)
-    return launch<float, __nv_fp8_e4m3, true>(x, xq, u, v, u_scale, v_scale,
-                                              y, m, d, r, stream);
+    return run<float, __nv_fp8_e4m3, true>(x, xq, u, v, u_scale, v_scale, y,
+                                           p, m, d, r, pa, pb, stream);
   if (xq_type == 1 && w_type == 2)
-    return launch<int8_t, __nv_fp8_e4m3, true>(x, xq, u, v, u_scale,
-                                               v_scale, y, m, d, r, stream);
+    return run<int8_t, __nv_fp8_e4m3, true>(x, xq, u, v, u_scale, v_scale, y,
+                                            p, m, d, r, pa, pb, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Blocks of the bm x bn tile (fp32) resident on this device at once in
+// clusters of `splits`, or minus a cudaError_t: what the launch plan's
+// cost model assumes (H100_SLOTS in kernels/merged_ffn.py).
+extern "C" int merged_ffn_slots(int bm, int bn, int splits) {
+  if (splits < 1 || splits > MAX_SPLITS)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  if (bm == Small::BM && bn == Small::BN) return slots<Small>(splits);
+  if (bm == Large::BM && bn == Large::BN) return slots<Large>(splits);
+  return -static_cast<int>(cudaErrorInvalidValue);
 }

@@ -52,12 +52,16 @@ SIGNATURES = {
     # stride, ho, wo, act, x_type, w_type, stream
     "depthwise_conv_q": ("depthwise_conv", "depthwise_conv_q",
                          [_P, _P, _P, _P, _P] + [_I] * 15 + [_P]),
-    # x, u, v, y, m, d, r, stream
+    # x, u, v, y, p, m, d, r, then the plan of each phase (bm, bn,
+    # splits, k_chunk: A, then B), stream
     "merged_ffn": ("merged_ffn", "merged_ffn_f32",
-                   [_P, _P, _P, _P] + [_I] * 3 + [_P]),
-    # x, xq, u, v, u_scale, v_scale, y, m, d, r, xq_type, w_type, stream
+                   [_P] * 5 + [_I] * 11 + [_P]),
+    # x, xq, u, v, u_scale, v_scale, y, p, m, d, r, xq_type, w_type, the
+    # plan as above, stream
     "merged_ffn_q": ("merged_ffn", "merged_ffn_q",
-                     [_P] * 7 + [_I] * 5 + [_P]),
+                     [_P] * 8 + [_I] * 13 + [_P]),
+    # bm, bn, splits: resident blocks in clusters of splits (no stream)
+    "merged_ffn_slots": ("merged_ffn", "merged_ffn_slots", [_I] * 3),
     # x, g, y, m, d, eps, vec, stream
     "rmsnorm": ("rmsnorm", "rmsnorm_f32", [_P] * 3 + [_I, _I, _F, _I, _P]),
     # a, b, h, batch, s, c, stream
@@ -149,25 +153,29 @@ def build(names=None) -> dict[str, BuildResult]:
 
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict[str, object] = {}
 
 
 def kernel(name: str):
-    """The bound C entry point ``name`` of ``SIGNATURES`` (its library
-    built on first use)."""
-    src, fn_name, argtypes = SIGNATURES[name]
-    if src not in _LIBS:
-        path = build([src])[src].path
-        _LIBS[src] = ctypes.CDLL(str(path))
-    fn = getattr(_LIBS[src], fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    """The C entry point ``name`` of ``SIGNATURES``, its argument types
+    bound once (its library built on first use)."""
+    fn = _FNS.get(name)
+    if fn is None:
+        src, fn_name, argtypes = SIGNATURES[name]
+        if src not in _LIBS:
+            path = build([src])[src].path
+            _LIBS[src] = ctypes.CDLL(str(path))
+        fn = getattr(_LIBS[src], fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
     return fn
 
 
 #: Epilogue activation codes shared by every kernel's C interface.
 ACT_CODES = {None: 0, "none": 0, "relu": 1, "relu6": 2, "silu": 3}
 
-_INT32_MAX = 2 ** 31 - 1
+INT32_MAX = 2 ** 31 - 1
 
 
 def check_operands(name: str, *tensors, dtypes=None) -> None:
@@ -188,16 +196,22 @@ def check_operands(name: str, *tensors, dtypes=None) -> None:
                             f"for operand {i}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
-        if t.numel() > _INT32_MAX:
+        if t.numel() > INT32_MAX:
             raise ValueError(f"{name}: {tuple(t.shape)} exceeds the kernel's "
                              "32-bit indexing")
 
 
 def launch(name: str, device, *args) -> None:
     """Call kernel ``name`` on ``device``'s current stream; raise on a
-    refused launch (the C function returns ``cudaGetLastError()``)."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = kernel(name)(*args, stream)
+    refused launch (the C function returns ``cudaGetLastError()``).  The
+    device is made current only where it is not already, and the stream's
+    handle is read without building a ``torch.cuda.Stream``."""
+    fn = _FNS.get(name) or kernel(name)
+    current = torch.cuda.current_device()
+    if device.index is None or device.index == current:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(current))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

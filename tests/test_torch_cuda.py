@@ -165,6 +165,98 @@ def test_quantized_merged_ffn_matches_plain_version(mode, m, d, r):
     _close_to(y, tk.merged_ffn_qref(x, uq, vq, us, vs, act_quant=aq))
 
 
+#: The quantized kernel's four type pairs: the weight mode and the op's
+#: ``act_quant`` (w8a8: an int8 panel feeds P).
+QPAIRS = {"fp32 x int8": ("int8", "none"), "int8 x int8": ("int8", "w8a8"),
+          "fp32 x e4m3": ("fp8", "none"), "int8 x e4m3": ("fp8", "w8a8")}
+#: RecurrentGemma-2B's width and a ragged one; decode, a ragged prefill and
+#: a probe; a narrow rank, a merged unit and the unmerged GeGLU.
+WIDE = [(m, d, r) for d in (2560, 2561) for m in (8, 65, 1024)
+        for r in (24, 2560, 7680)]
+
+
+def _ffn_factors(m, d, r, dev):
+    g = torch.Generator().manual_seed(m + d + r)
+    x = torch.randn(m, d, generator=g).to(dev)
+    u = (torch.randn(d, r, generator=g) / d ** 0.5).to(dev)
+    v = (torch.randn(r, d, generator=g) / r ** 0.5).to(dev)
+    return x, u, v
+
+
+def _within_scale(y, yr, x, xd, ud, vd):
+    """|y − yr| ≤ 1e-4 · (|x| + (|x̂|·|Û|)·|V̂|) + 1e-6 per output: fp32
+    sums in another order, over the (dequantized) operands."""
+    scale = x.abs() + (xd.abs() @ ud.abs()) @ vd.abs()
+    assert y.shape == yr.shape and bool(torch.isfinite(y).all())
+    assert bool(((y - yr).abs() <= 1e-4 * scale + 1e-6).all()), \
+        float(((y - yr).abs() / scale).max())
+
+
+@pytest.mark.parametrize("m,d,r", WIDE)
+def test_merged_ffn_wide_matches_plain_version(m, d, r):
+    dev = _card()
+    x, u, v = _ffn_factors(m, d, r, dev)
+    before = tk.launch_counts()["merged_ffn"]
+    y = tk.merged_ffn_op(x, u, v)
+    assert tk.launch_counts()["merged_ffn"] == before + 1
+    _within_scale(y, tk.merged_ffn_ref(x, u, v), x, x, u, v)
+
+
+@pytest.mark.parametrize("pair", QPAIRS)
+@pytest.mark.parametrize("m,d,r", WIDE)
+def test_quantized_merged_ffn_wide_matches_plain_version(pair, m, d, r):
+    dev = _card()
+    wmode, aq = QPAIRS[pair]
+    x, u, v = _ffn_factors(m, d, r, dev)
+    uq, us = tk.quant.quantize_weight(u, wmode, axis=1)
+    vq, vs = tk.quant.quantize_weight(v, wmode, axis=1)
+    before = tk.launch_counts()["merged_ffn_q"]
+    y = tk.merged_ffn_op(x, uq, vq, u_scale=us, v_scale=vs, act_quant=aq)
+    assert tk.launch_counts()["merged_ffn_q"] == before + 1
+    xd = tk.quant.dequantize(*tk.quant.quantize_int8(x)) if aq == "w8a8" \
+        else x
+    _within_scale(y, tk.merged_ffn_qref(x, uq, vq, us, vs, act_quant=aq),
+                  x, xd, tk.quant.dequantize(uq, us, axis=1),
+                  tk.quant.dequantize(vq, vs, axis=1))
+
+
+@pytest.mark.parametrize("m,d,r", [(8, 2560, 2560), (1024, 2560, 2560),
+                                   (65, 2561, 7680)])
+def test_merged_ffn_is_bitwise_run_to_run(m, d, r):
+    """The split reductions sum in a fixed order (no float atomics): two
+    calls on the same inputs give the same bits, fp32 and w8a8."""
+    dev = _card()
+    x, u, v = _ffn_factors(m, d, r, dev)
+    assert torch.equal(tk.merged_ffn_op(x, u, v), tk.merged_ffn_op(x, u, v))
+    uq, us = tk.quant.quantize_weight(u, "int8", axis=1)
+    vq, vs = tk.quant.quantize_weight(v, "int8", axis=1)
+    ys = [tk.merged_ffn_op(x, uq, vq, u_scale=us, v_scale=vs,
+                           act_quant="w8a8") for _ in range(2)]
+    assert torch.equal(*ys)
+
+
+def test_refused_merged_ffn_launch_raises(monkeypatch):
+    """A launch the kernel refuses (here a plan with more splits than a
+    cluster holds) raises; nothing falls back to the plain version and no
+    launch is counted."""
+    import dataclasses
+    from repro_torch.kernels import merged_ffn as mf
+    dev = _card()
+    x, u, v = _ffn_factors(8, 256, 64, dev)
+    good = mf.launch_plan(8, 256, 64)
+    bad = dataclasses.replace(good, a=dataclasses.replace(
+        good.a, splits=32, k_chunk=32))
+    monkeypatch.setattr(mf, "launch_plan", lambda *a, **k: bad)
+    before = tk.launch_counts()
+    with pytest.raises(RuntimeError, match="merged_ffn"):
+        tk.merged_ffn_op(x, u, v)
+    uq, us = tk.quant.quantize_weight(u, "int8", axis=1)
+    vq, vs = tk.quant.quantize_weight(v, "int8", axis=1)
+    with pytest.raises(RuntimeError, match="merged_ffn_q"):
+        tk.merged_ffn_op(x, uq, vq, u_scale=us, v_scale=vs)
+    assert tk.launch_counts() == before
+
+
 def test_w8a8_activation_quantization_stays_on_the_card():
     """The op quantizes the activation and folds its scale on the device:
     the whole quantized op can be captured in a CUDA graph (a host sync
