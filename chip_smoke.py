@@ -14,7 +14,8 @@ Phases, each printing its own line with the seconds it took:
 3. kernels — each kernel against its plain PyTorch version on the card:
              the convs over strides {1,2,3} × k {1,2,3,5,7,11}, ragged
              shapes, every activation, no bias, and the depthwise /
-             channel-multiplier / grouped cases; merged_ffn over
+             channel-multiplier / grouped cases (``DW_CASES``: the
+             depthwise kernel's scalar and vector paths); merged_ffn over
              M {1,8,37,1024} × D {32,96,576} × R {1,24,576,1152,1536}
              (1536: the replaced path's unmerged SmolLM FFN), at
              D 2560 × R {24,2560,7680} × M {8,1024} (RecurrentGemma), at
@@ -35,8 +36,11 @@ Phases, each printing its own line with the seconds it took:
              S {1,7,128,512} × C {32,256,2560,2561} (also bitwise);
              flash_attention over BH {1,8,80} × S {1,7,16,128,256,1000} ×
              D {32,64,256}, causal and not, with grouped and multi-query
-             kv heads; ``benchmarks/run.py``'s three shapes; and the
-             gradient of ``flash_attention_op`` through the kernel.
+             kv heads; ``benchmarks/run.py``'s three shapes; the
+             gradient of ``flash_attention_op`` through the kernel; and
+             twice on the same inputs, bitwise equal, flash_attention at
+             the path's four shapes and depthwise_conv (fp32 and w8a8)
+             at three MobileNetV2 units.
 4. compress — the main path: ``python -m repro_torch.compress`` on
              MobileNetV2 at full width (224², width 1.0, 1000 classes,
              batch 8, ``--max-span 6``, budget 0.6), latency tables timed
@@ -78,8 +82,9 @@ Phases, each printing its own line with the seconds it took:
              cuBLAS calls) and the bound, as device times (phase 6), and
              the host microseconds an eager call takes.  merged_ffn's
              operations are priced at the tensor-core rate that gives its
-             accuracy (``FFN_RATES``: 3xTF32 for fp32 × fp32), every other
-             kernel's at the fp32 FFMA rate; each row names its rate.
+             accuracy (``FFN_RATES``: 3xTF32 for fp32 × fp32), as are
+             flash_attention's (3xTF32), every other kernel's at the fp32
+             FFMA rate; each row names its rate.
 11. q serve — the quantized CNN path: MobileNetV2 as in phase 4 through
              the CLI with ``--quantize w8a8`` and phase 4's oracle (no
              signature timed twice), budgets 0.6, 0.5, 0.4 until the plan
@@ -123,9 +128,9 @@ Phases, each printing its own line with the seconds it took:
              ``CostEnv(batch=8, seq=128)``, ``method="depth"``, tables
              timed on the card (probes through rmsnorm, rglru_scan,
              flash_attention and merged_ffn), phase 8's budget ladder to
-             the first plan that merges an FFN — or, where the card's
-             tables merge none, the tightest merging plan under the H100
-             roofline (the line says which); the artifact is saved.
+             the first plan that merges an FFN; the artifact is saved.
+             Where the card's tables merge no FFN at any budget the phase
+             fails, naming the ladder (a slow merged_ffn shows there).
 16. rg serve — the artifact on the card serves phase 9's protocol (8
              prompts x 16 tokens, 32 greedy tokens, RG-LRU state and the
              local KV ring buffer); every step's logits, teacher-forced,
@@ -139,7 +144,8 @@ Phases, each printing its own line with the seconds it took:
              shapes (and SmolLM's), merged_ffn at D 2560: kernel, plain
              version, library yardstick (``F.rms_norm``,
              ``F.scaled_dot_product_attention``, ``addmm``; none for the
-             scan) and bound, as device times; the new kernels' rows of
+             scan) and bound (attention's operations at the 3xTF32
+             rate), as device times; the new kernels' rows of
              the ``kernels`` line are their probe shapes.
 
 Any failed check raises, so the script exits non-zero.  Per-unit shapes
@@ -283,6 +289,12 @@ def held(name, y, yr, scale, case) -> tuple[float, float]:
     return float(err.max()), rel
 
 
+#: (groups, cin_g, cout_g) of the depthwise kernel's sweeps: the scalar
+#: path (13 channels; a channel multiplier with 18 outputs; general
+#: grouped) and the vector path (16 channels; a multiplier with 8).
+DW_CASES = ((13, 1, 1), (6, 1, 3), (3, 4, 5), (16, 1, 1), (4, 1, 2))
+
+
 def compare_kernel(kind, x, w, b, stride, groups=None, activation=None):
     """Run the kernel op and its plain version on the same card inputs;
     returns (max |Δ|, max |Δ| / scale); raises beyond the tolerance."""
@@ -407,8 +419,7 @@ def qkernel_sweep(dev) -> dict:
                         "merged_conv", rnd(2, *hw, cin), wq, ws, bias, s, aq,
                         activation=act))
                     n += 1
-                for groups, cin_g, cout_g in ((13, 1, 1), (6, 1, 3),
-                                              (3, 4, 5)):
+                for groups, cin_g, cout_g in DW_CASES:
                     cout = groups * cout_g
                     bias = None if n % 3 == 0 else rnd(cout)
                     wq, ws = quant.quantize_weight(
@@ -512,7 +523,7 @@ def kernel_sweep(dev) -> dict:
                     "merged_conv", rnd(2, *hw, cin), rnd(k, k, cin, cout)
                     / (k * (cin ** 0.5)), bias, s, activation=act))
                 n += 1
-            for groups, cin_g, cout_g in ((13, 1, 1), (6, 1, 3), (3, 4, 5)):
+            for groups, cin_g, cout_g in DW_CASES:
                 cout = groups * cout_g
                 bias = None if n % 3 == 0 else rnd(cout)
                 note("depthwise_conv", compare_kernel(
@@ -853,6 +864,44 @@ def ffn_determinism(dev) -> int:
         check(torch.equal(y1, y2), f"merged_ffn {(m, 2560, 2560)}: two "
               "calls on the same inputs differ bitwise")
     return 2
+
+
+def attn_dw_determinism(dev) -> int:
+    """Two calls of flash_attention (the path's four shapes) and of
+    depthwise_conv, fp32 and w8a8 (three MobileNetV2 units), on the same
+    inputs give bitwise the same output (every sum in a fixed order);
+    returns the cases checked."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import quant
+    g = torch.Generator().manual_seed(10)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(dev)
+
+    n = 0
+    for b, s, h, kvh, d in ((8, 128, 10, 1, 256), (8, 16, 10, 1, 256),
+                            (8, 128, 9, 3, 64), (8, 16, 9, 3, 64)):
+        q, k, v = rnd(b, s, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d)
+        o1, o2 = (kernels.flash_attention_op(q, k, v, True)
+                  for _ in range(2))
+        torch.cuda.synchronize()
+        check(torch.equal(o1, o2), f"flash_attention {(b, s, h, kvh, d)}: "
+              "two calls on the same inputs differ bitwise")
+        n += 1
+    for hw, c, s in ((112, 32, 1), (28, 192, 2), (7, 960, 1)):
+        x, w, b = rnd(8, hw + 2, hw + 2, c), rnd(3, 3, 1, c) / 3, rnd(c)
+        wq, ws = quant.quantize_weight(w, "int8", axis=3)
+        for kw in ({}, {"w_scale": ws, "act_quant": "w8a8"}):
+            y1, y2 = (kernels.depthwise_conv_op(
+                x, wq if kw else w, b, stride=s, groups=c,
+                activation="relu6", **kw) for _ in range(2))
+            torch.cuda.synchronize()
+            check(torch.equal(y1, y2), f"depthwise_conv {(hw, c, s)} "
+                  f"{'w8a8' if kw else 'fp32'}: two calls on the same inputs "
+                  "differ bitwise")
+            n += 1
+    return n
 
 
 def time_ffn(x, u, v) -> dict:
@@ -1440,23 +1489,26 @@ def scan_bound(b: int, s: int, c: int) -> tuple[float, float]:
 
 def attention_bound(b, s, h, kvh, d, causal=True) -> tuple[float, float]:
     """flash_attention: 4·D FLOPs (q·k and p·v) for each (query, key) pair
-    the mask keeps, S(S+1)/2 per head when causal; q and o at H heads, k
-    and v at the KVH heads the kernel reads."""
+    the mask keeps, S(S+1)/2 per head when causal, at the 3xTF32 rate of
+    its fp32 × fp32 products (``FFN_RATES``); q and o at H heads, k and v
+    at the KVH heads the kernel reads."""
     pairs = s * (s + 1) / 2 if causal else s * s
-    return (4.0 * b * h * d * pairs / H100_FP32_FLOPS * 1e3,
+    return (4.0 * b * h * d * pairs / FFN_RATES[("fp32", "fp32")][0] * 1e3,
             4.0 * (2 * b * s * h * d + 2 * b * s * kvh * d) / H100_HBM_BW
             * 1e3)
 
 
-def time_row(kernel, shape, run, plain, library, bound, err) -> dict:
+def time_row(kernel, shape, run, plain, library, bound, err,
+             rate=FFMA_RATE) -> dict:
     """Device times of the kernel op, its plain version and the library
-    yardstick (None: no one PyTorch call computes the function)."""
+    yardstick (None: no one PyTorch call computes the function); ``rate``
+    names the operations' rate of the bound."""
     f_ms, b_ms = bound
     row = {"kernel": kernel, "shape": shape, "max_abs_err": err,
            "ms": kernel_time(run), "plain_ms": kernel_time(plain),
            "library_ms": None if library is None else kernel_time(library),
            "flops_ms": f_ms, "bytes_ms": b_ms, "bound_ms": max(f_ms, b_ms),
-           "bound_rate": FFMA_RATE}
+           "bound_rate": rate}
     check_bound(f"{kernel} {shape}", row["ms"], row["bound_ms"])
     return row
 
@@ -1518,7 +1570,8 @@ def time_rg_kernels(dev, cfg, art, host) -> list:
             lambda: ops._attention_plain(q, k, v, True),
             lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                    is_causal=True),
-            attention_bound(b, s, h, kvh, d), err))
+            attention_bound(b, s, h, kvh, d), err,
+            ffn_rate_label(("fp32", "fp32"))))
     units = [u for u in art.graph.units if u.kind == "lowrank"]
     shapes = sorted({tuple(u.params["u"].shape) for u in units})
     for m in (1024, 128, 8):
@@ -1578,23 +1631,8 @@ def rg_phases(dev, build_host):
     print("  signature timings (device, CUDA graph): " + "; ".join(
         f"{sig[1]} rank {sig[2]} {sec * 1e3:.4f} ms"
         for sig, sec in oracle.measured.items()), flush=True)
-    if res is None:
-        # The card's tables merge no FFN at any budget: serve the tightest
-        # plan that merges under the H100 roofline (as phase 7 runs
-        # ResNet34), so that the served path still runs merged units.
-        for ratio in LM_BUDGETS:
-            r = compress(host, budget_ratio=ratio, method="depth")
-            n_m = 0 if r is None else merged_segments(host, r.plan)
-            ladder.append(f"analytic {ratio}: " + (
-                "infeasible" if r is None else f"{n_m} merged, predicted "
-                f"speedup {r.speedup:.4f}"))
-            if n_m:
-                res, served = r, (
-                    f"the H100 roofline (AnalyticOracle), budget {ratio}: "
-                    "the card-timed tables merge no FFN at any budget")
-                break
-    check(res is not None, f"recurrentgemma-2b depth: no plan merges an FFN "
-          f"({'; '.join(ladder)})")
+    check(res is not None, f"recurrentgemma-2b depth: the card-timed tables "
+          f"merge no FFN at any budget ({'; '.join(ladder)})")
     free_gb = shutil.disk_usage(WORK).free / 1e9
     rg_path = os.path.join(WORK, "recurrentgemma2b_depth.npz")
     t_save = time.perf_counter()
@@ -1765,12 +1803,14 @@ def main(argv) -> int:
     sweep.update(norm_scan_attention_sweep(dev))
     n_q = quantize_matches_cpu(dev)
     n_det = ffn_determinism(dev)
+    n_det_ad = attn_dw_determinism(dev)
     slots, slots_model = ffn_slots()
     log("kernels", t0, json.dumps(
         {k: {"cases": v[2], "max_abs_err": v[0], "max_rel_err": v[1]}
          for k, v in sweep.items()}) + f"; quantize_int8 card == CPU "
         f"bitwise on {n_q} inputs; merged_ffn bitwise run to run on "
-        f"{n_det} inputs; merged_ffn resident blocks by cluster size "
+        f"{n_det} inputs, flash_attention and depthwise_conv on "
+        f"{n_det_ad}; merged_ffn resident blocks by cluster size "
         f"{json.dumps(slots)} ("
         + ("launch_plan's model" if slots_model else "NOT launch_plan's "
            "H100_SLOTS: its splits are planned for another card") + ")")

@@ -223,8 +223,8 @@ def rank_ffn_cost(tokens: int, d: int, rank: int,
                   dtype_bytes: int = 2, w_bytes: int | None = None,
                   act_bytes: int | None = None) -> CostBreakdown:
     """Merged rank-``r`` residual layer: ``x + (x·U)·V`` (two thin GEMMs,
-    as the JAX package prices it: ``P`` is counted as written and read
-    although the ``merged_ffn`` kernel keeps it on chip)."""
+    as the JAX package prices it: ``P`` is counted as written and read,
+    as the ``merged_ffn`` kernel does through its (M, R) fp32 workspace)."""
     r = min(rank, d)
     return (matmul_cost(tokens, d, r, dtype_bytes, w_bytes, act_bytes)
             + matmul_cost(tokens, r, d, dtype_bytes, w_bytes, act_bytes))

@@ -5,10 +5,10 @@ entry point and, for the three merged-segment kernels, its quantized
 variant), so it builds in seconds without PyTorch's headers.  A library is built at first use into
 ``build/repro_torch/`` at the root of the checkout — or, for an installed
 package, into ``$XDG_CACHE_HOME/repro_torch`` (``~/.cache/repro_torch``) —
-named by a hash of its source and flags, so an edited source rebuilds and
-an unchanged one is reused.  :func:`build` starts one ``nvcc``
-per missing library and waits for all of them, which is how the smoke run
-builds every kernel in parallel.  One library holds every entry point of
+named by a hash of its source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source rebuilds and an unchanged one is reused.
+:func:`build` starts one ``nvcc`` per missing library and waits for all of
+them, which is how the smoke run builds every kernel in parallel.  One library holds every entry point of
 its source.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -45,13 +45,13 @@ SIGNATURES = {
     "merged_conv_q": ("merged_conv", "merged_conv_q",
                       [_P, _P, _P, _P, _P] + [_I] * 13 + [_P]),
     # x, w, bias, y, n, h, w, cin, kh, kw, cin_g, cout, groups, stride, ho,
-    # wo, act, stream
+    # wo, act, then the plan (vec, k_t, s_t, threads), stream
     "depthwise_conv": ("depthwise_conv", "depthwise_conv_f32",
-                       [_P, _P, _P, _P] + [_I] * 13 + [_P]),
+                       [_P, _P, _P, _P] + [_I] * 17 + [_P]),
     # x, w, scale, bias, y, n, h, w, cin, kh, kw, cin_g, cout, groups,
-    # stride, ho, wo, act, x_type, w_type, stream
+    # stride, ho, wo, act, x_type, w_type, the plan as above, stream
     "depthwise_conv_q": ("depthwise_conv", "depthwise_conv_q",
-                         [_P, _P, _P, _P, _P] + [_I] * 15 + [_P]),
+                         [_P, _P, _P, _P, _P] + [_I] * 19 + [_P]),
     # x, u, v, y, p, m, d, r, then the plan of each phase (bm, bn,
     # splits, k_chunk: A, then B), stream
     "merged_ffn": ("merged_ffn", "merged_ffn_f32",
@@ -66,9 +66,10 @@ SIGNATURES = {
     "rmsnorm": ("rmsnorm", "rmsnorm_f32", [_P] * 3 + [_I, _I, _F, _I, _P]),
     # a, b, h, batch, s, c, stream
     "rglru_scan": ("rglru_scan", "rglru_scan_f32", [_P] * 3 + [_I] * 3 + [_P]),
-    # q, k, v, o, b, s, h, kvh, d, causal, stream
+    # q, k, v, o, b, s, h, kvh, d, causal, then the plan (wr, dsplit),
+    # stream
     "flash_attention": ("flash_attention", "flash_attention_f32",
-                        [_P] * 4 + [_I] * 6 + [_P]),
+                        [_P] * 4 + [_I] * 8 + [_P]),
 }
 
 #: The kernel sources, one library each.
@@ -114,9 +115,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Path of the library built from ``csrc/<name>.cu``."""
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    """Path of the library built from ``csrc/<name>.cu`` (its hash covers
+    the shared headers ``csrc/*.cuh`` too)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -199,6 +202,20 @@ def check_operands(name: str, *tensors, dtypes=None) -> None:
         if t.numel() > INT32_MAX:
             raise ValueError(f"{name}: {tuple(t.shape)} exceeds the kernel's "
                              "32-bit indexing")
+
+
+_SMS: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """SMs of a CUDA device (what the launch plans fill), read once."""
+    idx = torch.cuda.current_device() if device.index is None \
+        else device.index
+    n = _SMS.get(idx)
+    if n is None:
+        n = _SMS[idx] = torch.cuda.get_device_properties(idx) \
+            .multi_processor_count
+    return n
 
 
 def launch(name: str, device, *args) -> None:

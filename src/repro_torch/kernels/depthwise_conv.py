@@ -1,5 +1,6 @@
 """Depthwise / grouped merged-segment convolution (VALID, stride s, NHWC):
-the CUDA kernel's wrapper plus the grouped tile arithmetic.
+the CUDA kernel's wrapper, its launch plan, and the grouped tile
+arithmetic.
 
 The kernel (``csrc/depthwise_conv.cu``) replaces the JAX package's Pallas
 ``depthwise_conv``: ``feature_group_count = G`` with weights HWIO
@@ -9,16 +10,26 @@ epilogue as the dense kernel.  It covers depthwise (cin_g = cout_g = 1),
 channel-multiplier (cin_g = 1, cout_g > 1) and general grouped (cin_g > 1)
 convolutions, and reads the HWIO weight directly, so neither the TPU
 kernel's group-blocked weight relayout nor its channel padding is needed.
-Its quantized variant (``w_scale``) takes int8 or fp8-e4m3 weights and an
-fp32 or int8 input, and multiplies the fp32 sum by the per-channel scale
-before the bias.
+A thread computes a strip of outputs along Wo for a vector of 4 output
+channels (one 16-byte fp32 or 32-bit int8 / fp8 load), with its weights
+in registers for the strip; other channel counts and general grouped
+convs take the template's scalar path.  Its quantized variant
+(``w_scale``) takes int8 or fp8-e4m3 weights and an fp32 or int8 input,
+and multiplies the fp32 sum by the per-channel scale before the bias.
 
-:func:`choose_group_block` and :func:`choose_tiles_grouped` stay as plain
-Python for the JAX package's tiled traffic model
-(``merged_conv.input_traffic_model`` plans depthwise segments with them).
+:func:`launch_plan` picks that tile and the threads per block from the
+shape and the card's SM count alone, so the arithmetic that decides
+coverage runs (and is tested) on the CPU.  :func:`choose_group_block` and
+:func:`choose_tiles_grouped` stay as plain Python for the JAX package's
+tiled traffic model (``merged_conv.input_traffic_model`` plans depthwise
+segments with them).
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
+import numpy as np
 import torch
 
 from . import cuda_build
@@ -71,6 +82,89 @@ def choose_tiles_grouped(h: int, w: int, cin_g: int, cout_g: int,
     return _round8(tile_ho, ho), wo
 
 
+#: Outputs a thread computes along Wo on the vector path (``OW_VEC`` in
+#: the source).
+OW_VEC = 4
+#: (square kernel size, stride) pairs with a compile-time instance for
+#: depthwise convs (the strip's input columns held in registers, the rows
+#: unrolled): MobileNetV2's 3×3 s1 / s2 and 1×1.
+FIXED_TAPS = ((3, 1), (3, 2), (1, 1))
+#: Threads per block tried, largest first.
+THREADS = (256, 128, 64)
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """One thread per (image, output row, strip of ``ow`` outputs along
+    Wo, vector of ``vec`` output channels), channel vectors fastest;
+    ``k_t``/``s_t`` name the compile-time instance (0: runtime kernel
+    size and stride); ``threads`` per block."""
+    n: int
+    ho: int
+    wo: int
+    cout: int
+    vec: int
+    ow: int
+    k_t: int
+    s_t: int
+    threads: int
+
+    @property
+    def strips(self) -> int:
+        return -(-self.wo // self.ow)
+
+    @property
+    def cvecs(self) -> int:
+        return self.cout // self.vec
+
+    @property
+    def total(self) -> int:
+        """Threads with work."""
+        return self.n * self.ho * self.strips * self.cvecs
+
+    @property
+    def blocks(self) -> int:
+        return -(-self.total // self.threads)
+
+    def args(self) -> tuple[int, int, int, int]:
+        """The plan's arguments of the C entry points."""
+        return (self.vec, self.k_t, self.s_t, self.threads)
+
+    def thread_outputs(self, idx: np.ndarray):
+        """(image, output row, first output column, columns, first channel)
+        of each thread index: the kernel's index arithmetic, for the
+        coverage tests (threads past ``total`` return early)."""
+        cv, rest = idx % self.cvecs, idx // self.cvecs
+        strip, rest = rest % self.strips, rest // self.strips
+        ho, img = rest % self.ho, rest // self.ho
+        wo0 = strip * self.ow
+        return img, ho, wo0, np.minimum(self.ow, self.wo - wo0), \
+            cv * self.vec
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(n: int, ho: int, wo: int, cin: int, kh: int, kw: int,
+                cin_g: int, cout: int, groups: int, stride: int,
+                aligned: bool = True, sms: int = 132) -> LaunchPlan:
+    """The vector path (4 output channels, a strip of 4 outputs) where one
+    load serves 4 output channels: cin_g = 1, Cout a multiple of 4 (and
+    Cin too when each output channel has its own input channel), pointers
+    aligned; else the scalar path.  Depthwise convs (cout_g = 1) with a
+    square kernel of a ``FIXED_TAPS`` size and stride take its
+    compile-time instance.  The most threads per block that still give
+    every SM a block."""
+    cout_g = cout // groups
+    vec = 4 if (aligned and cin_g == 1 and cout % 4 == 0
+                and (cout_g > 1 or cin % 4 == 0)) else 1
+    ow = OW_VEC if vec == 4 else 1
+    fixed = vec == 4 and cout_g == 1 and kh == kw \
+        and (kw, stride) in FIXED_TAPS
+    k_t, s_t = (kw, stride) if fixed else (0, 0)
+    plans = [LaunchPlan(n, ho, wo, cout, vec, ow, k_t, s_t, threads)
+             for threads in THREADS]
+    return next((p for p in plans if p.blocks >= sms), plans[-1])
+
+
 def depthwise_conv(x: torch.Tensor, w: torch.Tensor,
                    b: torch.Tensor | None = None, *, stride: int = 1,
                    groups: int, activation: str | None = None,
@@ -115,10 +209,15 @@ def depthwise_conv(x: torch.Tensor, w: torch.Tensor,
         return y
     bias = None if b is None else b.data_ptr()
     act = cuda_build.ACT_CODES[activation]
+    aligned = all(t.data_ptr() % 16 == 0
+                  for t in (x, w, y, b, w_scale) if t is not None)
+    plan = launch_plan(n, ho, wo, cin, kh, kw, cin_g, cout, groups, stride,
+                       aligned, cuda_build.sm_count(x.device))
     if w_scale is None:
         cuda_build.launch("depthwise_conv", x.device, x.data_ptr(),
                           w.data_ptr(), bias, y.data_ptr(), n, h, wd, cin,
-                          kh, kw, cin_g, cout, groups, stride, ho, wo, act)
+                          kh, kw, cin_g, cout, groups, stride, ho, wo, act,
+                          *plan.args())
         launches += 1
     else:
         cuda_build.launch("depthwise_conv_q", x.device, x.data_ptr(),
@@ -126,6 +225,6 @@ def depthwise_conv(x: torch.Tensor, w: torch.Tensor,
                           y.data_ptr(), n, h, wd, cin, kh, kw, cin_g, cout,
                           groups, stride, ho, wo, act,
                           cuda_build.X_TYPES[x.dtype],
-                          cuda_build.W_TYPES[w.dtype])
+                          cuda_build.W_TYPES[w.dtype], *plan.args())
         launches_q += 1
     return y

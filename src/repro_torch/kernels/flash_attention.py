@@ -1,18 +1,30 @@
-"""Causal (or full) softmax attention, forward: the CUDA kernel's wrapper.
+"""Causal (or full) softmax attention, forward: the CUDA kernel's wrapper
+and its launch plan.
 
 The kernel (``csrc/flash_attention.cu``) replaces the JAX package's Pallas
 ``flash_attention``: online softmax over kv tiles, fp32 accumulation, kv
 tiles above the diagonal skipped under the causal mask and the final
 division by ``max(l, 1e-30)``.  The TPU kernel's running max, normalizer
 and accumulator lived in VMEM across its sequential kv grid axis; here
-they live in registers across a kv loop inside one block per (batch·head,
-32-row q tile).  It reads the (B, S, H, D) layout in place, and k / v with
-fewer heads (KVH dividing H; query head h reads kv head h // (H / KVH)),
-so grouped and multi-query attention read their kv heads once instead of
-expanding them.
+they live in registers across a kv loop inside one block.  Both products
+run on the tensor cores as 3xTF32 (hi/lo splits, fp32 sums), so the
+result keeps fp32 accuracy, and K/V tiles stream through a cp.async ring.
+It reads the (B, S, H, D) layout in place, and k / v with fewer heads
+(KVH dividing H; query head h reads kv head h // (H / KVH)): a block's
+query rows are the (s, head) pairs of one (batch, kv head), s-major, so
+grouped and multi-query attention load each K/V tile once for the group.
+
+:func:`launch_plan` picks the rows per block and whether two blocks
+share a row tile (each half of the output columns), from the shape and
+the card's SM count alone, so the arithmetic that decides coverage runs
+(and is tested) on the CPU.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
+import numpy as np
 import torch
 
 from . import cuda_build
@@ -20,9 +32,120 @@ from . import cuda_build
 #: Kernel launches made by :func:`flash_attention` in this process.
 launches = 0
 
-#: Largest head dim the kernel takes (its register tile is D / 32 columns
-#: per lane, instantiated for 32, 64, 128 and 256).
+#: Largest head dim the kernel takes (instantiated for head dims rounded
+#: up to 32, 64, 128 and 256).
 MAX_HEAD_DIM = 256
+#: K/V tiles in flight (``STAGES`` in the source).
+STAGES = 3
+#: Row groups of 16 query rows a block may hold, largest first, by head-dim
+#: tile (8 warps at most: D 256 splits q·kᵀ over 4 warps a row group).
+ROW_GROUPS = {32: (4, 2, 1), 64: (4, 2, 1), 128: (4, 2, 1), 256: (2, 1)}
+#: Fewest warps a block holds (its warps share each K/V tile): at a short
+#: prefill, fewer blocks of 4 warps ran faster than more blocks of one.
+MIN_WARPS = 4
+
+
+def head_dim_tile(d: int) -> int:
+    """The head dim rounded up to an instantiated tile."""
+    for dp in (32, 64, 128, 256):
+        if d <= dp:
+            return dp
+    raise ValueError(f"flash_attention: head dim {d} above {MAX_HEAD_DIM}")
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """Blocks of ``wr`` row groups of 16 query rows over the s-major (s,
+    head) rows of each (batch, kv head); ``dsplit`` blocks per row tile,
+    block ``z`` computing output columns ``[z·dv, (z+1)·dv)``.  The
+    constants mirror the source's ``Cfg``."""
+    b: int
+    s: int
+    h: int
+    kvh: int
+    d: int
+    wr: int
+    dsplit: int
+
+    @property
+    def dp(self) -> int:
+        return head_dim_tile(self.d)
+
+    @property
+    def wd(self) -> int:
+        """Warps of a row group splitting the q·kᵀ depth and the output."""
+        return self.dp // 64 if self.dp >= 128 else 1
+
+    @property
+    def bm(self) -> int:
+        return 16 * self.wr
+
+    @property
+    def bkv(self) -> int:
+        """Keys a kv tile."""
+        return 16 if self.dp >= 128 else 32
+
+    @property
+    def dv(self) -> int:
+        return self.dp // self.dsplit
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.wr * self.wd
+
+    @property
+    def rows(self) -> int:
+        """Query rows of one (batch, kv head): S × H/KVH."""
+        return self.s * (self.h // self.kvh)
+
+    @property
+    def grid(self) -> tuple[int, int, int]:
+        return (-(-self.rows // self.bm), self.b * self.kvh, self.dsplit)
+
+    @property
+    def blocks(self) -> int:
+        x, y, z = self.grid
+        return x * y * z
+
+    @property
+    def smem_bytes(self) -> int:
+        stage = self.bkv * ((self.dp + 8) + (self.dv + 4))
+        xs = (self.wr * self.wd * (self.bkv // 8) * 32 * 4
+              if self.wd > 1 else 0)
+        return (STAGES * stage + xs) * 4
+
+    def args(self) -> tuple[int, int]:
+        """The plan's arguments of the C entry point."""
+        return (self.wr, self.dsplit)
+
+    def block_outputs(self, x: int, y: int, z: int):
+        """(batch, heads, positions, column range) that block (x, y, z)
+        writes: the kernel's index arithmetic (row tiles scheduled in
+        reverse), for the coverage tests."""
+        group = self.h // self.kvh
+        b, hk = divmod(y, self.kvh)
+        r0 = (self.grid[0] - 1 - x) * self.bm
+        r = np.arange(r0, min(r0 + self.bm, self.rows))
+        s, j = np.divmod(r, group)
+        return (b, hk * group + j, s,
+                (z * self.dv, min((z + 1) * self.dv, self.d)))
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(b: int, s: int, h: int, kvh: int, d: int,
+                sms: int = 132) -> LaunchPlan:
+    """The most query rows a block that still gives every SM a block, at
+    ``MIN_WARPS`` warps a block or more.  Where no such block shape fills
+    the card (short prefills): at D 256, whose row group alone is 4 warps,
+    two blocks a row tile, each half of the output columns; below, the
+    smallest such block."""
+    plan = functools.partial(LaunchPlan, b, s, h, kvh, d)
+    shapes = [wr for wr in ROW_GROUPS[head_dim_tile(d)]
+              if plan(wr, 1).threads >= 32 * MIN_WARPS]
+    for wr in shapes:
+        if plan(wr, 1).blocks >= sms:
+            return plan(wr, 1)
+    return plan(1, 2) if plan(1, 1).wd >= MIN_WARPS else plan(shapes[-1], 1)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -53,8 +176,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
+    plan = launch_plan(b, s, h, kvh, d, cuda_build.sm_count(q.device))
     cuda_build.launch("flash_attention", q.device, q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h, kvh,
-                      d, int(bool(causal)))
+                      d, int(bool(causal)), *plan.args())
     launches += 1
     return o

@@ -138,19 +138,6 @@ def launch_plan(m: int, d: int, r: int, sms: int = 132) -> LaunchPlan:
     return LaunchPlan(_phase(m, r, d, sms), _phase(m, d, r, sms))
 
 
-_SMS: dict[int, int] = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    idx = torch.cuda.current_device() if device.index is None \
-        else device.index
-    n = _SMS.get(idx)
-    if n is None:
-        n = _SMS[idx] = torch.cuda.get_device_properties(idx) \
-            .multi_processor_count
-    return n
-
-
 def merged_ffn(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
                u_scale: torch.Tensor | None = None,
                v_scale: torch.Tensor | None = None,
@@ -201,7 +188,7 @@ def merged_ffn(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
     y = torch.empty((m, d), device=x.device, dtype=torch.float32)
     if y.numel() == 0:
         return y
-    plan = launch_plan(m, d, r, _sm_count(x.device))
+    plan = launch_plan(m, d, r, cuda_build.sm_count(x.device))
     if max(plan.a.grid[1:] + plan.b.grid[1:]) > 65535:
         raise ValueError(f"merged_ffn: M = {m}, D = {d}, R = {r} exceed the "
                          "kernel's grid (65535 tiles a side)")

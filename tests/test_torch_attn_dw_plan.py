@@ -1,0 +1,246 @@
+"""The launch plans of the ``flash_attention`` and ``depthwise_conv``
+kernels and the attention's precision design, on the CPU (no card, no
+``nvcc``).
+
+Each ``launch_plan`` decides which blocks and threads the kernel launches;
+the sources derive their grid and index arithmetic from the same numbers,
+which the plans mirror (``block_outputs``, ``thread_outputs``), so the
+coverage arithmetic is checked here: every output index written by
+exactly one block or thread, ragged S, D, Wo and channel counts included.
+The attention multiplies fp32 operands as 3xTF32 with the q·kᵀ depth split
+over a row group's warps; a plain PyTorch emulation of those products is
+held against float64 for one RecurrentGemma-shaped tile.  Nothing here
+imports JAX.
+"""
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import cuda_build
+from repro_torch.kernels import depthwise_conv as dw
+from repro_torch.kernels import flash_attention as fa
+
+#: Most shared memory a block may take on an H100.
+SMEM_LIMIT = 232_448
+
+#: (B, S, H, KVH, D): the paths' shapes (RecurrentGemma's probe and
+#: prefill, SmolLM's), ragged S and D, grouped and multi-query heads.
+ATTN_SHAPES = [(8, 128, 10, 1, 256), (8, 16, 10, 1, 256), (8, 128, 9, 3, 64),
+               (8, 16, 9, 3, 64), (2, 7, 4, 2, 100), (1, 1, 1, 1, 1),
+               (3, 37, 6, 2, 33), (2, 1000, 2, 1, 64), (1, 17, 10, 1, 256),
+               (1, 15, 3, 3, 128), (2, 33, 4, 4, 32), (8, 256, 4, 2, 64)]
+
+#: MobileNetV2's depthwise layers at batch 8 (224², width 1.0): (input
+#: side, channels, stride), each as the 3×3 unit and as a 1×1 identity
+#: unit, so every unit a plan can serve is among them.
+MOBILENET_DW = [(112, 32, 1), (112, 96, 2), (56, 144, 1), (56, 144, 2),
+                (28, 192, 1), (28, 192, 2), (14, 384, 1), (14, 576, 1),
+                (14, 576, 2), (7, 960, 1)]
+
+
+def _dw_shape(h, c, s, k):
+    """(N, H, W, Cin, kh, kw, cin_g, Cout, G, stride) of a unit's padded
+    input, as the executor gives it to the kernel."""
+    hp = h + k - 1
+    return (8, hp, hp, c, k, k, 1, c, c, s)
+
+
+#: Ragged and grouped cases of the phase-3 sweep and the card tests:
+#: channel counts not divisible by 4, Wo ragged against the strip of 4,
+#: channel multiplier and general grouped convs, strides 1-3, k up to 11.
+DW_SHAPES = [(2, 9, 8, 13, 3, 3, 1, 13, 13, 1),
+             (2, 16, 13, 4, 3, 3, 1, 4, 4, 2),
+             (2, 12, 11, 6, 5, 5, 1, 18, 6, 1),
+             (1, 20, 17, 12, 3, 3, 4, 15, 3, 3),
+             (2, 14, 14, 4, 3, 3, 1, 8, 4, 1),
+             (1, 21, 22, 960, 11, 11, 1, 960, 960, 2),
+             (3, 10, 9, 6, 2, 2, 1, 6, 6, 1),
+             (1, 7, 7, 960, 1, 1, 1, 960, 960, 1)]
+
+
+def _dw_plan(n, h, w, cin, kh, kw, cin_g, cout, groups, stride):
+    ho, wo = (h - kh) // stride + 1, (w - kw) // stride + 1
+    return dw.launch_plan(n, ho, wo, cin, kh, kw, cin_g, cout, groups,
+                          stride)
+
+
+# -- flash_attention -----------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,h,kvh,d", ATTN_SHAPES)
+def test_attention_plan_covers_each_output_once(b, s, h, kvh, d):
+    plan = fa.launch_plan(b, s, h, kvh, d)
+    seen = np.zeros((b, s, h, d), dtype=np.int32)
+    gx, gy, gz = plan.grid
+    for x in range(gx):
+        for y in range(gy):
+            for z in range(gz):
+                bb, heads, pos, (lo, hi) = plan.block_outputs(x, y, z)
+                assert len(pos) > 0, f"block {(x, y, z)} holds no row"
+                assert len(pos) <= plan.bm
+                seen[bb, pos, heads, lo:hi] += 1
+    assert (seen == 1).all()
+    assert plan.blocks == gx * gy * gz
+    assert plan.dp >= d and plan.dv * plan.dsplit == plan.dp
+
+
+@pytest.mark.parametrize("d", [1, 32, 33, 64, 100, 128, 129, 200, 256])
+@pytest.mark.parametrize("s", [1, 16, 128, 4096])
+def test_attention_plan_fits_shared_memory(d, s):
+    for h, kvh in ((10, 1), (9, 3), (4, 4)):
+        plan = fa.launch_plan(8, s, h, kvh, d)
+        assert plan.smem_bytes <= SMEM_LIMIT, plan
+        assert plan.threads <= 256 and plan.args() == (plan.wr, plan.dsplit)
+
+
+@pytest.mark.parametrize("shape", [(8, 128, 10, 1, 256), (8, 128, 9, 3, 64)])
+def test_attention_plan_fills_the_card_at_the_probes(shape):
+    assert fa.launch_plan(*shape).blocks >= 132
+
+
+@pytest.mark.parametrize("shape,args,blocks", [
+    ((8, 16, 10, 1, 256), (1, 2), 160), ((8, 16, 9, 3, 64), (4, 1), 24)])
+def test_attention_plan_at_prefill(shape, args, blocks):
+    """S 16: RecurrentGemma has 1,280 query rows (80 row tiles of 16),
+    fewer than SMs, so two blocks of 4 warps share each row tile, each
+    writing half of the columns.  SmolLM's 48 rows a kv head take one
+    block of 4 warps (64 rows) each: 24 blocks, each K/V tile loaded once
+    for its 3 query heads."""
+    plan = fa.launch_plan(*shape)
+    assert (plan.args(), plan.blocks) == (args, blocks)
+    assert plan.threads >= 32 * fa.MIN_WARPS
+
+
+def test_attention_plan_follows_the_sm_count():
+    assert fa.launch_plan(8, 16, 10, 1, 256, sms=64).dsplit == 1
+    assert fa.launch_plan(8, 128, 10, 1, 256, sms=16).wr == 2
+
+
+# -- depthwise_conv ------------------------------------------------------------
+
+def _dw_cover(plan):
+    seen = np.zeros((plan.n, plan.ho, plan.wo, plan.cout), dtype=np.int32)
+    idx = np.arange(plan.blocks * plan.threads)
+    idx = idx[idx < plan.total]
+    img, ho, wo0, cols, c0 = plan.thread_outputs(idx)
+    assert (cols >= 1).all() and (cols <= plan.ow).all()
+    for o in range(plan.ow):
+        m = cols > o
+        for i in range(plan.vec):
+            np.add.at(seen, (img[m], ho[m], wo0[m] + o, c0[m] + i), 1)
+    return seen
+
+
+@pytest.mark.parametrize(
+    "shape", [_dw_shape(*u, k) for u in MOBILENET_DW for k in (3, 1)]
+    + DW_SHAPES)
+def test_dw_plan_covers_each_output_once(shape):
+    plan = _dw_plan(*shape)
+    assert (_dw_cover(plan) == 1).all()
+    assert plan.threads in dw.THREADS and plan.threads % 32 == 0
+
+
+@pytest.mark.parametrize("unit", MOBILENET_DW)
+@pytest.mark.parametrize("k", [3, 1])
+def test_dw_plan_fills_the_card_at_mobilenet_units(unit, k):
+    plan = _dw_plan(*_dw_shape(*unit, k))
+    assert plan.vec == 4 and plan.ow == dw.OW_VEC
+    assert plan.blocks >= 132
+    assert (plan.k_t, plan.s_t) == (k, unit[2]) \
+        or (k, unit[2]) not in dw.FIXED_TAPS
+
+
+@pytest.mark.parametrize("shape,vec", [
+    ((2, 9, 8, 13, 3, 3, 1, 13, 13, 1), 1),      # 13 channels
+    ((2, 12, 11, 6, 5, 5, 1, 18, 6, 1), 1),      # multiplier, 18 outputs
+    ((1, 20, 17, 12, 3, 3, 4, 15, 3, 3), 1),     # general grouped
+    ((2, 14, 14, 4, 3, 3, 1, 8, 4, 1), 4),       # multiplier, 8 outputs
+    ((1, 9, 9, 8, 3, 3, 1, 8, 8, 1), 4)])
+def test_dw_plan_takes_the_vector_path_where_one_load_serves_four(shape, vec):
+    """... and only depthwise convs (one input channel an output channel)
+    take a compile-time instance."""
+    plan = _dw_plan(*shape)
+    assert plan.vec == vec
+    assert (plan.k_t > 0) == (vec == 4 and shape[3] == shape[7])
+    n, h, w, cin, kh, kw, cin_g, cout, groups, s = shape
+    ho, wo = (h - kh) // s + 1, (w - kw) // s + 1
+    assert dw.launch_plan(n, ho, wo, cin, kh, kw, cin_g, cout, groups, s,
+                          aligned=False).vec == 1
+
+
+@pytest.mark.parametrize("entry,plan_args", [
+    ("flash_attention", 2), ("depthwise_conv", 4), ("depthwise_conv_q", 4)])
+def test_c_entry_points_take_the_bound_arguments(entry, plan_args):
+    """ctypes passes exactly the C function's parameters, the plan's
+    arguments last before the stream."""
+    source, c_name, argtypes = cuda_build.SIGNATURES[entry]
+    text = (cuda_build.CSRC / f"{source}.cu").read_text()
+    decl = re.search(r'extern "C" int ' + c_name + r"\(([^)]*)\)", text)
+    params = [p.strip() for p in decl.group(1).split(",")]
+    assert len(params) == len(argtypes)
+    for p, t in zip(params, argtypes):
+        assert (t is cuda_build.ctypes.c_int) == p.startswith("int "), p
+    plan = (fa.launch_plan(1, 8, 2, 1, 64) if entry == "flash_attention"
+            else dw.launch_plan(1, 4, 4, 8, 3, 3, 1, 8, 8, 1))
+    assert len(plan.args()) == plan_args
+    assert all(p.startswith("int ") for p in params[-1 - plan_args:-1])
+
+
+# -- the attention's precision design ------------------------------------------
+
+ULP = 2.0 ** -24
+
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """The source's rounding to TF32: half a TF32 ulp added to the bits,
+    the low 13 dropped (nearest, ties away from zero)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(a):
+    hi = _tf32(a)
+    return hi, _tf32(a - hi)
+
+
+def _mm3(a, b):
+    """a @ b as 3xTF32: (lo·hi' + hi·lo') + hi·hi'."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _ulps(y, exact, scale) -> float:
+    return float(((y.double() - exact).abs() / scale).max()) / ULP
+
+
+def test_attention_products_keep_fp32_accuracy():
+    """One RecurrentGemma tile (D 256, a block's 32 rows against a kv tile
+    of 16 keys): q·kᵀ as 3xTF32 over the four warps' 64-column slices
+    (the small terms and hi·hi summed apart, then added), the slices
+    summed in order, and p·v as 3xTF32, each within a few ulps of
+    Σ|a·b| of the float64 product, as the plain fp32 product; 1xTF32 is
+    hundreds of ulps off."""
+    plan = fa.launch_plan(8, 128, 10, 1, 256)
+    rows, keys, d = plan.bm, plan.bkv, 256
+    rng = np.random.default_rng(16)
+    q = torch.from_numpy(rng.standard_normal((rows, d)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((keys, d)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((keys, d)).astype(np.float32))
+    cols = d // plan.wd
+    s = sum(_mm3(q[:, c * cols:(c + 1) * cols], k[:, c * cols:(c + 1) * cols].T)
+            for c in range(plan.wd))
+    exact = q.double() @ k.double().T
+    scale = q.double().abs() @ k.double().abs().T
+    err, fp32 = _ulps(s, exact, scale), _ulps(q @ k.T, exact, scale)
+    one = _ulps(_tf32(q) @ _tf32(k).T, exact, scale)
+    assert err <= 4.0 and fp32 <= 4.0, (err, fp32)
+    assert one >= 64.0
+    p = torch.softmax(exact / np.sqrt(d), dim=1).float()
+    o = _mm3(p, v)
+    exact = p.double() @ v.double()
+    scale = p.double() @ v.double().abs()
+    err, fp32 = _ulps(o, exact, scale), _ulps(p @ v, exact, scale)
+    one = _ulps(_tf32(p) @ _tf32(v), exact, scale)
+    assert err <= 4.0 and fp32 <= 4.0, (err, fp32)
+    assert one >= 64.0

@@ -67,6 +67,44 @@ def test_kernels_match_plain_versions(stride, k):
                for name in ("merged_conv", "depthwise_conv"))
 
 
+@pytest.mark.parametrize("c", [4, 6, 960])
+@pytest.mark.parametrize("stride,k", [(1, 3), (2, 3), (1, 1), (2, 5), (3, 1)])
+def test_depthwise_conv_at_tile_boundaries(c, stride, k):
+    """Depthwise channels 4 and 960 (the vector path) and 6 (the scalar
+    one); Wo of 1 to 6 against the strip of 4 outputs; the compile-time
+    instances (3×3 s1 / s2, 1×1 s1) and the runtime one; fp32 and w8a8."""
+    dev = _card()
+    for wo in range(1, 7):
+        w_in = (wo - 1) * stride + k
+        x, w, b = _data(c + wo + k, (2, k + 2 * stride, w_in, c),
+                        (k, k, 1, c))
+        x, w, b = x.to(dev), w.to(dev), b.to(dev)
+        y = tk.depthwise_conv_op(x, w, b, stride=stride, groups=c,
+                                 activation="relu6")
+        _close_to(y, tk.apply_activation(tk.depthwise_conv_ref(
+            x, w, b, stride=stride, groups=c), "relu6"))
+        wq, ws = tk.quant.quantize_weight(w, "int8", axis=3)
+        y = tk.depthwise_conv_op(x, wq, b, stride=stride, groups=c,
+                                 w_scale=ws, act_quant="w8a8")
+        _close_to(y, tk.depthwise_conv_qref(x, wq, b, ws, stride=stride,
+                                            groups=c, act_quant="w8a8"))
+
+
+@pytest.mark.parametrize("hw,c,stride", [(114, 32, 1), (30, 192, 2),
+                                         (9, 960, 1)])
+def test_depthwise_conv_is_bitwise_run_to_run(hw, c, stride):
+    dev = _card()
+    x, w, b = _data(c, (8, hw, hw, c), (3, 3, 1, c))
+    x, w, b = x.to(dev), w.to(dev), b.to(dev)
+    y = [tk.depthwise_conv_op(x, w, b, stride=stride, groups=c)
+         for _ in range(2)]
+    assert torch.equal(*y)
+    wq, ws = tk.quant.quantize_weight(w, "int8", axis=3)
+    y = [tk.depthwise_conv_op(x, wq, b, stride=stride, groups=c, w_scale=ws,
+                              act_quant="w8a8") for _ in range(2)]
+    assert torch.equal(*y)
+
+
 @pytest.mark.parametrize("m,d,r", [(1, 32, 1), (8, 576, 576), (37, 96, 24),
                                    (130, 96, 1152), (1024, 576, 576),
                                    (5, 1100, 70), (3, 2100, 40)])
@@ -386,6 +424,49 @@ def test_flash_attention_matches_plain_version(shape, kvh, causal):
     assert tk.launch_counts()["flash_attention"] == before + 1
     ke, ve = (t.repeat_interleave(h // kvh, dim=2) for t in (k, v))
     assert _rel(y, tk.flash_attention_ref(q, ke, ve, causal)) <= 1e-5
+
+
+@pytest.mark.parametrize("g", [1, 3, 10])
+@pytest.mark.parametrize("d", [32, 64, 100, 256])
+def test_flash_attention_at_tile_boundaries(g, d, monkeypatch):
+    """S at each q-tile size (16, 32, 64 rows of the s-major (s, head)
+    rows; kv tiles of 16 or 32 keys) -1, +0, +1, head groups of 1, 3 and
+    10 query heads a kv head, ragged D 100, through every instance of the
+    head-dim tile (row groups a block, column splits): the launch plan
+    is set to each in turn."""
+    dev = _card()
+    from repro_torch.kernels import flash_attention as fa
+    dp = fa.head_dim_tile(d)
+    plans = [(wr, 1) for wr in fa.ROW_GROUPS[dp]] + [(1, 2)]
+    for wr, dsplit in plans:
+        monkeypatch.setattr(fa, "launch_plan", lambda *a, **k: fa.LaunchPlan(
+            *a[:5], wr, dsplit))
+        for s in (15, 16, 17, 31, 32, 33, 63, 64, 65):
+            gen = torch.Generator().manual_seed(s * g + d)
+            kvh = 2 if g < 10 else 1
+            q = torch.randn(2, s, g * kvh, d, generator=gen).to(dev)
+            k, v = (torch.randn(2, s, kvh, d, generator=gen).to(dev)
+                    for _ in range(2))
+            causal = s % 2 == 1
+            y = tk.flash_attention_op(q, k, v, causal)
+            ke, ve = (t.repeat_interleave(g, dim=2) for t in (k, v))
+            assert _rel(y, tk.flash_attention_ref(q, ke, ve, causal)) \
+                <= 1e-5, (s, wr, dsplit)
+
+
+@pytest.mark.parametrize("shape", [(8, 128, 10, 1, 256), (8, 16, 10, 1, 256),
+                                   (8, 128, 9, 3, 64), (8, 16, 9, 3, 64)])
+def test_flash_attention_is_bitwise_run_to_run(shape):
+    """Every sum in a fixed order (no atomics): two calls on the same
+    inputs give the same bits."""
+    dev = _card()
+    b, s, h, kvh, d = shape
+    gen = torch.Generator().manual_seed(s + d)
+    q = torch.randn(b, s, h, d, generator=gen).to(dev)
+    k, v = (torch.randn(b, s, kvh, d, generator=gen).to(dev)
+            for _ in range(2))
+    assert torch.equal(tk.flash_attention_op(q, k, v, True),
+                       tk.flash_attention_op(q, k, v, True))
 
 
 def test_flash_attention_gradient_through_the_kernel():
