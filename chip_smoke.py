@@ -39,8 +39,13 @@ Phases, each printing its own line with the seconds it took:
              kv heads; ``benchmarks/run.py``'s three shapes; the
              gradient of ``flash_attention_op`` through the kernel; and
              twice on the same inputs, bitwise equal, flash_attention at
-             the path's four shapes and depthwise_conv (fp32 and w8a8)
-             at three MobileNetV2 units.
+             the path's four shapes, depthwise_conv (fp32 and w8a8) at
+             three MobileNetV2 units and merged_conv (fp32 and w8a8) at
+             four, two of them split.  merged_conv and its four quantized
+             type pairs also run ``CONV_CASES``, which must reach every
+             instance of its launch plan (each tile, copy width, the
+             dense panel, a split reduction, the int8 mma and int8 x int8
+             in TF32), at the same tolerance.
 4. compress — the main path: ``python -m repro_torch.compress`` on
              MobileNetV2 at full width (224², width 1.0, 1000 classes,
              batch 8, ``--max-span 6``, budget 0.6), latency tables timed
@@ -48,20 +53,26 @@ Phases, each printing its own line with the seconds it took:
 5. serve   — the artifact loaded on the card classifies seeded batches
              through ``execute``; every batch's logits are held against the
              same artifact on the CPU (plain versions) and against
-             ``apply_replaced`` of the plan (merge exactness); CUDA-event latency of the original
-             against the merged network.  The kernels' launch counts of
-             phases 4-5 (counted from zero) must both be > 0.
+             ``apply_replaced`` of the plan (merge exactness); CUDA-event
+             latency of the original against the merged network, and
+             their device times as CUDA-graph replays beside the
+             predicted speedup.  The kernels' launch counts of phases 4-5
+             (counted from zero) must both be > 0.
 6. main-path kernels — each conv unit of the merged MobileNetV2 graph, at
              its shape and weights: kernel against plain version, and the
              time of kernel, plain version and the one-call library
-             yardstick (``F.conv2d``, cuDNN, TF32 off) beside the bound.
+             yardstick (``F.conv2d``, cuDNN, TF32 off) beside the bound
+             and, for merged_conv, the launch plan it took (per unit in
+             ``units.json``).
              Times are device times with a cold L2: 50 calls, each after
              a read that evicts the L2, captured in a CUDA graph and
              replayed, less the evicting reads alone (:func:`kernel_time`);
              so the inputs come from HBM, as the byte bound prices them.
 7. resnet34 — ResNet34 at full width with the analytic oracle: lower,
              execute on the card (pool, projection shortcuts, the 7×7
-             stride-2 stem), and hold against the CPU port.
+             stride-2 stem), and hold against the CPU port; then each of
+             its merged_conv units at batch 8 as in phase 6 (no plain
+             version), against cuDNN (``resnet34.json``).
 8. lm compress — the transformer path: SmolLM-135M at full width in fp32
              (random weights, seed 0), ``CostEnv(batch=8, seq=128)``,
              ``method="depth"``, latency tables timed on the card (the
@@ -82,9 +93,9 @@ Phases, each printing its own line with the seconds it took:
              cuBLAS calls) and the bound, as device times (phase 6), and
              the host microseconds an eager call takes.  merged_ffn's
              operations are priced at the tensor-core rate that gives its
-             accuracy (``FFN_RATES``: 3xTF32 for fp32 × fp32), as are
-             flash_attention's (3xTF32), every other kernel's at the fp32
-             FFMA rate; each row names its rate.
+             accuracy (``TC_RATES``: 3xTF32 for fp32 × fp32), as are
+             merged_conv's and flash_attention's, every other kernel's at
+             the fp32 FFMA rate; each row names its rate.
 11. q serve — the quantized CNN path: MobileNetV2 as in phase 4 through
              the CLI with ``--quantize w8a8`` and phase 4's oracle (no
              signature timed twice), budgets 0.6, 0.5, 0.4 until the plan
@@ -148,9 +159,10 @@ Phases, each printing its own line with the seconds it took:
              rate), as device times; the new kernels' rows of
              the ``kernels`` line are their probe shapes.
 
-Any failed check raises, so the script exits non-zero.  Per-unit shapes
-and times of the quantized phases land in ``build/chip_smoke/qunits.json``
-and ``qffn.json``, RecurrentGemma's in ``rg.json``.  It exits non-zero
+Any failed check raises, so the script exits non-zero.  Per-unit shapes,
+times, bounds and launch plans land in ``build/chip_smoke/units.json``
+(MobileNetV2), ``resnet34.json``, ``qunits.json`` and ``qffn.json`` (the
+quantized phases), RecurrentGemma's in ``rg.json``.  It exits non-zero
 without a result where ``torch.cuda.is_available()`` is false or the repo's
 ``src/`` is missing.  The last lines are the ``kernels`` JSON line, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -189,12 +201,12 @@ Q_BUDGETS = (0.6, 0.5, 0.4)
 # Quantized network vs the fp lowering of the same plan: the reference's
 # own criterion (tests/test_quant_pipeline.py), max |Δ| / max |y| < 0.25.
 Q_FP_RTOL = 0.25
-# merged_ffn's products priced at the tensor-core rate that gives the
-# result's accuracy, by operand types (the panel feeding the product, the
-# narrow or fp32 factor): fp32 x fp32 as 3xTF32, fp32 x narrow as 2xTF32
-# (a narrow value is exact in TF32), int8 x int8 at the int8 rate, int8 x
-# e4m3 at fp16's (both exact in fp16).
-FFN_RATES = {("fp32", "fp32"): (H100_TF32_FLOPS / 3, "3xTF32"),
+# The products of merged_ffn, merged_conv and flash_attention priced at
+# the tensor-core rate that gives the result's accuracy, by operand types
+# (the activation or panel, the weight or factor): fp32 x fp32 as 3xTF32,
+# fp32 x narrow as 2xTF32 (a narrow value is exact in TF32), int8 x int8
+# at the int8 rate, int8 x e4m3 at fp16's (both exact in fp16).
+TC_RATES = {("fp32", "fp32"): (H100_TF32_FLOPS / 3, "3xTF32"),
              ("fp32", "narrow"): (H100_TF32_FLOPS / 2, "2xTF32"),
              ("int8", "int8"): (H100_INT8_OPS, "int8"),
              ("int8", "e4m3"): (H100_FP16_FLOPS, "fp16")}
@@ -534,6 +546,108 @@ def kernel_sweep(dev) -> dict:
     return worst
 
 
+#: merged_conv's instances: (x shape, w shape, stride) that reach each
+#: tile (128 x 16 at MobileNetV2's Cin 3 stride-2 stem, Cout 16 and 24
+#: and a split 14x14 unit; 128 x 32 at its merged 5x5 unit; 64 x 64 and
+#: 128 x 128 at deep 3x3 units), the dense 1x1 panel, the 16-, 8- and
+#: 4-byte and the element gathers, element copies of a ragged weight, and
+#: split reductions; ``CONV_DEEP`` is deep enough (K = 2^17) that
+#: int8 x int8 takes the TF32 instance, not the int8 mma.
+CONV_CASES = (((8, 17, 17, 3), (3, 3, 3, 32), 2),
+              ((2, 30, 31, 32), (1, 1, 32, 16), 1),
+              ((2, 23, 21, 16), (3, 3, 16, 24), 2),
+              ((2, 19, 18, 24), (1, 1, 24, 144), 1),
+              ((2, 12, 11, 12), (3, 3, 12, 20), 1),
+              ((8, 14, 14, 384), (1, 1, 384, 64), 1),
+              ((8, 7, 7, 576), (1, 1, 576, 160), 1),
+              ((8, 60, 60, 24), (5, 5, 24, 32), 2),
+              ((8, 30, 30, 128), (3, 3, 128, 128), 1),
+              ((4, 58, 58, 256), (3, 3, 256, 256), 1),
+              ((2, 9, 8, 19), (2, 2, 19, 70), 3))
+CONV_DEEP = ((1, 1, 3, 2 ** 17), (1, 1, 2 ** 17, 16), 1)
+
+
+def conv_instance_sweep(dev) -> dict:
+    """merged_conv and merged_conv_q (its four type pairs, ``QPAIRS``) over
+    ``CONV_CASES`` (and ``CONV_DEEP`` in int8 x int8) against their plain
+    versions, each relu6 with a bias; fails unless the plans taken reach
+    every instance: each tile, the dense panel, each copy width of each
+    operand type, a split reduction, the int8 mma and int8 x int8 in
+    TF32."""
+    import torch
+    from repro_torch.kernels import quant
+    g = torch.Generator().manual_seed(7)
+    worst = {"merged_conv": [0.0, 0.0, 0], "merged_conv_q": [0.0, 0.0, 0]}
+    seen = set()
+    cases = [(c, pair) for c in CONV_CASES for pair in (None, *QPAIRS)]
+    cases.append((CONV_DEEP, "int8 x int8"))
+    for (xs, ws, st), mode in cases:
+        x = torch.randn(*xs, generator=g).to(dev)
+        w = (torch.randn(*ws, generator=g) / (ws[0] * ws[2] ** 0.5)).to(dev)
+        b = torch.randn(ws[3], generator=g).to(dev)
+        if mode is None:
+            res = compare_kernel("merged_conv", x, w, b, st,
+                                 activation="relu6")
+            kind, xk, wk = "merged_conv", x, w
+        else:
+            wmode, aq = QPAIRS[mode]
+            wq, wsc = quant.quantize_weight(w, wmode, axis=3)
+            res = compare_qkernel("merged_conv", x, wq, wsc, b, st, aq,
+                                  activation="relu6")
+            kind, wk = "merged_conv_q", wq
+            xk = quant.quantize_int8(x)[0] if aq == "w8a8" else x
+        plan = conv_plan(xk, wk, st)
+        types = f"{xk.dtype}x{wk.dtype}"
+        seen |= {("tile", tuple(plan["tile"])), ("a_vec", str(xk.dtype),
+                                                 plan["a_vec"]),
+                 ("b_vec", str(wk.dtype), plan["b_vec"]),
+                 ("dense", plan["dense"]), ("split", plan["splits"] > 1),
+                 ("s8", types, plan["s8"])}
+        w_ = worst[kind]
+        w_[0], w_[1], w_[2] = max(w_[0], res[0]), max(w_[1], res[1]), w_[2] + 1
+    i8 = "torch.int8"
+    need = {("tile", t) for t in ((128, 16), (128, 32), (64, 64), (128, 128))}
+    need |= {("dense", True), ("split", True), ("s8", f"{i8}x{i8}", True),
+             ("s8", f"{i8}x{i8}", False),
+             ("s8", f"{i8}xtorch.float8_e4m3fn", False)}
+    need |= {("a_vec", "torch.float32", v) for v in (16, 4)}
+    need |= {("a_vec", i8, v) for v in (16, 8, 4, 1)}
+    need |= {("b_vec", "torch.float32", v) for v in (16, 4)}
+    check(need <= seen, f"merged_conv instances not reached: "
+          f"{sorted(map(str, need - seen))}")
+    return worst
+
+
+def conv_determinism(dev) -> int:
+    """Two calls of merged_conv, fp32 and w8a8, on the same inputs give
+    bitwise the same y (the split reductions sum in a fixed order) at
+    MobileNetV2 unit shapes: the stem, a 56x56 1x1 unit, and the split
+    14x14 and 7x7 units; returns the cases checked."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import quant
+    g = torch.Generator().manual_seed(11)
+    n = 0
+    for xs, ws, st in (((8, 226, 226, 3), (3, 3, 3, 32), 2),
+                       ((8, 56, 56, 24), (1, 1, 24, 144), 1),
+                       ((8, 14, 14, 384), (1, 1, 384, 64), 1),
+                       ((8, 7, 7, 576), (1, 1, 576, 160), 1)):
+        x = torch.randn(*xs, generator=g).to(dev)
+        w = (torch.randn(*ws, generator=g) / ws[2] ** 0.5).to(dev)
+        b = torch.randn(ws[3], generator=g).to(dev)
+        wq, wsc = quant.quantize_weight(w, "int8", axis=3)
+        for kw in ({}, {"w_scale": wsc, "act_quant": "w8a8"}):
+            y1, y2 = (kernels.merged_conv_op(
+                x, wq if kw else w, b, stride=st, activation="relu6", **kw)
+                for _ in range(2))
+            torch.cuda.synchronize()
+            check(torch.equal(y1, y2), f"merged_conv {xs}x{ws} "
+                  f"{'w8a8' if kw else 'fp32'}: two calls on the same inputs "
+                  "differ bitwise")
+            n += 1
+    return n
+
+
 # ---------------------------------------------------------------------------
 # rmsnorm, rglru_scan, flash_attention: sweeps against the plain versions
 # ---------------------------------------------------------------------------
@@ -640,19 +754,47 @@ def unit_inputs(graph, batch: int, hw: int, cin: int):
     return out
 
 
-def time_main_path_kernels(graph, dev, batch: int) -> dict:
-    """Per-kernel sums over the merged graph's conv units: worst error,
-    kernel / plain / library milliseconds, FLOPs, bytes and bound."""
+def conv_plan(x, w, stride) -> dict:
+    """The launch plan merged_conv takes for these operands (the wrapper's
+    own arithmetic), as the JSON rows record it."""
+    import torch
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import merged_conv as mc_mod
+    n, h, wd, cin = x.shape
+    kh, kw, _, cout = w.shape
+    codes = (0, 0) if w.dtype == torch.float32 else (
+        cuda_build.X_TYPES[x.dtype], cuda_build.W_TYPES[w.dtype])
+    plan = mc_mod.launch_plan(
+        n, h, wd, cin, kh, kw, cout, stride, *codes,
+        x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
+        cuda_build.sm_count(x.device))
+    return {"tile": [plan.bm, plan.bn], "splits": plan.splits,
+            "k_chunk": plan.k_chunk, "a_vec": plan.a_vec,
+            "b_vec": plan.b_vec, "dense": plan.dense, "s8": plan.s8,
+            "blocks": plan.blocks}
+
+
+def time_main_path_kernels(graph, dev, batch: int, plain: bool = True,
+                           label: str = "") -> dict:
+    """Per-kernel sums over a CNN graph's conv units (worst error, kernel /
+    plain / library milliseconds, FLOPs, bytes and bound) and, under
+    ``rows``, each unit's shapes, times, bound, share and (merged_conv)
+    the launch plan it took.  merged_conv's operations are priced at
+    3xTF32 (``TC_RATES``), depthwise_conv's at the fp32 FFMA rate.
+    ``plain=False`` leaves out the plain versions' times."""
     import torch
     import torch.nn.functional as F
     from repro_torch import kernels
     from repro_torch.kernels import ref
 
     g = torch.Generator().manual_seed(1)
+    rates = {"merged_conv": (TC_RATES["fp32", "fp32"][0],
+                             tc_rate_label(("fp32", "fp32"))),
+             "depthwise_conv": (H100_FP32_FLOPS, FFMA_RATE)}
     tot = {k: {"units": 0, "max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0,
                "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
                "bytes": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
-               "flops_ms": 0.0, "shapes": []}
+               "flops_ms": 0.0, "bound_rate": rates[k][1], "rows": []}
            for k in ("merged_conv", "depthwise_conv")}
     for u, shape in unit_inputs(graph, batch, 224, 3):
         x = torch.randn(*shape, generator=g).to(dev)
@@ -666,14 +808,14 @@ def time_main_path_kernels(graph, dev, batch: int) -> dict:
                 return kernels.depthwise_conv_op(x, w, b, stride=s,
                                                  groups=groups)
 
-            def plain():
+            def plain_fn():
                 return ref.depthwise_conv_ref(x, w, b, stride=s,
                                               groups=groups)
         else:
             def run():
                 return kernels.merged_conv_op(x, w, b, stride=s)
 
-            def plain():
+            def plain_fn():
                 return ref.merged_conv_ref(x, w, b, stride=s)
         x_cl = x.permute(0, 3, 1, 2)              # NHWC viewed channels_last
         w_oihw = w.permute(3, 2, 0, 1).contiguous(
@@ -681,25 +823,33 @@ def time_main_path_kernels(graph, dev, batch: int) -> dict:
 
         def library():
             return F.conv2d(x_cl, w_oihw, b, stride=s, groups=groups)
-        t = tot[kind]
-        t["ms"] += kernel_time(run)
-        t["plain_ms"] += kernel_time(plain)
-        t["library_ms"] += kernel_time(library)
         n, hp, wp, _ = shape
         ho, wo = (hp - kh) // s + 1, (wp - kw) // s + 1
         flops = 2.0 * n * ho * wo * cout * kh * kw * cin_g
         nbytes = 4.0 * (x.numel() + w.numel() + b.numel() + n * ho * wo * cout)
+        f_ms = flops / rates[kind][0] * 1e3
+        b_ms = nbytes / H100_HBM_BW * 1e3
+        row = {"x": list(shape), "w": list(w.shape), "stride": s,
+               "ms": kernel_time(run),
+               "plain_ms": kernel_time(plain_fn) if plain else None,
+               "library_ms": kernel_time(library), "flops_ms": f_ms,
+               "bytes_ms": b_ms, "bound_ms": max(f_ms, b_ms),
+               "max_abs_err": err}
+        row["share"] = row["bound_ms"] / row["ms"]
+        if not u.depthwise:
+            row["plan"] = conv_plan(x, w, s)
+        check_bound(f"{label}{kind} {tuple(shape)}x{tuple(w.shape)}",
+                    row["ms"], row["bound_ms"])
+        t = tot[kind]
+        for k in ("ms", "plain_ms", "library_ms", "flops_ms", "bytes_ms",
+                  "bound_ms"):
+            t[k] += row[k] or 0.0
         t["flops"] += flops
         t["bytes"] += nbytes
-        f_ms, b_ms = flops / H100_FP32_FLOPS * 1e3, nbytes / H100_HBM_BW * 1e3
-        t["flops_ms"] += f_ms
-        t["bytes_ms"] += b_ms
-        t["bound_ms"] += max(f_ms, b_ms)
         t["units"] += 1
         t["max_abs_err"] = max(t["max_abs_err"], err)
         t["max_rel_err"] = max(t["max_rel_err"], rel)
-        t["shapes"].append({"x": list(shape), "w": list(w.shape),
-                            "stride": s})
+        t["rows"].append(row)
     return tot
 
 
@@ -776,15 +926,15 @@ def ffn_bound(m: int, d: int, r: int) -> tuple[float, float]:
     (P is not counted: the function does not need it)."""
     flops = 4.0 * m * d * r
     nbytes = 4.0 * (2 * m * d + 2 * d * r)
-    return (flops / FFN_RATES["fp32", "fp32"][0] * 1e3,
+    return (flops / TC_RATES["fp32", "fp32"][0] * 1e3,
             nbytes / H100_HBM_BW * 1e3)
 
 
-def ffn_rate_label(*pairs) -> str:
+def tc_rate_label(*pairs) -> str:
     """The rate(s) a merged_ffn row's operations are priced at."""
     return ", ".join(
-        f"{FFN_RATES[p][1]} {FFN_RATES[p][0] / 1e12:.6g} "
-        + ("TOP/s" if FFN_RATES[p][1] == "int8" else "TFLOP/s")
+        f"{TC_RATES[p][1]} {TC_RATES[p][0] / 1e12:.6g} "
+        + ("TOP/s" if TC_RATES[p][1] == "int8" else "TFLOP/s")
         for p in pairs)
 
 
@@ -922,7 +1072,7 @@ def time_ffn(x, u, v) -> dict:
            "eager_ms": cuda_time(lambda: kernels.merged_ffn_op(x, u, v)),
            "host_us": host_us(lambda: kernels.merged_ffn_op(x, u, v)),
            "flops_ms": f_ms, "bytes_ms": b_ms, "bound_ms": max(f_ms, b_ms),
-           "bound_rate": ffn_rate_label(("fp32", "fp32"))}
+           "bound_rate": tc_rate_label(("fp32", "fp32"))}
     check_bound(f"merged_ffn {tuple(x.shape)}x{tuple(u.shape)}", row["ms"],
                 row["bound_ms"])
     return row
@@ -1112,6 +1262,13 @@ def time_qconv(kind, x, wq, ws, b, stride, groups, aq) -> dict:
     nbytes = (x.numel() * (1 if aq == "w8a8" else 4) + wq.numel()
               + 4.0 * (ws.numel() + (0 if b is None else b.numel()))
               + 4.0 * n * ho * wo * cout)
+    if kind == "merged_conv":
+        # priced at the tensor-core rate of the instance's operand types
+        pair = (("int8", "int8" if wq.dtype == torch.int8 else "e4m3")
+                if aq == "w8a8" else ("fp32", "narrow"))
+        rate, rate_label = TC_RATES[pair][0], tc_rate_label(pair)
+    else:
+        rate, rate_label = H100_FP32_FLOPS, FFMA_RATE
     out = {"kind": kind, "x": list(x.shape), "w": list(wq.shape),
            "w_dtype": str(wq.dtype), "stride": stride, "act_quant": aq,
            "ms": kernel_time(run), "plain_ms": kernel_time(plain),
@@ -1119,9 +1276,12 @@ def time_qconv(kind, x, wq, ws, b, stride, groups, aq) -> dict:
            "op_ms": kernel_time(op),
            "qpass_ms": (kernel_time(lambda: quant.quantize_int8(x))
                         if aq == "w8a8" else 0.0),
-           "flops_ms": flops / H100_FP32_FLOPS * 1e3,
-           "bytes_ms": nbytes / H100_HBM_BW * 1e3}
+           "flops_ms": flops / rate * 1e3,
+           "bytes_ms": nbytes / H100_HBM_BW * 1e3, "bound_rate": rate_label}
     out["bound_ms"] = max(out["flops_ms"], out["bytes_ms"])
+    out["share"] = out["bound_ms"] / out["ms"]
+    if kind == "merged_conv":
+        out["plan"] = conv_plan(xq, wq, stride)
     return out
 
 
@@ -1151,7 +1311,7 @@ def time_qffn(x, uq, us, vq, vs, aq) -> dict:
     pair_a = (("int8", "int8" if uq.dtype == torch.int8 else "e4m3")
               if aq == "w8a8" else ("fp32", "narrow"))
     pair_b = ("fp32", "narrow")
-    flops_ms = sum(2.0 * m * d * r / FFN_RATES[p][0] * 1e3
+    flops_ms = sum(2.0 * m * d * r / TC_RATES[p][0] * 1e3
                    for p in (pair_a, pair_b))
     out = {"m": m, "d": d, "r": r, "w_dtype": str(uq.dtype), "act_quant": aq,
            "max_abs_err": err, "max_rel_err": rel,
@@ -1166,7 +1326,7 @@ def time_qffn(x, uq, us, vq, vs, aq) -> dict:
                x, uq, vq, us, vs, act_quant=aq)),
            "library_ms": kernel_time(lambda: torch.addmm(x, xd @ ud, vd)),
            "flops_ms": flops_ms, "bytes_ms": nbytes / H100_HBM_BW * 1e3,
-           "bound_rate": ffn_rate_label(pair_a, pair_b)}
+           "bound_rate": tc_rate_label(pair_a, pair_b)}
     out["bound_ms"] = max(out["flops_ms"], out["bytes_ms"])
     return out
 
@@ -1263,6 +1423,11 @@ def cnn_quant_phases(compress_main, cnn_argv, oracle, host, batches,
         tot[k]["units"] = len(rows)
         tot[k]["max_abs_err"] = max((r["max_abs_err"] for r in rows),
                                     default=0.0)
+        tot[k]["bound_rate"] = "; ".join(sorted({r["bound_rate"]
+                                                 for r in rows}))
+        for r in rows:
+            check_bound(f"{k} {tuple(r['x'])}x{tuple(r['w'])}", r["ms"],
+                        r["bound_ms"])
     with open(os.path.join(WORK, "qunits.json"), "w") as f:
         json.dump(units, f, indent=1)
     log("quantized conv units", t0, " ".join(
@@ -1490,10 +1655,10 @@ def scan_bound(b: int, s: int, c: int) -> tuple[float, float]:
 def attention_bound(b, s, h, kvh, d, causal=True) -> tuple[float, float]:
     """flash_attention: 4·D FLOPs (q·k and p·v) for each (query, key) pair
     the mask keeps, S(S+1)/2 per head when causal, at the 3xTF32 rate of
-    its fp32 × fp32 products (``FFN_RATES``); q and o at H heads, k and v
+    its fp32 × fp32 products (``TC_RATES``); q and o at H heads, k and v
     at the KVH heads the kernel reads."""
     pairs = s * (s + 1) / 2 if causal else s * s
-    return (4.0 * b * h * d * pairs / FFN_RATES[("fp32", "fp32")][0] * 1e3,
+    return (4.0 * b * h * d * pairs / TC_RATES[("fp32", "fp32")][0] * 1e3,
             4.0 * (2 * b * s * h * d + 2 * b * s * kvh * d) / H100_HBM_BW
             * 1e3)
 
@@ -1571,7 +1736,7 @@ def time_rg_kernels(dev, cfg, art, host) -> list:
             lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                    is_causal=True),
             attention_bound(b, s, h, kvh, d), err,
-            ffn_rate_label(("fp32", "fp32"))))
+            tc_rate_label(("fp32", "fp32"))))
     units = [u for u in art.graph.units if u.kind == "lowrank"]
     shapes = sorted({tuple(u.params["u"].shape) for u in units})
     for m in (1024, 128, 8):
@@ -1799,18 +1964,25 @@ def main(argv) -> int:
     sweep = kernel_sweep(dev)
     sweep["merged_ffn"] = ffn_sweep(dev)
     sweep.update(qkernel_sweep(dev))
+    conv_inst = conv_instance_sweep(dev)
+    for k, v in conv_inst.items():
+        sweep[k] = [max(sweep[k][0], v[0]), max(sweep[k][1], v[1]),
+                    sweep[k][2] + v[2]]
     sweep["merged_ffn_q"] = qffn_sweep(dev)
     sweep.update(norm_scan_attention_sweep(dev))
     n_q = quantize_matches_cpu(dev)
     n_det = ffn_determinism(dev)
     n_det_ad = attn_dw_determinism(dev)
+    n_det_conv = conv_determinism(dev)
     slots, slots_model = ffn_slots()
     log("kernels", t0, json.dumps(
         {k: {"cases": v[2], "max_abs_err": v[0], "max_rel_err": v[1]}
          for k, v in sweep.items()}) + f"; quantize_int8 card == CPU "
         f"bitwise on {n_q} inputs; merged_ffn bitwise run to run on "
         f"{n_det} inputs, flash_attention and depthwise_conv on "
-        f"{n_det_ad}; merged_ffn resident blocks by cluster size "
+        f"{n_det_ad}, merged_conv (fp32 and w8a8) on {n_det_conv} "
+        f"(instance cases {json.dumps({k: v[2] for k, v in conv_inst.items()})}"
+        f"); merged_ffn resident blocks by cluster size "
         f"{json.dumps(slots)} ("
         + ("launch_plan's model" if slots_model else "NOT launch_plan's "
            "H100_SLOTS: its splits are planned for another card") + ")")
@@ -1865,6 +2037,13 @@ def main(argv) -> int:
     xb = batches[0].to(dev)
     ms_merged = cuda_time(lambda: art.apply(xb), iters=20)
     ms_orig = cuda_time(lambda: runtime.execute(orig_graph, xb), iters=20)
+    # the same forwards as device time (CUDA-graph replays, as the tables
+    # time each segment): eager dispatch leaves the card mostly idle, so
+    # the CUDA-event times measure the host as much as the card
+    fwd_oracle = WallClockOracle()
+    dev_merged = fwd_oracle.time_callable(lambda: art.apply(xb)) * 1e3
+    dev_orig = fwd_oracle.time_callable(
+        lambda: runtime.execute(orig_graph, xb)) * 1e3
     busy_us, busy_rows = device_kernels(lambda: art.apply(xb))
     launches = kernels.launch_counts()
     kernels.reset_launch_counts()
@@ -1874,7 +2053,11 @@ def main(argv) -> int:
         f"vs CPU port {d_cpu:.3g}, vs apply_replaced {d_rep:.3g} (limit "
         f"{NET_RTOL}); batch-8 forward "
         f"original {ms_orig:.3f} ms, merged {ms_merged:.3f} ms "
-        f"({ms_orig / ms_merged:.3f}x); launches phases 4-5 {launches}, per "
+        f"({ms_orig / ms_merged:.3f}x); device time (CUDA graph) original "
+        f"{dev_orig:.4f} ms, merged {dev_merged:.4f} ms "
+        f"({dev_orig / dev_merged:.3f}x, predicted "
+        f"{summary['predicted_speedup']:.4f}x); launches phases 4-5 "
+        f"{launches}, per "
         f"merged forward {per_forward}")
     if busy_rows:
         print(f"  merged forward, torch.profiler: device busy {busy_us:.1f} "
@@ -1893,11 +2076,19 @@ def main(argv) -> int:
     # 6. main-path kernels ------------------------------------------------------
     t0 = time.perf_counter()
     tot = time_main_path_kernels(art.graph, dev, 8)
+    # what the cold-L2 protocol charges the smallest kernel: one launch
+    # that writes one element
+    one = torch.zeros(1, device=dev)
+    floor_ms = kernel_time(one.zero_)
+    tot["merged_conv"]["floor_ms"] = floor_ms
     with open(os.path.join(WORK, "units.json"), "w") as f:
         json.dump(tot, f, indent=1)
-    log("main-path kernels", t0, " ".join(
+    log("main-path kernels", t0, f"timing floor (a one-element fill) "
+        f"{floor_ms:.4f} ms; " + " ".join(
         f"{k}: {v['units']} units ms={v['ms']:.4f} plain={v['plain_ms']:.4f} "
-        f"library={v['library_ms']:.4f} bound={v['bound_ms']:.4f}"
+        f"library={v['library_ms']:.4f} bound={v['bound_ms']:.4f} "
+        f"({v['bound_rate']}); units slower than the library "
+        f"{sum(r['ms'] > r['library_ms'] for r in v['rows'])};"
         for k, v in tot.items()))
 
     # 7. resnet34 -----------------------------------------------------------------
@@ -1923,6 +2114,19 @@ def main(argv) -> int:
         f"vs CPU port {d_r:.3g}; launches {r_launch}")
     check(bool(torch.isfinite(yr).all()), "resnet34: non-finite logits")
     check(d_r <= NET_RTOL, f"resnet34: card vs CPU port differ by {d_r}")
+    # its merged_conv units at batch 8, against cuDNN: 3x3 and larger
+    # merged kernels, where operations bound the kernel
+    t0 = time.perf_counter()
+    r_tot = time_main_path_kernels(r_art.graph, dev, 8, plain=False,
+                                   label="resnet34 ")["merged_conv"]
+    with open(os.path.join(WORK, "resnet34.json"), "w") as f:
+        json.dump(r_tot, f, indent=1)
+    log("resnet34 units", t0, f"merged_conv: {r_tot['units']} units "
+        f"ms={r_tot['ms']:.4f} library(cuDNN)={r_tot['library_ms']:.4f} "
+        f"bound={r_tot['bound_ms']:.4f} ({r_tot['bound_rate']}); by unit "
+        "(w, ms, cuDNN ms, share): " + "; ".join(
+            f"{r['w']} s{r['stride']} {r['ms']:.4f} {r['library_ms']:.4f} "
+            f"{r['share']:.3f}" for r in r_tot["rows"]))
 
     # 8. transformer compress ---------------------------------------------------
     from repro_torch.models import transformer as T

@@ -80,33 +80,6 @@ struct Tile {
 using Small = Tile<16, 64, 1, 4, 4, 4>;     // M <= 64: bytes (5 fit an SM)
 using Large = Tile<128, 128, 2, 4, 4, 1>;   // M > 64: operations
 
-// Elem<T>: how an element of T is stored (shared memory keeps it at its
-// own width), whether it needs the hi/lo split, and its fp32 value.
-template <typename T> struct Elem;
-template <> struct Elem<float> {
-  using storage = float;
-  static constexpr bool wide = true;
-  static __device__ __forceinline__ float f32(float v) { return v; }
-};
-template <> struct Elem<int8_t> {
-  using storage = int8_t;
-  static constexpr bool wide = false;
-  // Without the quarter-rate I2F: the bits 0x4B000000 + k are the float
-  // 2^23 + k exactly for 0 <= k < 2^23, so with k = v + 128 one integer
-  // add and one float subtraction give v exactly.
-  static __device__ __forceinline__ float f32(int8_t v) {
-    return __int_as_float(0x4B000080 + v) - 8388736.f;
-  }
-};
-template <> struct Elem<__nv_fp8_e4m3> {
-  using storage = uint8_t;
-  static constexpr bool wide = false;
-  static __device__ __forceinline__ float f32(uint8_t v) {
-    return __half2float(__half(__nv_cvt_fp8_to_halfraw(
-        static_cast<__nv_fp8_storage_t>(v), __NV_E4M3)));
-  }
-};
-
 // Shared-memory layout of one instance.  Row pitches keep every row
 // 16-byte aligned for cp.async and make the fragment loads conflict-free
 // (A read as pairs of k, B rows 2t and 2t + 1, see the k-loop): A rows of

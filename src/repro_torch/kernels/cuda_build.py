@@ -37,13 +37,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: Each kernel entry point: its source (``csrc/<source>.cu``, one library),
 #: its C function and the C function's argument types.
 SIGNATURES = {
-    # x, w, bias, y, n, h, w, cin, kh, kw, cout, stride, ho, wo, act, stream
+    # x, w, bias, y, n, h, w, cin, kh, kw, cout, stride, ho, wo, act, then
+    # the plan (bm, bn, splits, k_chunk, a_vec, b_vec, dense, s8), stream
     "merged_conv": ("merged_conv", "merged_conv_f32",
-                    [_P, _P, _P, _P] + [_I] * 11 + [_P]),
+                    [_P, _P, _P, _P] + [_I] * 19 + [_P]),
     # x, w, scale, bias, y, n, h, w, cin, kh, kw, cout, stride, ho, wo, act,
-    # x_type, w_type, stream
+    # x_type, w_type, the plan as above, stream
     "merged_conv_q": ("merged_conv", "merged_conv_q",
-                      [_P, _P, _P, _P, _P] + [_I] * 13 + [_P]),
+                      [_P, _P, _P, _P, _P] + [_I] * 21 + [_P]),
     # x, w, bias, y, n, h, w, cin, kh, kw, cin_g, cout, groups, stride, ho,
     # wo, act, then the plan (vec, k_t, s_t, threads), stream
     "depthwise_conv": ("depthwise_conv", "depthwise_conv_f32",

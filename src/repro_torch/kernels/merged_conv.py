@@ -1,16 +1,23 @@
 """Merged-segment convolution (VALID, stride s, NHWC): the CUDA kernel's
-wrapper plus the tile/traffic arithmetic the cost model prices with.
+wrapper, its launch plan, and the tile/traffic arithmetic of the TPU
+kernel that the cost model prices with.
 
 The kernel (``csrc/merged_conv.cu``) replaces the JAX package's Pallas
-``merged_conv``: an implicit GEMM over the kh·kw·Cin reduction with an
-fp32 accumulator and a fused bias + activation epilogue.  It reads the
-NHWC input with stride s directly, so the phase-major relayout the TPU
-kernel needed for contiguous DMA windows is not carried over.  Its
-quantized variant (``w_scale``) takes int8 or fp8-e4m3 weights and an
-fp32 or int8 input, and multiplies the fp32 sum by the per-channel scale
-before the bias.
+``merged_conv``: an implicit GEMM over the kh·kw·Cin reduction on the
+tensor cores at fp32 accuracy (3xTF32 for fp32 operands, 2xTF32 for fp32
+× narrow, the int8 mma summed in int32 for w8a8), fed by a cp.async ring
+that gathers the strided NHWC window in place, with a fused scale, bias
+and activation epilogue.  The phase-major relayout the TPU kernel needed
+for contiguous DMA windows is not carried over.  Its quantized variant
+(``w_scale``) takes int8 or fp8-e4m3 weights and an fp32 or int8 input,
+and multiplies the fp32 sum by the per-channel scale before the bias.
 
-The arithmetic below — :func:`phase_extents`, :func:`choose_tiles`,
+:func:`launch_plan` picks the instance (tile shape, copy widths, the
+dense 1×1 panel, the int8 mma) and how far to split the reduction,
+from the shape and the card's SM count alone, so the arithmetic that
+decides coverage runs (and is tested) on the CPU.
+
+The arithmetic below it — :func:`phase_extents`, :func:`choose_tiles`,
 :func:`input_traffic_model` — is the JAX package's tiled traffic model
 (one read of the image plus the halo re-read at tile seams, plus the
 relayout a strided segment pays), kept as plain Python for
@@ -21,6 +28,9 @@ do not use it.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from . import cuda_build
@@ -29,6 +39,172 @@ from . import cuda_build
 #: the quantized variant.
 launches = 0
 launches_q = 0
+
+
+#: k-slice depth of the kernel (``BK`` in the source).
+BK = 32
+#: Most splits of the reduction: one thread-block cluster (portable size).
+MAX_SPLITS = 8
+#: The int8 mma sums |code·code| <= 2^14 per term in int32: K below this.
+S8_MAX_K = 2 ** 17
+#: The source's tiles (rows, columns) and, for each, its threads, ring
+#: stages and blocks resident per SM (its launch bound).
+N16, N32, N64, WIDE = (128, 16), (128, 32), (64, 64), (128, 128)
+TILES = {N16: (128, 3, 3), N32: (128, 3, 3), N64: (128, 4, 3),
+         WIDE: (256, 4, 1)}
+#: Below this reduction depth a dense 1×1 panel, or a conv with Cout <= 32,
+#: takes the 128 × 16 tile.
+NARROW_K = 512
+#: The 128 × 128 tile is a candidate from this reduction depth on.
+WIDE_K = 2048
+#: A wider tile is taken if its plan gives at least this many blocks per SM.
+BLOCKS_PER_SM = 2
+#: The split model's overheads, in k-slices: filling the ring and the
+#: epilogue, and the cluster reduction of a split tile.
+_FILL, _REDUCE = 2, 1
+
+
+def _pad(n: int, tile: int) -> int:
+    return -(-n // tile) * tile
+
+
+def smem_bytes(tile, x_bytes: int, w_bytes: int) -> int:
+    """Dynamic shared memory of an instance (``Layout::BYTES``): the ring
+    of A (rows of 32 + 8 floats or 32 + 16 bytes) and B (BN + 4 floats or
+    BN + 16 bytes) slices, the block's row bases, or the partial tile of
+    a split if that is larger."""
+    bm, bn = tile
+    stages = TILES[tile][1]
+    a_ld = BK + (8 if x_bytes == 4 else 16)
+    b_ld = bn + (4 if w_bytes == 4 else 16)
+    pipe = stages * (bm * a_ld * x_bytes + BK * b_ld * w_bytes)
+    return max(pipe + bm * 4, bm * (bn + 4) * 4)
+
+
+def copy_width(elems: int, itemsize: int, aligned: bool) -> int:
+    """Bytes a copy of rows of ``elems`` elements: 16 where a row holds
+    whole 16-byte runs and the pointer is aligned; for narrow types 8 or
+    4 where those divide a row; else one element."""
+    if aligned:
+        for v in ((16,) if itemsize == 4 else (16, 8, 4)):
+            if elems * itemsize % v == 0:
+                return v
+    return itemsize
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """One conv as a product (M, K) @ (K, Cout): block tile ``bm`` ×
+    ``bn``; ``splits`` blocks (one cluster, consecutive along the grid's
+    x) share each output tile, split ``s`` summing ``k`` in
+    ``[s·k_chunk, (s+1)·k_chunk)``; the input and weight copied in
+    ``a_vec``- and ``b_vec``-byte runs; ``dense``: a 1×1 stride-1 panel
+    (no gather); ``s8``: the int8 mma."""
+    m: int
+    k: int
+    cout: int
+    bm: int
+    bn: int
+    splits: int
+    k_chunk: int
+    a_vec: int
+    b_vec: int
+    dense: bool
+    s8: bool
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        """(splits · row tiles, column tiles): the launch's grid."""
+        return (self.splits * -(-self.m // self.bm), -(-self.cout // self.bn))
+
+    @property
+    def blocks(self) -> int:
+        gx, gy = self.grid
+        return gx * gy
+
+    def k_range(self, split: int) -> tuple[int, int]:
+        lo = split * self.k_chunk
+        return lo, min(self.k, lo + self.k_chunk)
+
+    def block_outputs(self, bx: int, by: int):
+        """(rows, columns, reduction indices) that block (bx, by) sums:
+        the kernel's index arithmetic, for the coverage tests."""
+        split, tile = bx % self.splits, bx // self.splits
+        m0, n0 = tile * self.bm, by * self.bn
+        return ((m0, min(self.m, m0 + self.bm)),
+                (n0, min(self.cout, n0 + self.bn)), self.k_range(split))
+
+    def args(self) -> tuple[int, ...]:
+        """The plan's arguments of the C entry points."""
+        return (self.bm, self.bn, self.splits, self.k_chunk, self.a_vec,
+                self.b_vec, int(self.dense), int(self.s8))
+
+
+#: Bytes of an element by the C entry points' type codes (``x_type``,
+#: ``w_type``; 0 is fp32).
+_ITEMSIZE = {0: 4, 1: 1, 2: 1}
+
+
+def plan_for_tile(tile, n: int, h: int, w: int, cin: int, kh: int, kw: int,
+                  cout: int, stride: int, x_type: int = 0, w_type: int = 0,
+                  aligned: bool = True, sms: int = 132) -> LaunchPlan:
+    """The plan of these operands on ``tile``: the split that finishes
+    soonest under a wave model (blocks run as many at a time as the
+    tile's launch bound keeps resident, each taking its k-slices plus the
+    fixed overheads), the copy widths, the dense panel, the int8 mma."""
+    ho, wo = (h - kh) // stride + 1, (w - kw) // stride + 1
+    m, k = n * ho * wo, kh * kw * cin
+    bm, bn = tile
+    tiles = -(-m // bm) * -(-cout // bn)
+    slots = sms * TILES[tile][2]
+    slices = -(-k // BK)
+    best = (float("inf"), 1, max(slices, 1))
+    for s in range(1, min(MAX_SPLITS, slices) + 1):
+        chunk = -(-slices // s)
+        s_eff = -(-slices // chunk)
+        waves = -(-tiles * s_eff // slots)
+        cost = waves * (chunk + _FILL + (_REDUCE if s_eff > 1 else 0))
+        if cost < best[0]:
+            best = (cost, s_eff, chunk)
+    _, splits, chunk = best
+    return LaunchPlan(
+        m, k, cout, bm, bn, splits, chunk * BK,
+        copy_width(cin, _ITEMSIZE[x_type], aligned),
+        copy_width(cout, _ITEMSIZE[w_type], aligned),
+        kh == kw == 1 and stride == 1,
+        x_type == 1 and w_type == 1 and k < S8_MAX_K)
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_plan(n: int, h: int, w: int, cin: int, kh: int, kw: int,
+                cout: int, stride: int, x_type: int = 0, w_type: int = 0,
+                aligned: bool = True, sms: int = 132) -> LaunchPlan:
+    """The launch plan of x (n, h, w, cin) ⋆ w (kh, kw, cin, cout) at
+    ``stride`` on a card with ``sms`` SMs (an H100 SXM has 132).  Types
+    by the C codes (x: 0 fp32, 1 int8; w: 0 fp32, 1 int8, 2 e4m3);
+    ``aligned``: x and w start on 16 bytes.
+
+    A shallow reduction (K < ``NARROW_K``) waits on memory: where the
+    input is cheap to read again for each column tile (a dense 1×1
+    panel, or at most two tiles for Cout <= 32) it takes 128 × 16, the
+    most blocks and loads in flight.  Otherwise the widest tile (128 ×
+    128 from ``WIDE_K`` on, then 64 × 64 and 128 × 32, each where it pads
+    Cout by at most a third) whose plan gives every SM ``BLOCKS_PER_SM``
+    blocks: wider tiles reuse each fragment over more products, which
+    pays where the reduction is deep.  Else 128 × 16.  The rest of the
+    plan by :func:`plan_for_tile`."""
+    args = (n, h, w, cin, kh, kw, cout, stride, x_type, w_type, aligned, sms)
+    k = kh * kw * cin
+    if k < NARROW_K and ((kh == kw == 1 and stride == 1) or cout <= 32):
+        return plan_for_tile(N16, *args)
+    wide = (WIDE,) if k >= WIDE_K else ()
+    for tile in wide + (N64, N32):
+        if 3 * _pad(cout, tile[1]) > 4 * cout:
+            continue
+        plan = plan_for_tile(tile, *args)
+        if plan.blocks >= BLOCKS_PER_SM * sms:
+            return plan
+    return plan_for_tile(N16, *args)
 
 
 def phase_extents(kh: int, kw: int, stride: int) -> tuple[int, int, int, int]:
@@ -162,16 +338,23 @@ def merged_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
         return y
     bias = None if b is None else b.data_ptr()
     act = cuda_build.ACT_CODES[activation]
+    x_type = 0 if w_scale is None else cuda_build.X_TYPES[x.dtype]
+    w_type = 0 if w_scale is None else cuda_build.W_TYPES[w.dtype]
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    plan = launch_plan(n, h, wd, cin, kh, kw, cout, stride, x_type, w_type,
+                       aligned, cuda_build.sm_count(x.device))
+    if plan.grid[1] > 65535:
+        raise ValueError(f"merged_conv: Cout = {cout} exceeds the kernel's "
+                         "grid (65535 column tiles)")
     if w_scale is None:
         cuda_build.launch("merged_conv", x.device, x.data_ptr(), w.data_ptr(),
                           bias, y.data_ptr(), n, h, wd, cin, kh, kw, cout,
-                          stride, ho, wo, act)
+                          stride, ho, wo, act, *plan.args())
         launches += 1
     else:
         cuda_build.launch("merged_conv_q", x.device, x.data_ptr(),
                           w.data_ptr(), w_scale.data_ptr(), bias, y.data_ptr(),
                           n, h, wd, cin, kh, kw, cout, stride, ho, wo, act,
-                          cuda_build.X_TYPES[x.dtype],
-                          cuda_build.W_TYPES[w.dtype])
+                          x_type, w_type, *plan.args())
         launches_q += 1
     return y

@@ -295,6 +295,123 @@ def test_refused_merged_ffn_launch_raises(monkeypatch):
     assert tk.launch_counts() == before
 
 
+#: merged_conv's instances (x, w, stride): the Cin 3 stride-2 stem
+#: (element gather), the dense 1x1 panel, a 3x3 stride-2 unit with Cout 24
+#: (16-byte gather), Cin 24 (8-byte int8 gather), Cin 12 (4-byte), the
+#: split 14x14 and 7x7 MobileNetV2 units on the 128 x 16 tile, the merged
+#: 5x5 unit on 128 x 32, deep 3x3 units on 64 x 64 and 128 x 128 (split),
+#: ragged Cout 70 (element copies of the weight).
+CONV_INSTANCES = [((8, 17, 17, 3), (3, 3, 3, 32), 2),
+                  ((2, 30, 31, 32), (1, 1, 32, 16), 1),
+                  ((2, 23, 21, 16), (3, 3, 16, 24), 2),
+                  ((2, 19, 18, 24), (1, 1, 24, 144), 1),
+                  ((2, 12, 11, 12), (3, 3, 12, 20), 1),
+                  ((8, 14, 14, 384), (1, 1, 384, 64), 1),
+                  ((8, 7, 7, 576), (1, 1, 576, 160), 1),
+                  ((8, 60, 60, 24), (5, 5, 24, 32), 2),
+                  ((8, 30, 30, 128), (3, 3, 128, 128), 1),
+                  ((4, 58, 58, 256), (3, 3, 256, 256), 1),
+                  ((2, 9, 8, 19), (2, 2, 19, 70), 3)]
+#: (x dtype, w dtype, act_quant) of the quantized body's four type pairs.
+CONV_PAIRS = {"fp32 x int8": ("int8", "none"), "int8 x int8": ("int8", "w8a8"),
+              "fp32 x e4m3": ("fp8", "none"), "int8 x e4m3": ("fp8", "w8a8")}
+
+
+def _conv_scale(x, w, b, stride):
+    """|x| ⋆ |w| + |b|: what a kernel's fp32 sums are held against."""
+    return tk.merged_conv_ref(x.abs(), w.abs(), b.abs(), stride=stride)
+
+
+def _conv_operands(xs, ws, dev):
+    g = torch.Generator().manual_seed(sum(xs) + sum(ws))
+    x = torch.randn(*xs, generator=g).to(dev)
+    w = (torch.randn(*ws, generator=g) / (ws[0] * ws[2] ** 0.5)).to(dev)
+    return x, w, torch.randn(ws[3], generator=g).to(dev)
+
+
+@pytest.mark.parametrize("pair", [None, *CONV_PAIRS])
+@pytest.mark.parametrize("xs,ws,stride", CONV_INSTANCES)
+def test_merged_conv_instances_match_plain_versions(xs, ws, stride, pair):
+    """Every tile, copy width, the dense panel, split reductions and the
+    int8 mma: |Δ| <= 1e-4 · (|x̂| ⋆ |ŵ| + |b|) + 1e-6 per output."""
+    dev = _card()
+    x, w, b = _conv_operands(xs, ws, dev)
+    if pair is None:
+        y = tk.merged_conv_op(x, w, b, stride=stride, activation="silu")
+        yr = tk.merged_conv_ref(x, w, b, stride=stride)
+        scale = _conv_scale(x, w, b, stride)
+    else:
+        wmode, aq = CONV_PAIRS[pair]
+        wq, wsc = tk.quant.quantize_weight(w, wmode, axis=3)
+        y = tk.merged_conv_op(x, wq, b, stride=stride, w_scale=wsc,
+                              act_quant=aq, activation="silu")
+        yr = tk.merged_conv_qref(x, wq, b, wsc, stride=stride, act_quant=aq)
+        xd = tk.quant.dequantize(*tk.quant.quantize_int8(x)) \
+            if aq == "w8a8" else x
+        scale = _conv_scale(xd, tk.quant.dequantize(wq, wsc, axis=3), b,
+                            stride)
+    yr = tk.apply_activation(yr, "silu")
+    assert y.shape == yr.shape and bool(torch.isfinite(y).all())
+    assert bool(((y - yr).abs() <= 1e-4 * scale + 1e-6).all()), \
+        float(((y - yr).abs() / scale).max())
+
+
+def test_merged_conv_int8_mma_stops_at_its_int32_range():
+    """K = 2^17: int8 x int8 takes the TF32 instance (the int8 mma's int32
+    sum could overflow), and still matches its plain version."""
+    from repro_torch.kernels import merged_conv as mc
+    dev = _card()
+    assert not mc.launch_plan(1, 1, 3, 2 ** 17, 1, 1, 16, 1, 1, 1).s8
+    assert mc.launch_plan(1, 1, 3, 2 ** 17 - 1, 1, 1, 16, 1, 1, 1).s8
+    x, w, b = _conv_operands((1, 1, 3, 2 ** 17), (1, 1, 2 ** 17, 16), dev)
+    wq, wsc = tk.quant.quantize_weight(w, "int8", axis=3)
+    y = tk.merged_conv_op(x, wq, b, w_scale=wsc, act_quant="w8a8")
+    yr = tk.merged_conv_qref(x, wq, b, wsc, act_quant="w8a8")
+    xd = tk.quant.dequantize(*tk.quant.quantize_int8(x))
+    scale = _conv_scale(xd, tk.quant.dequantize(wq, wsc, axis=3), b, 1)
+    assert bool(((y - yr).abs() <= 1e-4 * scale + 1e-6).all())
+
+
+@pytest.mark.parametrize("xs,ws,stride", [
+    ((8, 226, 226, 3), (3, 3, 3, 32), 2), ((8, 56, 56, 24), (1, 1, 24, 144), 1),
+    ((8, 14, 14, 384), (1, 1, 384, 64), 1), ((8, 7, 7, 576), (1, 1, 576, 160), 1)])
+def test_merged_conv_is_bitwise_run_to_run(xs, ws, stride):
+    """The split reductions sum in a fixed order (no float atomics): two
+    calls on the same inputs give the same bits, fp32 and w8a8, at
+    MobileNetV2 unit shapes."""
+    dev = _card()
+    x, w, b = _conv_operands(xs, ws, dev)
+    assert torch.equal(tk.merged_conv_op(x, w, b, stride=stride),
+                       tk.merged_conv_op(x, w, b, stride=stride))
+    wq, wsc = tk.quant.quantize_weight(w, "int8", axis=3)
+    ys = [tk.merged_conv_op(x, wq, b, stride=stride, w_scale=wsc,
+                            act_quant="w8a8") for _ in range(2)]
+    assert torch.equal(*ys)
+
+
+def test_refused_merged_conv_launch_raises(monkeypatch):
+    """A plan the kernel does not take (more splits than a cluster holds;
+    the int8 mma past its int32 range) raises; nothing falls back and no
+    launch is counted."""
+    import dataclasses
+    from repro_torch.kernels import merged_conv as mc
+    dev = _card()
+    x, w, b = _conv_operands((2, 14, 14, 384), (1, 1, 384, 64), dev)
+    good = mc.launch_plan(2, 14, 14, 384, 1, 1, 64, 1)
+    before = tk.launch_counts()
+    for bad in (dataclasses.replace(good, splits=12, k_chunk=32),
+                dataclasses.replace(good, bm=32)):
+        monkeypatch.setattr(mc, "launch_plan", lambda *a, **k: bad)
+        with pytest.raises(RuntimeError, match="merged_conv"):
+            tk.merged_conv_op(x, w, b)
+    wq, wsc = tk.quant.quantize_weight(w, "int8", axis=3)
+    monkeypatch.setattr(mc, "launch_plan", lambda *a, **k: dataclasses.replace(
+        good, s8=True))
+    with pytest.raises(RuntimeError, match="merged_conv_q"):
+        tk.merged_conv_op(x, wq, b, w_scale=wsc)       # fp32 x int8
+    assert tk.launch_counts() == before
+
+
 def test_w8a8_activation_quantization_stays_on_the_card():
     """The op quantizes the activation and folds its scale on the device:
     the whole quantized op can be captured in a CUDA graph (a host sync
