@@ -81,12 +81,19 @@ Phases, each printing its own line with the seconds it took:
              saved.  The ``layermerge`` 0.6 plan's census is printed
              beside it.
 9. lm serve — the artifact loaded on the card serves 8 seeded prompts of
-             16 tokens with 32 greedy tokens (``serve_loop``, KV cache);
+             16 tokens with 32 greedy tokens (KV cache) through the
+             captured ``serve_loop`` (one CUDA-graph replay per prompt
+             position and per generated token) and through
+             ``serve_loop_pertoken`` (eager), which must give the same
+             tokens, the captured decode no slower (:func:`serve_both`:
+             prefill ms and decode tok/s of both loops, the capture's
+             seconds, launches per step counted at the capture, and the
+             captured decode's device-busy share from torch.profiler);
              every step's logits, teacher-forced with the card's tokens,
              are held against the same artifact on the CPU, and the
-             prefill forward against ``replaced_apply``; CUDA-event
-             prefill/decode time against the original model.  merged_ffn's
-             launch count over phases 8-9 (counted from zero) must be > 0.
+             prefill forward against ``replaced_apply``; the original
+             model is served the same way.  merged_ffn's launch count
+             over phases 8-9 (counted from zero) must be > 0.
 10. merged_ffn shapes — the kernel at the path's shapes (each lowrank
              unit at M = 8, one decode step; one at M = 1024, a probe):
              kernel, plain version, ``torch.addmm(x, x @ U, V)`` (two
@@ -123,7 +130,8 @@ Phases, each printing its own line with the seconds it took:
              prices every segment compute-bound and gets no sibling); if
              the DP picks no w8a8 lowrank unit at any budget, phase 8's
              plan with its lowrank segments set to w8a8.  The v3 artifact
-             serves the prompts of phase 9; every step's logits,
+             serves the prompts of phase 9 through both loops as phase 9
+             does; every step's logits,
              teacher-forced, are held against the CPU port as in phase 11
              (a) and (a'), and each unit of the last step against its
              plain version on its card input; merged_ffn_q's launches over
@@ -144,11 +152,12 @@ Phases, each printing its own line with the seconds it took:
              fails, naming the ladder (a slow merged_ffn shows there).
 16. rg serve — the artifact on the card serves phase 9's protocol (8
              prompts x 16 tokens, 32 greedy tokens, RG-LRU state and the
-             local KV ring buffer); every step's logits, teacher-forced,
+             local KV ring buffer; both loops, as in phase 9); every
+             step's logits, teacher-forced,
              against the CPU port of the artifact, and the prefill
              forward against ``replaced_apply``; CUDA-event prefill and
              decode beside the original model; launches per decode step
-             and per prefill forward.  The launches of rmsnorm,
+             (counted at the capture) and per prefill forward.  The launches of rmsnorm,
              rglru_scan, flash_attention and merged_ffn over phases 15-16
              (counted from zero) must each be > 0.
 17. rg kernels — rmsnorm, rglru_scan and flash_attention at the path's
@@ -158,11 +167,21 @@ Phases, each printing its own line with the seconds it took:
              scan) and bound (attention's operations at the 3xTF32
              rate), as device times; the new kernels' rows of
              the ``kernels`` line are their probe shapes.
+18. lm requests — phase 8's SmolLM-135M artifact serves
+             ``ragged_prompts(0, 24, 4, 32, vocab)`` and phase 15's
+             RecurrentGemma-2B artifact 8 such prompts through
+             ``serve_requests(slots=8, tokens=32)``: sustained tok/s,
+             rounds and dispositions; every request's tokens must equal
+             ``serve_loop`` of its prompt alone at batch 1, and the last
+             round served again with one slot's logits made NaN at
+             generation index 2 must report that request alone aborted
+             at 2, every other token-identical to the clean run.
 
 Any failed check raises, so the script exits non-zero.  Per-unit shapes,
 times, bounds and launch plans land in ``build/chip_smoke/units.json``
 (MobileNetV2), ``resnet34.json``, ``qunits.json`` and ``qffn.json`` (the
-quantized phases), RecurrentGemma's in ``rg.json``.  It exits non-zero
+quantized phases), RecurrentGemma's in ``rg.json``, the serving numbers
+of phases 9, 13, 16 and 18 in ``serve.json``.  It exits non-zero
 without a result where ``torch.cuda.is_available()`` is false or the repo's
 ``src/`` is missing.  The last lines are the ``kernels`` JSON line, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -1088,6 +1107,90 @@ def forced_logits(step, cache, tokens):
     return torch.stack(out, dim=1)
 
 
+class GraphReplays:
+    """Counts CUDA-graph replays while active (``CUDAGraph.replay``
+    wrapped)."""
+
+    def __enter__(self):
+        import torch
+        self.n = 0
+        self._orig = orig = torch.cuda.CUDAGraph.replay
+
+        def replay(graph):
+            self.n += 1
+            return orig(graph)
+        torch.cuda.CUDAGraph.replay = replay
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.CUDAGraph.replay = self._orig
+
+
+def serve_both(label, step, new_cache, prompt, new_tokens, pertoken=None):
+    """Serve ``prompt`` through the captured ``serve_loop`` and, on the
+    same step, through ``serve_loop_pertoken`` (inside the context
+    ``pertoken``, when given): the two must give the same tokens, the
+    captured loop one graph replay per prompt position and per generated
+    token, and a decode no slower than the per-token loop's.  Then one
+    more capture of the same step gives the capture's seconds, the
+    launches it counted (one step's) and, from a torch.profiler trace of
+    its decode replays, the device-busy share of the captured decode."""
+    import contextlib
+
+    import torch
+    from repro_torch.runtime import serving
+
+    B, P = prompt.shape
+    N = new_tokens
+    with GraphReplays() as rp:
+        pre, dec, lg, seqs = serving.serve_loop(step, new_cache, prompt, N)
+    with pertoken or contextlib.nullcontext():
+        pre_pt, dec_pt, lg_pt, seqs_pt = serving.serve_loop_pertoken(
+            step, new_cache, prompt, N)
+    steps = P + N - 1
+    run = serving._StepGraph(step, new_cache(), B, steps)
+    lengths = torch.full((B,), P)
+    run.prepare(prompt, lengths)
+    run.reset(prompt, lengths)
+    run.advance(P + 1)
+    busy_us, rows = device_kernels(lambda: run.advance(1), reps=N - 3)
+    res = {"prefill_ms": pre * 1e3, "decode_ms": dec * 1e3,
+           "tok_s": serving.decode_tok_s(N - 1, B, dec),
+           "pertoken_prefill_ms": pre_pt * 1e3,
+           "pertoken_decode_ms": dec_pt * 1e3,
+           "pertoken_tok_s": serving.decode_tok_s(N - 1, B, dec_pt),
+           "replays_per_token": rp.n / (2 * steps),
+           "capture_s": run.capture_s, "launches_per_step": run.launches,
+           "busy_us": busy_us, "busy_share": busy_us * 1e-6 / (dec / (N - 1)),
+           "logits_vs_pertoken": rel_diff(lg, lg_pt),
+           "logits_bitwise": bool(torch.equal(lg, lg_pt))}
+    print(f"  {label}: captured prefill {res['prefill_ms']:.3f} ms, decode "
+          f"{res['decode_ms']:.3f} ms ({res['tok_s']:.1f} tok/s); per-token "
+          f"prefill {res['pertoken_prefill_ms']:.3f} ms, decode "
+          f"{res['pertoken_decode_ms']:.3f} ms ({res['pertoken_tok_s']:.1f} "
+          f"tok/s); {res['tok_s'] / res['pertoken_tok_s']:.3f}x; capture "
+          f"{res['capture_s']:.3f}s; graph replays per prompt position and "
+          f"generated token {res['replays_per_token']:.3f}; launches per "
+          f"step (counted at the capture) {json.dumps(run.launches)}; "
+          f"captured decode, torch.profiler: device busy {busy_us:.1f} us "
+          f"per step = {res['busy_share']:.3f} of its served step; by "
+          "kernel: " + ("; ".join(f"{name[:60]} {us:.1f}us x{n}"
+                                  for us, n, name in rows[:6])
+                        or "no device activity seen")
+          + f"; last prefill logits captured vs per-token "
+          f"{res['logits_vs_pertoken']:.3g} (bitwise "
+          f"{res['logits_bitwise']})", flush=True)
+    check(bool(torch.equal(seqs, seqs_pt)), f"{label}: the captured and the "
+          "per-token loop give different tokens")
+    check(rp.n == 2 * steps, f"{label}: {rp.n} graph replays for 2 x "
+          f"{steps} steps")
+    check(res["decode_ms"] <= res["pertoken_decode_ms"], f"{label}: the "
+          f"captured decode ({res['decode_ms']:.3f} ms) is slower than the "
+          f"per-token loop's ({res['pertoken_decode_ms']:.3f} ms)")
+    return pre, dec, lg, seqs, res
+
+
 def unit_census(graph) -> str:
     from repro_torch import runtime
     return json.dumps(runtime.count_units(graph), sort_keys=True)
@@ -1447,7 +1550,7 @@ def lm_quant_phases(host, fp_res, oracle, lm_source, prompt, new_tokens,
     lowrank segments set to w8a8 if the DP picks no w8a8 unit), the v3
     artifact served and held against the CPU port step by step, then each
     quantized merged_ffn unit timed at decode.  Returns (decode-step
-    totals, launches)."""
+    totals, launches, the serving numbers of :func:`serve_both`)."""
     import dataclasses
 
     import torch
@@ -1503,9 +1606,10 @@ def lm_quant_phases(host, fp_res, oracle, lm_source, prompt, new_tokens,
 
     def step(c, t):
         return art.decode(c, t)
-    with QuantCalls() as calls:
-        q_pre, q_dec, _, seqs = serving.serve_loop(
-            step, lambda: art.init_cache(B, P + N), prompt, N)
+    calls = QuantCalls()
+    q_pre, q_dec, _, seqs, q_serve = serve_both(
+        "w8a8 compressed", step, lambda: art.init_cache(B, P + N), prompt, N,
+        pertoken=calls)
     launch = kernels.launch_counts()
     check(tuple(seqs.shape) == (B, N), f"served ids {tuple(seqs.shape)}")
     fed = torch.cat([prompt, seqs[:, :-1]], dim=1)
@@ -1552,10 +1656,9 @@ def lm_quant_phases(host, fp_res, oracle, lm_source, prompt, new_tokens,
         f"({serving.decode_tok_s(steps, B, q_dec):.1f} tok/s) against the "
         f"fp plan's {fp_decode_s * 1e3:.3f} ms "
         f"({serving.decode_tok_s(steps, B, fp_decode_s):.1f} tok/s); "
-        f"prefill {q_pre * 1e3:.3f} ms; launches phase 13 {launch}")
-    cache = art.init_cache(B, P + N)
-    print_profile("quantized decode step", lambda t: step(cache, t),
-                  prompt[:, :1], q_dec / steps * 1e3)
+        f"prefill {q_pre * 1e3:.3f} ms; launches per decode step (counted "
+        f"at the capture) {json.dumps(q_serve['launches_per_step'])}; "
+        f"launches phase 13 {launch}")
     check(n_qlr >= 1, "the served plan has no w8a8 lowrank unit")
     check(d_cpu <= bound, f"quantized lm: card vs CPU port differ by "
           f"{d_cpu} > {bound}")
@@ -1604,7 +1707,7 @@ def lm_quant_phases(host, fp_res, oracle, lm_source, prompt, new_tokens,
         f"fp32={tot['fp32_ms']:.4f} plain={tot['plain_ms']:.4f} "
         f"library={tot['library_ms']:.4f} bound={tot['bound_ms']:.5f}; one "
         f"unit's kernel by variant (ms): {json.dumps(variants)}")
-    return tot, launch
+    return tot, launch, q_serve
 
 
 def quant_census(graph) -> dict:
@@ -1829,10 +1932,11 @@ def rg_phases(dev, build_host):
 
     def o_step(c, t):
         return T.decode_step(cfg, host.params, c, {"tokens": t})
-    c_pre, c_dec, c_logits, seqs = serving.serve_loop(
-        c_step, lambda: art.init_cache(B, P + N), prompt, N)
-    o_pre, o_dec, _, _ = serving.serve_loop(
-        o_step, lambda: T.init_cache(cfg, B, P + N, device=dev), prompt, N)
+    c_pre, c_dec, c_logits, seqs, c_serve = serve_both(
+        "rg compressed", c_step, lambda: art.init_cache(B, P + N), prompt, N)
+    o_pre, o_dec, _, _, o_serve = serve_both(
+        "rg original", o_step, lambda: T.init_cache(cfg, B, P + N, device=dev),
+        prompt, N)
     check(tuple(seqs.shape) == (B, N), f"rg served ids {tuple(seqs.shape)}")
     fed = torch.cat([prompt, seqs[:, :-1]], dim=1)
     lg = forced_logits(c_step, art.init_cache(B, P + N), fed)
@@ -1851,9 +1955,7 @@ def rg_phases(dev, build_host):
           f"rg prefill logits {tuple(y_merged.shape)}")
     d_rep = rel_diff(y_merged, y_rep)
     rg_launches = kernels.launch_counts()
-    kernels.reset_launch_counts()
-    art.decode(art.init_cache(B, P + N), prompt[:, :1])
-    per_step = {k: n for k, n in kernels.launch_counts().items() if n}
+    per_step = c_serve["launches_per_step"]
     kernels.reset_launch_counts()
     art.apply({"tokens": prompt})
     per_prefill = {k: n for k, n in kernels.launch_counts().items() if n}
@@ -1878,11 +1980,9 @@ def rg_phases(dev, build_host):
         f"prefill {o_pre * 1e3:.3f} ms, decode {o_dec * 1e3:.3f} ms "
         f"({serving.decode_tok_s(steps, B, o_dec):.1f} tok/s); decode "
         f"speedup {o_dec / c_dec:.3f}x (predicted {res.speedup:.4f}x); "
-        f"launches per decode step {per_step}, per prefill forward "
-        f"{per_prefill}; phases 15-16 launches {rg_launches}")
-    cache = art.init_cache(B, P + N)
-    print_profile("rg compressed decode step", lambda t: c_step(cache, t),
-                  prompt[:, :1], c_dec / steps * 1e3)
+        f"launches per decode step {per_step} (counted at the capture), "
+        f"per prefill forward {per_prefill}; phases 15-16 launches "
+        f"{rg_launches}")
     check(census.get("lowrank", 0) >= 1, "rg: the served plan merges nothing")
     check(d_cpu <= NET_RTOL, f"rg: card vs CPU port differ by {d_cpu}")
     check(d_rep <= NET_RTOL, f"rg: merged vs replaced differ by {d_rep}")
@@ -1907,7 +2007,99 @@ def rg_phases(dev, build_host):
         f"share {r['bound_ms'] / r['ms']:.3f})"
         + (f" host {r['host_us']:.1f} us a call;" if "host_us" in r else ";")
         for r in rows))
-    return rows, rg_launches
+    return rows, rg_launches, art, {"recurrentgemma-2b compressed": c_serve,
+                                    "recurrentgemma-2b original": o_serve}
+
+
+def poison_hook(slot: int, step: int):
+    """A ``logit_hook`` that makes ``slot``'s logits NaN at step ``step``
+    of a round (``t`` is a device tensor: the hook runs in the graph)."""
+    import torch
+
+    def hook(logits, t):
+        rows = torch.arange(logits.shape[0], device=logits.device) == slot
+        bad = rows.view(-1, *([1] * (logits.ndim - 1))) & (t == step)
+        return torch.where(bad, torch.nan, logits)
+    return hook
+
+
+def request_phase(dev, arts) -> dict:
+    """Phase 18: each artifact serves ragged requests through
+    ``serve_requests`` (8 slots, 32 tokens): every request's tokens
+    against ``serve_loop`` of its prompt alone at batch 1, then the last
+    round's requests again (the same padded width) with one slot's
+    logits poisoned at generation index 2: that request alone is aborted
+    at 2 and every other is token-identical to the clean run."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.runtime import serving
+
+    out = {}
+    for label, art, n_req in arts:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        cfg = art.graph.meta["config"]
+        T_NEW, SLOTS = 32, 8
+        prompts = serving.ragged_prompts(0, n_req, 4, 32, cfg.vocab_size)
+        mat, lens = serving.pad_prompts(prompts)
+
+        def step(c, t):
+            return art.decode(c, t)
+        served = serving.serve_requests(step, art.init_cache, mat, lens,
+                                        tokens=T_NEW, slots=SLOTS)
+        gen, secs = served
+        rep = served.report
+        launch = kernels.launch_counts()
+        t_solo = time.perf_counter()
+        differ = []
+        for i, p in enumerate(prompts):
+            p = p.long().to(dev)[None, :]
+            solo = serving.serve_loop(
+                step, lambda: art.init_cache(1, p.shape[1] + T_NEW), p,
+                T_NEW, warm=False)[3][0].cpu()
+            if not torch.equal(solo, gen[i]):
+                differ.append(i)
+        t_solo = time.perf_counter() - t_solo
+        start = (n_req - 1) // SLOTS * SLOTS
+        r = 1
+        hook = poison_hook(r, int(lens[start + r]) - 1 + 2)
+        bad = serving.serve_requests(step, art.init_cache, mat[start:],
+                                     lens[start:], tokens=T_NEW, slots=SLOTS,
+                                     logit_hook=hook)
+        others = [i for i in range(n_req - start) if i != r]
+        same = all(torch.equal(bad[0][i], gen[start + i]) for i in others)
+        poisoned_ok = (torch.equal(bad[0][r, :2], gen[start + r, :2])
+                       and not bool(bad[0][r, 2:].any()))
+        row = {"requests": n_req, "slots": SLOTS, "tokens": T_NEW,
+               "prompt_lengths": lens.tolist(), "seconds": secs,
+               "sustained_tok_s": serving.decode_tok_s(T_NEW, n_req, secs),
+               "rounds": rep.rounds, "dispositions": rep.dispositions,
+               "differ_from_single_prompt": differ,
+               "poisoned_aborted": bad.report.aborted,
+               "poisoned_dispositions": bad.report.dispositions,
+               "others_identical": same, "launches": launch}
+        out[label] = row
+        log("lm requests", t0, f"{label}: {n_req} ragged prompts (lengths "
+            f"{min(row['prompt_lengths'])}-{max(row['prompt_lengths'])}) x "
+            f"{T_NEW} tokens in {SLOTS} slots: {rep.rounds} rounds in "
+            f"{secs * 1e3:.3f} ms, sustained {row['sustained_tok_s']:.1f} "
+            f"tok/s; dispositions {json.dumps(rep.dispositions)}; tokens "
+            f"against single-prompt serve_loop at batch 1: "
+            f"{n_req - len(differ)} of {n_req} equal ({t_solo:.2f}s); request "
+            f"{start + r} poisoned at generation index 2: aborted "
+            f"{bad.report.aborted} (relative to the round), the other "
+            f"{len(others)} token-identical {same}; launches {launch}")
+        check(rep.completed == list(range(n_req)) and rep.ok,
+              f"{label} requests: dispositions {rep.dispositions}")
+        check(not differ, f"{label} requests {differ} differ from serving "
+              "their prompt alone")
+        check(bad.report.aborted == {r: 2} and same and poisoned_ok,
+              f"{label} requests: the poisoned run reports "
+              f"{bad.report.aborted}, others identical {same}, poisoned "
+              f"row kept its first 2 tokens and zeros after {poisoned_ok}")
+        for k in ("rmsnorm", "merged_ffn"):
+            check(launch[k] > 0, f"{label} requests: {k} never launched")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2199,10 +2391,11 @@ def main(argv) -> int:
 
     def o_step(c, t):
         return T.decode_step(cfg, host.params, c, {"tokens": t})
-    c_pre, c_dec, c_logits, seqs = serving.serve_loop(
-        c_step, lambda: lm_art.init_cache(B, P + N), prompt, N)
-    o_pre, o_dec, _, _ = serving.serve_loop(
-        o_step, lambda: T.init_cache(cfg, B, P + N, device=dev), prompt, N)
+    c_pre, c_dec, c_logits, seqs, c_serve = serve_both(
+        "compressed", c_step, lambda: lm_art.init_cache(B, P + N), prompt, N)
+    o_pre, o_dec, _, _, o_serve = serve_both(
+        "original", o_step, lambda: T.init_cache(cfg, B, P + N, device=dev),
+        prompt, N)
     lm_launches = kernels.launch_counts()
     check(tuple(seqs.shape) == (B, N), f"served ids {tuple(seqs.shape)}")
     # every step's logits, teacher-forced with the card's own tokens, on
@@ -2227,9 +2420,7 @@ def main(argv) -> int:
     fn, p = host.replaced_apply(res.plan)
     y_rep = fn(p, {"tokens": prompt})
     d_lm_rep = float((y_merged - y_rep).abs().max() / y_rep.abs().max())
-    kernels.reset_launch_counts()
-    lm_art.decode(lm_art.init_cache(B, P + N), prompt[:, :1])
-    per_step = kernels.launch_counts()["merged_ffn"]
+    per_step = c_serve["launches_per_step"].get("merged_ffn", 0)
     steps = N - 1
     log("lm serve", t0, f"{B} prompts x {P} tokens, {N} new; worst step "
         f"logits vs CPU port {d_lm_cpu:.3g} (last step {d_last:.3g}), "
@@ -2239,20 +2430,10 @@ def main(argv) -> int:
         f"prefill {o_pre * 1e3:.3f} ms, decode {o_dec * 1e3:.3f} ms "
         f"({serving.decode_tok_s(steps, B, o_dec):.1f} tok/s); decode "
         f"speedup {o_dec / c_dec:.3f}x (predicted {res.speedup:.4f}x); "
-        f"merged_ffn launches per decode step {per_step}; phases 8-9 "
-        f"launches {lm_launches}")
-    for label, step, cache, dec_s in (
-            ("compressed", c_step, lm_art.init_cache(B, P + N), c_dec),
-            ("original", o_step, T.init_cache(cfg, B, P + N, device=dev),
-             o_dec)):
-        tok = prompt[:, :1]
-        busy_us, rows = device_kernels(lambda: step(cache, tok))
-        share = busy_us * 1e-6 / (dec_s / steps)
-        print(f"  {label} decode step, torch.profiler: device busy "
-              f"{busy_us:.1f} us per step = {share:.3f} of its served step "
-              "time; by kernel: " + "; ".join(
-                  f"{name[:60]} {us:.1f}us x{n}" for us, n, name in rows[:6]),
-              flush=True)
+        f"merged_ffn launches per decode step {per_step} (counted at the "
+        f"capture); phases 8-9 launches {lm_launches}")
+    serve_rows = {"smollm-135m compressed": c_serve,
+                  "smollm-135m original": o_serve}
     check(d_lm_cpu <= NET_RTOL, f"lm card vs CPU port differ by {d_lm_cpu}")
     check(d_lm_rep <= NET_RTOL, f"lm merged vs replaced differ by {d_lm_rep}")
     check(lm_launches["merged_ffn"] > 0,
@@ -2304,12 +2485,20 @@ def main(argv) -> int:
     launches.update({k: q_launch[k] for k in q_tot})
 
     # 13-14. the quantized transformer path -------------------------------------
-    tot["merged_ffn_q"], lq_launch = lm_quant_phases(
-        host, res, oracle, lm_source, prompt, N, c_dec, dev)
+    tot["merged_ffn_q"], lq_launch, serve_rows["smollm-135m w8a8"] = \
+        lm_quant_phases(host, res, oracle, lm_source, prompt, N, c_dec, dev)
     launches["merged_ffn_q"] = lq_launch["merged_ffn_q"]
 
     # 15-17. RecurrentGemma-2B ----------------------------------------------------
-    rg_rows, rg_launch = rg_phases(dev, build_host)
+    rg_rows, rg_launch, rg_art, rg_serve = rg_phases(dev, build_host)
+    serve_rows.update(rg_serve)
+
+    # 18. ragged requests through the slot scheduler ----------------------------
+    req_rows = request_phase(dev, (("smollm-135m", lm_art, 24),
+                                   ("recurrentgemma-2b", rg_art, 8)))
+    del rg_art
+    with open(os.path.join(WORK, "serve.json"), "w") as f:
+        json.dump({"loops": serve_rows, "requests": req_rows}, f, indent=1)
     for k in ("rmsnorm", "rglru_scan", "flash_attention"):
         tot[k] = next(r for r in rg_rows if r["kernel"] == k)
         launches[k] = rg_launch[k]

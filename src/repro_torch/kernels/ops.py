@@ -28,9 +28,12 @@ plain version's gradient recomputed from the saved q, k and v (the JAX
 package's ``_fa_bwd``; there is no backward kernel).
 
 Launch counts: each kernel wrapper adds one to its module's ``launches``
-(fp32) or ``launches_q`` (quantized variant) per launch;
+(fp32) or ``launches_q`` (quantized variant) per launch it makes;
 :func:`launch_counts` reads them and :func:`reset_launch_counts` sets them
-to zero, so a run can show that its path went through the kernels.
+to zero, so a run can show that its path went through the kernels.  They
+count wrapper calls on the host: a step captured in a CUDA graph counts
+its launches once, at the capture, and not at each replay (the serving
+layer records the capture's counts as one step's launches).
 """
 from __future__ import annotations
 
@@ -204,7 +207,8 @@ def flash_attention_op(q, k, v, causal: bool = True):
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches in this process since the last reset: each fp32
-    kernel and (``*_q``) the quantized variants."""
+    kernel and (``*_q``) the quantized variants.  Wrapper calls: a CUDA
+    graph's replays add nothing."""
     return {"merged_conv": _mc.launches, "depthwise_conv": _dw.launches,
             "merged_ffn": _mf.launches, "merged_conv_q": _mc.launches_q,
             "depthwise_conv_q": _dw.launches_q,

@@ -20,7 +20,10 @@ plain PyTorch.  M-RoPE and the sharded flash-decoding path are not ported
 
 Decode caches are updated in place (the JAX package returns new arrays):
 ``attention_decode`` writes the new key and value into the cache tensors
-and returns the same dict with ``pos`` advanced.  ``pos`` is a Python int.
+and advances ``pos``, a 0-d int32 tensor on the cache's device, and
+returns the same dict.  The position, the slot and the mask are computed
+on the device, so a decode step reads nothing on the host and can be
+captured in a CUDA graph (:mod:`repro_torch.runtime.serving`).
 """
 from __future__ import annotations
 
@@ -167,21 +170,24 @@ def attention(p, x, cfg, positions, *, window: int = 0):
 def attention_decode(p, x, cfg, cache, *, window: int = 0):
     """One-token decode against a KV cache, written in place.
 
-    cache: {"k": (B, S, KVH, D), "v": ..., "pos": int} — ``pos`` is the
-    number of tokens already in the cache.  For windowed attention the
-    cache is a ring buffer of size ``window``.
+    cache: {"k": (B, S, KVH, D), "v": ..., "pos": 0-d int32 tensor} —
+    ``pos`` is the number of tokens already in the cache.  For windowed
+    attention the cache is a ring buffer of ``S`` entries.  The new key
+    and value go to slot ``pos % S`` (windowed) or ``pos``, by a device
+    index, and ``pos`` is advanced in place.  Where the JAX package
+    clamps a slot past the end of a plain cache, the port has no such
+    slot: the serving layer refuses, on the host and before the first
+    step, a prompt plus tokens longer than the cache
+    (:func:`repro_torch.runtime.serving.check_room`).
     """
     pos = cache["pos"]
-    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
-                           device=x.device)
+    positions = pos.expand(x.shape[0], 1)
     q, k, v = _qkv(p, x, cfg, positions)
     size = cache["k"].shape[1]
-    slot = (pos % size) if window > 0 else pos
-    if slot >= size:
-        raise ValueError(f"attention_decode: position {pos} beyond a cache "
-                         f"of {size}")
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
+    slot = torch.remainder(pos, size) if window > 0 else pos
+    idx = slot.reshape(1).long()
+    cache["k"].index_copy_(1, idx, k)
+    cache["v"].index_copy_(1, idx, v)
     kpos = torch.arange(size, device=x.device)
     if window > 0:
         # ring buffer: entry i holds absolute position derived from slot
@@ -192,15 +198,21 @@ def attention_decode(p, x, cfg, cache, *, window: int = 0):
         valid = kpos <= pos
     out = _sdpa(q, cache["k"], cache["v"], valid[None, None, None, :])
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    cache["pos"] = pos + 1
+    pos.add_(1)
     return y, cache
 
 
 def init_cache(cfg, batch, seq_len, dtype, window: int = 0, device=None):
+    """A zeroed KV cache of ``seq_len`` entries, or for windowed attention
+    a ring buffer of ``min(seq_len, window)``.  ``"ring"`` (a Python bool)
+    marks a ring buffer of the whole window: it serves any number of
+    positions; any other cache serves ``seq_len``."""
     size = min(seq_len, window) if window > 0 else seq_len
     shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device), "pos": 0}
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.zeros((), dtype=torch.int32, device=device),
+            "ring": window > 0 and size == window}
 
 
 CACHE_AXES = {"k": ("batch", "kv_seq", "kv", "head"),

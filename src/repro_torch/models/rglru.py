@@ -15,7 +15,7 @@ For prefill and the probes the recurrence runs through
 kernel on the card, a sequential loop on the CPU — where the JAX package
 uses ``lax.associative_scan``: the two agree to fp32 reassociation, not
 bitwise.  Decode is one fused state update in plain PyTorch (the JAX
-package keeps it in XLA).  The conv is plain PyTorch too; it is no kernel
+package keeps it in XLA), written into the state's tensors in place.  The conv is plain PyTorch too; it is no kernel
 in the JAX package either.
 
 ``jax.nn.gelu`` defaults to the tanh approximation and ``jax.nn.softplus``
@@ -103,13 +103,19 @@ def rglru_block(p, x, cfg):
 
 def rglru_decode(p, x, cfg, state):
     """One-step decode: x (B, 1, D); state ``{"h": (B, Dr) fp32, "conv":
-    (B, 3, Dr)}`` → ``(y, new state)``."""
+    (B, 3, Dr)}`` → ``(y, state)``, the state written in place (its
+    tensors keep their storage, so a captured step replays against
+    them).  The conv window is shifted through a new tensor (the
+    concatenation of the old window and the input), never copied onto
+    itself."""
     u = x @ p["w_in"]
     u, conv_state = _causal_conv1d(p, u, state["conv"])
     a, gated = _gates(p, u)
     h = a[:, 0] * state["h"] + gated[:, 0]
     y = (h[:, None].to(x.dtype) * F.gelu(u, approximate="tanh")) @ p["w_out"]
-    return y, {"h": h, "conv": conv_state}
+    state["h"].copy_(h)
+    state["conv"].copy_(conv_state)
+    return y, state
 
 
 def init_rglru_state(cfg, batch, dtype, device=None):

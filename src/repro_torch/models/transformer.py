@@ -11,9 +11,12 @@ Python loops (no scan, no remat).
 Attention layers (``attn``, ``attn_local``) and RG-LRU layers
 (``rglru``, :mod:`.rglru`) with a dense FFN are ported; the kinds ``moe``,
 ``mlstm`` and ``slstm`` raise ``NotImplementedError`` (ROADMAP.md queue
-1).  Decode caches are a list of per-layer dicts: a KV cache updated in
-place (:func:`repro_torch.models.layers.attention_decode`) or an RG-LRU
-state ``{"h", "conv"}`` replaced by each step.
+1).  Decode caches are a list of per-layer dicts: a KV cache
+(:func:`repro_torch.models.layers.attention_decode`) or an RG-LRU state
+``{"h", "conv"}``.  A decode step writes every state tensor in place and
+reads nothing on the host (the position is a device tensor), so each
+tensor keeps its storage from step to step and the step can be captured
+in a CUDA graph and replayed.
 """
 from __future__ import annotations
 
@@ -184,8 +187,9 @@ def temporal_apply(cfg, kind, lp, h, positions):
 
 
 def init_state(cfg, kind, batch_size, seq_len, device):
-    """Decode state of one temporal layer: a KV cache (a ring buffer of
-    ``local_window`` entries for ``attn_local``) or the RG-LRU state."""
+    """Zeroed decode state of one temporal layer: a KV cache (a ring
+    buffer of ``local_window`` entries for ``attn_local``) or the RG-LRU
+    state."""
     if kind == "rglru":
         return RG.init_rglru_state(cfg, batch_size, _dtype(cfg), device)
     if kind not in ATTN_KINDS:
@@ -198,7 +202,7 @@ def init_state(cfg, kind, batch_size, seq_len, device):
 
 def temporal_decode(cfg, kind, lp, h, state):
     """One-token step of one temporal layer: ``(y, state)``, the KV cache
-    written in place, the RG-LRU state replaced."""
+    or the RG-LRU state written in place (the same dict comes back)."""
     if kind == "rglru":
         return RG.rglru_decode(lp, h, cfg, state)
     window = cfg.local_window if kind == "attn_local" else 0
@@ -216,7 +220,8 @@ def _layer_fn(cfg, kind, positions, lp, x):
 
 def embed_in(cfg, params, batch):
     """``batch["tokens"]`` (B, S) through the embedding, or
-    ``batch["embeds"]`` (B, S, D) as they are."""
+    ``batch["embeds"]`` (B, S, D) as they are.  Token ids already on the
+    table's device are read where they lie, not copied first."""
     if cfg.frontend == "tokens":
         table = params["embed"]
         tokens = torch.as_tensor(batch["tokens"], device=table.device)
@@ -263,7 +268,7 @@ def init_cache(cfg, batch_size, seq_len, device="cuda"):
 
 def decode_step(cfg, params, cache, batch):
     """One-token decode: batch ``{'tokens': (B, 1)}`` → ``(logits, cache)``;
-    the cache list is updated in place."""
+    every state tensor of the cache list is updated in place."""
     x = embed_in(cfg, params, batch)
     li = 0
     for g, gp in zip(layer_groups(cfg), params["groups"]):

@@ -165,7 +165,9 @@ class CompressedArtifact:
 
     def decode(self, cache, tokens):
         """One decode step: ``tokens`` (B, 1) → ``(logits, cache)``, the
-        cache updated in place (transformer family)."""
+        cache's tensors updated in place (transformer family).  Tokens
+        already on the artifact's device are used as they are, not
+        copied."""
         from . import executor
         return executor.decode_step(
             self.graph, cache, {"tokens": torch.as_tensor(

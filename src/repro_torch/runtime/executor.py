@@ -164,9 +164,9 @@ def _is_temporal(u) -> bool:
 
 
 def init_cache(graph: ir.UnitGraph, batch_size: int, seq_len: int):
-    """Per-unit decode state: a KV cache for each attention sublayer, the
-    RG-LRU state ``{h, conv}`` for each recurrent one, ``{}`` for
-    stateless units; on the device of the graph's tensors."""
+    """Zeroed per-unit decode state: a KV cache for each attention
+    sublayer, the RG-LRU state ``{h, conv}`` for each recurrent one,
+    ``{}`` for stateless units; on the device of the graph's tensors."""
     cfg = graph.meta["config"]
     dev = graph.params["final_norm"].device
     return [T.init_state(cfg, u.sub_kind, batch_size, seq_len, dev)
@@ -175,8 +175,9 @@ def init_cache(graph: ir.UnitGraph, batch_size: int, seq_len: int):
 
 def decode_step(graph: ir.UnitGraph, cache, batch):
     """One-token decode through the compressed unit chain: ``batch``
-    ``{'tokens': (B, 1)}`` → ``(logits, cache)``, the cache list updated in
-    place.  Lowrank units are position-independent residual maps, so
+    ``{'tokens': (B, 1)}`` → ``(logits, cache)``, every state tensor of
+    the cache list updated in place and nothing read on the host (the
+    step can be captured in a CUDA graph).  Lowrank units are position-independent residual maps, so
     each applies to the one-token activation directly (M = B rows)."""
     cfg = graph.meta["config"]
     gp = graph.params

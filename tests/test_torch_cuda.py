@@ -647,3 +647,111 @@ def test_tiny_recurrentgemma_on_the_card_matches_the_cpu(tmp_path):
         lg, cache = art.decode(cache, toks[:, t:t + 1].to(dev))
         lc, cache_cpu = cpu.decode(cache_cpu, toks[:, t:t + 1])
         assert _rel(lg, lc) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# Serving on captured CUDA graphs (runtime/serving.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tiny_arts(tmp_path_factory):
+    """Depth-compressed reduced SmolLM-135M and RecurrentGemma-2B
+    artifacts (merged FFNs; the latter with an 8-token local window)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.compress import main
+    out = {}
+    for arch in ("smollm-135m", "recurrentgemma-2b"):
+        path = str(tmp_path_factory.mktemp("serve") / f"{arch}.npz")
+        main(["--arch", arch, "--method", "depth", "--budget-ratio", "0.9",
+              "--seq", "16", "--out", path])
+        out[arch] = path
+    return out
+
+
+def _served(path):
+    from repro_torch import runtime
+    art = runtime.load(path)
+    return art, (lambda c, t: art.decode(c, t)), art.init_cache
+
+
+def test_captured_serve_loop_matches_pertoken(tiny_arts):
+    """The captured loop against the eager per-token loop on the card:
+    equal tokens, last prefill logits within 1e-5 of the largest; the
+    capture counted one step's launches."""
+    from repro_torch.runtime import serving
+    dev = _card()
+    art, step, mk = _served(tiny_arts["smollm-135m"])
+    B, P, N = 4, 7, 9
+    prompt = serving.random_prompts(1, B, P, 64, device=dev)
+    tk.reset_launch_counts()
+    _, _, lg, seqs = serving.serve_loop(step, lambda: mk(B, P + N), prompt, N)
+    counted = tk.launch_counts()
+    _, _, lg_pt, seqs_pt = serving.serve_loop_pertoken(
+        step, lambda: mk(B, P + N), prompt, N)
+    assert torch.equal(seqs.cpu(), seqs_pt.cpu())
+    assert _rel(lg, lg_pt) <= 1e-5
+    # warm-up and capture each call the wrappers once; replays do not
+    assert counted["merged_ffn"] > 0 and counted["rmsnorm"] > 0
+    run = serving._StepGraph(step, mk(B, P + N), B, P + N - 1)
+    run.prepare(prompt, torch.full((B,), P))
+    assert run.launches["merged_ffn"] * 2 == counted["merged_ffn"]
+
+
+def test_two_runs_on_one_capture_agree(tiny_arts):
+    """One capture, reset in place between runs: A, B, A give A twice."""
+    from repro_torch.runtime import serving
+    dev = _card()
+    art, step, mk = _served(tiny_arts["recurrentgemma-2b"])
+    B, P, N = 3, 6, 10                      # 15 steps past the 8-token ring
+    a = serving.random_prompts(2, B, P, 64, device=dev)
+    b = serving.random_prompts(3, B, P, 64, device=dev)
+    lengths = torch.full((B,), P)
+    run = serving._StepGraph(step, mk(B, P + N), B, P + N - 1)
+    run.prepare(a, lengths)
+    outs = []
+    for prompt in (a, b, a):
+        run.reset(prompt, lengths)
+        run.advance(P + N - 1)
+        outs.append(run.samples.clone())
+    assert torch.equal(outs[0], outs[2]) and not torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "recurrentgemma-2b"])
+def test_serve_requests_match_single_prompt_serving(tiny_arts, arch):
+    from repro_torch.runtime import serving
+    _card()
+    art, step, mk = _served(tiny_arts[arch])
+    prompts = serving.ragged_prompts(0, 5, 2, 9, 64)
+    out = serving.serve_requests(step, mk, prompts, tokens=6, slots=2)
+    assert out.report.completed == [0, 1, 2, 3, 4] and out.report.rounds == 3
+    for i, p in enumerate(prompts):
+        p = p.long().to(art.device)[None, :]
+        _, _, _, solo = serving.serve_loop(step, lambda: mk(1, p.shape[1] + 6),
+                                           p, 6, warm=False)
+        assert torch.equal(out[0][i], solo[0].cpu())
+
+
+def test_a_host_read_makes_the_capture_raise(tiny_arts):
+    """A step that reads a value on the host cannot be captured: the
+    serve call raises and returns nothing, with no eager retry (the step
+    ran once eagerly for the warm-up and once under capture)."""
+    from repro_torch.runtime import serving
+    dev = _card()
+    art, step, mk = _served(tiny_arts["smollm-135m"])
+    calls = []
+
+    def reads_host(cache, tokens):
+        calls.append(1)
+        logits, cache = step(cache, tokens)
+        if float(logits.abs().max()) < 0:          # .item() on the host
+            raise AssertionError
+        return logits, cache
+    prompt = serving.random_prompts(4, 2, 4, 64, device=dev)
+    with pytest.raises(RuntimeError):
+        serving.serve_loop(reads_host, lambda: mk(2, 8), prompt, 4)
+    assert len(calls) == 2
+    torch.cuda.synchronize()
+    # the card serves on after the failed capture
+    _, _, _, seqs = serving.serve_loop(step, lambda: mk(2, 8), prompt, 4)
+    assert seqs.shape == (2, 4)
