@@ -176,12 +176,29 @@ Phases, each printing its own line with the seconds it took:
              round served again with one slot's logits made NaN at
              generation index 2 must report that request alone aborted
              at 2, every other token-identical to the clean run.
+19. lm continuous — the same artifacts and prompts through the
+             continuous engine (``serve_continuous(slots=8, chunk=8,
+             tokens=32)``, one captured chunk step, a position per
+             slot): (a) all arriving at 0 on the real clock, sustained
+             tok/s beside phase 18's, chunks and admissions; (b) a
+             seeded Poisson trace at 20 requests/s, p50 and p99 latency;
+             (c) on a ``TickClock``, ``nan@serve.nan`` on a request
+             admitted mid-stream with ``delay@serve.arrival`` and
+             ``delay@serve.chunk`` rules; (d) ``raise@serve.worker`` at
+             the 3rd chunk through ``serve_with_failover``.  Every
+             request's tokens must equal phase 18's single-prompt
+             ``serve_loop``, the poisoned one alone aborted at 2, both
+             delay rules fired, one failover replayed bit-identically,
+             one graph replay per step, and the launches of (a), counted
+             from zero, show ``rmsnorm`` and ``merged_ffn``; a
+             torch.profiler trace of four chunks gives the captured
+             step's device time and (a)'s busy share.
 
 Any failed check raises, so the script exits non-zero.  Per-unit shapes,
 times, bounds and launch plans land in ``build/chip_smoke/units.json``
 (MobileNetV2), ``resnet34.json``, ``qunits.json`` and ``qffn.json`` (the
 quantized phases), RecurrentGemma's in ``rg.json``, the serving numbers
-of phases 9, 13, 16 and 18 in ``serve.json``.  It exits non-zero
+of phases 9, 13, 16, 18 and 19 in ``serve.json``.  It exits non-zero
 without a result where ``torch.cuda.is_available()`` is false or the repo's
 ``src/`` is missing.  The last lines are the ``kernels`` JSON line, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -1107,24 +1124,25 @@ def forced_logits(step, cache, tokens):
     return torch.stack(out, dim=1)
 
 
-class GraphReplays:
-    """Counts CUDA-graph replays while active (``CUDAGraph.replay``
-    wrapped)."""
+class CountCalls:
+    """Counts the calls of the method ``owner.name`` while active (it is
+    wrapped): CUDA-graph replays, the engine's chunks."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name = owner, name
 
     def __enter__(self):
-        import torch
         self.n = 0
-        self._orig = orig = torch.cuda.CUDAGraph.replay
+        self._orig = orig = getattr(self.owner, self.name)
 
-        def replay(graph):
+        def counted(*args, **kw):
             self.n += 1
-            return orig(graph)
-        torch.cuda.CUDAGraph.replay = replay
+            return orig(*args, **kw)
+        setattr(self.owner, self.name, counted)
         return self
 
     def __exit__(self, *exc):
-        import torch
-        torch.cuda.CUDAGraph.replay = self._orig
+        setattr(self.owner, self.name, self._orig)
 
 
 def serve_both(label, step, new_cache, prompt, new_tokens, pertoken=None):
@@ -1143,7 +1161,7 @@ def serve_both(label, step, new_cache, prompt, new_tokens, pertoken=None):
 
     B, P = prompt.shape
     N = new_tokens
-    with GraphReplays() as rp:
+    with CountCalls(torch.cuda.CUDAGraph, "replay") as rp:
         pre, dec, lg, seqs = serving.serve_loop(step, new_cache, prompt, N)
     with pertoken or contextlib.nullcontext():
         pre_pt, dec_pt, lg_pt, seqs_pt = serving.serve_loop_pertoken(
@@ -2023,18 +2041,19 @@ def poison_hook(slot: int, step: int):
     return hook
 
 
-def request_phase(dev, arts) -> dict:
+def request_phase(dev, arts) -> tuple[dict, dict]:
     """Phase 18: each artifact serves ragged requests through
     ``serve_requests`` (8 slots, 32 tokens): every request's tokens
     against ``serve_loop`` of its prompt alone at batch 1, then the last
     round's requests again (the same padded width) with one slot's
     logits poisoned at generation index 2: that request alone is aborted
-    at 2 and every other is token-identical to the clean run."""
+    at 2 and every other is token-identical to the clean run.  Returns
+    the rows and, per label, the single-prompt tokens ``(n, 32)``."""
     import torch
     from repro_torch import kernels
     from repro_torch.runtime import serving
 
-    out = {}
+    out, solos = {}, {}
     for label, art, n_req in arts:
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2051,14 +2070,16 @@ def request_phase(dev, arts) -> dict:
         rep = served.report
         launch = kernels.launch_counts()
         t_solo = time.perf_counter()
-        differ = []
+        differ, solo_rows = [], []
         for i, p in enumerate(prompts):
             p = p.long().to(dev)[None, :]
             solo = serving.serve_loop(
                 step, lambda: art.init_cache(1, p.shape[1] + T_NEW), p,
                 T_NEW, warm=False)[3][0].cpu()
+            solo_rows.append(solo)
             if not torch.equal(solo, gen[i]):
                 differ.append(i)
+        solos[label] = torch.stack(solo_rows)
         t_solo = time.perf_counter() - t_solo
         start = (n_req - 1) // SLOTS * SLOTS
         r = 1
@@ -2099,6 +2120,170 @@ def request_phase(dev, arts) -> dict:
               f"row kept its first 2 tokens and zeros after {poisoned_ok}")
         for k in ("rmsnorm", "merged_ffn"):
             check(launch[k] > 0, f"{label} requests: {k} never launched")
+    return out, solos
+
+
+def continuous_phase(arts, solos, fixed) -> dict:
+    """Phase 19: each artifact serves phase 18's ragged prompts through
+    the continuous engine (8 slots, chunks of 8 steps, 32 tokens):
+    (a) all arriving at 0 on the real clock, beside phase 18's
+    ``serve_requests``; (b) a seeded Poisson trace at 20 requests/s (the
+    reference bench's recipe), p50/p99 latency; (c) on a ``TickClock``
+    with staggered arrivals, ``nan@serve.nan`` on a request admitted
+    mid-stream plus ``delay@serve.arrival`` and ``delay@serve.chunk``;
+    (d) ``raise@serve.worker`` at the 3rd chunk through
+    ``serve_with_failover``.  Every request's tokens must equal phase
+    18's ``serve_loop`` of its prompt alone at batch 1 (``solos``), but
+    the poisoned one, aborted at 2 alone; the failover replays
+    bit-identically; the launch counts of (a), zeroed just before it,
+    show ``merged_ffn`` and ``rmsnorm`` in the captured chunk step, and
+    the chunks take one graph replay per step.  A torch.profiler trace
+    of chunks of the captured step gives its device time a step, and
+    with (a)'s steps and wall its busy share (0 where the profiler sees
+    no device activity)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.runtime import serving
+    from repro_torch.testing import faults
+
+    T_NEW, SLOTS, CHUNK, RATE = 32, 8, 8, 20.0
+    out = {}
+    for label, art, n_req in arts:
+        t0 = time.perf_counter()
+        cfg = art.graph.meta["config"]
+        prompts = serving.ragged_prompts(0, n_req, 4, 32, cfg.vocab_size)
+        mat, lens = serving.pad_prompts(prompts)
+        solo = solos[label]
+
+        def step(c, t):
+            return art.decode(c, t)
+
+        def serve(fn=serving.serve_continuous, **kw):
+            return fn(step, art.init_cache, mat, lens, tokens=T_NEW,
+                      slots=SLOTS, chunk=CHUNK, **kw)
+
+        def differ(gen, skip=()):
+            return [i for i in range(n_req)
+                    if i not in skip and not torch.equal(gen[i], solo[i])]
+
+        # (a) throughput: every request arrives at 0, real clock
+        kernels.reset_launch_counts()
+        with CountCalls(serving._ChunkGraph, "run") as chunks, \
+                CountCalls(torch.cuda.CUDAGraph, "replay") as rp:
+            a = serve()
+        launch = kernels.launch_counts()
+        tok_s = serving.decode_tok_s(T_NEW, n_req, a[1])
+        # where (a)'s time goes: the device time of a step of the captured
+        # chunk (torch.profiler over 4 chunks of idle slots; the shapes,
+        # and so the work, are those of every step) against (a)'s wall.
+        # A chunk goes through `run`, which rewinds the step counter.
+        eng = serving.ContinuousEngine(step, art.init_cache, slots=SLOTS,
+                                       chunk=CHUNK,
+                                       max_seq=int(mat.shape[1]) + T_NEW)
+        idle = eng._build_feed()
+        busy_us, krows = device_kernels(lambda: eng._graph.run(idle),
+                                        reps=4)
+        busy_us /= CHUNK
+        krows = [(us / CHUNK, n // CHUNK, name) for us, n, name in krows]
+        del eng
+        steps = chunks.n * CHUNK
+        # (b) a seeded Poisson arrival trace, real clock
+        arrivals = np.cumsum(np.random.RandomState(11).exponential(
+            1.0 / RATE, size=n_req)).tolist()
+        b = serve(arrivals=arrivals)
+        lat = sorted(b.report.latency_s.values())
+        # (c) faults on a virtual clock; request R arrives at 0.5 R ticks,
+        # after the first chunk, so it is admitted mid-stream
+        R = n_req - 2
+        spec = (f"nan@serve.nan:rid={R},t=2;delay@serve.arrival:2~0.02;"
+                "delay@serve.chunk:3~0.02")
+        with faults.inject(*faults.parse_env_spec(spec).rules) as plan:
+            c = serve(arrivals=[0.5 * r for r in range(n_req)],
+                      clock=faults.TickClock())
+        delays = sorted({p for p, _, act in plan.fired if act == "delay"})
+        poisoned_ok = (torch.equal(c[0][R, :2], solo[R, :2])
+                       and not bool(c[0][R, 2:].any()))
+        # (d) a worker lost before the 3rd chunk
+        with faults.inject(faults.Fault("serve.worker", "raise", nth=3)):
+            d = serve(fn=serving.serve_with_failover,
+                      clock=faults.TickClock())
+        row = {"requests": n_req, "slots": SLOTS, "chunk": CHUNK,
+               "tokens": T_NEW, "seconds": a[1], "sustained_tok_s": tok_s,
+               "engine_tok_s": a.report.sustained_tok_s,
+               "fixed_tok_s": fixed[label]["sustained_tok_s"],
+               "chunks": chunks.n, "admitted": a.report.admitted,
+               "replays_per_step": rp.n / max(steps, 1),
+               "busy_share": busy_us * 1e-6 * steps / a[1],
+               "device_ms_per_step": busy_us * 1e-3,
+               "served_ms_per_step": a[1] * 1e3 / max(steps, 1),
+               "device_kernels": [(us, n, name[:80])
+                                  for us, n, name in krows[:8]],
+               "launches": launch, "differ": differ(a[0]),
+               "trace_rate_req_s": RATE, "trace_seconds": b[1],
+               "trace_tok_s": serving.decode_tok_s(T_NEW, n_req, b[1]),
+               "trace_p50_s": float(np.percentile(lat, 50)),
+               "trace_p99_s": float(np.percentile(lat, 99)),
+               "trace_queue_peak": b.report.queue_peak,
+               "trace_differ": differ(b[0]),
+               "nan_rid": R, "nan_aborted": c.report.aborted,
+               "nan_dispositions": c.report.dispositions,
+               "nan_differ": differ(c[0], skip=(R,)),
+               "delay_points_fired": delays,
+               "failovers": d.report.failovers,
+               "failover_replayed": d.report.replayed,
+               "failover_completed": sorted(d.report.completed),
+               "failover_identical": bool(torch.equal(d[0], a[0]))}
+        out[label] = row
+        log("lm continuous", t0, f"{label}: {n_req} ragged prompts x "
+            f"{T_NEW} tokens, {SLOTS} slots, chunks of {CHUNK}: (a) "
+            f"{a[1] * 1e3:.3f} ms, sustained {tok_s:.1f} tok/s (engine's "
+            f"clock {a.report.sustained_tok_s:.1f}) against serve_requests' "
+            f"{row['fixed_tok_s']:.1f} (phase 18), {chunks.n} chunks, "
+            f"{a.report.admitted} admissions, {row['replays_per_step']:.3f} "
+            f"graph replays per step, launches (warm-up + capture) "
+            f"{json.dumps(launch)}; served {row['served_ms_per_step']:.3f} "
+            f"ms a step, device (torch.profiler over 4 chunks) "
+            f"{row['device_ms_per_step']:.3f} ms a step, busy "
+            f"{row['busy_share']:.3f}; by kernel: " + "; ".join(
+                f"{name[:60]} {us:.1f}us x{n}" for us, n, name in
+                row["device_kernels"][:5]) + f"; (b) Poisson {RATE:g} req/s: "
+            f"{b[1] * 1e3:.3f} ms, {row['trace_tok_s']:.1f} tok/s, latency "
+            f"p50 {row['trace_p50_s'] * 1e3:.3f} ms p99 "
+            f"{row['trace_p99_s'] * 1e3:.3f} ms, queue peak "
+            f"{b.report.queue_peak}; tokens against single-prompt "
+            f"serve_loop: (a) {n_req - len(row['differ'])} and (b) "
+            f"{n_req - len(row['trace_differ'])} of {n_req} equal; (c) "
+            f"request {R} poisoned at generation index 2: aborted "
+            f"{c.report.aborted}, the other {n_req - 1} equal "
+            f"{not row['nan_differ']}, delay rules fired at {delays}; (d) "
+            f"worker lost at chunk 3: failovers {d.report.failovers}, "
+            f"replayed {d.report.replayed}, tokens identical to (a) "
+            f"{row['failover_identical']}")
+        check(a.report.ok and sorted(a.report.completed) == list(
+            range(n_req)), f"{label} continuous: {a.report.dispositions}")
+        check(not row["differ"], f"{label} continuous: requests "
+              f"{row['differ']} differ from serving their prompt alone")
+        check(b.report.ok and not row["trace_differ"], f"{label} "
+              f"continuous, Poisson trace: {b.report.dispositions}, "
+              f"requests {row['trace_differ']} differ")
+        check(c.report.aborted == {R: 2} and poisoned_ok
+              and not row["nan_differ"] and len(c.report.completed)
+              == n_req - 1, f"{label} continuous, NaN at request {R}: "
+              f"aborted {c.report.aborted}, others differ "
+              f"{row['nan_differ']}, truncated {poisoned_ok}")
+        check(delays == ["serve.arrival", "serve.chunk"], f"{label} "
+              f"continuous: delay rules fired at {delays}")
+        check(d.report.failovers == 1 and d.report.replayed
+              and row["failover_completed"] == list(range(n_req))
+              and row["failover_identical"], f"{label} failover: "
+              f"{d.report.failovers} failovers, completed "
+              f"{row['failover_completed']}, identical "
+              f"{row['failover_identical']}")
+        check(row["replays_per_step"] == 1.0, f"{label} continuous: "
+              f"{rp.n} graph replays for {chunks.n} chunks of {CHUNK}")
+        for k in ("rmsnorm", "merged_ffn"):
+            check(launch[k] > 0, f"{label} continuous: {k} never launched")
     return out
 
 
@@ -2494,11 +2679,15 @@ def main(argv) -> int:
     serve_rows.update(rg_serve)
 
     # 18. ragged requests through the slot scheduler ----------------------------
-    req_rows = request_phase(dev, (("smollm-135m", lm_art, 24),
-                                   ("recurrentgemma-2b", rg_art, 8)))
-    del rg_art
+    lm_arts = (("smollm-135m", lm_art, 24), ("recurrentgemma-2b", rg_art, 8))
+    req_rows, solos = request_phase(dev, lm_arts)
+
+    # 19. the continuous engine ----------------------------------------------
+    cont_rows = continuous_phase(lm_arts, solos, req_rows)
+    del rg_art, lm_arts
     with open(os.path.join(WORK, "serve.json"), "w") as f:
-        json.dump({"loops": serve_rows, "requests": req_rows}, f, indent=1)
+        json.dump({"loops": serve_rows, "requests": req_rows,
+                   "continuous": cont_rows}, f, indent=1)
     for k in ("rmsnorm", "rglru_scan", "flash_attention"):
         tot[k] = next(r for r in rg_rows if r["kernel"] == k)
         launches[k] = rg_launch[k]

@@ -20,10 +20,11 @@ plain PyTorch.  M-RoPE and the sharded flash-decoding path are not ported
 
 Decode caches are updated in place (the JAX package returns new arrays):
 ``attention_decode`` writes the new key and value into the cache tensors
-and advances ``pos``, a 0-d int32 tensor on the cache's device, and
-returns the same dict.  The position, the slot and the mask are computed
-on the device, so a decode step reads nothing on the host and can be
-captured in a CUDA graph (:mod:`repro_torch.runtime.serving`).
+and advances ``pos``, an int32 tensor on the cache's device (0-d, or one
+position per row), and returns the same dict.  The position, the slot
+and the mask are computed on the device, so a decode step reads nothing
+on the host and can be captured in a CUDA graph
+(:mod:`repro_torch.runtime.serving`).
 """
 from __future__ import annotations
 
@@ -170,33 +171,41 @@ def attention(p, x, cfg, positions, *, window: int = 0):
 def attention_decode(p, x, cfg, cache, *, window: int = 0):
     """One-token decode against a KV cache, written in place.
 
-    cache: {"k": (B, S, KVH, D), "v": ..., "pos": 0-d int32 tensor} —
-    ``pos`` is the number of tokens already in the cache.  For windowed
-    attention the cache is a ring buffer of ``S`` entries.  The new key
-    and value go to slot ``pos % S`` (windowed) or ``pos``, by a device
-    index, and ``pos`` is advanced in place.  Where the JAX package
-    clamps a slot past the end of a plain cache, the port has no such
-    slot: the serving layer refuses, on the host and before the first
-    step, a prompt plus tokens longer than the cache
-    (:func:`repro_torch.runtime.serving.check_room`).
+    cache: {"k": (B, S, KVH, D), "v": ..., "pos": int32 tensor} — ``pos``
+    is the number of tokens already in the cache: 0-d (every row at one
+    position) or ``(B,)`` (a position per row, the continuous engine's
+    slots).  For windowed attention the cache is a ring buffer of ``S``
+    entries.  Per row, the new key and value go to slot ``pos % S``
+    (windowed) or ``pos``, by a device index, the RoPE position and the
+    mask are that row's, and ``pos`` is advanced in place.
+
+    A plain cache's write index is clamped to ``S - 1``: a row past the
+    end overwrites its last entry, the JAX package's
+    ``dynamic_update_slice`` semantics, and never writes out of range.
+    The single-batch serving paths never reach the clamp: they refuse,
+    on the host and before the first step, a prompt plus tokens longer
+    than the cache (:func:`repro_torch.runtime.serving.check_room`).
+    Only the continuous engine's idle or finished rows run past the end,
+    and their outputs are discarded.
     """
     pos = cache["pos"]
-    positions = pos.expand(x.shape[0], 1)
-    q, k, v = _qkv(p, x, cfg, positions)
+    rows = pos.expand(x.shape[0])[:, None]                  # (B, 1)
+    q, k, v = _qkv(p, x, cfg, rows)
     size = cache["k"].shape[1]
-    slot = torch.remainder(pos, size) if window > 0 else pos
-    idx = slot.reshape(1).long()
-    cache["k"].index_copy_(1, idx, k)
-    cache["v"].index_copy_(1, idx, v)
-    kpos = torch.arange(size, device=x.device)
+    slot = (torch.remainder(rows, size) if window > 0
+            else torch.clamp(rows, max=size - 1))
+    at = (torch.arange(x.shape[0], device=x.device), slot[:, 0].long())
+    cache["k"].index_put_(at, k[:, 0])
+    cache["v"].index_put_(at, v[:, 0])
+    kpos = torch.arange(size, device=x.device)[None, :]     # (1, S)
     if window > 0:
         # ring buffer: entry i holds absolute position derived from slot
-        abs_pos = torch.where(kpos <= slot, pos - slot + kpos,
-                              pos - slot - size + kpos)
-        valid = (abs_pos >= 0) & (abs_pos <= pos) & (abs_pos > pos - size)
+        abs_pos = torch.where(kpos <= slot, rows - slot + kpos,
+                              rows - slot - size + kpos)
+        valid = (abs_pos >= 0) & (abs_pos <= rows) & (abs_pos > rows - size)
     else:
-        valid = kpos <= pos
-    out = _sdpa(q, cache["k"], cache["v"], valid[None, None, None, :])
+        valid = kpos <= rows
+    out = _sdpa(q, cache["k"], cache["v"], valid[:, None, None, :])
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     pos.add_(1)
     return y, cache

@@ -268,7 +268,9 @@ def init_cache(cfg, batch_size, seq_len, device="cuda"):
 
 def decode_step(cfg, params, cache, batch):
     """One-token decode: batch ``{'tokens': (B, 1)}`` → ``(logits, cache)``;
-    every state tensor of the cache list is updated in place."""
+    every state tensor of the cache list is updated in place.  A KV
+    cache's ``pos`` is 0-d or one position per row (the continuous
+    engine's :func:`repro_torch.runtime.serving.stack_cache`)."""
     x = embed_in(cfg, params, batch)
     li = 0
     for g, gp in zip(layer_groups(cfg), params["groups"]):

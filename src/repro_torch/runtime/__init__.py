@@ -4,7 +4,7 @@ merged-model artifacts in the JAX package's ``.npz`` format
 from .artifact import (ArtifactError, CompressedArtifact, fingerprint, load,
                        save)
 from .executor import GraphModule, decode_step, execute, init_cache, \
-    run_units
+    run_units, slot_state
 from .ir import (AttnUnit, ConvUnit, LowRankUnit, PoolUnit, SublayerUnit,
                  UnitGraph, UpsampleUnit, annotate_axes, bind_params,
                  count_units, graph_params)
@@ -12,6 +12,7 @@ from .ir import (AttnUnit, ConvUnit, LowRankUnit, PoolUnit, SublayerUnit,
 __all__ = [
     "ArtifactError", "CompressedArtifact", "fingerprint", "load", "save",
     "GraphModule", "decode_step", "execute", "init_cache", "run_units",
+    "slot_state",
     "AttnUnit", "ConvUnit", "LowRankUnit", "PoolUnit", "SublayerUnit",
     "UnitGraph", "UpsampleUnit",
     "annotate_axes", "bind_params", "count_units", "graph_params",

@@ -165,9 +165,11 @@ class CompressedArtifact:
 
     def decode(self, cache, tokens):
         """One decode step: ``tokens`` (B, 1) → ``(logits, cache)``, the
-        cache's tensors updated in place (transformer family).  Tokens
-        already on the artifact's device are used as they are, not
-        copied."""
+        cache's tensors updated in place (transformer family); the cache
+        is :meth:`init_cache`'s or the continuous engine's per-slot state
+        (:func:`~repro_torch.runtime.executor.slot_state`, a position per
+        row).  Tokens already on the artifact's device are used as they
+        are, not copied."""
         from . import executor
         return executor.decode_step(
             self.graph, cache, {"tokens": torch.as_tensor(

@@ -15,6 +15,7 @@ one), concat, group norm, and the boundary activation.
 * :func:`init_cache` / :func:`decode_step` — one-token decode through a
   compressed transformer: a KV cache per attention sublayer, the
   recurrent state per RG-LRU sublayer; lowrank units carry no state.
+  :func:`slot_state` is the continuous engine's per-slot state.
 * :class:`GraphModule` — an ``nn.Module`` holding a graph's tensors as
   buffers (so ``.to(device)`` moves them), whose ``forward`` is
   :func:`execute`.
@@ -173,12 +174,23 @@ def init_cache(graph: ir.UnitGraph, batch_size: int, seq_len: int):
             if _is_temporal(u) else {} for u in graph.units]
 
 
+def slot_state(graph: ir.UnitGraph, slots: int, seq_len: int):
+    """Per-slot decode state for the continuous engine: one fresh
+    batch-1 cache (:func:`init_cache`) widened to ``slots`` rows by
+    :func:`repro_torch.runtime.serving.stack_cache`, each attention
+    cache's ``pos`` to ``(slots,)``."""
+    from .serving import stack_cache
+    return stack_cache(init_cache(graph, 1, seq_len), slots)
+
+
 def decode_step(graph: ir.UnitGraph, cache, batch):
     """One-token decode through the compressed unit chain: ``batch``
     ``{'tokens': (B, 1)}`` → ``(logits, cache)``, every state tensor of
     the cache list updated in place and nothing read on the host (the
-    step can be captured in a CUDA graph).  Lowrank units are position-independent residual maps, so
-    each applies to the one-token activation directly (M = B rows)."""
+    step can be captured in a CUDA graph).  An attention cache's ``pos``
+    is 0-d or one position per row (:func:`slot_state`).  Lowrank units
+    are position-independent residual maps, so each applies to the
+    one-token activation directly (M = B rows)."""
     cfg = graph.meta["config"]
     gp = graph.params
     x = T.embed_in(cfg, gp, batch)

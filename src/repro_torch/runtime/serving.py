@@ -1,13 +1,14 @@
-"""Serving: captured prefill and decode, fused ragged prompts, slot batching.
+"""Serving: captured prefill and decode, fused ragged prompts, slot
+batching and the continuous-batching engine.
 
-The port of the JAX package's :mod:`repro.runtime.serving`, its
-single-batch and fixed-slot layers.  ``step(cache, tokens) → (logits,
-cache)`` is any one-token step — the original stack's
-(:func:`repro_torch.models.transformer.decode_step`) or a compressed
-artifact's (:meth:`~repro_torch.runtime.artifact.CompressedArtifact.
-decode`) — that writes the cache's tensors in place and reads nothing
-on the host; ``new_cache()`` and ``make_cache(batch, seq_len)`` build
-zeroed caches.  Both stacks are served and measured the same way.
+The port of the JAX package's :mod:`repro.runtime.serving`.  ``step(
+cache, tokens) → (logits, cache)`` is any one-token step — the original
+stack's (:func:`repro_torch.models.transformer.decode_step`) or a
+compressed artifact's (:meth:`~repro_torch.runtime.artifact.
+CompressedArtifact.decode`) — that writes the cache's tensors in place
+and reads nothing on the host; ``new_cache()`` and ``make_cache(batch,
+seq_len)`` build zeroed caches.  Both stacks are served and measured the
+same way.
 
 Where the reference jit-compiles a ``lax.scan`` of the step, the port
 captures ONE step of the fused prefill+decode body in a CUDA graph and
@@ -34,11 +35,22 @@ A capture that fails raises; nothing retries it eagerly.
   prompts a round, one captured step serving every segment of every
   round (the step indices are runtime data), the deadline checked per
   ``deadline_chunk`` steps, one cache per call reset in place per round.
+* :class:`ContinuousEngine`, :func:`serve_continuous` — per-slot state
+  (:func:`stack_cache`: a position per slot), mid-stream admission and
+  retirement, arrivals, deadlines, shedding, a bounded queue and a NaN
+  circuit breaker; one captured chunk step (:class:`_ChunkGraph`)
+  replayed ``chunk`` times a chunk serves every admission.
+  :func:`serve_with_failover` re-forms the engine on a
+  :class:`WorkerLost` and replays the requests in flight.  The engine
+  hits the ``serve.*`` points of :mod:`repro_torch.testing.faults`.
 
-A cache's length is checked on the host before the first step: a prompt
-plus tokens longer than a KV cache raises (:func:`check_room`), where the
-reference clamps the slot.  Sharding (``rules=``), the continuous engine
-and failover are not ported (ROADMAP.md queue 1).
+The single-batch paths check a cache's length on the host before the
+first step: a prompt plus tokens longer than a KV cache raises
+(:func:`check_room`).  The engine's idle and finished slots run past
+their cache by design; a plain cache clamps their writes to its last
+entry, as the reference does
+(:func:`repro_torch.models.layers.attention_decode`).  Sharding
+(``rules=``) is not ported (ROADMAP.md queue 5).
 """
 from __future__ import annotations
 
@@ -50,6 +62,7 @@ import torch
 
 from repro_torch.device import resolve
 from repro_torch.kernels import launch_counts
+from repro_torch.testing import faults as _faults
 
 
 def greedy_token(logits):
@@ -142,6 +155,29 @@ class _Timer:
 # The fused prefill+decode step, captured once and replayed per step
 # ---------------------------------------------------------------------------
 
+def _capture(device, body, reset):
+    """Capture one call of ``body`` in a CUDA graph: run it once eagerly
+    on a side stream at the capture's shapes (so every kernel instance is
+    loaded and its attributes are set), ``reset()`` the state it wrote,
+    and capture it.  Returns ``(graph, launches)``, ``launches`` the
+    kernel launches the capture counted (one call's).  A capture that
+    fails raises; nothing retries it eagerly."""
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        body()
+    main.wait_stream(side)
+    reset()
+    before = launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    after = launch_counts()
+    return graph, {k: n - before[k] for k, n in after.items()
+                   if n != before[k]}
+
+
 class _StepGraph:
     """One step of the fused prefill+decode body over ``batch`` slots and
     up to ``steps`` steps: the port of the reference's scan bodies and of
@@ -213,27 +249,14 @@ class _StepGraph:
 
     def prepare(self, feed, lengths) -> None:
         """On the card: run the body once eagerly on a side stream at the
-        capture's shapes, reset, and capture one step.  On the CPU there
-        is nothing to prepare."""
+        capture's shapes, reset, and capture one step (:func:`_capture`).
+        On the CPU there is nothing to prepare."""
         if self.device.type != "cuda":
             return
         t0 = time.perf_counter()
         self.reset(feed, lengths)
-        main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            self._body()
-        main.wait_stream(side)
-        self.reset(feed, lengths)
-        before = launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._body()
-        after = launch_counts()
-        self.launches = {k: n - before[k] for k, n in after.items()
-                         if n != before[k]}
-        self.graph = graph
+        self.graph, self.launches = _capture(
+            self.device, self._body, lambda: self.reset(feed, lengths))
         self.capture_s = time.perf_counter() - t0
 
     def advance(self, n: int) -> None:
@@ -440,8 +463,10 @@ class ServeReport:
     else ``completed``.  ``tokens_per_request`` is the generation length
     after the token budget.  ``shed``, ``latency_s``, ``queue_peak``,
     ``admitted``, ``quarantined_slots``, ``sustained_tok_s`` and the
-    failover fields belong to the continuous engine (not ported) and
-    stay empty here; ``engine`` is ``"fixed"``.
+    failover fields (``failovers``, ``lost_workers``, ``replayed``) are
+    filled by the continuous engine and :func:`serve_with_failover`, and
+    stay empty for the fixed scheduler; ``engine`` is ``"fixed"``,
+    ``"continuous"`` or ``"continuous+failover"``.
     """
 
     completed: list[int] = dataclasses.field(default_factory=list)
@@ -492,9 +517,9 @@ class ServeOutput(tuple):
 
 class WorkerLost(RuntimeError):
     """A serving worker (process or device) died mid-decode; carries the
-    lost worker ids on ``.lost``.  The reference's failover catches it;
-    the port has no failover yet (ROADMAP.md queue 1), so nothing here
-    raises it."""
+    lost worker ids on ``.lost``.  :class:`ContinuousEngine` raises it
+    before a chunk (``health_check`` or the ``serve.worker`` fault point);
+    :func:`serve_with_failover` catches it."""
 
     def __init__(self, msg: str, lost=()):
         super().__init__(msg)
@@ -628,3 +653,663 @@ def serve_requests(step, make_cache, prompts, lengths=None, *, tokens: int,
             else:
                 report.completed.append(rid)
     return ServeOutput(torch.from_numpy(gen), seconds, report)
+
+
+# ---------------------------------------------------------------------------
+# Continuous-batching engine: per-slot state, mid-stream admission
+# ---------------------------------------------------------------------------
+
+def stack_cache(cache, slots: int):
+    """Widen one fresh single-request cache into the engine's per-slot
+    state: every tensor of the batch-1 cache ``cache`` (the port's list of
+    per-layer dicts) is repeated along its batch axis to ``slots`` rows,
+    and a 0-d ``pos`` becomes ``(slots,)`` — each slot carries its OWN
+    sequence position, which is what makes mid-stream admission exact.
+    Other values (the ``"ring"`` flag) are kept.
+
+    The reference gives every leaf an extra leading ``(slots,)`` axis and
+    ``vmap``s the batch-1 step over it; a step that launches ctypes-bound
+    CUDA kernels cannot be ``vmap``ped, so here the batch IS the slot
+    axis and the step runs once at batch ``slots``.  Row ``b`` of this
+    state equals leaf ``[b, 0]`` of the reference's (``[b]`` for ``pos``).
+    """
+    def widen(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if x.ndim == 0:
+            return x.reshape(1).repeat(slots)
+        return x.repeat(slots, *([1] * (x.ndim - 1)))
+    return [{k: widen(v) for k, v in st.items()} for st in cache]
+
+
+class _ChunkGraph:
+    """One step of the engine's multi-slot chunk body over the live
+    per-slot state: the port of the reference's ``_make_chunk_fn``, whose
+    ``lax.scan`` over ``chunk`` steps becomes ``chunk`` replays of one
+    captured step (the body runs eagerly on the CPU).
+
+    Static buffers: ``ctl`` ``(C + 4, B)`` holds, row by row, ``feed``
+    (``C`` rows: the prompt tokens of slots still prefilling), ``fp``
+    (the leading steps each slot teacher-forces this chunk; ``C`` for
+    idle slots, which decode a dummy sequence that admission resets),
+    ``poison`` (the local step at which a slot's logits are forced NaN,
+    -1 = never: the ``serve.nan`` fault), ``t0`` (the engine-global index
+    of the chunk's step 0, handed to ``logit_hook`` as ``t0 + i``) and
+    the chunk-local step counter ``i`` (both read from column 0).  The
+    host loads a chunk with one copy into ``ctl``, which also rewinds
+    ``i``.  ``prev (B,)`` is each slot's last greedy token; ``out`` ``(2,
+    C, B)`` the tokens and ``ok`` flags of the chunk's steps, read back
+    with one copy after the last replay.
+
+    The capture (:meth:`prepare`) runs against the live state and zeroes
+    all of it afterwards: it must happen before the first chunk, while
+    every slot is still fresh.  Chunks go through :meth:`run`, which
+    rewinds ``i``: a replay past ``C`` steps would index past ``feed``.
+    """
+
+    def __init__(self, step, state, slots: int, chunk: int,
+                 logit_hook=None):
+        self.step, self.state, self.hook = step, state, logit_hook
+        self.chunk = chunk
+        self.device = next(_tensors(state)).device
+        C, B, dev = chunk, slots, self.device
+        self.ctl = torch.zeros((C + 4, B), dtype=torch.long, device=dev)
+        self.feed, self.fp, self.poison = (self.ctl[:C], self.ctl[C],
+                                           self.ctl[C + 1])
+        self.t0, self.i = self.ctl[C + 2, 0], self.ctl[C + 3, 0]
+        self.prev = torch.zeros((B,), dtype=torch.long, device=dev)
+        self.out = torch.zeros((2, C, B), dtype=torch.long, device=dev)
+        self.graph = None
+        self.launches: dict[str, int] = {}
+
+    def _body(self):
+        i = self.i
+        idx = i.reshape(1)
+        tok = self.feed.index_select(0, idx)[0]
+        inp = torch.where(i < self.fp, tok, self.prev)
+        logits, _ = self.step(self.state, inp[:, None])    # (B, 1, V)
+        if self.hook is not None:
+            logits = self.hook(logits, self.t0 + i)
+        logits = torch.where((i == self.poison)[:, None, None], torch.nan,
+                             logits)
+        ok = torch.isfinite(logits).flatten(1).all(dim=1)
+        nxt = torch.where(ok, greedy_token(logits), 0)
+        self.out[0].index_copy_(0, idx, nxt[None])
+        self.out[1].index_copy_(0, idx, ok.long()[None])
+        self.prev.copy_(nxt)
+        self.ctl[self.chunk + 3].add_(1)
+
+    def _zero(self):
+        for t in _tensors(self.state):
+            t.zero_()
+        self.prev.zero_()
+        self.out.zero_()
+        self.ctl.zero_()
+
+    def prepare(self) -> None:
+        """Capture the step on the card (once); nothing on the CPU."""
+        if self.device.type == "cuda" and self.graph is None:
+            self.graph, self.launches = _capture(self.device, self._body,
+                                                 self._zero)
+
+    def reset_slot(self, b: int) -> None:
+        """Zero slot ``b``'s rows of every state tensor (``pos[b] = 0``)
+        in place: the fresh cache of an admitted request."""
+        for t in _tensors(self.state):
+            t[b].zero_()
+
+    def run(self, ctl):
+        """Load ``ctl`` (host ``(C + 4, B)`` int64), run the chunk's
+        ``C`` steps, and return its tokens and ``ok`` flags, each ``(C,
+        B)`` on the host."""
+        self.ctl.copy_(torch.from_numpy(ctl))
+        for _ in range(self.chunk):
+            if self.graph is not None:
+                self.graph.replay()
+            else:
+                self._body()
+        out = self.out.cpu().numpy()
+        return out[0], out[1].astype(bool)
+
+
+@dataclasses.dataclass
+class _Request:
+    """Host-side lifecycle record of one submitted request."""
+
+    rid: int
+    prompt: np.ndarray                 # 1-D int32 token ids
+    budget: int                        # tokens to generate
+    arrival: float
+    deadline: float | None = None      # absolute (arrival + deadline_s)
+    admitted_at: float | None = None
+    finished_at: float | None = None
+    tokens: list = dataclasses.field(default_factory=list)
+    disposition: str | None = None
+
+
+@dataclasses.dataclass
+class _Slot:
+    """Host-side view of one device slot."""
+
+    rid: int = -1                      # -1 = idle
+    consumed: int = 0                  # steps run for this request
+    aborts: int = 0                    # NaN aborts since construction
+    quarantined: bool = False
+
+
+class ContinuousEngine:
+    """Persistent continuous-batching decode loop over ``slots`` slots.
+
+    ``step(cache, tokens) → (logits, cache)`` is the one-token protocol
+    every other entry point uses; ``make_cache(batch_size, seq_len)``
+    builds the matching fresh cache (the engine builds ONE
+    ``make_cache(1, max_seq)`` cache and widens it per slot with
+    :func:`stack_cache`).
+
+    Lifecycle: :meth:`submit` requests (with arrival times and optional
+    per-request deadlines), then :meth:`run` — the host loop ingests due
+    arrivals into a bounded queue (overflow → ``shed``), admits queued
+    requests into idle slots (deadline-aware shedding: a request whose
+    prompt and budget cannot finish by its deadline at the observed
+    decode rate is shed up front), dispatches one ``chunk``-step
+    multi-slot chunk (``chunk`` replays of the captured step), and
+    retires slots individually on EOS / budget / deadline / NaN-abort.
+    A slot that NaN-aborts ``slot_nan_limit`` times is quarantined
+    (circuit breaker).  :meth:`drain` finishes in-flight requests without
+    admitting more.  ``health_check()`` (when given) returns the ids of
+    lost workers before each chunk; a loss, or the ``serve.worker`` fault
+    point, raises :class:`WorkerLost`.
+
+    ``clock`` (default ``time.perf_counter``) injects a virtual clock —
+    :class:`repro_torch.testing.faults.TickClock` makes shedding and
+    deadlines deterministic (the loop reads the clock once per chunk).
+    With a virtual clock the engine never sleeps while waiting for
+    arrivals; virtual time advances one tick per idle iteration.
+
+    The state lives on the cache's device and is written in place: the
+    chunk step is captured once (with ``warm``, in the constructor, else
+    at the first chunk), an admitted slot's rows are zeroed in place,
+    and each chunk is one host-to-device copy of the feed, ``chunk``
+    replays and one device-to-host read of the tokens.  The rate
+    estimate reads the clock after that read.
+    """
+
+    def __init__(self, step, make_cache, *, slots: int, max_seq: int,
+                 chunk: int = 8, eos_id=None, logit_hook=None, clock=None,
+                 max_queue: int | None = None, slot_nan_limit: int = 2,
+                 warm: bool = True, health_check=None):
+        if slots < 1:
+            raise ValueError(f"need at least one slot, got {slots}")
+        if chunk < 1:
+            raise ValueError(f"need chunk >= 1, got {chunk}")
+        self.slots = slots
+        self.chunk = chunk
+        self.max_seq = max_seq
+        self.eos_id = eos_id
+        self._clock = clock if clock is not None else time.perf_counter
+        self._virtual = clock is not None
+        self._max_queue = max_queue
+        self._nan_limit = slot_nan_limit
+        self._health_check = health_check
+        self._graph = _ChunkGraph(step,
+                                  stack_cache(make_cache(1, max_seq), slots),
+                                  slots, chunk, logit_hook)
+        self._slots = [_Slot() for _ in range(slots)]
+        self.requests: dict[int, _Request] = {}
+        self._pending: list[_Request] = []     # not yet arrived
+        self._queue: list[_Request] = []       # arrived, awaiting a slot
+        self._rate: float | None = None        # EWMA decode steps/s
+        self._next_rid = 0
+        self._now: float | None = None
+        self._epoch: float | None = None
+        self._t_global = 0
+        self._total_tokens = 0
+        self.report = ServeReport(engine="continuous")
+        if warm:
+            self._graph.prepare()
+
+    @property
+    def state(self):
+        """The per-slot decode state (:func:`stack_cache` layout)."""
+        return self._graph.state
+
+    # -- submission ---------------------------------------------------------
+
+    def submit(self, prompt, *, tokens: int, arrival: float = 0.0,
+               deadline_s: float | None = None, rid: int | None = None):
+        """Queue one request; returns its request id.
+
+        ``arrival`` is the (clock-relative) time the request becomes
+        visible to the engine; ``deadline_s`` is relative to arrival.
+        """
+        prompt = np.asarray(torch.as_tensor(prompt).cpu(),
+                            np.int32).reshape(-1)
+        if len(prompt) < 1:
+            raise ValueError("empty prompt")
+        if tokens < 1:
+            raise ValueError(f"need tokens >= 1, got {tokens}")
+        if len(prompt) + tokens > self.max_seq:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + tokens ({tokens}) exceeds the "
+                f"engine window max_seq={self.max_seq}")
+        if rid is None:
+            rid = self._next_rid
+        if rid in self.requests:
+            raise ValueError(f"duplicate request id {rid}")
+        self._next_rid = max(self._next_rid, rid + 1)
+        req = _Request(rid=rid, prompt=prompt, budget=int(tokens),
+                       arrival=float(arrival),
+                       deadline=None if deadline_s is None
+                       else float(arrival) + float(deadline_s))
+        if self._epoch is not None:      # mid-run submit: anchor now
+            req.arrival += self._epoch
+            if req.deadline is not None:
+                req.deadline += self._epoch
+        self.requests[rid] = req
+        self._pending.append(req)
+        return rid
+
+    def _anchor(self):
+        """Pin clock-relative arrivals and deadlines to the clock's frame:
+        the first ``run``/``drain`` shifts every pending timestamp by the
+        first clock read (latencies stay epoch-relative)."""
+        if self._now is not None:
+            return
+        self._now = self._epoch = self._clock()
+        if self._epoch:
+            for req in self._pending:
+                req.arrival += self._epoch
+                if req.deadline is not None:
+                    req.deadline += self._epoch
+
+    # -- main loop ----------------------------------------------------------
+
+    def run(self, *, time_budget_s: float | None = None) -> ServeReport:
+        """Serve every submitted request (or until the budget expires)."""
+        self._pending.sort(key=lambda r: (r.arrival, r.rid))
+        self._anchor()
+        start = self._now
+        while True:
+            now = self._now
+            if time_budget_s is not None and now - start >= time_budget_s:
+                self._drain_live()
+                self._flush_waiting(deadline_hit=True)
+                break
+            self._ingest(now)
+            self._admit(now)
+            if not any(s.rid >= 0 for s in self._slots):
+                if not self._queue and not self._pending:
+                    break
+                if all(s.quarantined for s in self._slots):
+                    self._flush_waiting()
+                    break
+                if not self._virtual and self._pending:
+                    wait = self._pending[0].arrival - now
+                    if wait > 0:
+                        time.sleep(min(wait, 0.05))
+                self._now = self._clock()
+                continue
+            self._run_chunk()
+        elapsed = max(self._now - start, 1e-9)
+        self.report.sustained_tok_s = self._total_tokens / elapsed
+        return self.report
+
+    def drain(self) -> ServeReport:
+        """Finish in-flight requests, admit nothing new; waiting requests
+        are reported ``unserved`` (graceful shutdown)."""
+        self._anchor()
+        self._drain_live()
+        self._flush_waiting()
+        return self.report
+
+    # -- internal: admission ------------------------------------------------
+
+    def _ingest(self, now):
+        while self._pending and self._pending[0].arrival <= now:
+            req = self._pending.pop(0)
+            _faults.hit("serve.arrival")
+            if self._max_queue is not None \
+                    and len(self._queue) >= self._max_queue:
+                self._finish(req, "shed", now)
+                continue
+            self._queue.append(req)
+            self.report.queue_peak = max(self.report.queue_peak,
+                                         len(self._queue))
+
+    def _shed(self, req, now) -> bool:
+        """Deadline-aware load shedding: reject up front what cannot be
+        served in time at the sustained decode rate (optimistic when no
+        rate estimate exists yet)."""
+        if req.deadline is None:
+            return False
+        if now >= req.deadline:
+            return True
+        if self._rate:
+            steps = len(req.prompt) - 1 + req.budget
+            if now + steps / self._rate > req.deadline:
+                return True
+        return False
+
+    def _admit(self, now):
+        for b in range(self.slots):
+            slot = self._slots[b]
+            if slot.rid >= 0 or slot.quarantined:
+                continue
+            while self._queue:
+                req = self._queue.pop(0)
+                if self._shed(req, now):
+                    self._finish(req, "shed", now)
+                    continue
+                _faults.hit("serve.admit")
+                slot.rid = req.rid
+                slot.consumed = 0
+                req.admitted_at = now
+                self.report.admitted += 1
+                self._graph.reset_slot(b)
+                break
+
+    # -- internal: chunk dispatch + retirement ------------------------------
+
+    def _build_feed(self):
+        """The chunk's ``ctl`` rows (see :class:`_ChunkGraph`): feed, fp,
+        poison, t0 and the step counter 0."""
+        C, B = self.chunk, self.slots
+        ctl = np.zeros((C + 4, B), np.int64)
+        feed, fp, poison = ctl[:C], ctl[C], ctl[C + 1]
+        fp[:] = C                               # idle slots: inert zeros
+        poison[:] = -1
+        ctl[C + 2] = self._t_global
+        spec = _faults.serve_nan_spec()
+        for b, slot in enumerate(self._slots):
+            if slot.rid < 0:
+                continue
+            req = self.requests[slot.rid]
+            L = len(req.prompt)
+            left = max(0, L - slot.consumed)
+            fp[b] = left
+            if left > 0:
+                k = min(C, left)
+                feed[:k, b] = req.prompt[slot.consumed:slot.consumed + k]
+            if spec and req.rid in spec:
+                # poison at generation index g ⇒ global step (L - 1 + g)
+                i = (L - 1 + spec[req.rid]) - slot.consumed
+                if 0 <= i < C:
+                    poison[b] = i
+        return ctl
+
+    def _check_workers(self):
+        """Surface a worker loss BEFORE dispatching the next chunk: the
+        ``serve.worker`` fault point or a ``health_check`` that names lost
+        workers raises :class:`WorkerLost`; in-flight slots keep their
+        partial state so the failover layer can replay their requests."""
+        try:
+            _faults.hit("serve.worker")
+        except _faults.FaultError as e:
+            raise WorkerLost(str(e)) from e
+        if self._health_check is not None:
+            lost = self._health_check()
+            if lost:
+                raise WorkerLost(f"worker(s) lost: {sorted(lost)}",
+                                 lost=lost)
+
+    def _run_chunk(self):
+        self._check_workers()
+        _faults.hit("serve.chunk")
+        self._graph.prepare()
+        toks, oks = self._graph.run(self._build_feed())
+        self._t_global += self.chunk
+        before = self._now
+        self._now = self._clock()
+        obs = self.chunk / max(self._now - before, 1e-9)
+        self._rate = obs if self._rate is None \
+            else 0.5 * self._rate + 0.5 * obs
+        self._retire(toks, oks, self._now)
+
+    def _retire(self, toks, oks, now):
+        for b, slot in enumerate(self._slots):
+            if slot.rid < 0:
+                continue
+            req = self.requests[slot.rid]
+            L = len(req.prompt)
+            c0 = slot.consumed
+            finished = None
+            for i in range(self.chunk):
+                s = c0 + i
+                if not oks[i, b]:
+                    # abort at generation index (clipped to 0 while the
+                    # failure happened during this slot's prefill)
+                    g_bad = min(max(s - (L - 1), 0), req.budget)
+                    del req.tokens[g_bad:]
+                    finished = "aborted"
+                    break
+                if s >= L - 1:
+                    req.tokens.append(int(toks[i, b]))
+                    if self.eos_id is not None \
+                            and req.tokens[-1] == self.eos_id:
+                        finished = "completed"
+                        break
+                    if len(req.tokens) >= req.budget:
+                        finished = "completed"
+                        break
+            slot.consumed = c0 + self.chunk
+            if finished is None and req.deadline is not None \
+                    and now > req.deadline:
+                finished = "deadline_miss"
+            if finished is None:
+                continue
+            slot.rid = -1
+            slot.consumed = 0
+            if finished == "aborted":
+                slot.aborts += 1
+                if slot.aborts >= self._nan_limit and not slot.quarantined:
+                    slot.quarantined = True
+                    self.report.quarantined_slots.append(b)
+            self._finish(req, finished, now)
+
+    def _drain_live(self):
+        while any(s.rid >= 0 for s in self._slots):
+            self._run_chunk()
+
+    def _flush_waiting(self, deadline_hit: bool = False):
+        now = self._now if self._now is not None else 0.0
+        for req in self._queue + self._pending:
+            self._finish(req, "unserved", now)
+        self._queue.clear()
+        self._pending.clear()
+        if deadline_hit:
+            self.report.deadline_hit = True
+
+    def _finish(self, req, disposition, now):
+        req.disposition = disposition
+        req.finished_at = now
+        r = self.report
+        if disposition == "completed":
+            r.completed.append(req.rid)
+        elif disposition == "aborted":
+            r.aborted[req.rid] = len(req.tokens)
+        elif disposition == "shed":
+            r.shed.append(req.rid)
+        elif disposition == "deadline_miss":
+            r.deadline_miss[req.rid] = len(req.tokens)
+        else:
+            r.unserved.append(req.rid)
+        if disposition in ("completed", "aborted", "deadline_miss"):
+            r.latency_s[req.rid] = now - req.arrival
+            self._total_tokens += len(req.tokens)
+
+
+def serve_continuous(step, make_cache, prompts, lengths=None, *,
+                     tokens: int, slots: int | None = None, chunk: int = 8,
+                     warm: bool = True, token_budget: int | None = None,
+                     time_budget_s: float | None = None, eos_id=None,
+                     logit_hook=None, arrivals=None, deadlines=None,
+                     max_queue: int | None = None, slot_nan_limit: int = 2,
+                     clock=None, max_seq: int | None = None):
+    """Serve many prompts through the continuous-batching engine.
+
+    The counterpart of :func:`serve_requests` (same request encoding,
+    same :class:`ServeOutput` return: ``(gen (R, T) on the host,
+    seconds)``, rows zero-padded to the effective token count ``T``)
+    built on :class:`ContinuousEngine`: requests are admitted into slots
+    as they vacate mid-stream, so one long request never stalls the
+    others.  Extras over the fixed scheduler: ``arrivals`` (per-request
+    arrival times), ``deadlines`` (per-request ``deadline_s`` relative to
+    arrival; enables shedding and ``deadline_miss``), ``eos_id``
+    (per-request early retirement), ``max_queue`` / ``slot_nan_limit`` /
+    ``clock`` (see :class:`ContinuousEngine`), and ``chunk`` (steps per
+    engine iteration, the deadline and admission granularity).
+    ``max_seq`` pins the engine window (default ``P + T``).
+    """
+    prompts, lengths = _normalize_requests(prompts, lengths)
+    R, P = prompts.shape
+    eff = tokens if token_budget is None else max(1, min(tokens,
+                                                         token_budget))
+    if R == 0:
+        return ServeOutput(torch.zeros((0, eff), dtype=torch.long), 0.0,
+                           ServeReport(tokens_per_request=eff,
+                                       engine="continuous"))
+    n_slots = min(slots or min(4, R), R)
+    window = max_seq if max_seq is not None else P + eff
+    eng = ContinuousEngine(step, make_cache, slots=n_slots, max_seq=window,
+                           chunk=chunk, eos_id=eos_id, logit_hook=logit_hook,
+                           clock=clock, max_queue=max_queue,
+                           slot_nan_limit=slot_nan_limit, warm=warm)
+    pn, ln = prompts.cpu().numpy(), lengths.cpu().numpy()
+    for r in range(R):
+        eng.submit(pn[r, :int(ln[r])], tokens=eff,
+                   arrival=0.0 if arrivals is None else float(arrivals[r]),
+                   deadline_s=None if deadlines is None
+                   else deadlines[r], rid=r)
+    t0 = time.perf_counter()
+    report = eng.run(time_budget_s=time_budget_s)
+    seconds = time.perf_counter() - t0
+    report.tokens_per_request = eff
+    gen = np.zeros((R, eff), np.int64)
+    for r in range(R):
+        tk = eng.requests[r].tokens[:eff]
+        gen[r, :len(tk)] = tk
+    return ServeOutput(torch.from_numpy(gen), seconds, report)
+
+
+def serve_with_failover(step, make_cache, prompts, lengths=None, *,
+                        tokens: int, slots: int | None = None,
+                        chunk: int = 8, warm: bool = True,
+                        token_budget: int | None = None,
+                        time_budget_s: float | None = None, eos_id=None,
+                        logit_hook=None, arrivals=None, deadlines=None,
+                        max_queue: int | None = None,
+                        slot_nan_limit: int = 2, clock=None,
+                        max_seq: int | None = None, max_failovers: int = 2,
+                        health_check=None, engine_factory=None):
+    """:func:`serve_continuous` with failover.
+
+    Runs the continuous engine; when a worker loss surfaces
+    (:class:`WorkerLost`, from ``health_check`` or the ``serve.worker``
+    fault point) the coordinator keeps what finished, **re-forms** the
+    engine on surviving capacity, and **replays** every in-flight request
+    from its recorded prompt under its original rid.  Decode is
+    deterministic and slots are batch-independent, so replayed tokens are
+    bit-identical to an uninterrupted run.  Each re-formed engine builds
+    its own state and capture; the lost engine's are released first.
+
+    ``engine_factory(attempt) -> dict`` customizes the re-formed engine
+    (any :class:`ContinuousEngine` keyword); the default halves the slot
+    count per failover.  After ``max_failovers`` re-formations the
+    remaining in-flight requests are reported ``unserved`` — every rid
+    always carries a disposition.  The merged report records
+    ``failovers``, ``lost_workers`` and ``replayed`` (rids, with repeats
+    if a request was replayed more than once).  A replayed request
+    restarts its latency and deadline clock at the re-formed engine's
+    epoch.
+    """
+    prompts, lengths = _normalize_requests(prompts, lengths)
+    R, P = prompts.shape
+    eff = tokens if token_budget is None else max(1, min(tokens,
+                                                         token_budget))
+    master = ServeReport(tokens_per_request=eff,
+                         engine="continuous+failover")
+    if R == 0:
+        return ServeOutput(torch.zeros((0, eff), dtype=torch.long), 0.0,
+                           master)
+    base_slots = min(slots or min(4, R), R)
+    window = max_seq if max_seq is not None else P + eff
+    pn, ln = prompts.cpu().numpy(), lengths.cpu().numpy()
+
+    def default_factory(attempt: int) -> dict:
+        # survivor capacity stand-in: half the slots per failover (slots
+        # are batch-independent, so shrinking never changes tokens)
+        return {"slots": max(1, base_slots >> attempt)}
+
+    factory = engine_factory or default_factory
+    outstanding = list(range(R))
+    tokens_final: dict[int, list[int]] = {}
+    seconds = 0.0
+    attempt = 0
+    while outstanding:
+        kw = dict(factory(attempt))
+        n_slots = max(1, min(int(kw.pop("slots", base_slots)),
+                             len(outstanding)))
+        eng = ContinuousEngine(
+            step, make_cache, slots=n_slots,
+            max_seq=kw.pop("max_seq", window), chunk=kw.pop("chunk", chunk),
+            eos_id=kw.pop("eos_id", eos_id),
+            logit_hook=kw.pop("logit_hook", logit_hook),
+            clock=kw.pop("clock", clock),
+            max_queue=kw.pop("max_queue", max_queue),
+            slot_nan_limit=kw.pop("slot_nan_limit", slot_nan_limit),
+            warm=kw.pop("warm", warm),
+            health_check=kw.pop("health_check", health_check), **kw)
+        replaying = attempt > 0
+        for r in outstanding:
+            eng.submit(pn[r, :int(ln[r])], tokens=eff,
+                       arrival=0.0 if (replaying or arrivals is None)
+                       else float(arrivals[r]),
+                       deadline_s=None if deadlines is None
+                       else deadlines[r], rid=r)
+        t0 = time.perf_counter()
+        lost = None
+        try:
+            eng.run(time_budget_s=time_budget_s)
+        except WorkerLost as e:
+            # keep the ids, not the exception: its traceback holds the
+            # engine, whose state and capture are released below
+            lost = e.lost or [attempt]
+        seconds += time.perf_counter() - t0
+        rep = eng.report
+        master.completed.extend(rep.completed)
+        master.aborted.update(rep.aborted)
+        master.shed.extend(rep.shed)
+        master.deadline_miss.update(rep.deadline_miss)
+        master.unserved.extend(rep.unserved)
+        master.latency_s.update(rep.latency_s)
+        master.queue_peak = max(master.queue_peak, rep.queue_peak)
+        master.admitted += rep.admitted
+        master.deadline_hit = master.deadline_hit or rep.deadline_hit
+        master.quarantined_slots.extend(rep.quarantined_slots)
+        still = []
+        for r in outstanding:
+            req = eng.requests[r]
+            if req.disposition is None:        # in flight at the loss
+                still.append(r)
+            else:
+                tokens_final[r] = list(req.tokens)[:eff]
+        outstanding = still
+        del eng
+        if lost is None:
+            break                              # clean run: all disposed
+        master.failovers += 1
+        master.lost_workers.extend(lost)
+        master.replayed.extend(outstanding)
+        attempt += 1
+        if attempt > max_failovers:
+            for r in outstanding:              # give up, but never drop
+                master.unserved.append(r)
+                tokens_final[r] = []
+            outstanding = []
+    gen = np.zeros((R, eff), np.int64)
+    total = 0
+    for r, tk in tokens_final.items():
+        gen[r, :len(tk)] = tk
+        total += len(tk)
+    master.sustained_tok_s = total / max(seconds, 1e-9)
+    return ServeOutput(torch.from_numpy(gen), seconds, master)

@@ -755,3 +755,98 @@ def test_a_host_read_makes_the_capture_raise(tiny_arts):
     # the card serves on after the failed capture
     _, _, _, seqs = serving.serve_loop(step, lambda: mk(2, 8), prompt, 4)
     assert seqs.shape == (2, 4)
+
+
+# ---------------------------------------------------------------------------
+# The continuous engine on captured CUDA graphs (runtime/serving.py)
+# ---------------------------------------------------------------------------
+
+def _solo_tokens(step, mk, prompt, n, dev):
+    from repro_torch.runtime import serving
+    p = torch.as_tensor(prompt).long().to(dev)[None, :]
+    return serving.serve_loop(step, lambda: mk(1, p.shape[1] + n), p, n,
+                              warm=False)[3][0].cpu()
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "recurrentgemma-2b"])
+def test_continuous_engine_matches_single_prompt_serving(tiny_arts, arch,
+                                                          monkeypatch):
+    """Ragged requests at staggered arrivals through 2 slots: the chunk
+    step is captured once per engine and replayed ``chunk`` times a
+    chunk, and every request's tokens equal its prompt served alone at
+    batch 1."""
+    from repro_torch.runtime import serving
+    from repro_torch.testing import faults
+    dev = _card()
+    art, step, mk = _served(tiny_arts[arch])
+    graphs, replays = [], []
+    capture = serving._capture
+    monkeypatch.setattr(serving, "_capture", lambda *a: graphs.append(1)
+                        or capture(*a))
+    replay = torch.cuda.CUDAGraph.replay
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay",
+                        lambda g: replays.append(1) or replay(g))
+    chunks = []
+    run = serving._ChunkGraph.run
+    monkeypatch.setattr(serving._ChunkGraph, "run",
+                        lambda g, ctl: chunks.append(1) or run(g, ctl))
+    prompts = serving.ragged_prompts(0, 5, 2, 9, 64)
+    out = serving.serve_continuous(step, mk, prompts, tokens=6, slots=2,
+                                   chunk=4, arrivals=[0, 1, 1, 3, 6],
+                                   clock=faults.TickClock())
+    assert out.report.completed and out.report.ok
+    assert len(graphs) == 1 and len(replays) == 4 * len(chunks) > 0
+    for i, p in enumerate(prompts):
+        assert torch.equal(out[0][i], _solo_tokens(step, mk, p, 6, dev))
+
+
+def test_idle_slot_far_past_its_cache_stays_in_range(tiny_arts):
+    """Requests one at a time through 2 slots of a 10-position window:
+    slot 1 idles through every chunk (its plain KV caches clamp at the
+    last entry) until its position is over 10x the window; no device
+    fault, and every request is token-exact."""
+    from repro_torch.runtime import serving
+    from repro_torch.testing import faults
+    dev = _card()
+    art, step, mk = _served(tiny_arts["smollm-135m"])
+    eng = serving.ContinuousEngine(step, mk, slots=2, max_seq=10, chunk=4,
+                                   clock=faults.TickClock())
+    prompts = serving.ragged_prompts(5, 12, 4, 4, 64)
+    for r, p in enumerate(prompts):
+        eng.submit(p, tokens=6, arrival=20.0 * r, rid=r)
+    report = eng.run()
+    torch.cuda.synchronize()
+    assert sorted(report.completed) == list(range(12))
+    pos = [st["pos"].tolist() for st in eng.state if "pos" in st]
+    assert pos and all(p[1] > 10 * 10 for p in pos)
+    for r, p in enumerate(prompts):
+        assert eng.requests[r].tokens == _solo_tokens(step, mk, p, 6,
+                                                      dev).tolist()
+
+
+def test_a_host_read_makes_the_engine_capture_raise(tiny_arts):
+    """A step that reads the host cannot be captured: building the engine
+    raises, with no eager retry (one warm-up call, one under capture)."""
+    from repro_torch.runtime import serving
+    _card()
+    art, step, mk = _served(tiny_arts["smollm-135m"])
+    calls = []
+
+    def reads_host(cache, tokens):
+        calls.append(1)
+        logits, cache = step(cache, tokens)
+        if float(logits.abs().max()) < 0:          # .item() on the host
+            raise AssertionError
+        return logits, cache
+    with pytest.raises(RuntimeError):
+        serving.ContinuousEngine(reads_host, mk, slots=2, max_seq=8)
+    assert len(calls) == 2
+    torch.cuda.synchronize()
+
+
+def test_serve_fault_smoke_on_the_card():
+    from repro_torch.testing import faults
+    _card()
+    out = faults.serve_fault_smoke()
+    assert out["survivors_bit_identical"] and out["aborted"] == {1: 2}
+    assert out["device"].startswith("cuda")

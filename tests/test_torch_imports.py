@@ -50,7 +50,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
               "repro_torch.models.rglru", "repro_torch.kernels.rmsnorm",
               "repro_torch.kernels.rglru_scan",
               "repro_torch.kernels.flash_attention",
-              "repro_torch.configs.recurrentgemma_2b"):
+              "repro_torch.configs.recurrentgemma_2b",
+              "repro_torch.testing.faults"):
         assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

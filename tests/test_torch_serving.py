@@ -29,6 +29,7 @@ from repro.train.step import make_serve_step
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.models import transformer as tT
 from repro_torch.runtime import serving
+from repro_torch.testing import faults as tfaults
 
 from _torch_parity import np_lm_params, rg_configs
 
@@ -90,28 +91,6 @@ def _prompts(vocab, shape, seed):
 def _ragged(vocab, lens, seed):
     rng = np.random.RandomState(seed)
     return [rng.randint(0, vocab, size=n).astype(np.int32) for n in lens]
-
-
-def nan_hook(slot, step):
-    """The port's counterpart of ``faults.nan_logits_hook``: poison
-    ``slot``'s logits at step ``step`` (``t`` is a device tensor)."""
-    def hook(logits, t):
-        rows = torch.arange(logits.shape[0], device=logits.device) == slot
-        bad = rows.view(-1, *([1] * (logits.ndim - 1))) & (t == step)
-        return torch.where(bad, torch.nan, logits)
-    return hook
-
-
-class Ticks:
-    """A deterministic clock: each read returns the time, then advances
-    it by one."""
-
-    def __init__(self):
-        self.t = 0.0
-
-    def __call__(self):
-        t, self.t = self.t, self.t + 1.0
-        return t
 
 
 def _serve_both(m, mat, lens, **kw):
@@ -278,7 +257,7 @@ def test_nan_slot_aborts_alone_others_token_identical(lm):
                                    tokens=N, slots=4)[0]
     # step 6 = generation index 2 for length-5 prompts
     out, jout = _serve_both(lm, prompt, lens, tokens=N, slots=4,
-                            t_logit_hook=nan_hook(1, 6),
+                            t_logit_hook=tfaults.nan_logits_hook(1, 6),
                             j_logit_hook=jfaults.nan_logits_hook(1, 6))
     gen = out[0]
     assert out.report.aborted == {1: 2}
@@ -294,7 +273,7 @@ def test_nan_during_prefill_aborts_whole_slot(lm):
     prompt = _prompts(lm.tc.vocab_size, (2, 5), 8)
     lens = np.full((2,), 5, np.int32)
     out, jout = _serve_both(lm, prompt, lens, tokens=4, slots=2,
-                            t_logit_hook=nan_hook(0, 1),
+                            t_logit_hook=tfaults.nan_logits_hook(0, 1),
                             j_logit_hook=jfaults.nan_logits_hook(0, 1))
     assert out.report.aborted == {0: 0}                  # clipped to 0
     assert out[0][0].tolist() == [0, 0, 0, 0]
@@ -343,7 +322,8 @@ def test_deadline_enforced_per_chunk(lm):
     # checks t=2 (ok), t=3 (> 2.5 ⇒ stop after 8 of 12 steps)
     out, jout = _serve_both(lm, mat, lens, tokens=9, slots=1, warm=False,
                             time_budget_s=2.5, deadline_chunk=4,
-                            t_clock=Ticks(), j_clock=Ticks())
+                            t_clock=tfaults.TickClock(),
+                            j_clock=jfaults.TickClock())
     gen = out[0].numpy()
     assert out.report.deadline_hit
     assert out.report.deadline_miss == {0: 5}    # 8 steps - (4-1) prompt
@@ -420,7 +400,7 @@ def test_generate_fused_matches_reference_with_report(lm):
     the same tokens and ``fail_idx`` as the reference, the other slots
     equal to single-prompt serving."""
     prompts = _ragged(lm.tc.vocab_size, (4, 7, 2), 13)
-    gen, fail = _fused_both(lm, prompts, 5, nan_hook(2, 3),
+    gen, fail = _fused_both(lm, prompts, 5, tfaults.nan_logits_hook(2, 3),
                             jfaults.nan_logits_hook(2, 3))
     assert fail.tolist() == [5, 5, 2]
     assert gen[2, 2:].tolist() == [0, 0, 0]
