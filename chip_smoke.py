@@ -45,7 +45,15 @@ Phases, each printing its own line with the seconds it took:
              type pairs also run ``CONV_CASES``, which must reach every
              instance of its launch plan (each tile, copy width, the
              dense panel, a split reduction, the int8 mma and int8 x int8
-             in TF32), at the same tolerance.
+             in TF32), at the same tolerance.  Gradients
+             (:func:`gradient_sweep`): every input's gradient through each
+             op (the kernel forward, the plain version's gradient
+             backward) against the plain version's autograd within
+             ``RTOL · max|gradient| + ATOL``, one launch in the forward and
+             none in the backward: the six fp32 ops (the convs at
+             MobileNetV2's units, merged_ffn, rmsnorm and flash_attention
+             at SmolLM-135M's replaced path, rglru_scan at (8, 128, 2560))
+             and the three quantized bodies under w8a8.
 4. compress — the main path: ``python -m repro_torch.compress`` on
              MobileNetV2 at full width (224², width 1.0, 1000 classes,
              batch 8, ``--max-span 6``, budget 0.6), latency tables timed
@@ -194,11 +202,40 @@ Phases, each printing its own line with the seconds it took:
              torch.profiler trace of four chunks gives the captured
              step's device time and (a)'s busy share.
 
+20. importance — the paper's Eq. 4 on the card (fine-tune each replaced
+             network a few Adam steps, score ``exp(ΔPerf)``): (a)
+             MobileNetV2 as in phase 4 with ``distill_loss`` (the untouched
+             network as teacher), ``neg_loss_perf``, base 0, 4 steps at lr
+             1e-3 on seeded (8, 224, 224, 3) batches, phase 4's oracle:
+             210 scalar fine-tunes (every span holds BN, so the host
+             declines the batch), the DP at 0.6 beside phase 4's magnitude
+             plan, the plan lowered (merged_conv, depthwise_conv) and held
+             against ``apply_replaced``, its artifact reloaded and timed
+             as a CUDA-graph replay against phase 5's original, and the
+             first 16 fine-tunes run again under deterministic cuDNN,
+             bitwise equal; (b) the reference quickstart's protocol
+             (``tiny_resnet(4, 16, 8, (2, 2))``, the quadrant-mean task:
+             150 pre-training steps, compress at 0.6 with
+             ``accuracy_perf`` Eq. 4 at 5 steps on a wall-clock oracle,
+             150 fine-tuning steps, merged accuracy equal to replaced, the
+             artifact reloaded) and the vmapped span batches forced
+             against the sequential engine (rtol 1e-6, atol 1e-7); (c)
+             SmolLM-135M as in phase 8 (``method="depth"`` at phase 8's
+             budget) with ``distill_loss`` on seeded (8, 128) tokens, 8
+             steps: 30 fine-tunes through ``replaced_apply`` whose
+             forwards launch merged_ffn, rmsnorm and flash_attention (each
+             > 0, counted from zero), the plan served as phase 9 serves.
+             Each part prints probes, fine-tunes and batches, seconds and
+             ms per fine-tune step, peak device memory, a torch.profiler
+             busy share over one fine-tune and the importance column's
+             min, median and max (``importance.json``).
+
 Any failed check raises, so the script exits non-zero.  Per-unit shapes,
 times, bounds and launch plans land in ``build/chip_smoke/units.json``
 (MobileNetV2), ``resnet34.json``, ``qunits.json`` and ``qffn.json`` (the
 quantized phases), RecurrentGemma's in ``rg.json``, the serving numbers
-of phases 9, 13, 16, 18 and 19 in ``serve.json``.  It exits non-zero
+of phases 9, 13, 16, 18 and 19 in ``serve.json``, phase 20's in
+``importance.json``.  It exits non-zero
 without a result where ``torch.cuda.is_available()`` is false or the repo's
 ``src/`` is missing.  The last lines are the ``kernels`` JSON line, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -206,6 +243,7 @@ without a result where ``torch.cuda.is_available()`` is false or the repo's
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -706,8 +744,7 @@ def norm_scan_attention_sweep(dev) -> dict:
     (0.5, 1), also held bitwise; flash_attention over BH {1,8,80} ×
     S {1,7,16,128,256,1000} × D {32,64,256}, causal and not (BH 8 as
     B 2 × H 4 over 2 kv heads, BH 80 as B 8 × H 10 over 1, the MQA of
-    RecurrentGemma); ``benchmarks/run.py``'s three shapes; and the
-    gradient of ``flash_attention_op`` through the kernel's forward."""
+    RecurrentGemma); ``benchmarks/run.py``'s three shapes."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels import ref
@@ -748,18 +785,118 @@ def norm_scan_attention_sweep(dev) -> dict:
                     note("flash_attention", compare_attention(q, k, v, causal))
     q, k, v = (rnd(2, 256, 4, 64) for _ in range(3))      # benchmarks/run.py
     note("flash_attention", compare_attention(q, k, v, True))
-    # the gradient: the op's backward is the plain version's, recomputed
-    q, k, v, w = (rnd(2, 19, 2, 64) for _ in range(4))
-    grads = []
-    for fn in (lambda *t: kernels.flash_attention_op(*t, True),
-               lambda *t: ref.flash_attention_ref(*t, causal=True)):
-        args = [t.clone().requires_grad_() for t in (q, k, v)]
-        (fn(*args) * w).sum().backward()
-        grads.append([t.grad for t in args])
-    for name, got, want in zip("qkv", *grads):
-        note("flash_attention", held(
-            "flash_attention", got, want, want.abs().amax(),
-            f"gradient wrt {name}"))
+    return worst
+
+
+def gradient_sweep(dev) -> dict:
+    """The gradient through each kernel op against the plain version's
+    autograd on the same card inputs: every input's gradient within
+    ``RTOL · max|plain gradient| + ATOL``, the output carrying a
+    ``grad_fn``, and the forward one kernel launch.  The fp32 ops at this
+    slice's path shapes (merged_conv and depthwise_conv at MobileNetV2's
+    units, batch 8; merged_ffn at M 1024, D 576, R 1536, rmsnorm at
+    (8, 128, 576) and causal flash_attention at (8, 128, 9, 64) over 3 kv
+    heads, SmolLM-135M's replaced path) and at one shape each off it
+    (rglru_scan at (8, 128, 2560); the three quantized bodies under
+    w8a8, whose plain version is their ``*_qref``).  Returns
+    ``{op: [max |Δ|, max |Δ| / scale, cases]}``."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import quant, ref
+    g = torch.Generator().manual_seed(11)
+    worst: dict = {}
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    def case(name, kernel, op, plain, args, diff):
+        """``op(*args)`` against ``plain(*args)``, differentiated in the
+        inputs whose positions are in ``diff``."""
+        start = kernels.launch_counts()[kernel]
+        sides = []
+        for fn in (op, plain):
+            leaves = [a.clone().requires_grad_() if n in diff else a
+                      for n, a in enumerate(args)]
+            sides.append((fn(*leaves), leaves))
+        (y, leaves), (yr, ref_leaves) = sides
+        check(y.grad_fn is not None, f"{name}: the output through the "
+              "kernel has no grad_fn")
+        w = torch.randn(y.shape, generator=g).to(dev)
+        got = torch.autograd.grad(y, [leaves[n] for n in diff], w)
+        want = torch.autograd.grad(yr, [ref_leaves[n] for n in diff], w)
+        n_launch = kernels.launch_counts()[kernel] - start
+        check(n_launch == 1, f"{name}: {n_launch} launches of {kernel} "
+              "over the forward, the plain version and both backwards "
+              "(want the forward's 1)")
+        for n, a, b in zip(diff, got, want):
+            res = held(f"{name} gradient", a, b, b.abs().amax(),
+                       f"wrt input {n} of {[tuple(t.shape) for t in args]}")
+            wst = worst.setdefault(name, [0.0, 0.0, 0])
+            wst[0], wst[1] = max(wst[0], res[0]), max(wst[1], res[1])
+            wst[2] += 1
+
+    def conv(kind, x, w, b, stride, activation=None, wq=None):
+        op = kernels.merged_conv_op if kind == "merged_conv" else \
+            kernels.depthwise_conv_op
+        if wq is None:
+            fref = ref.merged_conv_ref if kind == "merged_conv" else \
+                ref.depthwise_conv_ref
+            case(kind, kind,
+                 lambda x, w, b: op(x, w, b, stride=stride,
+                                    activation=activation),
+                 lambda x, w, b: ref.apply_activation(
+                     fref(x, w, b, stride=stride), activation),
+                 (x, w, b), (0, 1, 2))
+            return
+        qref = ref.merged_conv_qref if kind == "merged_conv" else \
+            ref.depthwise_conv_qref
+        wq, ws = quant.quantize_weight(w, wq, axis=3)
+        case(kind + "_q", kind + "_q",
+             lambda x, b, ws: op(x, wq, b, stride=stride, w_scale=ws,
+                                 act_quant="w8a8"),
+             lambda x, b, ws: qref(x, wq, b, ws, stride=stride,
+                                   act_quant="w8a8"),
+             (x, b, ws), (0, 1, 2))
+
+    # MobileNetV2 (batch 8): the padded stem, an expansion 1x1 with relu6,
+    # the 144-channel stride-2 and a 192-channel stride-1 depthwise unit
+    conv("merged_conv", rnd(8, 226, 226, 3), rnd(3, 3, 3, 32, scale=0.27),
+         rnd(32, scale=0.1), 2)
+    conv("merged_conv", rnd(8, 28, 28, 32), rnd(1, 1, 32, 192, scale=0.18),
+         rnd(192, scale=0.1), 1, activation="relu6")
+    conv("depthwise_conv", rnd(8, 58, 58, 144), rnd(3, 3, 1, 144, scale=0.33),
+         rnd(144, scale=0.1), 2)
+    conv("depthwise_conv", rnd(8, 30, 30, 192), rnd(3, 3, 1, 192, scale=0.33),
+         rnd(192, scale=0.1), 1, activation="relu6")
+    # SmolLM-135M's replaced path at (8, 128): an unmerged FFN, a pre-norm,
+    # the causal attention over 3 kv heads
+    case("merged_ffn", "merged_ffn", kernels.merged_ffn_op,
+         ref.merged_ffn_ref, (rnd(1024, 576), rnd(576, 1536, scale=0.042),
+                              rnd(1536, 576, scale=0.026)), (0, 1, 2))
+    case("rmsnorm", "rmsnorm", lambda x, s: kernels.rmsnorm_op(x, s),
+         lambda x, s: ref.rmsnorm_ref(x, s), (rnd(8, 128, 576) * 3.0,
+                                             rnd(576, scale=0.2)), (0, 1))
+    case("flash_attention", "flash_attention",
+         lambda q, k, v: kernels.flash_attention_op(q, k, v, True),
+         lambda q, k, v: kernels.ops._attention_plain(q, k, v, True),
+         (rnd(8, 128, 9, 64), rnd(8, 128, 3, 64), rnd(8, 128, 3, 64)),
+         (0, 1, 2))
+    # off this slice's path: the scan, and the quantized bodies
+    a = (torch.rand(8, 128, 2560, generator=g) * 0.5 + 0.5).to(dev)
+    case("rglru_scan", "rglru_scan", kernels.rglru_scan_op,
+         ref.rglru_scan_ref, (a, rnd(8, 128, 2560, scale=0.1)), (0, 1))
+    conv("merged_conv", rnd(8, 28, 28, 32), rnd(1, 1, 32, 192, scale=0.18),
+         rnd(192, scale=0.1), 1, wq="int8")
+    conv("depthwise_conv", rnd(8, 30, 30, 192), rnd(3, 3, 1, 192, scale=0.33),
+         rnd(192, scale=0.1), 1, wq="int8")
+    uq, us = quant.quantize_weight(rnd(576, 576, scale=0.042), "int8", axis=1)
+    vq, vs = quant.quantize_weight(rnd(576, 576, scale=0.042), "int8", axis=1)
+    case("merged_ffn_q", "merged_ffn_q",
+         lambda x, us, vs: kernels.merged_ffn_op(
+             x, uq, vq, u_scale=us, v_scale=vs, act_quant="w8a8"),
+         lambda x, us, vs: ref.merged_ffn_qref(x, uq, vq, us, vs,
+                                               act_quant="w8a8"),
+         (rnd(8, 576), us, vs), (0, 1, 2))
     return worst
 
 
@@ -2289,6 +2426,388 @@ def continuous_phase(arts, solos, fixed) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phase 20: the paper's Eq. 4 importance on the card
+# ---------------------------------------------------------------------------
+
+#: Eq. 4 fine-tunes of phase 20 (a) repeated, held bitwise.
+EQ4_REPEAT = 16
+
+
+def plan_line(plan) -> str:
+    return (f"{len(plan.segments)} segments, |A| {len(plan.A)}, |C| "
+            f"{len(plan.C)}/{plan.num_layers}")
+
+
+#: Budgets at which phase 20 compares the Eq. 4 and the magnitude plans.
+PLAN_RATIOS = (0.5, 0.6, 0.7, 0.8, 0.9)
+
+
+def differing_budgets(host, eq4, mag, t_orig, method) -> list:
+    """Budgets of :data:`PLAN_RATIOS` at which the DP on the Eq. 4 tables
+    and on the magnitude tables (the same latency column) plans
+    differently."""
+    from repro_torch.core import solve_dp
+    out = []
+    for r in PLAN_RATIOS:
+        a, b = (solve_dp(len(host.descs()), t.fn(), r * t_orig, 200,
+                         method=method, original_k=host.original_k)
+                for t in (eq4, mag))
+        if (a is None) != (b is None) or (
+                a is not None and a.plan.segments != b.plan.segments):
+            out.append(r)
+    return out
+
+
+def recording(perf_fn, perfs: list):
+    """``perf_fn`` that appends every score it returns to ``perfs``: the
+    engine scores its fine-tunes in probe order, so ``perfs`` is the raw
+    Eq. 4 column (before Pareto pruning drops entries)."""
+    def perf(apply_fn, params, batches):
+        v = perf_fn(apply_fn, params, batches)
+        perfs.append(v)
+        return v
+    return perf
+
+
+def fixed_teacher(teacher, *batches):
+    """The teacher's outputs on the spec's fixed batches, computed once
+    under ``no_grad`` (the same function as calling it every step)."""
+    import torch
+    with torch.no_grad():
+        outs = [(b, teacher(b)) for b in batches]
+
+    def fn(x):
+        return next(y for b, y in outs if b is x)
+    return fn
+
+
+def eq4_report(label, tables, imps, steps, peak_bytes, one_finetune) -> dict:
+    """Phase 20's accounting of one Eq. 4 table build: probes, fine-tunes,
+    batches, seconds, ms per fine-tune step (eval included), peak device
+    memory, a torch.profiler busy share over one more fine-tune, and the
+    min / median / max of the raw importance column."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    st = tables.stats
+    tunes = len(imps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_finetune()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # device activity only: a fine-tune dispatches thousands of host ops,
+    # whose CPU events would take the profiler tens of seconds to collect
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        one_finetune()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for ev in prof.events():
+        if getattr(ev, "device_type", None) == DeviceType.CUDA:
+            us, n = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
+    rows = sorted(((us, n, name) for name, (us, n) in by_name.items()),
+                  reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    row = {"probes": st.num_importance_probes, "finetunes": tunes,
+           "batches": st.num_importance_batches,
+           "sequential": st.num_importance_sequential,
+           "seconds": tables.build_seconds_importance,
+           "ms_per_step": tables.build_seconds_importance * 1e3
+           / max(tunes * steps, 1), "steps": steps,
+           "peak_gb": peak_bytes / 1e9, "finetune_s": wall,
+           "busy_us": busy_us, "busy_share": busy_us * 1e-6 / wall,
+           "kernels": [(round(us, 1), n, name[:60])
+                       for us, n, name in rows[:6]],
+           "min": min(imps), "median": statistics.median(imps),
+           "max": max(imps)}
+    print(f"  {label}: {row['probes']} probes, {tunes} fine-tunes, "
+          f"{row['batches']} vmapped batches, {row['sequential']} scalar; "
+          f"importance {row['seconds']:.2f}s, {row['ms_per_step']:.2f} ms "
+          f"per fine-tune step ({steps} steps, eval included); peak device "
+          f"memory {row['peak_gb']:.3f} GB; one fine-tune {wall * 1e3:.1f} "
+          f"ms, torch.profiler busy {busy_us / 1e3:.1f} ms = "
+          f"{row['busy_share']:.3f}" + (
+              f" (top: " + "; ".join(f"{n} {us:.0f}us x{c}"
+                                     for us, c, n in row["kernels"][:3])
+              + ")" if rows else " (no device activity seen: not measured)")
+          + f"; importance min {row['min']:.6g} median {row['median']:.6g} "
+          f"max {row['max']:.6g}", flush=True)
+    check(all(math.isfinite(v) and v > 0 for v in imps),
+          f"{label}: a non-finite or non-positive importance")
+    return row
+
+
+def toy_task(gen, n, hw, dev):
+    """The reference quickstart's quadrant-mean task from a seeded
+    generator: NHWC inputs and the argmax of the four quadrant means."""
+    import torch
+    x = torch.randn(n, hw, hw, 3, generator=gen)
+    q = hw // 2
+    means = torch.stack([x[:, :q, :q].mean((1, 2, 3)),
+                         x[:, :q, q:].mean((1, 2, 3)),
+                         x[:, q:, :q].mean((1, 2, 3)),
+                         x[:, q:, q:].mean((1, 2, 3))], dim=1)
+    return x.to(dev), means.argmax(1).to(dev)
+
+
+def importance_phase(dev, cnn_h, cnn_oracle, mag_plan, dev_orig_ms,
+                     lm_host, lm_oracle, lm_budget, lm_mag, o_dec, prompt,
+                     new_tokens) -> dict:
+    """Phase 20: (a) MobileNetV2 Eq. 4 tables (distill), DP, merge,
+    artifact, 16 fine-tunes repeated bitwise under deterministic cuDNN;
+    (b) the reference quickstart's protocol on tiny_resnet, the batched
+    engine against the sequential one; (c) SmolLM-135M Eq. 4 tables
+    (distill) through ``replaced_apply`` and the kernels, its plan served
+    as phase 9 serves."""
+    import torch
+    from repro_torch import kernels, runtime
+    from repro_torch.core import (ImportanceSpec, WallClockOracle,
+                                  accuracy_perf, build_tables, compress,
+                                  distill_loss, enumerate_probes,
+                                  measure_importance,
+                                  measure_importances, neg_loss_perf,
+                                  one_segment_plan, perf_to_importance,
+                                  xent_loss)
+    from repro_torch.core.importance import _adam_finetune
+    from repro_torch.core.probe_engine import EngineStats
+    from repro_torch.device import deterministic_cudnn
+    from repro_torch.models import cnn, cnn_host, zoo
+    from repro_torch.models import transformer as T
+
+    out: dict = {}
+
+    # (a) MobileNetV2 at full size ----------------------------------------
+    t0 = time.perf_counter()
+    net, params = cnn_h.net, cnn_h.params
+    g = torch.Generator().manual_seed(20)
+    hw = net.in_hw
+    xtr, xev = (torch.randn(cnn_h.batch, hw, hw, 3, generator=g).to(dev)
+                for _ in range(2))
+    dl = distill_loss(fixed_teacher(
+        lambda x: cnn.apply_replaced(net, params, x), xtr, xev))
+    perfs: list = []
+    spec = ImportanceSpec(dl, neg_loss_perf(dl), [xtr], [xev], steps=4,
+                          lr=1e-3)
+    rec = ImportanceSpec(dl, recording(neg_loss_perf(dl), perfs), [xtr],
+                         [xev], steps=4, lr=1e-3)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with deterministic_cudnn():
+        t1 = time.perf_counter()
+        res = compress(cnn_h, budget_ratio=0.6, method="layermerge",
+                       latency_oracle=cnn_oracle, importance=rec,
+                       base_perf=0.0)
+        peak = torch.cuda.max_memory_allocated()
+        check(res is not None, "mobilenetv2 Eq. 4: no plan fits 0.6")
+        imps = [perf_to_importance(v, 0.0, spec) for v in perfs]
+        segs = [p[5] for p in enumerate_probes(cnn_h) if not p[5].original]
+        check(len(imps) == len(segs) == res.tables.stats
+              .num_importance_sequential, f"mobilenetv2: {len(imps)} scores "
+              f"for {len(segs)} probes")
+        t2 = time.perf_counter()
+        again = measure_importances(cnn_h, segs[:EQ4_REPEAT], spec, 0.0,
+                                    engine="sequential")
+        same = sum(a == b for a, b in zip(again, imps))
+        t3 = time.perf_counter()
+        fa, pa = cnn_h.replaced_apply(one_segment_plan(cnn_h, segs[0]))
+        row = eq4_report("mobilenetv2", res.tables, imps, spec.steps, peak,
+                         lambda: measure_importance(fa, pa, spec, 0.0))
+        row.update(compress_s=t2 - t1, repeat_s=t3 - t2,
+                   report_s=time.perf_counter() - t3)
+    check(same == EQ4_REPEAT, f"mobilenetv2: {EQ4_REPEAT - same} of the "
+          f"first {EQ4_REPEAT} fine-tunes differ run to run under "
+          "deterministic cuDNN")
+    diff = differing_budgets(cnn_h, res.tables, build_tables(
+        cnn_h, latency_oracle=cnn_oracle), res.original_latency,
+        "layermerge")
+    y_merged = runtime.execute(res.lower(), xev, device=dev)
+    y_rep = cnn.apply_replaced(net, params, xev, res.plan)
+    d_rep = float((y_merged - y_rep).abs().max() / y_rep.abs().max())
+    a_path = os.path.join(WORK, "mobilenetv2_eq4.npz")
+    res.save(a_path)
+    art = runtime.load(a_path, device=dev)
+    y_art = art.apply(xev)
+    d_art = float((y_art - y_merged).abs().max() / y_merged.abs().max())
+    ms_eq4 = WallClockOracle().time_callable(lambda: art.apply(xev)) * 1e3
+    launches = kernels.launch_counts()
+    row.update(plan=plan_line(res.plan),
+               same_as_magnitude=res.plan.segments == mag_plan.segments,
+               magnitude_plan=plan_line(mag_plan), plans_differ_at=diff,
+               merged_vs_replaced=d_rep,
+               artifact_vs_live=d_art, device_ms=ms_eq4,
+               original_device_ms=dev_orig_ms,
+               speedup=dev_orig_ms / ms_eq4, predicted=res.speedup,
+               repeated_bitwise=same, launches=launches)
+    out["mobilenetv2"] = row
+    log("importance mobilenetv2", t0, f"Eq. 4 plan: {row['plan']} (phase "
+        f"4's magnitude plan: {row['magnitude_plan']}; same "
+        f"{row['same_as_magnitude']}; the two tables plan differently at "
+        f"budgets {diff} of {list(PLAN_RATIOS)}); merged vs replaced_apply "
+        f"{d_rep:.3g} "
+        f"(limit {NET_RTOL}), reloaded artifact vs live {d_art:.3g}; CUDA "
+        f"graph forward {ms_eq4:.4f} ms against the original's "
+        f"{dev_orig_ms:.4f} ms: {row['speedup']:.3f}x (predicted "
+        f"{res.speedup:.4f}x); first {EQ4_REPEAT} fine-tunes repeated: "
+        f"{same} bitwise equal; seconds: compress {row['compress_s']:.2f}, "
+        f"repeat {row['repeat_s']:.2f}, report {row['report_s']:.2f}; "
+        f"launches {launches}")
+    check(d_rep <= NET_RTOL, f"mobilenetv2 Eq. 4: merged vs replaced "
+          f"differ by {d_rep}")
+    check(d_art <= NET_RTOL, f"mobilenetv2 Eq. 4: artifact differs by "
+          f"{d_art}")
+    for k in ("merged_conv", "depthwise_conv"):
+        check(launches[k] > 0, f"mobilenetv2 Eq. 4: {k} never launched")
+    del art, res
+
+    # (b) the reference quickstart's protocol ------------------------------
+    t0 = time.perf_counter()
+    net = zoo.tiny_resnet(num_classes=4, in_hw=16, width=8, blocks=(2, 2))
+    g = torch.Generator().manual_seed(0)
+    params = cnn.init_params(net, g, device=dev)
+    xtr, ytr = toy_task(torch.Generator().manual_seed(1), 256, 16, dev)
+    xev, yev = toy_task(torch.Generator().manual_seed(2), 256, 16, dev)
+    train, evals = [(xtr, ytr)], [(xev, yev)]
+
+    def apply0(p, x):
+        return cnn.apply_replaced(net, p, x)
+    params = _adam_finetune(apply0, params, ImportanceSpec(
+        xent_loss, accuracy_perf, train, evals, steps=150, lr=3e-3))
+    base_acc = accuracy_perf(apply0, params, evals)
+    host = cnn_host.CNNHost(net, params, batch=32, device=dev)
+    perfs = []
+    ispec = ImportanceSpec(xent_loss, accuracy_perf, train, evals, steps=5,
+                           lr=1e-3)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    res = compress(host, budget_ratio=0.6, P=200, method="layermerge",
+                   latency_oracle=WallClockOracle(warmup=2, iters=5),
+                   importance=ImportanceSpec(
+                       xent_loss, recording(accuracy_perf, perfs), train,
+                       evals, steps=5, lr=1e-3), base_perf=base_acc)
+    peak = torch.cuda.max_memory_allocated()
+    check(res is not None, "quickstart: no plan fits 0.6")
+    imps = [perf_to_importance(v, base_acc, ispec) for v in perfs]
+    segs = [p[5] for p in enumerate_probes(host) if not p[5].original]
+    fb, pb = host.replaced_apply(one_segment_plan(host, segs[0]))
+    t2 = time.perf_counter()
+    row = eq4_report("quickstart", res.tables, imps, ispec.steps, peak,
+                     lambda: measure_importance(fb, pb, ispec, base_acc))
+    row.update(pretrain_s=t1 - t0, compress_s=t2 - t1,
+               report_s=time.perf_counter() - t2)
+    ra, _ = host.replaced_apply(res.plan)
+    params_ft = _adam_finetune(ra, params, ImportanceSpec(
+        xent_loss, accuracy_perf, train, evals, steps=150, lr=1e-3))
+    acc_ft = accuracy_perf(ra, params_ft, evals)
+    ma, _ = host.merged_apply(res.plan, params_ft)
+    acc_merged = accuracy_perf(ma, params_ft, evals)
+    b_path = os.path.join(WORK, "tiny_resnet_eq4.npz")
+    res.params = params_ft
+    res.save(b_path)
+    art = runtime.load(b_path, device=dev)
+    d_b = float((art.apply(xev) - ma(params_ft, xev)).abs().max())
+    stats = EngineStats()
+    lanes: list = []
+    bat = measure_importances(
+        host, segs, ispec, base_acc, stats=stats, force_batching=True,
+        progress=lambda m: lanes.append(m) if "lanes" in m else None)
+    seq = measure_importances(host, segs, ispec, base_acc,
+                              engine="sequential")
+    worst = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(bat, seq))
+    agree = all(abs(a - b) <= 1e-7 + 1e-6 * abs(b) for a, b in zip(bat, seq))
+    row.update(plan=plan_line(res.plan), base_acc=base_acc,
+               replaced_acc=acc_ft, merged_acc=acc_merged,
+               artifact_max_abs=d_b, batched_lanes=lanes,
+               batched_batches=stats.num_importance_batches,
+               batched_scalar=stats.num_importance_sequential,
+               batched_vs_sequential_max_rel=worst,
+               batched_bitwise=bat == seq, predicted=res.speedup)
+    out["quickstart"] = row
+    log("importance quickstart", t0, f"pre-trained accuracy {base_acc:.4f}; "
+        f"plan {row['plan']} (predicted {res.speedup:.4f}x); fine-tuned "
+        f"replaced {acc_ft:.4f}, merged {acc_merged:.4f}; artifact reload "
+        f"max|Δ| {d_b:.3g}; batched engine (forced): "
+        f"{stats.num_importance_batches} batches {lanes}, "
+        f"{stats.num_importance_sequential} scalar; vs sequential max rel "
+        f"{worst:.3g} (bitwise {row['batched_bitwise']}); seconds: "
+        f"pre-train {row['pretrain_s']:.2f}, compress "
+        f"{row['compress_s']:.2f}, report {row['report_s']:.2f}")
+    check(abs(acc_merged - acc_ft) < 1e-6, f"quickstart: merged accuracy "
+          f"{acc_merged} differs from replaced {acc_ft}")
+    check(art.plan == res.plan, "quickstart: artifact plan round-trip")
+    check(d_b < 1e-5, f"quickstart: artifact reload differs by {d_b}")
+    check(stats.num_importance_batches > 0, "quickstart: no vmapped batch")
+    check(agree, f"quickstart: batched vs sequential importances differ "
+          f"(max rel {worst:.3g}; limit rtol 1e-6, atol 1e-7)")
+    del art, res, host
+
+    # (c) SmolLM-135M at full size ------------------------------------------
+    t0 = time.perf_counter()
+    cfg, lparams = lm_host.cfg, lm_host.params
+    g = torch.Generator().manual_seed(21)
+    shape = (lm_host.env.batch, lm_host.env.seq)
+    btr, bev = ({"tokens": torch.randint(0, cfg.vocab_size, shape,
+                                         generator=g).to(dev)}
+                for _ in range(2))
+    dl = distill_loss(fixed_teacher(lambda b: T.forward(cfg, lparams, b),
+                                    btr, bev))
+    perfs = []
+    lspec = ImportanceSpec(dl, neg_loss_perf(dl), [btr], [bev], steps=8,
+                           lr=1e-3)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    res = compress(lm_host, budget_ratio=lm_budget, method="depth",
+                   latency_oracle=lm_oracle, importance=ImportanceSpec(
+                       dl, recording(neg_loss_perf(dl), perfs), [btr], [bev],
+                       steps=8, lr=1e-3), base_perf=0.0)
+    peak = torch.cuda.max_memory_allocated()
+    launches = kernels.launch_counts()
+    check(res is not None, f"smollm-135m Eq. 4: no plan fits {lm_budget}")
+    imps = [perf_to_importance(v, 0.0, lspec) for v in perfs]
+    segs = [p[5] for p in enumerate_probes(lm_host, "depth")
+            if not p[5].original]
+    fc, pc = lm_host.replaced_apply(one_segment_plan(lm_host, segs[0]))
+    t2 = time.perf_counter()
+    row = eq4_report("smollm-135m", res.tables, imps, lspec.steps, peak,
+                     lambda: measure_importance(fc, pc, lspec, 0.0))
+    t3 = time.perf_counter()
+    c_path = os.path.join(WORK, "smollm135m_eq4.npz")
+    res.save(c_path)
+    art = runtime.load(c_path, device=dev)
+    t4 = time.perf_counter()
+    B, N = prompt.shape[0], new_tokens
+    _, dec, _, _, served = serve_both(
+        "smollm-135m Eq. 4 plan", lambda c, t: art.decode(c, t),
+        lambda: art.init_cache(B, prompt.shape[1] + N), prompt, N)
+    row.update(compress_s=t2 - t1, report_s=t3 - t2, artifact_s=t4 - t3,
+               serve_s=time.perf_counter() - t4)
+    diff = differing_budgets(lm_host, res.tables, lm_mag.tables,
+                             res.original_latency, "depth")
+    row.update(plan=plan_line(res.plan), units=unit_census(res.lower()),
+               magnitude_plan=plan_line(lm_mag.plan), plans_differ_at=diff,
+               same_as_magnitude=res.plan.segments == lm_mag.plan.segments,
+               budget=lm_budget, launches=launches,
+               decode_tok_s=served["tok_s"], decode_speedup=o_dec / dec,
+               predicted=res.speedup)
+    out["smollm-135m"] = row
+    log("importance smollm-135m", t0, f"depth {lm_budget}: Eq. 4 plan "
+        f"{row['plan']}, units {row['units']} (phase 8's magnitude plan: "
+        f"{row['magnitude_plan']}; same {row['same_as_magnitude']}; the "
+        f"two tables plan differently at budgets {diff} of "
+        f"{list(PLAN_RATIOS)}); captured decode {served['tok_s']:.1f} tok/s, "
+        f"{row['decode_speedup']:.3f}x the original's (predicted "
+        f"{res.speedup:.4f}x); fine-tune launches {launches}; seconds: "
+        f"compress {row['compress_s']:.2f}, report {row['report_s']:.2f}, "
+        f"artifact {row['artifact_s']:.2f}, serve {row['serve_s']:.2f}")
+    for k in ("merged_ffn", "rmsnorm", "flash_attention"):
+        check(launches[k] > 0, f"smollm-135m Eq. 4: {k} never launched")
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -2351,6 +2870,7 @@ def main(argv) -> int:
     n_det = ffn_determinism(dev)
     n_det_ad = attn_dw_determinism(dev)
     n_det_conv = conv_determinism(dev)
+    grads = gradient_sweep(dev)
     slots, slots_model = ffn_slots()
     log("kernels", t0, json.dumps(
         {k: {"cases": v[2], "max_abs_err": v[0], "max_rel_err": v[1]}
@@ -2359,7 +2879,9 @@ def main(argv) -> int:
         f"{n_det} inputs, flash_attention and depthwise_conv on "
         f"{n_det_ad}, merged_conv (fp32 and w8a8) on {n_det_conv} "
         f"(instance cases {json.dumps({k: v[2] for k, v in conv_inst.items()})}"
-        f"); merged_ffn resident blocks by cluster size "
+        f"); gradients through the kernel ops vs the plain versions' "
+        f"autograd {json.dumps({k: {'cases': v[2], 'max_abs_err': v[0], 'max_rel_err': v[1]} for k, v in grads.items()})}"
+        f"; merged_ffn resident blocks by cluster size "
         f"{json.dumps(slots)} ("
         + ("launch_plan's model" if slots_model else "NOT launch_plan's "
            "H100_SLOTS: its splits are planned for another card") + ")")
@@ -2691,6 +3213,11 @@ def main(argv) -> int:
     for k in ("rmsnorm", "rglru_scan", "flash_attention"):
         tot[k] = next(r for r in rg_rows if r["kernel"] == k)
         launches[k] = rg_launch[k]
+    # 20. Eq. 4 importance ------------------------------------------------------
+    eq4 = importance_phase(dev, cnn_h, cnn_oracle, art.plan, dev_orig, host,
+                           oracle, budget, res, o_dec, prompt, N)
+    with open(os.path.join(WORK, "importance.json"), "w") as f:
+        json.dump(eq4, f, indent=1, default=str)
     sweep_err = {k: v[0] for k, v in sweep.items()}
 
     srcs = {"merged_conv": ("src/repro_torch/kernels/csrc/merged_conv.cu",

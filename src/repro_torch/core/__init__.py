@@ -3,11 +3,15 @@ oracles, tables and the compression pipeline."""
 from .compress import CompressResult, compress, original_latency
 from .dp import DPResult, brute_force, solve_dp, solve_dp_reference, \
     solve_knapsack
-from .importance import magnitude_importance
+from .importance import (ImportanceSpec, accuracy_perf,
+                         adam_finetune_batched, distill_loss,
+                         magnitude_importance, measure_importance,
+                         neg_loss_perf, perf_to_importance, xent_loss)
 from .latency import (AnalyticOracle, CostBreakdown, WallClockOracle,
                       conv2d_cost, oracle_token)
 from .plan import CompressionPlan, LayerDesc, Segment, identity_plan
-from .probe_engine import (EngineStats, ProbeCallable, layer_latencies,
+from .probe_engine import (ENGINES, EngineStats, ProbeCallable,
+                           layer_latencies, measure_importances,
                            measure_latencies)
 from .segments import (SegmentEnumerator, pareto_prune_options,
                        subset_selection, table_entry_count)
@@ -16,11 +20,15 @@ from .tables import Tables, build_tables, enumerate_probes, one_segment_plan
 __all__ = [
     "CompressResult", "compress", "original_latency",
     "DPResult", "brute_force", "solve_dp", "solve_dp_reference",
-    "solve_knapsack", "magnitude_importance",
+    "solve_knapsack",
+    "ImportanceSpec", "accuracy_perf", "adam_finetune_batched",
+    "distill_loss", "magnitude_importance", "measure_importance",
+    "neg_loss_perf", "perf_to_importance", "xent_loss",
     "AnalyticOracle", "CostBreakdown", "WallClockOracle", "conv2d_cost",
     "oracle_token",
     "CompressionPlan", "LayerDesc", "Segment", "identity_plan",
-    "EngineStats", "ProbeCallable", "layer_latencies", "measure_latencies",
+    "ENGINES", "EngineStats", "ProbeCallable", "layer_latencies",
+    "measure_importances", "measure_latencies",
     "SegmentEnumerator", "pareto_prune_options", "subset_selection",
     "table_entry_count",
     "Tables", "build_tables", "enumerate_probes", "one_segment_plan",

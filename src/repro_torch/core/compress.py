@@ -19,10 +19,11 @@ import time
 
 from . import probe_engine
 from .dp import solve_dp, solve_knapsack
+from .importance import ImportanceSpec, measure_importance
 from .latency import AnalyticOracle, LatencyOracle, WallClockOracle, \
     oracle_token
 from .plan import CompressionPlan, Segment
-from .tables import Tables, build_tables
+from .tables import Tables, build_tables, one_segment_plan
 
 
 @dataclasses.dataclass
@@ -79,12 +80,19 @@ def compress(
     P: int = 200,
     method: str = "layermerge",
     latency_oracle: LatencyOracle | None = None,
+    importance: ImportanceSpec | str = "magnitude",
+    base_perf: float | None = None,
     params=None,
+    engine: str = "batched",
     quantize: str | None = None,
     ratio_oracle: AnalyticOracle | None = None,
 ) -> CompressResult | None:
-    """Run LayerMerge (or a baseline) at ``T0 = budget_ratio · T_orig``
-    with magnitude importance; ``None`` when no plan fits the budget.
+    """Run LayerMerge (or a baseline) at ``T0 = budget_ratio · T_orig``;
+    ``None`` when no plan fits the budget.
+
+    ``importance`` is the magnitude proxy (``"magnitude"``) or the paper's
+    Eq. 4 (an :class:`ImportanceSpec` scored against ``base_perf``,
+    fine-tuned through ``engine``; see :func:`.tables.build_tables`).
 
     ``quantize`` ('int8' | 'w8a8') widens every span's candidate row with
     derived precision siblings (:func:`.tables.quant_sibling_entries`,
@@ -103,10 +111,12 @@ def compress(
     L = len(host.descs())
 
     if method == "layeronly":
-        return _layer_only(host, T0, P, oracle, params, t_orig, layer_lats)
+        return _layer_only(host, T0, P, oracle, importance, base_perf,
+                           params, t_orig, layer_lats)
 
     tables = build_tables(host, method=method, latency_oracle=oracle,
-                          params=params, quantize=quantize,
+                          importance=importance, base_perf=base_perf,
+                          params=params, engine=engine, quantize=quantize,
                           ratio_oracle=ratio_oracle)
     t0 = time.perf_counter()
     res = solve_dp(L, tables.fn(), T0, P, method=method,
@@ -121,17 +131,29 @@ def compress(
                           params=params)
 
 
-def _layer_only(host, T0, P, oracle, params, t_orig, layer_lats):
-    """Problem 8: latency-aware layer pruning (knapsack), magnitude
-    importance of keeping each layer."""
+def _layer_only(host, T0, P, oracle, importance, base_perf, params, t_orig,
+                layer_lats):
+    """Problem 8: latency-aware layer pruning (knapsack).  ``I[l]`` is the
+    importance of keeping l: ``1 / exp(ΔPerf of removing l)`` under Eq. 4,
+    ``exp`` of l's ℓ1 share under the magnitude proxy."""
     descs = host.descs()
     L = len(descs)
     lat = dict(zip(range(1, L + 1), layer_lats))
     forced = tuple(d.index for d in descs if not d.prunable)
     total = sum(d.value for d in descs) or 1.0
-    imp = {l: 1.0 if not descs[l - 1].prunable
-           else math.exp(descs[l - 1].value / total)
-           for l in range(1, L + 1)}
+    imp: dict[int, float] = {}
+    for l in range(1, L + 1):
+        if not descs[l - 1].prunable:
+            imp[l] = 1.0
+        elif isinstance(importance, ImportanceSpec):
+            probe = Segment(i=l - 1, j=l, k=host.pruned_k(l), kept=())
+            apply_fn, p = host.replaced_apply(
+                one_segment_plan(host, probe), params)
+            removed = measure_importance(apply_fn, p, importance,
+                                         base_perf or 0.0)
+            imp[l] = 1.0 / max(removed, 1e-12)
+        else:
+            imp[l] = math.exp(descs[l - 1].value / total)
     t0 = time.perf_counter()
     sol = solve_knapsack(L, imp, lat, T0, P, forced=forced)
     dp_s = time.perf_counter() - t0

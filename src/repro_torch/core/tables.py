@@ -7,8 +7,10 @@ machinery: ``descs()``, ``enumerator(method)``, ``segment_cost(seg)``,
 
 A metadata-only pass enumerates every ``(i, j, k)`` probe; the latency
 column goes through :mod:`.probe_engine` (one measurement per shape
-signature), the importance column is the magnitude proxy, and options
-Pareto-dominated within their span are dropped before the DP sees them.
+signature), the importance column is the magnitude proxy or the paper's
+Eq. 4 fine-tune (an :class:`~.importance.ImportanceSpec`, through the
+engine's vmapped span batches), and options Pareto-dominated within
+their span are dropped before the DP sees them.
 With ``quantize`` each span's row is then widened with derived ``(k,
 mode)`` precision siblings (:func:`quant_sibling_entries`).
 """
@@ -19,7 +21,7 @@ import time
 
 from . import probe_engine
 from .dp import TableFn
-from .importance import magnitude_importance
+from .importance import ImportanceSpec, magnitude_importance
 from .latency import AnalyticOracle, LatencyOracle
 from .plan import CompressionPlan, Segment
 from .segments import pareto_prune_options
@@ -124,14 +126,24 @@ def build_tables(
     *,
     method: str = "layermerge",
     latency_oracle: LatencyOracle | None = None,
+    importance: ImportanceSpec | str = "magnitude",
+    base_perf: float | None = None,
     params=None,
+    engine: str = "batched",
     quantize: str | None = None,
     ratio_oracle: AnalyticOracle | None = None,
 ) -> Tables:
-    """Construct both lookup tables for ``host`` (Algorithm 2, lines 1-8)
-    with the magnitude importance proxy (the Eq. 4 fine-tune is ROADMAP
-    queue 1).  ``quantize`` ('int8' / 'w8a8') widens the pruned fp rows
-    with precision siblings priced by ``ratio_oracle``
+    """Construct both lookup tables for ``host`` (Algorithm 2, lines 1-8).
+
+    ``importance`` is ``"magnitude"`` (the deterministic proxy) or an
+    :class:`ImportanceSpec`: every non-original entry is then fine-tuned
+    and scored against ``base_perf`` (Eq. 4) through
+    :func:`.probe_engine.measure_importances`, in vmapped span batches
+    under ``engine="batched"`` where the host supports them, one scalar
+    fine-tune per entry under ``"sequential"``.  Original entries are 1.0
+    (``exp(0)``).  The latency column is bucketed by signature under
+    either engine.  ``quantize`` ('int8' / 'w8a8') widens the pruned fp
+    rows with precision siblings priced by ``ratio_oracle``
     (:func:`quant_sibling_entries`); None / 'none' leaves the tables
     bit-identical to an fp-only build."""
     oracle = latency_oracle or AnalyticOracle()
@@ -145,13 +157,30 @@ def build_tables(
         host, [p[5] for p in probes], oracle, params, stats=stats)
     t_lat = time.perf_counter() - t0
 
+    # importance column: analytic entries inline, measured ones through
+    # the engine
     t0 = time.perf_counter()
-    entries: dict = {}
-    for (i, j, k, val, kept, seg), lat in zip(probes, lats):
-        imp = 1.0 if seg.original else magnitude_importance(
-            val, max(total_value, 1e-9), len(seg.pruned))
-        entries.setdefault((i, j), {})[k] = (imp, lat, kept)
+    imps: list[float | None] = [None] * len(probes)
+    measured: list[int] = []
+    for n, (i, j, k, val, kept, seg) in enumerate(probes):
+        if seg.original:
+            imps[n] = 1.0                  # exp(0): untouched layer
+        elif importance == "magnitude":
+            imps[n] = magnitude_importance(val, max(total_value, 1e-9),
+                                           len(seg.pruned))
+        else:
+            measured.append(n)
+    if measured:
+        vals = probe_engine.measure_importances(
+            host, [probes[n][5] for n in measured], importance,
+            base_perf or 0.0, params, engine=engine, stats=stats)
+        for n, v in zip(measured, vals):
+            imps[n] = v
     t_imp = time.perf_counter() - t0
+
+    entries: dict = {}
+    for (i, j, k, val, kept, seg), lat, imp in zip(probes, lats, imps):
+        entries.setdefault((i, j), {})[k] = (imp, lat, kept)
 
     entries, dropped = pareto_prune(entries)
     return with_quant_siblings(

@@ -10,6 +10,8 @@ the card, as they do on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -33,3 +35,19 @@ def device_name(dev: torch.device) -> str:
     if dev.type == "cuda":
         return torch.cuda.get_device_name(dev)
     return dev.type
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to deterministic algorithms (and no autotuning)
+    inside the block, the previous settings restored after; every other
+    setting (TF32 included) is left as it is.  cuDNN's default
+    weight-gradient algorithms sum with atomics, so two runs of one
+    fine-tune differ in the last bits without it."""
+    cd = torch.backends.cudnn
+    saved = cd.deterministic, cd.benchmark
+    cd.deterministic, cd.benchmark = True, False
+    try:
+        yield
+    finally:
+        cd.deterministic, cd.benchmark = saved

@@ -22,10 +22,15 @@ memory, so the op makes no host sync and can be captured in a CUDA graph.
 
 The norm, scan and attention ops take their CUDA operands as they are:
 a non-contiguous or non-fp32 CUDA tensor raises, it is never copied or
-cast behind the caller's back.  ``flash_attention_op`` is a
-``torch.autograd.Function``: the forward is the kernel, the backward the
-plain version's gradient recomputed from the saved q, k and v (the JAX
-package's ``_fa_bwd``; there is no backward kernel).
+cast behind the caller's back.
+
+Gradients: on the card every op is differentiable (:class:`_PlainGrad`).
+The forward is the kernel; the backward is the gradient of the op's plain
+version (its CPU branch, the ``*_qref`` one for a quantized body),
+recomputed from the saved inputs: the JAX package's design for
+``flash_attention_op`` (``_fa_bwd``), with no backward kernel.  When no
+input requires a gradient (``torch.no_grad()``, a captured inference
+step) the op launches the kernel alone and records nothing.
 
 Launch counts: each kernel wrapper adds one to its module's ``launches``
 (fp32) or ``launches_q`` (quantized variant) per launch it makes;
@@ -77,25 +82,64 @@ def _quantized_activation(x, scale, act_quant: str):
     return x, scale.contiguous()
 
 
+class _PlainGrad(torch.autograd.Function):
+    """``kernel(*inputs)`` forward, the gradient of ``plain(*inputs)``
+    backward, recomputed from the saved inputs (None inputs pass
+    through; integer ones take no gradient)."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *inputs):
+        ctx.plain = plain
+        ctx.save_for_backward(*inputs)
+        return kernel(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        wanted = ctx.needs_input_grad[2:]
+        leaves = [t if t is None else t.detach().requires_grad_(w)
+                  for t, w in zip(ctx.saved_tensors, wanted)]
+        with torch.enable_grad():
+            out = ctx.plain(*leaves)
+        grads = iter(torch.autograd.grad(
+            out, [t for t, w in zip(leaves, wanted) if w], g,
+            allow_unused=True))
+        return (None, None, *(next(grads) if w else None for w in wanted))
+
+
+def _launch(kernel, plain, *inputs):
+    """``kernel(*inputs)``, differentiable as ``plain`` is whenever an input
+    requires a gradient; otherwise the kernel alone, with nothing saved."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        return _PlainGrad.apply(kernel, plain, *inputs)
+    return kernel(*inputs)
+
+
 def merged_conv_op(x, w, b=None, *, stride: int = 1,
                    activation: str | None = None, w_scale=None,
                    act_quant: str = "none"):
     """Merged-segment conv (VALID, stride ``s``) with fused bias + boundary
     activation.  ``w_scale`` (per-output-channel) marks ``w`` as narrow;
     ``act_quant="w8a8"`` also quantizes the activation per tensor."""
-    if not _on_cuda(x, "merged_conv_op"):
+    def plain(x, w, b, w_scale):
         if w_scale is not None:
             y = ref.merged_conv_qref(x, w, b, w_scale, stride=stride,
                                      act_quant=act_quant)
         else:
             y = ref.merged_conv_ref(x, w, b, stride=stride)
         return ref.apply_activation(y, activation)
-    ws = None
-    if w_scale is not None:
-        x, ws = _quantized_activation(x, w_scale, act_quant)
-    return _mc.merged_conv(x.contiguous(), w.contiguous(),
-                           None if b is None else b.contiguous(),
-                           stride=stride, activation=activation, w_scale=ws)
+
+    def kernel(x, w, b, w_scale):
+        ws = None
+        if w_scale is not None:
+            x, ws = _quantized_activation(x, w_scale, act_quant)
+        return _mc.merged_conv(x.contiguous(), w.contiguous(),
+                               None if b is None else b.contiguous(),
+                               stride=stride, activation=activation,
+                               w_scale=ws)
+    if not _on_cuda(x, "merged_conv_op"):
+        return plain(x, w, b, w_scale)
+    return _launch(kernel, plain, x, w, b, w_scale)
 
 
 def depthwise_conv_op(x, w, b=None, *, stride: int = 1,
@@ -107,20 +151,26 @@ def depthwise_conv_op(x, w, b=None, *, stride: int = 1,
     depthwise reading ``Cin // Cin_g`` of the HWIO weight."""
     if groups is None:
         groups = x.shape[-1] // w.shape[2]
-    if not _on_cuda(x, "depthwise_conv_op"):
+
+    def plain(x, w, b, w_scale):
         if w_scale is not None:
             y = ref.depthwise_conv_qref(x, w, b, w_scale, stride=stride,
                                         groups=groups, act_quant=act_quant)
         else:
             y = ref.depthwise_conv_ref(x, w, b, stride=stride, groups=groups)
         return ref.apply_activation(y, activation)
-    ws = None
-    if w_scale is not None:
-        x, ws = _quantized_activation(x, w_scale, act_quant)
-    return _dw.depthwise_conv(x.contiguous(), w.contiguous(),
-                              None if b is None else b.contiguous(),
-                              stride=stride, groups=groups,
-                              activation=activation, w_scale=ws)
+
+    def kernel(x, w, b, w_scale):
+        ws = None
+        if w_scale is not None:
+            x, ws = _quantized_activation(x, w_scale, act_quant)
+        return _dw.depthwise_conv(x.contiguous(), w.contiguous(),
+                                  None if b is None else b.contiguous(),
+                                  stride=stride, groups=groups,
+                                  activation=activation, w_scale=ws)
+    if not _on_cuda(x, "depthwise_conv_op"):
+        return plain(x, w, b, w_scale)
+    return _launch(kernel, plain, x, w, b, w_scale)
 
 
 def merged_ffn_op(x, u, v, *, u_scale=None, v_scale=None,
@@ -131,33 +181,43 @@ def merged_ffn_op(x, u, v, *, u_scale=None, v_scale=None,
     the two products (the residual stays the fp32 ``x``).  On the card
     the fp32 kernel takes fp32 only: another dtype raises, it is never
     upcast silently."""
-    if not _on_cuda(x, "merged_ffn_op"):
+    def plain(x, u, v, u_scale, v_scale):
         if u_scale is not None:
             return ref.merged_ffn_qref(x, u, v, u_scale, v_scale,
                                        act_quant=act_quant)
         return ref.merged_ffn_ref(x, u, v)
-    shape = x.shape
-    x2 = x.reshape(-1, shape[-1]).contiguous()
-    if u_scale is None:
-        return _mf.merged_ffn(x2, u.contiguous(),
-                              v.contiguous()).reshape(shape)
-    xq, us = _quantized_activation(x2, u_scale, act_quant)
-    return _mf.merged_ffn(x2, u.contiguous(), v.contiguous(), u_scale=us,
-                          v_scale=v_scale.float().contiguous(),
-                          xq=None if xq is x2 else xq.contiguous()
-                          ).reshape(shape)
+
+    def kernel(x, u, v, u_scale, v_scale):
+        shape = x.shape
+        x2 = x.reshape(-1, shape[-1]).contiguous()
+        if u_scale is None:
+            return _mf.merged_ffn(x2, u.contiguous(),
+                                  v.contiguous()).reshape(shape)
+        xq, us = _quantized_activation(x2, u_scale, act_quant)
+        return _mf.merged_ffn(x2, u.contiguous(), v.contiguous(), u_scale=us,
+                              v_scale=v_scale.float().contiguous(),
+                              xq=None if xq is x2 else xq.contiguous()
+                              ).reshape(shape)
+    if not _on_cuda(x, "merged_ffn_op"):
+        return plain(x, u, v, u_scale, v_scale)
+    return _launch(kernel, plain, x, u, v, u_scale, v_scale)
 
 
 def rmsnorm_op(x, g, *, eps: float = 1e-6):
     """``x · rsqrt(mean x² + eps) · (1 + g)`` over the last axis of ``x``
     (any leading shape).  On the card x and g must be contiguous fp32."""
-    if not _on_cuda(x, "rmsnorm_op"):
+    def plain(x, g):
         return ref.rmsnorm_ref(x, g, eps)
-    if not x.is_contiguous():          # before the (M, D) view
-        raise ValueError(f"rmsnorm_op: the CUDA kernel takes contiguous "
-                         f"operands, got strides {x.stride()}")
-    shape = x.shape
-    return _rn.rmsnorm(x.view(-1, shape[-1]), g, eps).view(shape)
+
+    def kernel(x, g):
+        if not x.is_contiguous():          # before the (M, D) view
+            raise ValueError(f"rmsnorm_op: the CUDA kernel takes contiguous "
+                             f"operands, got strides {x.stride()}")
+        shape = x.shape
+        return _rn.rmsnorm(x.view(-1, shape[-1]), g, eps).view(shape)
+    if not _on_cuda(x, "rmsnorm_op"):
+        return plain(x, g)
+    return _launch(kernel, plain, x, g)
 
 
 def rglru_scan_op(a, b):
@@ -165,7 +225,7 @@ def rglru_scan_op(a, b):
     fp32.  On the card a and b must be contiguous fp32."""
     if not _on_cuda(a, "rglru_scan_op"):
         return ref.rglru_scan_ref(a, b)
-    return _rg.rglru_scan(a, b)
+    return _launch(_rg.rglru_scan, ref.rglru_scan_ref, a, b)
 
 
 def _attention_plain(q, k, v, causal):
@@ -178,31 +238,19 @@ def _attention_plain(q, k, v, causal):
                                    causal=causal)
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, causal):
-        ctx.causal = causal
-        ctx.save_for_backward(q, k, v)
-        if not _on_cuda(q, "flash_attention_op"):
-            return _attention_plain(q, k, v, causal)
-        return _fa.flash_attention(q, k, v, causal)
-
-    @staticmethod
-    def backward(ctx, g):
-        saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = _attention_plain(*saved, ctx.causal)
-        grads = torch.autograd.grad(out, saved, g)
-        return (*grads, None)
-
-
 def flash_attention_op(q, k, v, causal: bool = True):
     """Softmax attention over (B, S, H, D) q and (B, S, KVH, D) k, v with
     KVH dividing H (the JAX op's contract when KVH == H: it equals the
     plain version on k and v expanded to H heads).  On the card the
-    operands must be contiguous fp32.  Differentiable: the backward is
-    the plain version's gradient."""
-    return _FlashAttention.apply(q, k, v, bool(causal))
+    operands must be contiguous fp32."""
+    causal = bool(causal)
+
+    def plain(q, k, v):
+        return _attention_plain(q, k, v, causal)
+    if not _on_cuda(q, "flash_attention_op"):
+        return plain(q, k, v)
+    return _launch(lambda q, k, v: _fa.flash_attention(q, k, v, causal),
+                   plain, q, k, v)
 
 
 def launch_counts() -> dict[str, int]:

@@ -4,23 +4,48 @@ Gives the table builder the network's layer descriptors, segment
 enumerator, analytic segment costs, shape signatures for latency
 bucketing, and merged-segment probes that run exactly as the merged
 segment deploys: padded, then through ``merged_conv_op`` or
-``depthwise_conv_op`` — the hand-written kernels on the card.
+``depthwise_conv_op`` — the hand-written kernels on the card — and
+Dirac-masked span batches for the vmapped Eq. 4 fine-tunes
+(:meth:`CNNHost.importance_batch`).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch import kernels
 from repro_torch.core.latency import CostBreakdown, conv2d_cost
 from repro_torch.core.plan import CompressionPlan, LayerDesc, Segment
 from repro_torch.core.probe_engine import ProbeCallable
 from repro_torch.core.segments import SegmentEnumerator
+from repro_torch.core.tables import one_segment_plan
 from repro_torch.device import resolve
 from repro_torch.runtime import executor, ir
 
 from . import cnn
+
+
+def _dirac_like(w: torch.Tensor, depthwise: bool) -> torch.Tensor:
+    """Identity stand-in for a pruned conv, at the conv's own kernel shape.
+
+    A ``k×k`` kernel that is a centred delta (times the channel identity)
+    computes exactly the input's centre crop: every off-centre tap
+    multiplies by 0.0 and the centre tap by 1.0.  Substituting it for a
+    pruned conv inside an all-kept span graph reproduces the replaced
+    network (which pads less and skips the layer) while keeping one
+    shared graph for every kept set of the span — the structural trick
+    behind the vmapped importance batch.  Requires odd ``k``.
+    """
+    kh, kw, cin, cout = w.shape
+    out = torch.zeros_like(w)
+    c0, c1 = (kh - 1) // 2, (kw - 1) // 2
+    if depthwise:
+        out[c0, c1, 0, :] = 1.0
+    else:
+        out[c0, c1] = torch.eye(cin, cout, dtype=w.dtype, device=w.device)
+    return out
 
 
 def _merged_segment_forward(x, w, b, stride, dw, lo, hi):
@@ -151,6 +176,55 @@ class CNNHost:
                              (x, wgt.contiguous(), b.contiguous(), stride,
                               dw, lo, hi))
 
+    # -- batched importance probes ---------------------------------------------
+    def importance_batch(self, segs: list[Segment], params=None):
+        """One shared apply + stacked candidates for a span's Eq. 4 probes,
+        as ``(apply_fn, stacked, grad_mask)``.
+
+        Every probe of span ``(i, j]`` is expressed on one graph — the
+        all-kept replaced network — by substituting a centred Dirac kernel
+        (:func:`_dirac_like`) for each pruned conv and zeroing its bias.
+        The candidates then differ only in leaf values, so the engine can
+        stack them and vmap the fine-tune.  ``grad_mask`` freezes the
+        Dirac leaves: updating them would turn "no layer" into a free
+        extra conv and change Eq. 4's semantics.  Returns None (the
+        engine's scalar fallback) when the span holds non-conv units,
+        normed convs (BN/GN folding changes the fine-tune
+        parametrization) or even kernels (no centred delta).
+        """
+        params = params or self.params
+        seg0 = segs[0]
+        span = tuple(range(seg0.i + 1, seg0.j + 1))
+        for l in span:
+            s = self.net.spec(l)
+            if s.kind != "conv" or s.norm is not None or s.k % 2 == 0:
+                return None
+        probe = Segment(i=seg0.i, j=seg0.j, k=0, kept=span)
+        K_all, _ = cnn.segment_geometry(self.net, probe)
+        probe = Segment(i=seg0.i, j=seg0.j, k=K_all, kept=span)
+        apply_fn, _ = self.replaced_apply(one_segment_plan(self, probe),
+                                          params)
+        ones = pytree.tree_map(
+            lambda x: torch.ones((), dtype=x.dtype, device=x.device), params)
+        cands, masks = [], []
+        for seg in segs:
+            kept = set(seg.kept)
+            layers = list(params["layers"])
+            mlayers = [dict(m) for m in ones["layers"]]
+            for l in span:
+                if l in kept:
+                    continue
+                p, mp = dict(layers[l - 1]), mlayers[l - 1]
+                p["w"] = _dirac_like(p["w"], self.net.spec(l).depthwise)
+                mp["w"] = torch.zeros_like(mp["w"])
+                if "b" in p:
+                    p["b"] = torch.zeros_like(p["b"])
+                    mp["b"] = torch.zeros_like(mp["b"])
+                layers[l - 1] = p
+            cands.append({**params, "layers": layers})
+            masks.append({**ones, "layers": mlayers})
+        return apply_fn, _stack(cands), _stack(masks)
+
     # -- plan lowering / network builders -----------------------------------------
     def lower_plan(self, plan: CompressionPlan, params=None) -> ir.UnitGraph:
         """Lower a plan to the unit IR (Algorithm 2 final step): every
@@ -233,3 +307,9 @@ class CNNHost:
             return executor.execute(self.lower_plan(plan, p), x,
                                     device=self.device)
         return apply_fn, params
+
+
+def _stack(trees):
+    """Stack same-structured trees of tensors leaf by leaf (a new leading
+    axis)."""
+    return pytree.tree_map(lambda *xs: torch.stack(xs), *trees)

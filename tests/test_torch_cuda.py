@@ -850,3 +850,153 @@ def test_serve_fault_smoke_on_the_card():
     out = faults.serve_fault_smoke()
     assert out["survivors_bit_identical"] and out["aborted"] == {1: 2}
     assert out["device"].startswith("cuda")
+
+
+def _grad_cases():
+    """``name -> (kernel counter, op, plain, shapes)`` of the gradient
+    checks: every fp32 op and the three quantized bodies (w8a8), the
+    differentiable inputs listed by shape (quantized weights fixed)."""
+    from repro_torch.kernels import ops
+
+    return {
+        "merged_conv": ("merged_conv",
+                        lambda x, w, b: tk.merged_conv_op(
+                            x, w, b, stride=2, activation="relu6"),
+                        lambda x, w, b: tk.apply_activation(
+                            tk.merged_conv_ref(x, w, b, stride=2), "relu6"),
+                        [(2, 11, 11, 8), (3, 3, 8, 24), (24,)]),
+        "depthwise_conv": ("depthwise_conv",
+                           lambda x, w, b: tk.depthwise_conv_op(
+                               x, w, b, stride=1),
+                           lambda x, w, b: tk.depthwise_conv_ref(
+                               x, w, b, stride=1),
+                           [(2, 10, 10, 16), (3, 3, 1, 16), (16,)]),
+        "merged_ffn": ("merged_ffn", tk.merged_ffn_op, tk.merged_ffn_ref,
+                       [(37, 96), (96, 160), (160, 96)]),
+        "rmsnorm": ("rmsnorm", lambda x, g: tk.rmsnorm_op(x, g),
+                    lambda x, g: tk.rmsnorm_ref(x, g), [(2, 9, 576), (576,)]),
+        "rglru_scan": ("rglru_scan", tk.rglru_scan_op, tk.rglru_scan_ref,
+                       [(2, 33, 64), (2, 33, 64)]),
+        "flash_attention": ("flash_attention",
+                            lambda q, k, v: tk.flash_attention_op(
+                                q, k, v, True),
+                            lambda q, k, v: ops._attention_plain(
+                                q, k, v, True),
+                            [(2, 19, 4, 64), (2, 19, 2, 64),
+                             (2, 19, 2, 64)]),
+        "merged_conv_q": ("merged_conv_q", None, None,
+                          [(2, 9, 9, 8), (24,), (24,)]),
+        "depthwise_conv_q": ("depthwise_conv_q", None, None,
+                             [(2, 9, 9, 16), (16,), (16,)]),
+        "merged_ffn_q": ("merged_ffn_q", None, None,
+                         [(8, 96), (96,), (96,)]),
+    }
+
+
+def _qweights(shape):
+    from repro_torch.kernels import quant
+    g = torch.Generator().manual_seed(3)
+    axis = 3 if len(shape) == 4 else 1
+    w = torch.randn(*shape, generator=g) / np.sqrt(np.prod(shape[:-1]))
+    return quant.quantize_weight(w, "int8", axis=axis)
+
+
+@pytest.mark.parametrize("name", sorted(_grad_cases()))
+def test_op_gradient_through_the_kernel(name):
+    """The gradient of every input through the kernel op equals the plain
+    version's autograd (``*_qref`` for the quantized bodies) within 1e-5
+    of its largest element; one kernel launch, in the forward."""
+    dev = _card()
+    kernel, op, plain, shapes = _grad_cases()[name]
+    g = torch.Generator().manual_seed(len(name))
+    args = [torch.randn(*s, generator=g).to(dev) for s in shapes]
+    if name == "rglru_scan":
+        args[0] = torch.sigmoid(args[0])
+    if name.endswith("_q"):
+        base = name[:-2]
+        wshape = {"merged_conv": (1, 1, 8, 24),
+                  "depthwise_conv": (3, 3, 1, 16),
+                  "merged_ffn": (96, 96)}[base]
+        wq, ws = (t.to(dev) for t in _qweights(wshape))
+        args[2] = ws.clone()
+        if base == "merged_ffn":
+            vq, vs = (t.to(dev) for t in _qweights((96, 96)))
+            args[1:] = [ws.clone(), vs.clone()]
+            op = lambda x, us, vs: tk.merged_ffn_op(           # noqa: E731
+                x, wq, vq, u_scale=us, v_scale=vs, act_quant="w8a8")
+            plain = lambda x, us, vs: tk.merged_ffn_qref(      # noqa: E731
+                x, wq, vq, us, vs, act_quant="w8a8")
+        else:
+            fop = tk.merged_conv_op if base == "merged_conv" else \
+                tk.depthwise_conv_op
+            fref = tk.merged_conv_qref if base == "merged_conv" else \
+                tk.depthwise_conv_qref
+            op = lambda x, b, ws: fop(x, wq, b, w_scale=ws,    # noqa: E731
+                                      act_quant="w8a8")
+            plain = lambda x, b, ws: fref(x, wq, b, ws,        # noqa: E731
+                                          act_quant="w8a8")
+    before = tk.launch_counts()[kernel]
+    sides = []
+    for fn in (op, plain):
+        leaves = [a.clone().requires_grad_() for a in args]
+        y = fn(*leaves)
+        w = torch.randn(y.shape, generator=torch.Generator().manual_seed(9))
+        sides.append((y, torch.autograd.grad(y, leaves, w.to(dev))))
+    (y, got), (_, want) = sides
+    assert y.grad_fn is not None
+    assert tk.launch_counts()[kernel] - before == 1
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= 1e-5
+
+
+def _eq4_host(norm=None):
+    from repro_torch.core import ImportanceSpec, neg_loss_perf, xent_loss
+    from repro_torch.models import cnn, cnn_host, zoo
+    dev = _card()
+    net = zoo.tiny_resnet(num_classes=4, in_hw=8, width=4, blocks=(2,),
+                          norm=norm)
+    params = cnn.init_params(net, torch.Generator().manual_seed(0),
+                             device=dev)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(8, 8, 8, 3, generator=g).to(dev)
+    y = torch.randint(0, 4, (8,), generator=g).to(dev)
+    spec = ImportanceSpec(xent_loss, neg_loss_perf(xent_loss), [(x, y)],
+                          [(x, y)], steps=2, lr=1e-3)
+    host = cnn_host.CNNHost(net, params, batch=4, device=dev)
+    return host, spec
+
+
+def test_eq4_batched_engine_matches_sequential_on_the_card():
+    """The vmapped span batches (grouped convolutions on the card) against
+    one scalar fine-tune per probe: the reference's rtol 1e-6, atol 1e-7."""
+    from repro_torch.core import enumerate_probes, measure_importances
+    from repro_torch.core.probe_engine import EngineStats
+    host, spec = _eq4_host()
+    base = spec.perf_fn(host.replaced_apply(None)[0], host.params,
+                        spec.eval_batches)
+    segs = [p[5] for p in enumerate_probes(host) if not p[5].original]
+    stats = EngineStats()
+    bat = measure_importances(host, segs, spec, base, stats=stats,
+                              force_batching=True)
+    seq = measure_importances(host, segs, spec, base, engine="sequential")
+    assert stats.num_importance_batches > 0
+    np.testing.assert_allclose(bat, seq, rtol=1e-6, atol=1e-7)
+
+
+def test_eq4_finetune_is_bitwise_under_deterministic_cudnn():
+    """Two runs of one Eq. 4 fine-tune (BN leaves included) give the same
+    tuned leaves and importance bit for bit under deterministic cuDNN."""
+    from repro_torch.core import measure_importance, one_segment_plan
+    from repro_torch.core.importance import _adam_finetune
+    from repro_torch.core.tables import enumerate_probes
+    from repro_torch.device import deterministic_cudnn
+    host, spec = _eq4_host(norm="bn")
+    seg = next(p[5] for p in enumerate_probes(host) if not p[5].original)
+    fn, p = host.replaced_apply(one_segment_plan(host, seg))
+    with deterministic_cudnn():
+        runs = [_adam_finetune(fn, p, spec) for _ in range(2)]
+        imps = [measure_importance(fn, p, spec, 0.0) for _ in range(2)]
+    from torch.utils import _pytree as pytree
+    for a, b in zip(*(pytree.tree_leaves(r) for r in runs)):
+        assert torch.equal(a, b)
+    assert imps[0] == imps[1]
