@@ -229,13 +229,43 @@ Phases, each printing its own line with the seconds it took:
              ms per fine-tune step, peak device memory, a torch.profiler
              busy share over one fine-tune and the importance column's
              min, median and max (``importance.json``).
+21. tables — the crash-safe table build on the card, in a fresh
+             ``build/chip_smoke/tables/``: (a) phase 4's compress through
+             the CLI with ``--cache-dir``, twice: the first run publishes
+             and leaves no journal, the second is a cache hit that times
+             no signature (``T_orig`` included), with run 1's plan,
+             ``T_orig`` and artifact fingerprint; (b) a child process
+             (``python -m repro_torch.testing.faults --child``, phase 4's
+             host, wall-clock oracle) killed at its 40th journaled bucket
+             (``exit@tables.bucket:40``: status 17, one journal), resumed
+             here: at least 39 journal hits, every journaled signature's
+             seconds bitwise in the resumed tables and in ``T_orig``, the
+             journal gone, a third build a bitwise cache hit; the same
+             under the analytic oracle, bitwise an uninterrupted build;
+             (c) a ``delay@probe.time`` straggler at 4x a 1 s budget
+             retried and not quarantined, ``raise@probe.time`` on 3
+             attempts quarantining exactly the first bucket to the
+             analytic estimate, flagged in ``Tables.provenance`` and the
+             artifact's ``probe_provenance`` (which reloads and runs), a
+             truncated cache file and a truncated artifact each renamed
+             to ``.corrupt`` (the artifact's error naming it and the
+             re-publish); (d) phase 8's SmolLM-135M depth compress with
+             ``--cache-dir``, twice: a cache hit with the same plan, and
+             the seconds of the host's fingerprint; (e) phase 20 (b)'s
+             quickstart Eq. 4 tables (analytic latency, a ``cache_token``)
+             in a child killed at its 3rd ``tables.importance`` hit, then
+             resumed: the importance column bitwise an uninterrupted
+             build's.  Launches counted from zero: merged_conv and
+             depthwise_conv > 0 over (a)-(c), merged_ffn, rmsnorm and
+             flash_attention > 0 over (d).  Seconds, signatures timed,
+             journal hits, retries and quarantines in ``tables.json``.
 
 Any failed check raises, so the script exits non-zero.  Per-unit shapes,
 times, bounds and launch plans land in ``build/chip_smoke/units.json``
 (MobileNetV2), ``resnet34.json``, ``qunits.json`` and ``qffn.json`` (the
 quantized phases), RecurrentGemma's in ``rg.json``, the serving numbers
 of phases 9, 13, 16, 18 and 19 in ``serve.json``, phase 20's in
-``importance.json``.  It exits non-zero
+``importance.json``, phase 21's in ``tables.json``.  It exits non-zero
 without a result where ``torch.cuda.is_available()`` is false or the repo's
 ``src/`` is missing.  The last lines are the ``kernels`` JSON line, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -302,6 +332,30 @@ def log(phase: str, t0: float, msg: str = "") -> None:
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise AssertionError(msg)
+
+
+def strict_probes():
+    """The probe policy of every direct table build on the main path: a
+    probe that fails on the card raises.  The default policy retries it
+    and then quarantines its bucket to the analytic estimate, which would
+    pass a kernel that does not launch at some shape; only phase 21 (c)
+    quarantines, on purpose."""
+    from repro_torch.core import ProbeConfig
+    return ProbeConfig(retries=0, quarantine=False)
+
+
+def check_probes(oracle, summary, what: str) -> None:
+    """A CLI compress on the main path (default probe policy) had no probe
+    retried or quarantined.  ``oracle.flags`` holds every signature the
+    oracle priced, ``T_orig``'s included; the summary counts the tables'
+    retries and quarantines."""
+    from repro_torch.core.probe_engine import PROBE_QUARANTINED
+    bad = [sig for sig, f in oracle.flags.items() if f == PROBE_QUARANTINED]
+    check(not bad and summary["retried"] == 0
+          and summary["quarantined"] == 0,
+          f"{what}: {summary['retried']} probe retries, "
+          f"{summary['quarantined']} buckets and {len(bad)} signatures "
+          f"quarantined to the analytic estimate")
 
 
 _L2_EVICT = []
@@ -1606,6 +1660,7 @@ def cnn_quant_phases(compress_main, cnn_argv, oracle, host, batches,
         summary = compress_main(cnn_argv + [
             "--budget-ratio", str(ratio), "--quantize", "w8a8", "--out",
             q_path], latency_oracle=oracle)
+        check_probes(oracle, summary, f"w8a8 compress at {ratio}")
         art = runtime.load(q_path, device=dev)
         census = quant_census(art.graph)
         ladder.append(f"{ratio}: {json.dumps(census, sort_keys=True)}, "
@@ -1726,13 +1781,15 @@ def lm_quant_phases(host, fp_res, oracle, lm_source, prompt, new_tokens,
     host_q = TransformerHost(cfg, host.params, env=CostEnv(batch=B, seq=1),
                              device=dev)
     wide, sib = quant_sibling_entries(host_q, build_tables(
-        host_q, method="depth", latency_oracle=oracle).entries, "w8a8")
+        host_q, method="depth", latency_oracle=oracle,
+        probe_config=strict_probes()).entries, "w8a8")
     ratios = [row[k][1] / row[k[0]][1] for row in wide.values()
               for k in row if isinstance(k, tuple)]
     res, ladder = None, []
     for ratio in LM_BUDGETS:
         r = compress(host_q, budget_ratio=ratio, method="depth",
-                     latency_oracle=oracle, quantize="w8a8")
+                     latency_oracle=oracle, quantize="w8a8",
+                     probe_config=strict_probes())
         n_q = 0 if r is None else quant_census(r.lower()).get(
             "lowrank_w8a8", 0)
         ladder.append(f"{ratio}: " + ("infeasible" if r is None else
@@ -2042,7 +2099,7 @@ def rg_phases(dev, build_host):
     res, ladder, served = None, [], ""
     for ratio in LM_BUDGETS:
         r = compress(host, budget_ratio=ratio, method="depth",
-                     latency_oracle=oracle)
+                     latency_oracle=oracle, probe_config=strict_probes())
         n_m = 0 if r is None else merged_segments(host, r.plan)
         ladder.append(f"{ratio}: " + ("infeasible" if r is None else
                                       f"{n_m} merged, predicted speedup "
@@ -2554,6 +2611,30 @@ def toy_task(gen, n, hw, dev):
     return x.to(dev), means.argmax(1).to(dev)
 
 
+def quickstart_host(dev):
+    """The reference quickstart's network pre-trained on its task:
+    ``tiny_resnet(4, 16, 8, (2, 2))`` from seed 0, 150 Adam steps at lr
+    3e-3 on the quadrant-mean task; ``(host at batch 32, train batches,
+    eval batches, base accuracy)``."""
+    import torch
+    from repro_torch.core import ImportanceSpec, accuracy_perf, xent_loss
+    from repro_torch.core.importance import _adam_finetune
+    from repro_torch.models import cnn, cnn_host, zoo
+
+    net = zoo.tiny_resnet(num_classes=4, in_hw=16, width=8, blocks=(2, 2))
+    params = cnn.init_params(net, torch.Generator().manual_seed(0),
+                             device=dev)
+    train = [toy_task(torch.Generator().manual_seed(1), 256, 16, dev)]
+    evals = [toy_task(torch.Generator().manual_seed(2), 256, 16, dev)]
+
+    def apply0(p, x):
+        return cnn.apply_replaced(net, p, x)
+    params = _adam_finetune(apply0, params, ImportanceSpec(
+        xent_loss, accuracy_perf, train, evals, steps=150, lr=3e-3))
+    return (cnn_host.CNNHost(net, params, batch=32, device=dev), train,
+            evals, accuracy_perf(apply0, params, evals))
+
+
 def importance_phase(dev, cnn_h, cnn_oracle, mag_plan, dev_orig_ms,
                      lm_host, lm_oracle, lm_budget, lm_mag, o_dec, prompt,
                      new_tokens) -> dict:
@@ -2575,7 +2656,7 @@ def importance_phase(dev, cnn_h, cnn_oracle, mag_plan, dev_orig_ms,
     from repro_torch.core.importance import _adam_finetune
     from repro_torch.core.probe_engine import EngineStats
     from repro_torch.device import deterministic_cudnn
-    from repro_torch.models import cnn, cnn_host, zoo
+    from repro_torch.models import cnn
     from repro_torch.models import transformer as T
 
     out: dict = {}
@@ -2600,7 +2681,7 @@ def importance_phase(dev, cnn_h, cnn_oracle, mag_plan, dev_orig_ms,
         t1 = time.perf_counter()
         res = compress(cnn_h, budget_ratio=0.6, method="layermerge",
                        latency_oracle=cnn_oracle, importance=rec,
-                       base_perf=0.0)
+                       base_perf=0.0, probe_config=strict_probes())
         peak = torch.cuda.max_memory_allocated()
         check(res is not None, "mobilenetv2 Eq. 4: no plan fits 0.6")
         imps = [perf_to_importance(v, 0.0, spec) for v in perfs]
@@ -2622,8 +2703,8 @@ def importance_phase(dev, cnn_h, cnn_oracle, mag_plan, dev_orig_ms,
           f"first {EQ4_REPEAT} fine-tunes differ run to run under "
           "deterministic cuDNN")
     diff = differing_budgets(cnn_h, res.tables, build_tables(
-        cnn_h, latency_oracle=cnn_oracle), res.original_latency,
-        "layermerge")
+        cnn_h, latency_oracle=cnn_oracle, probe_config=strict_probes()),
+        res.original_latency, "layermerge")
     y_merged = runtime.execute(res.lower(), xev, device=dev)
     y_rep = cnn.apply_replaced(net, params, xev, res.plan)
     d_rep = float((y_merged - y_rep).abs().max() / y_rep.abs().max())
@@ -2665,19 +2746,8 @@ def importance_phase(dev, cnn_h, cnn_oracle, mag_plan, dev_orig_ms,
 
     # (b) the reference quickstart's protocol ------------------------------
     t0 = time.perf_counter()
-    net = zoo.tiny_resnet(num_classes=4, in_hw=16, width=8, blocks=(2, 2))
-    g = torch.Generator().manual_seed(0)
-    params = cnn.init_params(net, g, device=dev)
-    xtr, ytr = toy_task(torch.Generator().manual_seed(1), 256, 16, dev)
-    xev, yev = toy_task(torch.Generator().manual_seed(2), 256, 16, dev)
-    train, evals = [(xtr, ytr)], [(xev, yev)]
-
-    def apply0(p, x):
-        return cnn.apply_replaced(net, p, x)
-    params = _adam_finetune(apply0, params, ImportanceSpec(
-        xent_loss, accuracy_perf, train, evals, steps=150, lr=3e-3))
-    base_acc = accuracy_perf(apply0, params, evals)
-    host = cnn_host.CNNHost(net, params, batch=32, device=dev)
+    host, train, evals, base_acc = quickstart_host(dev)
+    net, params, xev = host.net, host.params, evals[0][0]
     perfs = []
     ispec = ImportanceSpec(xent_loss, accuracy_perf, train, evals, steps=5,
                            lr=1e-3)
@@ -2685,7 +2755,7 @@ def importance_phase(dev, cnn_h, cnn_oracle, mag_plan, dev_orig_ms,
     t1 = time.perf_counter()
     res = compress(host, budget_ratio=0.6, P=200, method="layermerge",
                    latency_oracle=WallClockOracle(warmup=2, iters=5),
-                   importance=ImportanceSpec(
+                   probe_config=strict_probes(), importance=ImportanceSpec(
                        xent_loss, recording(accuracy_perf, perfs), train,
                        evals, steps=5, lr=1e-3), base_perf=base_acc)
     peak = torch.cuda.max_memory_allocated()
@@ -2763,7 +2833,8 @@ def importance_phase(dev, cnn_h, cnn_oracle, mag_plan, dev_orig_ms,
     res = compress(lm_host, budget_ratio=lm_budget, method="depth",
                    latency_oracle=lm_oracle, importance=ImportanceSpec(
                        dl, recording(neg_loss_perf(dl), perfs), [btr], [bev],
-                       steps=8, lr=1e-3), base_perf=0.0)
+                       steps=8, lr=1e-3), base_perf=0.0,
+                   probe_config=strict_probes())
     peak = torch.cuda.max_memory_allocated()
     launches = kernels.launch_counts()
     check(res is not None, f"smollm-135m Eq. 4: no plan fits {lm_budget}")
@@ -2808,6 +2879,302 @@ def importance_phase(dev, cnn_h, cnn_oracle, mag_plan, dev_orig_ms,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the crash-safe table build on the card
+# ---------------------------------------------------------------------------
+
+#: Phase 21 (b): the journaled bucket at which the child dies (MobileNetV2
+#: at --max-span 6 has 127 signatures).
+KILL_AT_BUCKET = 40
+#: Phase 21 (e): the ``tables.importance`` hit at which the child dies.
+KILL_AT_IMPORTANCE = 3
+#: Phase 21 (c): the probe budget, and a straggler's delay at 4x it.
+PROBE_TIMEOUT_S, STRAGGLER_S = 1.0, 4.0
+#: Phase 21 (c): failed timings in a row that quarantine a bucket.
+PROBE_RETRIES = 2
+
+
+def eq4_journal_build(cache_dir, dev):
+    """Phase 21 (e)'s build, run alike by the crashed child and this
+    process: the quickstart network pre-trained as phase 20 (b) does,
+    then Eq. 4 tables (``accuracy_perf``, 5 steps at lr 1e-3, named by a
+    ``cache_token``) on the analytic oracle, journaled in ``cache_dir``
+    (None: no cache).  Under deterministic cuDNN, so the pre-trained
+    weights — part of the cache key — and every fine-tune are bitwise
+    the same in both processes."""
+    from repro_torch.core import (AnalyticOracle, ImportanceSpec,
+                                  accuracy_perf, build_tables, table_cache,
+                                  xent_loss)
+    from repro_torch.device import deterministic_cudnn
+
+    with deterministic_cudnn():
+        host, train, evals, base = quickstart_host(dev)
+        spec = ImportanceSpec(xent_loss, accuracy_perf, train, evals,
+                              steps=5, lr=1e-3, cache_token="quickstart-eq4")
+        key = table_cache.cache_key(host, AnalyticOracle(), "layermerge",
+                                    spec, base_perf=base)
+        return key, build_tables(host, latency_oracle=AnalyticOracle(),
+                                 importance=spec, base_perf=base,
+                                 cache_dir=cache_dir)
+
+
+def artifact_spec(path) -> tuple[dict, str]:
+    """An artifact's spec and fingerprint, read without its weights."""
+    import numpy as np
+    with np.load(path, allow_pickle=False) as z:
+        return (json.loads(z["__spec__"].item()),
+                z["__fingerprint__"].item())
+
+
+def table_phase(dev, cnn_h, lm_host, lm_budget) -> tuple[dict, dict]:
+    """Phase 21: the table cache, the journal's kill and resume, the probe
+    guards and the Eq. 4 journal on the card; ``(row, launches)``."""
+    import glob
+    import shutil
+
+    import torch
+    from repro_torch import kernels, runtime
+    from repro_torch.compress import main as compress_main
+    from repro_torch.core import (AnalyticOracle, ProbeConfig,
+                                  WallClockOracle, compress,
+                                  enumerate_probes, table_cache)
+    from repro_torch.core.probe_engine import PROBE_QUARANTINED
+    from repro_torch.testing import faults
+    from repro_torch.testing.subproc import subprocess_env
+
+    root = os.path.join(WORK, "tables")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    row: dict = {}
+    kernels.reset_launch_counts()
+
+    # (a) the cache: phase 4's compress through the CLI, twice -------------
+    t0 = time.perf_counter()
+    cache_a = os.path.join(root, "a")
+    argv = ["--arch", "mobilenetv2", "--oracle", "wallclock",
+            "--max-span", "6", "--budget-ratio", "0.6", "--batch", "8",
+            "--cache-dir", cache_a]
+    paths = [os.path.join(root, f"a{n}.npz") for n in (1, 2)]
+    runs, secs = [], []
+    for path in paths:
+        t1 = time.perf_counter()
+        ora = WallClockOracle()
+        runs.append(compress_main(argv + ["--out", path], latency_oracle=ora))
+        secs.append(time.perf_counter() - t1)
+        check_probes(ora, runs[-1], f"(a) run {len(runs)}")
+        if len(runs) == 1:
+            left = glob.glob(os.path.join(cache_a, "*.journal"))
+            check(not left, f"(a) run 1 left a journal: {left}")
+    (s1, s2), specs = runs, [artifact_spec(p) for p in paths]
+    row["a"] = {"run_s": secs, "timed": [r["signatures_timed"] for r in runs],
+                "cache_hit": [r["cache_hit"] for r in runs],
+                "signatures": s1["latency_signatures"]}
+    log("tables cache", t0, f"mobilenetv2 through the CLI with --cache-dir: "
+        f"run 1 {secs[0]:.2f}s, {s1['signatures_timed']} of "
+        f"{s1['latency_signatures']} signatures timed, published; run 2 "
+        f"{secs[1]:.2f}s, cache hit {s2['cache_hit']}, "
+        f"{s2['signatures_timed']} timed (T_orig included); plans equal "
+        f"{specs[0][0]['plan'] == specs[1][0]['plan']}, T_orig "
+        f"{s1['original_latency_s']!r} and {s2['original_latency_s']!r}, "
+        f"fingerprints equal {specs[0][1] == specs[1][1]}")
+    check(not s1["cache_hit"] and s1["signatures_timed"] > 0,
+          "(a) run 1 timed nothing")
+    check(s2["cache_hit"] and s2["signatures_timed"] == 0,
+          f"(a) run 2: cache hit {s2['cache_hit']}, "
+          f"{s2['signatures_timed']} signatures timed")
+    check(specs[0][0]["plan"] == specs[1][0]["plan"]
+          and s1["original_latency_s"] == s2["original_latency_s"]
+          and specs[0][1] == specs[1][1],
+          "(a) the cache hit's plan, T_orig or artifact differs from run 1's")
+
+    # (b) kill and resume: a child dies at its 40th journaled bucket -------
+    t0 = time.perf_counter()
+    kr = {o: faults.kill_resume_smoke(
+        KILL_AT_BUCKET, device="cuda", oracle=o, arch="mobilenetv2",
+        batch=8, max_span=6, work_dir=root) for o in ("wallclock",
+                                                      "analytic")}
+    row["b"] = kr
+    w = kr["wallclock"]
+    log("tables resume", t0, f"mobilenetv2, child killed at bucket "
+        f"{KILL_AT_BUCKET} (exit 17, one journal of "
+        f"{w['journal_records']} records; child {w['child_s']:.2f}s); "
+        f"wall-clock resume {w['resume_s']:.2f}s: {w['journal_hits_on_resume']}"
+        f" journal hits, {w['signatures_timed_on_resume']} signatures timed "
+        f"(T_orig included), {w['entries_checked_against_journal']} entries "
+        f"and {w['t_orig_layers_journaled']} T_orig terms bitwise the "
+        f"journal's, journal gone, third build a bitwise cache hit; "
+        f"analytic: {kr['analytic']['journal_hits_on_resume']} hits, "
+        f"bitwise the uninterrupted build (child "
+        f"{kr['analytic']['child_s']:.2f}s)")
+    check(w["journal_hits_on_resume"] >= KILL_AT_BUCKET - 1,
+          f"(b) {w['journal_hits_on_resume']} journal hits")
+
+    # (c) hardening --------------------------------------------------------
+    t0 = time.perf_counter()
+    straggle = ProbeConfig(timeout_s=PROBE_TIMEOUT_S)
+    with faults.inject(faults.Fault("probe.time", "delay",
+                                    seconds=STRAGGLER_S)) as plan:
+        rs = compress(cnn_h, budget_ratio=0.6, latency_oracle=WallClockOracle(),
+                      probe_config=straggle)
+    st = rs.tables.stats
+    check(plan.fired == [("probe.time", 1, "delay")]
+          and st.num_probe_retries == 1 and st.num_quarantined == 0
+          and PROBE_QUARANTINED not in rs.tables.provenance.values(),
+          f"(c) straggler: fired {plan.fired}, {st.num_probe_retries} "
+          f"retries, {st.num_quarantined} quarantined")
+    quar = ProbeConfig(retries=PROBE_RETRIES)
+    ora = WallClockOracle()
+    with faults.inject(faults.Fault("probe.time", "raise",
+                                    times=PROBE_RETRIES + 1)):
+        rq = compress(cnn_h, budget_ratio=0.6, latency_oracle=ora,
+                      probe_config=quar)
+    first = enumerate_probes(cnn_h)[0][5]
+    sig = cnn_h.probe_signature(first)
+    flagged = {ijk: f for ijk, f in rq.tables.provenance.items()
+               if f == PROBE_QUARANTINED}
+    estimate = AnalyticOracle().segment_latency(cnn_h.segment_cost(first))
+    q_path = os.path.join(root, "quarantined.npz")
+    rq.save(q_path)
+    q_art = runtime.load(q_path, device=dev)
+    y = q_art.apply(torch.randn(8, 224, 224, 3,
+                                generator=torch.Generator().manual_seed(5))
+                    .to(dev))
+    prov = q_art.meta["probe_provenance"]
+    (i, j, k) = next(iter(flagged), (None, None, None))
+    row["c"] = {"straggler_retries": st.num_probe_retries,
+                "quarantined": rq.tables.stats.num_quarantined,
+                "flagged": [list(x) for x in flagged],
+                "estimate_s": estimate, "artifact_provenance": prov}
+    check(rq.tables.stats.num_quarantined == 1 and flagged
+          and ora.recall(sig) == (None, PROBE_QUARANTINED)
+          and rq.tables.entries[(i, j)][k][1] == estimate,
+          f"(c) quarantine: {rq.tables.stats.num_quarantined} buckets, "
+          f"flags {flagged}")
+    check(prov == [{"i": a, "j": b, "k": c, "flag": f} for (a, b, c), f in
+                   sorted(rq.tables.provenance.items())],
+          f"(c) artifact provenance {prov}")
+    check(tuple(y.shape) == (8, 1000) and bool(torch.isfinite(y).all()),
+          "(c) the quarantined plan's artifact does not run")
+    # a truncated cache file: quarantined, the entry rebuilt
+    cached = glob.glob(os.path.join(cache_a, "tables_*.json"))
+    check(len(cached) == 1, f"(c) cache files {cached}")
+    with open(cached[0], "r+") as f:
+        f.truncate(40)
+    ora = WallClockOracle()
+    s3 = compress_main(argv + ["--out", os.path.join(root, "a3.npz")],
+                       latency_oracle=ora)
+    check_probes(ora, s3, "(c) the rebuild of the truncated cache entry")
+    key = os.path.basename(cached[0])[len("tables_"):-len(".json")]
+    rebuilt = table_cache.load(cache_a, key)
+    check(not s3["cache_hit"] and os.path.exists(cached[0] + ".corrupt")
+          and rebuilt is not None, "(c) truncated cache file: hit "
+          f"{s3['cache_hit']}, rebuilt {rebuilt is not None}")
+    # a truncated artifact: quarantined, the hint in the error
+    with open(paths[0], "r+b") as f:
+        f.truncate(os.path.getsize(paths[0]) // 3)
+    try:
+        runtime.load(paths[0], device=dev)
+        msg = None
+    except runtime.ArtifactError as e:
+        msg = str(e)
+    check(msg is not None and "quarantined to" in msg and "re-publish"
+          in msg and os.path.exists(paths[0] + ".corrupt")
+          and not os.path.exists(paths[0]),
+          f"(c) truncated artifact: {msg}")
+    launch_c = kernels.launch_counts()
+    log("tables guards", t0, f"straggler {STRAGGLER_S}s at a "
+        f"{PROBE_TIMEOUT_S}s budget: {st.num_probe_retries} retries, "
+        f"{st.num_quarantined} quarantined; raise@probe.time x"
+        f"{PROBE_RETRIES + 1}: {rq.tables.stats.num_quarantined} bucket "
+        f"quarantined ({sig[:8]}...), its entry the analytic "
+        f"{estimate:.3e}s, flags {sorted(flagged)} in the tables and the "
+        f"artifact, which reloads and runs on the card; truncated cache "
+        f"file -> .corrupt, rebuilt ({s3['signatures_timed']} timed); "
+        f"truncated artifact -> .corrupt: {msg!r}; launches (a)-(c) "
+        f"{launch_c}")
+    for name in ("merged_conv", "depthwise_conv"):
+        check(launch_c[name] > 0, f"(a)-(c): {name} never launched")
+
+    # (d) SmolLM-135M, phase 8's depth compress with --cache-dir, twice ---
+    t0 = time.perf_counter()
+    t1 = time.perf_counter()
+    lm_host.fingerprint()
+    fp_s = time.perf_counter() - t1
+    cache_d = os.path.join(root, "d")
+    argv_lm = ["--arch", "smollm-135m", "--full", "--method", "depth",
+               "--oracle", "wallclock", "--batch", "8", "--seq", "128",
+               "--budget-ratio", str(lm_budget), "--cache-dir", cache_d]
+    lm_runs, lm_secs = [], []
+    for n in (1, 2):
+        t1 = time.perf_counter()
+        ora = WallClockOracle()
+        lm_runs.append(compress_main(argv_lm + ["--out", os.path.join(
+            root, f"lm{n}.npz")], latency_oracle=ora))
+        lm_secs.append(time.perf_counter() - t1)
+        check_probes(ora, lm_runs[-1], f"(d) run {n}")
+    lm_plans = [artifact_spec(os.path.join(root, f"lm{n}.npz"))[0]["plan"]
+                for n in (1, 2)]
+    launches = kernels.launch_counts()
+    launch_d = {k: launches[k] - launch_c[k] for k in launches}
+    r1, r2 = lm_runs
+    row["d"] = {"fingerprint_s": fp_s, "run_s": lm_secs,
+                "timed": [r["signatures_timed"] for r in lm_runs],
+                "cache_hit": [r["cache_hit"] for r in lm_runs],
+                "launches": launch_d}
+    log("tables lm", t0, f"smollm-135m depth {lm_budget} with --cache-dir: "
+        f"fingerprint (pytree digest of the fp32 weights) {fp_s:.2f}s; run "
+        f"1 {lm_secs[0]:.2f}s, {r1['signatures_timed']} signatures timed; "
+        f"run 2 {lm_secs[1]:.2f}s, cache hit {r2['cache_hit']}, "
+        f"{r2['signatures_timed']} timed; plans equal "
+        f"{lm_plans[0] == lm_plans[1]}; launches {launch_d}")
+    check(r2["cache_hit"] and r2["signatures_timed"] == 0
+          and lm_plans[0] == lm_plans[1]
+          and r1["original_latency_s"] == r2["original_latency_s"],
+          "(d) smollm-135m: the second run is not a cache hit of the "
+          "first's plan")
+    for name in ("merged_ffn", "rmsnorm", "flash_attention"):
+        check(launch_d[name] > 0, f"(d): {name} never launched")
+
+    # (e) the Eq. 4 journal: a child dies at its 3rd importance probe ------
+    t0 = time.perf_counter()
+    cache_e = os.path.join(root, "e")
+    t1 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--eq4-child", cache_e],
+        env=subprocess_env(device="cuda", faults_spec=f"exit@tables."
+                           f"importance:{KILL_AT_IMPORTANCE}"),
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    child_s = time.perf_counter() - t1
+    journals = glob.glob(os.path.join(cache_e, "*.journal"))
+    check(r.returncode == 17 and len(journals) == 1,
+          f"(e) child exited {r.returncode} leaving {journals}:\n"
+          f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+    t1 = time.perf_counter()
+    key, resumed = eq4_journal_build(cache_e, dev)
+    resume_s = time.perf_counter() - t1
+    _, whole = eq4_journal_build(None, dev)
+    hits = resumed.stats.num_journal_hits
+    child_key = journals[0].split("tables_")[-1][:-len(".journal")]
+    row["e"] = {"child_s": child_s, "resume_s": resume_s,
+                "journal_hits": hits,
+                "finetunes_on_resume": resumed.stats
+                .num_importance_sequential,
+                "probes": resumed.stats.num_importance_probes}
+    log("tables eq4", t0, f"quickstart Eq. 4 tables (analytic latency), "
+        f"child killed at importance probe {KILL_AT_IMPORTANCE} "
+        f"({child_s:.2f}s); resume {resume_s:.2f}s: {hits} journal hits, "
+        f"{resumed.stats.num_importance_sequential} of "
+        f"{resumed.stats.num_importance_probes} probes fine-tuned; the "
+        f"importance column bitwise the uninterrupted build's "
+        f"{resumed.entries == whole.entries}")
+    check(child_key == key, "(e) the child's cache key differs from this "
+          "process's: the pre-trained weights are not bitwise equal")
+    check(hits >= KILL_AT_IMPORTANCE, f"(e) {hits} journal hits")
+    check(resumed.entries == whole.entries, "(e) the resumed importance "
+          "column differs from the uninterrupted build's")
+    return row, launches
+
+
 def main(argv) -> int:
     import torch
 
@@ -2827,6 +3194,10 @@ def main(argv) -> int:
     except ImportError as e:
         print(f"{IMPORT_ERROR} ({e})", file=sys.stderr)
         return 2
+    if argv[:1] == ["--eq4-child"]:          # phase 21 (e)'s crashed child
+        eq4_journal_build(argv[1], resolve("cuda"))
+        print("CHILD_COMPLETED")               # only reached if not killed
+        return 0
     quick = "--quick" in argv
     os.makedirs(WORK, exist_ok=True)
     t_all = time.perf_counter()
@@ -2900,6 +3271,7 @@ def main(argv) -> int:
     # the quantized compress of phase 11.
     cnn_oracle = WallClockOracle()
     summary = compress_main(argv_c, latency_oracle=cnn_oracle)
+    check_probes(cnn_oracle, summary, "mobilenetv2 compress")
     log("compress", t0, f"plan: {summary['segments']} segments, "
         f"{summary['kept_layers']}/{summary['layers']} layers kept, "
         f"{summary['latency_probes']} probes in "
@@ -3048,7 +3420,7 @@ def main(argv) -> int:
     res, ladder = None, []
     for ratio in LM_BUDGETS:
         r = compress(host, budget_ratio=ratio, method="depth",
-                     latency_oracle=oracle)
+                     latency_oracle=oracle, probe_config=strict_probes())
         n_lr = 0 if r is None else \
             runtime.count_units(r.lower()).get("lowrank", 0)
         ladder.append(f"{ratio}: " + ("infeasible" if r is None else
@@ -3069,7 +3441,7 @@ def main(argv) -> int:
     n_lowrank = runtime.count_units(graph).get("lowrank", 0)
     st = res.tables.stats
     lm_res = compress(host, budget_ratio=0.6, method="layermerge",
-                      latency_oracle=oracle)
+                      latency_oracle=oracle, probe_config=strict_probes())
     lm_census = unit_census(host.lower_plan(lm_res.plan)) \
         if lm_res is not None else "infeasible"
     log("lm compress", t0, f"smollm-135m fp32 full width (init "
@@ -3218,6 +3590,16 @@ def main(argv) -> int:
                            oracle, budget, res, o_dec, prompt, N)
     with open(os.path.join(WORK, "importance.json"), "w") as f:
         json.dump(eq4, f, indent=1, default=str)
+    # 21. the crash-safe table build --------------------------------------------
+    t0 = time.perf_counter()
+    tab, tab_launch = table_phase(dev, cnn_h, host, budget)
+    tab["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(WORK, "tables.json"), "w") as f:
+        json.dump(tab, f, indent=1, default=str)
+    log("tables", t0, f"launches {tab_launch}")
+    for k in ("merged_conv", "depthwise_conv", "merged_ffn", "rmsnorm",
+              "flash_attention"):
+        launches[k] += tab_launch[k]
     sweep_err = {k: v[0] for k, v in sweep.items()}
 
     srcs = {"merged_conv": ("src/repro_torch/kernels/csrc/merged_conv.cu",

@@ -12,6 +12,9 @@ package's ``.npz`` format:
       --device cpu --method depth --budget-ratio 0.9 --out rg.npz
   PYTHONPATH=src python -m repro_torch.compress --arch tiny_mobilenet \
       --device cpu --quantize w8a8 --budget-ratio 0.5 --out q.npz
+  PYTHONPATH=src python -m repro_torch.compress --arch mobilenetv2 \
+      --oracle wallclock --max-span 6 --cache-dir tables/ \
+      --probe-timeout 2 --probe-retries 2 --out a.npz
 
 Transformer ids resolve through :func:`repro_torch.configs.get_config`,
 reduced to the CPU-sized toy variant unless ``--full``: the full width
@@ -22,7 +25,13 @@ card through the hand-written kernels; ``--oracle analytic`` prices them
 with the H100 roofline model (transformers: the JAX package's cost
 model).  ``--quantize int8|w8a8`` lets the DP choose per-unit precision
 (int8 weights, or int8 weights and activations); the units it picks run
-the kernels' quantized variants.  ``--device cpu`` runs the plain PyTorch
+the kernels' quantized variants.  ``--cache-dir`` keeps the tables in a
+content-addressed cache (a second run with the same inputs reads them and
+times nothing) and journals a build while it runs, so a killed run
+resumes where it stopped (``--no-resume`` starts it over);
+``--probe-timeout`` and ``--probe-retries`` bound each card timing, and
+a probe that keeps failing gets the analytic estimate, flagged in the
+artifact's ``probe_provenance``.  ``--device cpu`` runs the plain PyTorch
 versions instead (the default, ``cuda``, raises where there is no card).
 Parameters are seed-initialised: the command demonstrates the
 plan→artifact path, a production run would load trained weights.
@@ -118,9 +127,22 @@ def main(argv=None, *, latency_oracle=None) -> dict:
                     help="transformer: full config in fp32, not .reduced()")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
+    ap.add_argument("--cache-dir", default=None,
+                    help="lookup-table cache directory (optional)")
+    ap.add_argument("--resume", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="resume an interrupted table build from its "
+                         "write-ahead journal in --cache-dir (default on; "
+                         "--no-resume discards a stale journal)")
+    ap.add_argument("--probe-timeout", type=float, default=None,
+                    metavar="SECONDS",
+                    help="per-probe time budget; a probe over budget "
+                         "retries, then gets the analytic estimate")
+    ap.add_argument("--probe-retries", type=int, default=2,
+                    help="attempts per failing probe before quarantine")
     args = ap.parse_args(argv)
 
-    from repro_torch.core import WallClockOracle, compress
+    from repro_torch.core import ProbeConfig, WallClockOracle, compress
 
     host, source = build_host(args.arch, seed=args.seed, batch=args.batch,
                               seq=args.seq, full=args.full,
@@ -128,9 +150,13 @@ def main(argv=None, *, latency_oracle=None) -> dict:
     oracle = latency_oracle
     if oracle is None and args.oracle == "wallclock":
         oracle = WallClockOracle()
+    timed = getattr(oracle, "num_timed", 0)
     res = compress(host, budget_ratio=args.budget_ratio, P=args.P,
                    method=args.method, latency_oracle=oracle,
-                   quantize=args.quantize)
+                   quantize=args.quantize, cache_dir=args.cache_dir,
+                   probe_config=ProbeConfig(timeout_s=args.probe_timeout,
+                                            retries=args.probe_retries),
+                   resume=args.resume)
     if res is None:
         raise SystemExit(
             f"[repro_torch.compress] infeasible: no plan fits "
@@ -149,7 +175,13 @@ def main(argv=None, *, latency_oracle=None) -> dict:
         "segments": len(plan.segments),
         "latency_probes": stats.num_latency_probes if stats else 0,
         "latency_signatures": stats.num_latency_buckets if stats else 0,
-        "signatures_timed": stats.num_timings if stats else 0,
+        # signatures timed on the card by this run, T_orig's included
+        "signatures_timed": getattr(oracle, "num_timed", 0) - timed,
+        "cache_hit": bool(stats and stats.cache_hit),
+        "journal_hits": stats.num_journal_hits if stats else 0,
+        "retried": stats.num_probe_retries if stats else 0,
+        "retimed": stats.num_retimed if stats else 0,
+        "quarantined": stats.num_quarantined if stats else 0,
         "original_latency_s": res.original_latency,
         "compressed_latency_s": res.compressed_latency,
         "predicted_speedup": res.speedup,

@@ -1,5 +1,7 @@
 """LayerMerge core: plans, segment enumeration, the DP, merging, latency
-oracles, tables and the compression pipeline."""
+oracles, tables (with their cache and build journal) and the compression
+pipeline."""
+from . import table_cache
 from .compress import CompressResult, compress, original_latency
 from .dp import DPResult, brute_force, solve_dp, solve_dp_reference, \
     solve_knapsack
@@ -10,14 +12,17 @@ from .importance import (ImportanceSpec, accuracy_perf,
 from .latency import (AnalyticOracle, CostBreakdown, WallClockOracle,
                       conv2d_cost, oracle_token)
 from .plan import CompressionPlan, LayerDesc, Segment, identity_plan
-from .probe_engine import (ENGINES, EngineStats, ProbeCallable,
-                           layer_latencies, measure_importances,
-                           measure_latencies)
+from .probe_engine import (ENGINES, PROBE_MEASURED, PROBE_QUARANTINED,
+                           PROBE_RETIMED, EngineStats, ProbeCallable,
+                           ProbeConfig, ProbeTimeout, layer_latencies,
+                           measure_importances, measure_latencies,
+                           probe_segment)
 from .segments import (SegmentEnumerator, pareto_prune_options,
                        subset_selection, table_entry_count)
 from .tables import Tables, build_tables, enumerate_probes, one_segment_plan
 
 __all__ = [
+    "table_cache",
     "CompressResult", "compress", "original_latency",
     "DPResult", "brute_force", "solve_dp", "solve_dp_reference",
     "solve_knapsack",
@@ -27,8 +32,10 @@ __all__ = [
     "AnalyticOracle", "CostBreakdown", "WallClockOracle", "conv2d_cost",
     "oracle_token",
     "CompressionPlan", "LayerDesc", "Segment", "identity_plan",
-    "ENGINES", "EngineStats", "ProbeCallable", "layer_latencies",
-    "measure_importances", "measure_latencies",
+    "ENGINES", "PROBE_MEASURED", "PROBE_QUARANTINED", "PROBE_RETIMED",
+    "EngineStats", "ProbeCallable", "ProbeConfig", "ProbeTimeout",
+    "layer_latencies", "measure_importances", "measure_latencies",
+    "probe_segment",
     "SegmentEnumerator", "pareto_prune_options", "subset_selection",
     "table_entry_count",
     "Tables", "build_tables", "enumerate_probes", "one_segment_plan",

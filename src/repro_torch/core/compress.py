@@ -59,7 +59,13 @@ class CompressResult:
             "method": self.plan.method,
             "quantized_units": sum(1 for s in self.plan.segments
                                    if s.quant != "none"),
-            "probe_provenance": [],
+            # the latency entries that were not clean first measurements
+            # ("retimed" / "quarantined"): empty when all were
+            "probe_provenance": (
+                [{"i": i, "j": j, "k": k, "flag": flag}
+                 for (i, j, k), flag
+                 in sorted(self.tables.provenance.items())]
+                if self.tables is not None else []),
         }
         if isinstance(self.oracle, WallClockOracle):
             meta["timed_on"] = device_name(self.host.device)
@@ -67,10 +73,12 @@ class CompressResult:
         return runtime.save(path, self.lower(), plan=self.plan, meta=meta)
 
 
-def original_latency(host, latency_oracle=None, params=None) -> float:
+def original_latency(host, latency_oracle=None, params=None, *,
+                     engine: str = "batched") -> float:
     """Σ per-layer latency of the untouched network (the paper's T_orig)."""
     oracle = latency_oracle or AnalyticOracle()
-    return sum(probe_engine.layer_latencies(host, oracle, params))
+    return sum(probe_engine.layer_latencies(host, oracle, params,
+                                            engine=engine))
 
 
 def compress(
@@ -84,6 +92,9 @@ def compress(
     base_perf: float | None = None,
     params=None,
     engine: str = "batched",
+    cache_dir: str | None = None,
+    probe_config: probe_engine.ProbeConfig | None = None,
+    resume: bool = True,
     quantize: str | None = None,
     ratio_oracle: AnalyticOracle | None = None,
 ) -> CompressResult | None:
@@ -100,12 +111,30 @@ def compress(
     merge structure and per-unit precision under one budget; segments it
     picks quantized lower to narrow-weight units.  None / 'none' leaves
     tables, DP visit order and plans bit-identical to an fp-only run.
+
+    ``cache_dir``, ``probe_config`` and ``resume`` go to
+    :func:`.tables.build_tables`: the table cache, the probe retry,
+    timeout and quarantine policy, and the resume of an interrupted build
+    from its journal.  The tables are built before ``T_orig`` is priced,
+    so a cache hit's or a journal's timings are what the oracle holds
+    when it prices the original network: ``T_orig`` and the table
+    entries read one timing of each shape.
     """
     if quantize and quantize != "none" and method == "layeronly":
         raise ValueError("quantize is a merged-segment feature; "
                          "method='layeronly' has no merged units")
     oracle = latency_oracle or AnalyticOracle()
-    layer_lats = probe_engine.layer_latencies(host, oracle, params)
+    tables = None
+    if method != "layeronly":
+        tables = build_tables(host, method=method, latency_oracle=oracle,
+                              importance=importance, base_perf=base_perf,
+                              params=params, engine=engine,
+                              cache_dir=cache_dir, probe_config=probe_config,
+                              resume=resume, quantize=quantize,
+                              ratio_oracle=ratio_oracle)
+    layer_lats = probe_engine.layer_latencies(host, oracle, params,
+                                              engine=engine,
+                                              probe_config=probe_config)
     t_orig = sum(layer_lats)
     T0 = budget_ratio * t_orig
     L = len(host.descs())
@@ -114,10 +143,6 @@ def compress(
         return _layer_only(host, T0, P, oracle, importance, base_perf,
                            params, t_orig, layer_lats)
 
-    tables = build_tables(host, method=method, latency_oracle=oracle,
-                          importance=importance, base_perf=base_perf,
-                          params=params, engine=engine, quantize=quantize,
-                          ratio_oracle=ratio_oracle)
     t0 = time.perf_counter()
     res = solve_dp(L, tables.fn(), T0, P, method=method,
                    original_k=host.original_k)

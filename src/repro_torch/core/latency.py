@@ -18,9 +18,9 @@ oracles:
   microseconds of eager dispatch per op that would otherwise make a
   segment of many small ops (attention) look slower than its kernels
   and vary between timings.  It raises where there is no card: it never
-  times the CPU.  It times each probe signature once and keeps the
-  result, so the original network's latency and the tables built with
-  the same oracle read one measurement of each shape.
+  times the CPU.  It holds each probe signature's timing, so the
+  original network's latency and the tables built with the same oracle
+  read one measurement of each shape.
 """
 from __future__ import annotations
 
@@ -76,37 +76,66 @@ class WallClockOracle(LatencyOracle):
     """Times callables on the card (paper Appendix C protocol, scaled
     down): ``iters // groups`` calls captured in one CUDA graph and
     replayed ``groups`` times, each replay timed with a pair of CUDA
-    events; the median per-call time of the replays."""
+    events; the median per-call time of the replays.
+
+    It holds what it learned of each probe signature (:meth:`recall`,
+    :meth:`remember`): the probe engine times a signature once per oracle,
+    so ``T_orig`` and every table entry of one shape read one timing —
+    two timings of one shape differ by run-to-run noise, which the DP
+    would read as a saving or a loss.  A resumed build's journal and a
+    cache hit seed it with their recorded seconds before anything is
+    timed."""
 
     warmup: int = 5
     iters: int = 20
     groups: int = 5
 
     def __post_init__(self):
-        #: Seconds per probe signature timed so far (not a field: the
-        #: oracle's identity is its protocol, not the timings it holds).
+        # Not fields: the oracle's identity (its cache token) is its
+        # protocol, not what it has timed.
+        #: Seconds per probe signature, timed or seeded.
         self.measured: dict = {}
+        #: Provenance flag per probe signature held (``measured``,
+        #: ``retimed`` or ``quarantined``: no seconds).
+        self.flags: dict = {}
+        #: Signatures this oracle timed on the card (not seeded).
+        self.num_timed = 0
 
-    def time_signature(self, sig, make_probe: Callable[[], Callable]) -> float:
-        """Seconds of the probe of signature ``sig``, timed on its first
-        request only (``make_probe()`` builds the callable).  Timing a
-        signature once per oracle keeps ``T_orig`` and the table entries
-        consistent: two timings of one shape differ by run-to-run noise,
-        which the DP would read as a saving or a loss."""
-        if sig not in self.measured:
-            self.measured[sig] = self.time_callable(make_probe())
-        return self.measured[sig]
+    def recall(self, sig):
+        """``(seconds or None, flag)`` held for ``sig``, else None."""
+        if sig not in self.flags:
+            return None
+        return self.measured.get(sig), self.flags[sig]
 
-    def time_callable(self, fn: Callable[[], torch.Tensor]) -> float:
-        """Median per-call device time over the graph replays, in
-        seconds."""
+    def remember(self, sig, seconds: float | None, flag: str, *,
+                 timed: bool) -> None:
+        """Hold ``sig``'s seconds (None: quarantined) and provenance flag;
+        ``timed`` when the seconds were measured now, not replayed."""
+        self.flags[sig] = flag
+        if seconds is None:
+            self.measured.pop(sig, None)
+        else:
+            self.measured[sig] = seconds
+        self.num_timed += bool(timed)
+
+    def time_callable_stats(self, fn: Callable[[], torch.Tensor], *,
+                            warmup: int | None = None
+                            ) -> tuple[float, float]:
+        """``(median per-call seconds, relative spread)`` over the graph
+        replays; ``warmup`` overrides the configured eager warm-up count
+        (the probe engine passes one less for a probe it already ran).
+
+        The spread, ``(max − min) / median`` over the replays' per-call
+        means, is the probe engine's outlier signal (the JAX package's
+        group-mean spread): a replay disturbed by something else on the
+        card leaves the median usable but the spread large."""
         if not torch.cuda.is_available():
             raise RuntimeError("WallClockOracle times the card; "
                                "torch.cuda.is_available() is False")
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):        # warm up off the capture stream
-            for _ in range(self.warmup):
+            for _ in range(self.warmup if warmup is None else warmup):
                 fn()
         torch.cuda.current_stream().wait_stream(side)
         g = max(1, min(self.groups, self.iters))
@@ -128,8 +157,14 @@ class WallClockOracle(LatencyOracle):
             end.record()
             events.append((start, end))
         torch.cuda.synchronize()
-        return float(np.median([s.elapsed_time(e) / 1e3 / n
-                                for s, e in events]))
+        means = [s.elapsed_time(e) / 1e3 / n for s, e in events]
+        med = float(np.median(means))
+        return med, float((max(means) - min(means)) / max(med, 1e-12))
+
+    def time_callable(self, fn: Callable[[], torch.Tensor]) -> float:
+        """Median per-call device time over the graph replays, in
+        seconds."""
+        return self.time_callable_stats(fn)[0]
 
     def segment_latency(self, cost: CostBreakdown) -> float:
         raise TypeError(

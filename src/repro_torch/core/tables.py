@@ -2,8 +2,9 @@
 
 Tables are built against a *host* exposing the network to the generic
 machinery: ``descs()``, ``enumerator(method)``, ``segment_cost(seg)``,
-``probe_signature(seg)``, ``segment_probe(seg, params)`` and
-``original_k(l)`` (see :class:`repro_torch.models.cnn_host.CNNHost`).
+``probe_signature(seg)``, ``segment_probe(seg, params)``,
+``original_k(l)`` and ``fingerprint()`` (see
+:class:`repro_torch.models.cnn_host.CNNHost`).
 
 A metadata-only pass enumerates every ``(i, j, k)`` probe; the latency
 column goes through :mod:`.probe_engine` (one measurement per shape
@@ -13,16 +14,20 @@ engine's vmapped span batches), and options Pareto-dominated within
 their span are dropped before the DP sees them.
 With ``quantize`` each span's row is then widened with derived ``(k,
 mode)`` precision siblings (:func:`quant_sibling_entries`).
+
+With a ``cache_dir`` a build is content-addressed, journaled while it
+runs and resumable after a crash (:mod:`.table_cache`).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Callable
 
-from . import probe_engine
+from . import probe_engine, table_cache
 from .dp import TableFn
 from .importance import ImportanceSpec, magnitude_importance
-from .latency import AnalyticOracle, LatencyOracle
+from .latency import AnalyticOracle, LatencyOracle, WallClockOracle
 from .plan import CompressionPlan, Segment
 from .segments import pareto_prune_options
 
@@ -36,6 +41,12 @@ class Tables:
     build_seconds_importance: float = 0.0
     num_pruned: int = 0              # options dropped by Pareto dominance
     stats: probe_engine.EngineStats | None = None
+    # (i, j, k) -> "retimed" / "quarantined" for the latency entries that
+    # were not clean first measurements (kept entries only).
+    provenance: dict = dataclasses.field(default_factory=dict)
+    # repr(signature) -> (seconds or None, flag) of a wall-clock build:
+    # what a cache hit hands back to the oracle.
+    timings: dict = dataclasses.field(default_factory=dict)
 
     @property
     def num_entries(self) -> int:
@@ -129,32 +140,86 @@ def build_tables(
     importance: ImportanceSpec | str = "magnitude",
     base_perf: float | None = None,
     params=None,
+    progress: Callable[[str], None] | None = None,
+    prune: bool = True,
     engine: str = "batched",
+    cache_dir: str | None = None,
+    probe_config: probe_engine.ProbeConfig | None = None,
+    resume: bool = True,
     quantize: str | None = None,
     ratio_oracle: AnalyticOracle | None = None,
 ) -> Tables:
     """Construct both lookup tables for ``host`` (Algorithm 2, lines 1-8).
 
-    ``importance`` is ``"magnitude"`` (the deterministic proxy) or an
-    :class:`ImportanceSpec`: every non-original entry is then fine-tuned
-    and scored against ``base_perf`` (Eq. 4) through
-    :func:`.probe_engine.measure_importances`, in vmapped span batches
-    under ``engine="batched"`` where the host supports them, one scalar
-    fine-tune per entry under ``"sequential"``.  Original entries are 1.0
-    (``exp(0)``).  The latency column is bucketed by signature under
-    either engine.  ``quantize`` ('int8' / 'w8a8') widens the pruned fp
-    rows with precision siblings priced by ``ratio_oracle``
-    (:func:`quant_sibling_entries`); None / 'none' leaves the tables
-    bit-identical to an fp-only build."""
+    A metadata-only pass enumerates every ``(i, j, k)`` probe; the probe
+    engine then fills the latency column (one evaluation per shape
+    signature under either engine) and the importance column:
+    ``"magnitude"`` (the deterministic proxy) or an
+    :class:`ImportanceSpec`, every non-original entry fine-tuned and
+    scored against ``base_perf`` (Eq. 4) through
+    :func:`.probe_engine.measure_importances` (vmapped span batches under
+    ``engine="batched"`` where the host supports them, one scalar
+    fine-tune per entry under ``"sequential"``).  Original entries are
+    1.0 (``exp(0)``).  With ``prune`` (the default) options
+    Pareto-dominated within their span are dropped — optimum-preserving
+    for the DP.
+
+    ``cache_dir``: a content-addressed hit returns the cached tables
+    (and hands a wall-clock build's timings to the oracle) and discards a
+    stale journal.  A miss journals every completed bucket, publishes the
+    tables, and only then discards the journal; with ``resume`` (the
+    default) a killed build replays its journal and gives tables
+    bitwise the uninterrupted build's, ``resume=False`` discards the
+    journal first (:mod:`.table_cache`).  ``probe_config``: the
+    wall-clock hardening policy (:class:`.probe_engine.ProbeConfig`);
+    flags other than "measured" land in ``Tables.provenance`` and ride
+    the cache and the artifact.
+
+    ``quantize`` ('int8' / 'w8a8') widens the pruned fp rows with
+    precision siblings priced by ``ratio_oracle``
+    (:func:`quant_sibling_entries`) after the fp-only publish, so the
+    cache and the journal never hold siblings; None / 'none' leaves the
+    tables bit-identical to an fp-only build."""
     oracle = latency_oracle or AnalyticOracle()
+    wallclock = isinstance(oracle, WallClockOracle)
+
+    key = journal = None
+    if cache_dir is not None:
+        key = table_cache.cache_key(host, oracle, method, importance,
+                                    prune=prune, base_perf=base_perf,
+                                    engine=engine)
+        if key is not None:
+            cached = table_cache.load(cache_dir, key)
+            if cached is not None:
+                # a journal outlives a publish only when the build crashed
+                # between publish and cleanup: the tables subsume it
+                table_cache.discard_journal(cache_dir, key)
+                if wallclock:
+                    _hand_back_timings(host, method, oracle, cached.timings)
+                if progress:
+                    progress(f"tables: cache hit ({cached.num_entries} "
+                             "entries)")
+                return with_quant_siblings(cached, host, quantize,
+                                           ratio_oracle)
+            if not resume:
+                table_cache.discard_journal(cache_dir, key)
+            journal = table_cache.BuildJournal(cache_dir, key)
+            if progress and len(journal):
+                progress(f"tables: resuming from journal "
+                         f"({len(journal)} completed probes)")
+
     enum = host.enumerator(method)
     total_value = sum(d.value for d in enum.descs)
-    stats = probe_engine.EngineStats()
+    stats = probe_engine.EngineStats(engine=engine)
     probes = enumerate_probes(host, method, enum=enum)
+    segs = [p[5] for p in probes]
 
     t0 = time.perf_counter()
+    prov_flags = [probe_engine.PROBE_MEASURED] * len(probes)
     lats = probe_engine.measure_latencies(
-        host, [p[5] for p in probes], oracle, params, stats=stats)
+        host, segs, oracle, params, engine=engine, stats=stats,
+        progress=progress, journal=journal, probe_config=probe_config,
+        provenance=prov_flags)
     t_lat = time.perf_counter() - t0
 
     # importance column: analytic entries inline, measured ones through
@@ -172,8 +237,9 @@ def build_tables(
             measured.append(n)
     if measured:
         vals = probe_engine.measure_importances(
-            host, [probes[n][5] for n in measured], importance,
-            base_perf or 0.0, params, engine=engine, stats=stats)
+            host, [segs[n] for n in measured], importance,
+            base_perf or 0.0, params, engine=engine, stats=stats,
+            progress=progress, journal=journal)
         for n, v in zip(measured, vals):
             imps[n] = v
     t_imp = time.perf_counter() - t0
@@ -181,12 +247,41 @@ def build_tables(
     entries: dict = {}
     for (i, j, k, val, kept, seg), lat, imp in zip(probes, lats, imps):
         entries.setdefault((i, j), {})[k] = (imp, lat, kept)
+    dropped = 0
+    if prune:
+        entries, dropped = pareto_prune(entries)
+    # provenance survives pruning only for entries the DP can still see
+    provenance = {
+        (i, j, k): flag
+        for (i, j, k, *_), flag in zip(probes, prov_flags)
+        if flag != probe_engine.PROBE_MEASURED
+        and k in entries.get((i, j), {})
+    }
+    timings = {}
+    if wallclock:                          # every signature is held now
+        for seg in segs:
+            sig = probe_engine._signature(host, seg)
+            timings[repr(sig)] = oracle.recall(sig)
 
-    entries, dropped = pareto_prune(entries)
-    return with_quant_siblings(
-        Tables(entries=entries, build_seconds_latency=t_lat,
-               build_seconds_importance=t_imp, num_pruned=dropped,
-               stats=stats), host, quantize, ratio_oracle)
+    tables = Tables(entries=entries, build_seconds_latency=t_lat,
+                    build_seconds_importance=t_imp, num_pruned=dropped,
+                    stats=stats, provenance=provenance, timings=timings)
+    if key is not None:
+        table_cache.save(cache_dir, key, tables)
+        # only after a durable publish is the journal redundant
+        table_cache.discard_journal(cache_dir, key)
+    return with_quant_siblings(tables, host, quantize, ratio_oracle)
+
+
+def _hand_back_timings(host, method: str, oracle: WallClockOracle,
+                       timings: dict) -> None:
+    """Seed ``oracle`` with a cached build's timings (keyed by the
+    signatures' reprs), so whatever it prices next — ``T_orig`` — reads
+    the cached seconds and nothing is timed again."""
+    for *_, seg in enumerate_probes(host, method):
+        sig = probe_engine._signature(host, seg)
+        if repr(sig) in timings:
+            oracle.remember(sig, *timings[repr(sig)], timed=False)
 
 
 def enumerate_probes(host, method: str = "layermerge", enum=None):

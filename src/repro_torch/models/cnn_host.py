@@ -11,11 +11,13 @@ Dirac-masked span batches for the vmapped Eq. 4 fine-tunes
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch import kernels
+from repro_torch.core import table_cache
 from repro_torch.core.latency import CostBreakdown, conv2d_cost
 from repro_torch.core.plan import CompressionPlan, LayerDesc, Segment
 from repro_torch.core.probe_engine import ProbeCallable
@@ -175,6 +177,23 @@ class CNNHost:
         return ProbeCallable(_merged_segment_forward,
                              (x, wgt.contiguous(), b.contiguous(), stride,
                               dw, lo, hi))
+
+    def segment_callable(self, seg: Segment, params=None):
+        """Zero-argument merged-segment forward for wall-clock timing."""
+        return self.segment_probe(seg, params)
+
+    def fingerprint(self) -> str:
+        """Content digest for the table cache: the network's structure,
+        the probe workload and cost model, the parameters' bytes and the
+        machine token (wall-clock latencies do not transfer between
+        cards)."""
+        h = hashlib.sha256()
+        h.update(repr((self.net, self.batch, self.dtype_bytes,
+                       self.max_span, self.w_bytes, self.act_bytes,
+                       self.tile_budget)).encode())
+        h.update(table_cache.pytree_digest(self.params).encode())
+        h.update(table_cache.machine_token(self.device).encode())
+        return h.hexdigest()
 
     # -- batched importance probes ---------------------------------------------
     def importance_batch(self, segs: list[Segment], params=None):

@@ -27,10 +27,12 @@ the weights never meet in mixed dtypes.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import torch
 
 from repro_torch.core import merge as M
+from repro_torch.core import table_cache
 from repro_torch.core.latency import CostBreakdown, matmul_cost, \
     rank_ffn_cost
 from repro_torch.core.plan import CompressionPlan, LayerDesc, Segment
@@ -201,6 +203,19 @@ class TransformerHost:
                         device=self.device)
         return ProbeCallable(executor.run_units,
                              (self.cfg, units, x, T.default_positions(x)))
+
+    def segment_callable(self, seg: Segment, params=None):
+        """Zero-argument merged-segment forward for wall-clock timing."""
+        return self.segment_probe(seg, params)
+
+    def fingerprint(self) -> str:
+        """Content digest for the table cache (see ``CNNHost``)."""
+        h = hashlib.sha256()
+        h.update(repr((self.cfg, dataclasses.astuple(self.env),
+                       self.max_span, self.kinds)).encode())
+        h.update(table_cache.pytree_digest(self.params).encode())
+        h.update(table_cache.machine_token(self.device).encode())
+        return h.hexdigest()
 
     # -- unit construction -----------------------------------------------------
     def _linear_factors(self, sub):

@@ -19,7 +19,8 @@ Tensors go to host numpy arrays before hashing, so an artifact written by
 the JAX package loads here with its fingerprint verified, and one written
 here loads in the JAX package.  Publish is atomic (write ``path + '.tmp'``,
 fsync, rename); :func:`load` re-verifies the fingerprint and raises
-:class:`ArtifactError` on a missing, torn, corrupt or unknown-format file.
+:class:`ArtifactError` on a missing, torn, corrupt or unknown-format file,
+after renaming a torn or corrupt one to ``<path>.corrupt``.
 """
 from __future__ import annotations
 
@@ -180,22 +181,37 @@ def save(path: str, graph: ir.UnitGraph, plan=None,
          meta: dict | None = None) -> str:
     """Atomically publish ``graph`` (+ plan + metadata) to ``path``;
     returns the content fingerprint."""
+    from repro_torch.checkpoint.ckpt import atomic_writer
+
     spec, arrays = _payload(graph, plan, meta)
     fp = _digest(spec, arrays)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
+    with atomic_writer(path) as f:
         np.savez(f, __spec__=np.array(json.dumps(spec)),
                  __fingerprint__=np.array(fp), **arrays)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
     return fp
+
+
+def _corrupt(path: str, msg: str) -> ArtifactError:
+    """Quarantine a corrupt artifact (``<path>.corrupt``, the table
+    cache's contract) and build the error naming where it went and how to
+    recover: the next publish to ``path`` starts clean."""
+    from repro_torch.core.table_cache import quarantine
+
+    dst = quarantine(path)
+    where = f" (quarantined to {dst})" if dst else ""
+    return ArtifactError(
+        f"{msg}{where}; re-publish with repro_torch.runtime.save(...) or "
+        "CompressResult.save(...)")
 
 
 def load(path: str, device="cuda") -> CompressedArtifact:
     """Load and verify an artifact, placing its tensors on ``device``
-    (which defaults to the card and raises where there is none)."""
+    (which defaults to the card and raises where there is none).
+
+    A torn, corrupt or tampered file is renamed to ``<path>.corrupt``
+    before the error is raised, so it cannot wedge every later load or
+    block a re-publish; a file of an unsupported format version is left
+    in place (another version of the code may read it)."""
     from repro_torch.device import resolve
 
     dev = resolve(device)
@@ -205,18 +221,20 @@ def load(path: str, device="cuda") -> CompressedArtifact:
         with np.load(path, allow_pickle=False) as z:
             data = {k: z[k] for k in z.files}
     except (OSError, ValueError, zipfile.BadZipFile, KeyError) as e:
-        raise ArtifactError(f"torn or unreadable artifact {path}: {e}") from e
+        raise _corrupt(path, f"torn or unreadable artifact {path}: {e}") \
+            from e
     try:
         spec = json.loads(data.pop("__spec__").item())
         stored_fp = data.pop("__fingerprint__").item()
     except (KeyError, json.JSONDecodeError, ValueError) as e:
-        raise ArtifactError(f"artifact {path} has no valid spec: {e}") from e
+        raise _corrupt(path, f"artifact {path} has no valid spec: {e}") \
+            from e
     if spec.get("format") not in SUPPORTED_FORMATS:
         raise ArtifactError(f"artifact {path} format {spec.get('format')!r} "
                             f"not in {SUPPORTED_FORMATS}")
     if _digest(spec, data) != stored_fp:
-        raise ArtifactError(f"artifact {path} failed fingerprint "
-                            "verification (corrupt weights or tampered spec)")
+        raise _corrupt(path, f"artifact {path} failed fingerprint "
+                       "verification (corrupt weights or tampered spec)")
     if spec["family"] not in ("cnn", "transformer"):
         raise ArtifactError(f"artifact {path} has unknown family "
                             f"{spec['family']!r}")

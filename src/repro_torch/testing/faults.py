@@ -1,7 +1,9 @@
-"""Deterministic fault injection for the serving engine.
+"""Deterministic fault injection for the table build and the serving
+engine.
 
-The port's copy of the serving half of the JAX package's
-``repro.testing.faults``, with its names, semantics and environment
+The port's copy of the JAX package's ``repro.testing.faults`` (all but
+the distributed build's points and actions), with its names, semantics
+and environment
 interface (``REPRO_FAULTS``).  Production code calls :func:`hit(point)`
 at a named injection point (and :func:`mangle(point, data)` around a
 guarded write); with no plan active both are one ``is None`` check, so
@@ -20,6 +22,16 @@ and ``"garble"`` (a truncated or unparsable guarded write, through
 Injection points the port wires:
 
 =====================  =====================================================
+``probe.prepare``      before a latency probe is built and run once
+``probe.time``         before each timing of a probe (``delay`` ⇒ a
+                       straggler, ``raise`` ⇒ a flaky probe)
+``tables.bucket``      after a latency bucket's result is journaled (a kill
+                       here ⇒ the resume replays the journal)
+``tables.importance``  after an importance probe or span batch is journaled
+``journal.append``     ``mangle`` over a journal line's bytes (``torn`` or
+                       ``garble`` ⇒ a torn or corrupt record)
+``journal.append.done``after the journal line is fsync'd
+``table_cache.publish``before built tables are published atomically
 ``serve.arrival``      per request ingested by the continuous engine
                        (``delay`` ⇒ a stalled frontend or network)
 ``serve.admit``        per request admitted into a decode slot
@@ -34,11 +46,10 @@ Injection points the port wires:
                        (a lost serving process ⇒ drain, re-form, replay)
 =====================  =====================================================
 
-The table-build points of the JAX package (``probe.*``, ``tables.*``,
-``journal.*``, ``table_cache.*``, ``dist.*``), its kill-and-resume smoke
-and the process-level actions that target a worker subprocess
-(``kill-worker``, ``stall-worker``, ``corrupt-shard``) come with the
-table cache and build journal (ROADMAP.md queue 1, item 3).
+The distributed build's points (``dist.*``), ``worker_env_spec`` and the
+process-level actions that target a worker subprocess (``kill-worker``,
+``stall-worker``, ``corrupt-shard``) come with the distributed build
+(ROADMAP.md queue 1, item 5).
 
 NaN injection cannot go through :func:`hit` (it runs inside a captured
 step): :func:`nan_logits_hook` builds a ``logit_hook`` for the fixed-slot
@@ -46,6 +57,8 @@ scheduler, and the continuous engine reads request-targeted ``nan``
 rules through :func:`serve_nan_spec`.  :class:`TickClock` is the virtual
 clock that makes the engine's deadlines and shedding deterministic.
 
+    PYTHONPATH=src python -m repro_torch.testing.faults --smoke \\
+        [--device cpu]
     PYTHONPATH=src python -m repro_torch.testing.faults --serve-smoke \\
         [--device cpu]
 """
@@ -291,6 +304,161 @@ def nan_logits_hook(slot: int, step: int):
 
 
 # ---------------------------------------------------------------------------
+# Kill-and-resume smoke: a real child process crashes mid-build (a hard
+# ``os._exit``), and the build resumes here from its journal.
+# ---------------------------------------------------------------------------
+
+def _smoke_host(device="cuda", arch: str | None = None, batch: int = 4,
+                max_span: int | None = None):
+    """The smoke's host, parameters from seed 0: the JAX package's smoke
+    network (``tiny_resnet(4, in_hw 8, width 4, blocks (2,))`` at batch
+    4), or a network of the command line (``arch``, e.g. MobileNetV2)."""
+    import torch
+
+    from repro_torch.models import cnn, cnn_host, zoo
+
+    if arch is not None:
+        from repro_torch.compress import build_host
+        return build_host(arch, seed=0, batch=batch, max_span=max_span,
+                          device=device)[0]
+    net = zoo.tiny_resnet(num_classes=4, in_hw=8, width=4, blocks=(2,))
+    params = cnn.init_params(net, torch.Generator().manual_seed(0),
+                             device=device)
+    return cnn_host.CNNHost(net, params, batch=batch, device=device)
+
+
+def _smoke_oracle(oracle: str):
+    from repro_torch.core import AnalyticOracle, WallClockOracle
+    return WallClockOracle() if oracle == "wallclock" else AnalyticOracle()
+
+
+def _smoke_build(cache_dir: str | None, host, oracle):
+    from repro_torch.core import build_tables
+    return build_tables(host, latency_oracle=oracle, cache_dir=cache_dir)
+
+
+def kill_resume_smoke(kill_at_bucket: int = 4, *, device="cuda",
+                      oracle: str = "analytic", arch: str | None = None,
+                      batch: int = 4, max_span: int | None = None,
+                      work_dir: str | None = None) -> dict:
+    """Crash a child's table build at its ``kill_at_bucket``-th journaled
+    bucket (``exit@tables.bucket``: status 17, no cleanup), then resume it
+    in this process and hold the resume to the journal.
+
+    The child is ``python -m repro_torch.testing.faults --child DIR`` on
+    ``device`` (the card by default) with ``oracle`` ('analytic' or
+    'wallclock': the card) at the host of ``arch`` / ``batch`` /
+    ``max_span`` (:func:`_smoke_host`).  Checks: no probe of either
+    process was quarantined; exactly one journal is left; the resume
+    replays at least
+    ``kill_at_bucket - 1`` buckets; every journaled signature's seconds
+    are bitwise those of the resumed tables and of the ``T_orig`` priced
+    after them by the same oracle; the journal is gone after the publish;
+    a third build is a cache hit equal to the resumed tables; and under
+    the analytic oracle the resumed tables equal an uninterrupted build.
+    ``work_dir`` (default: a temporary directory) holds the cache."""
+    import glob
+    import json
+    import tempfile
+
+    from repro_torch.core import Segment, enumerate_probes, layer_latencies
+    from repro_torch.core.probe_engine import PROBE_QUARANTINED, _signature
+
+    from .subproc import run_module, subprocess_env
+
+    with tempfile.TemporaryDirectory(dir=work_dir) as d:
+        args = ["--child", d, "--device", str(device), "--oracle", oracle,
+                "--batch", str(batch)]
+        if arch is not None:
+            args += ["--arch", arch]
+        if max_span is not None:
+            args += ["--max-span", str(max_span)]
+        t0 = time.perf_counter()
+        r = run_module("repro_torch.testing.faults", *args, check=False,
+                       env=subprocess_env(
+                           device=str(device),
+                           faults_spec=f"exit@tables.bucket:{kill_at_bucket}"))
+        child_s = time.perf_counter() - t0
+        if r.returncode != 17:
+            raise AssertionError(
+                f"child was expected to die at bucket {kill_at_bucket} "
+                f"(exit 17), got {r.returncode}:\n{r.stdout}{r.stderr}")
+        journals = glob.glob(os.path.join(d, "*.journal"))
+        if len(journals) != 1:
+            raise AssertionError(f"expected 1 journal after the crash, "
+                                 f"found {journals}")
+        with open(journals[0]) as f:
+            records = {rec["k"]: rec["v"] for rec in map(json.loads, f)}
+
+        host = _smoke_host(device, arch, batch, max_span)
+        ora = _smoke_oracle(oracle)
+        t0 = time.perf_counter()
+        resumed = _smoke_build(d, host, ora)
+        resume_s = time.perf_counter() - t0
+        def journaled(seg):
+            return records.get(f"latb:{_signature(host, seg)!r}")
+
+        checked = 0
+        for i, j, k, _, _, seg in enumerate_probes(host):
+            want, row = journaled(seg), resumed.entries.get((i, j), {})
+            if want is not None and k in row:
+                if row[k][1] != want:
+                    raise AssertionError(
+                        f"entry ({i},{j}] k={k}: {row[k][1]!r} is not the "
+                        f"journaled {want!r}")
+                checked += 1
+        layer_segs = [Segment(i=l - 1, j=l, k=host.original_k(l),
+                              kept=(l,), original=True)
+                      for l in range(1, len(host.descs()) + 1)]
+        layers = layer_latencies(host, ora)          # T_orig's terms
+        failed = [ijk for ijk, f in resumed.provenance.items()
+                  if f == PROBE_QUARANTINED] + [
+            sig for sig, f in getattr(ora, "flags", {}).items()
+            if f == PROBE_QUARANTINED]
+        if failed:
+            raise AssertionError(f"probes failed and were quarantined to "
+                                 f"the analytic estimate: {failed}")
+        for seg, val in zip(layer_segs, layers):
+            want = journaled(seg)
+            if want is not None and val != want:
+                raise AssertionError(
+                    f"T_orig priced layer {seg.j} at {val!r}, not the "
+                    f"journaled {want!r}")
+        hits = resumed.stats.num_journal_hits
+        if hits < kill_at_bucket - 1:
+            raise AssertionError(f"resume replayed only {hits} journaled "
+                                 f"buckets (expected >= {kill_at_bucket - 1})")
+        if glob.glob(os.path.join(d, "*.journal")):
+            raise AssertionError("journal not cleaned up after publish")
+        again = _smoke_build(d, host, _smoke_oracle(oracle))
+        if not again.stats.cache_hit or again.entries != resumed.entries:
+            raise AssertionError("the third build is not a cache hit equal "
+                                 "to the resumed tables")
+        if oracle == "analytic":
+            reference = _smoke_build(None, host, ora)
+            if (resumed.entries != reference.entries
+                    or resumed.num_pruned != reference.num_pruned):
+                raise AssertionError("resumed tables diverged from the "
+                                     "uninterrupted build")
+        return {
+            "device": str(device),
+            "oracle": oracle,
+            "killed_at_bucket": kill_at_bucket,
+            "journal_records": len(records),
+            "journal_hits_on_resume": hits,
+            "entries_checked_against_journal": checked,
+            "t_orig_layers_journaled": sum(
+                journaled(seg) is not None for seg in layer_segs),
+            "t_orig_s": sum(layers),
+            "signatures_timed_on_resume": getattr(ora, "num_timed", 0),
+            "entries": resumed.num_entries,
+            "child_s": child_s,
+            "resume_s": resume_s,
+            "bit_identical": True,
+        }
+
+
+# ---------------------------------------------------------------------------
 # Continuous-serving fault smoke: one arrival trace served clean, then
 # again under a REPRO_FAULTS spec combining a request-targeted NaN, a
 # delayed arrival and a slow-decode straggler chunk.
@@ -394,13 +562,40 @@ def main(argv=None):
     import json
 
     ap = argparse.ArgumentParser(prog="python -m repro_torch.testing.faults")
+    ap.add_argument("--smoke", action="store_true",
+                    help="kill-and-resume table-build smoke: a child "
+                         "process dies mid-build, the build resumes")
     ap.add_argument("--serve-smoke", action="store_true",
                     help="continuous-serving fault smoke: NaN + straggler "
                          "under REPRO_FAULTS, survivor exactness asserted")
+    ap.add_argument("--child", metavar="CACHE_DIR", default=None,
+                    help=argparse.SUPPRESS)   # the build that is crashed
     ap.add_argument("--device", default="cuda",
                     help="the card by default; 'cpu' runs the plain "
                          "PyTorch versions")
+    ap.add_argument("--oracle", default="analytic",
+                    choices=("analytic", "wallclock"),
+                    help="the smoke's latency oracle (wallclock: the card)")
+    ap.add_argument("--arch", default=None,
+                    help="the smoke's network (a CLI arch, e.g. "
+                         "mobilenetv2); default: the JAX package's tiny "
+                         "smoke network")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--max-span", type=int, default=None)
     args = ap.parse_args(argv)
+    if args.child is not None:
+        _smoke_build(args.child, _smoke_host(args.device, args.arch,
+                                             args.batch, args.max_span),
+                     _smoke_oracle(args.oracle))
+        print("CHILD_COMPLETED")               # only reached if not killed
+        return
+    if args.smoke:
+        print(json.dumps(kill_resume_smoke(
+            device=args.device, oracle=args.oracle,
+            arch=args.arch, batch=args.batch, max_span=args.max_span),
+            indent=2))
+        print("FAULT_SMOKE_OK")
+        return
     if args.serve_smoke:
         print(json.dumps(serve_fault_smoke(args.device), indent=2))
         print("SERVE_FAULT_SMOKE_OK")

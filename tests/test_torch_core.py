@@ -215,9 +215,9 @@ def test_wallclock_oracle_times_each_signature_once():
     class CountingOracle(tlat.WallClockOracle):
         calls = 0
 
-        def time_callable(self, fn):       # the card's timing, stubbed
-            CountingOracle.calls += 1
-            return 1e-3 + 1e-6 * CountingOracle.calls
+        def time_callable_stats(self, fn, *, warmup=None):  # the card's
+            CountingOracle.calls += 1                       # timing, stubbed
+            return 1e-3 + 1e-6 * CountingOracle.calls, 0.0
 
     _, th = _hosts("tiny_resnet")
     ora = CountingOracle()

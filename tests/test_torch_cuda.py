@@ -1000,3 +1000,42 @@ def test_eq4_finetune_is_bitwise_under_deterministic_cudnn():
     for a, b in zip(*(pytree.tree_leaves(r) for r in runs)):
         assert torch.equal(a, b)
     assert imps[0] == imps[1]
+
+
+# -- the crash-safe table build -----------------------------------------------
+
+def test_kill_and_resume_with_the_wallclock_oracle(tmp_path):
+    """A child process times ``tiny_resnet``'s probes on the card and dies
+    at its 4th journaled bucket; the resume replays the journal: every
+    journaled signature's seconds are bitwise in the resumed tables and
+    in the ``T_orig`` terms priced after them, and a third build is a
+    bitwise cache hit (``kill_resume_smoke`` raises otherwise)."""
+    _card()
+    from repro_torch.testing import faults
+    out = faults.kill_resume_smoke(kill_at_bucket=4, device="cuda",
+                                   oracle="wallclock", work_dir=str(tmp_path))
+    assert out["journal_hits_on_resume"] >= 3
+    assert out["entries_checked_against_journal"] > 0
+    assert out["signatures_timed_on_resume"] > 0   # the rest were timed
+
+
+def test_table_cache_hit_on_the_card_times_nothing(tmp_path):
+    """A second compress with a fresh wall-clock oracle reads the cached
+    tables and their timings: no signature is timed, ``T_orig`` included,
+    and the plan and ``T_orig`` are the first run's, bitwise."""
+    dev = _card()
+    from repro_torch.core import WallClockOracle, compress
+    from repro_torch.models import cnn, cnn_host, zoo
+    net = zoo.tiny_resnet(num_classes=4, in_hw=8, width=4, blocks=(2,))
+    params = cnn.init_params(net, torch.Generator().manual_seed(0),
+                             device=dev)
+    host = cnn_host.CNNHost(net, params, batch=4, device=dev)
+    first = compress(host, budget_ratio=0.8, latency_oracle=WallClockOracle(),
+                     cache_dir=str(tmp_path))
+    ora = WallClockOracle()
+    hit = compress(host, budget_ratio=0.8, latency_oracle=ora,
+                   cache_dir=str(tmp_path))
+    assert hit.tables.stats.cache_hit and ora.num_timed == 0
+    assert hit.plan == first.plan
+    assert hit.original_latency == first.original_latency
+    assert hit.tables.entries == first.tables.entries
