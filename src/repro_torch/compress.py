@@ -75,7 +75,7 @@ def build_host(arch: str, *, seed: int = 0, batch: int = 8, seq: int = 128,
                                 device=dev)
         source["family"] = "cnn"
         return host, source
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ArchConfig, get_config
     from repro_torch.models import transformer as T
     from repro_torch.models.transformer_host import CostEnv, TransformerHost
 
@@ -84,6 +84,10 @@ def build_host(arch: str, *, seed: int = 0, batch: int = 8, seq: int = 128,
     except KeyError as e:
         raise ValueError(f"unknown arch {arch!r}; the port has the CNN zoo "
                          f"({', '.join(CNN_ARCHS)}) and {e}") from None
+    if not isinstance(cfg, ArchConfig):
+        raise ValueError(f"arch {arch!r} names a CNN config; the command "
+                         f"takes CNNs by their zoo names "
+                         f"({', '.join(CNN_ARCHS)})")
     cfg = dataclasses.replace(cfg, dtype="float32", remat=False) if full \
         else cfg.reduced()
     params, _ = T.init_model(cfg, gen, device=dev)

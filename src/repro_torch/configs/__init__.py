@@ -1,4 +1,6 @@
-"""Architecture configs of the transformer family (see :mod:`.base`)."""
-from .base import ArchConfig, get_config
+"""Architecture configs (see :mod:`.base`)."""
+from .base import (ARCH_IDS, LONG_CONTEXT_OK, SHAPES, ArchConfig,
+                   ShapeConfig, cells, get_config)
 
-__all__ = ["ArchConfig", "get_config"]
+__all__ = ["ARCH_IDS", "LONG_CONTEXT_OK", "SHAPES", "ArchConfig",
+           "ShapeConfig", "cells", "get_config"]

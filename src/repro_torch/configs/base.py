@@ -1,16 +1,20 @@
 """Architecture configs — the JAX package's ``ArchConfig``, copied field for
-field.
+field, with the JAX package's dry-run shapes and cells.
 
 The field names, order and defaults are the JAX package's: a transformer
 artifact stores ``dataclasses.asdict(cfg)`` in its spec, and the spec
 enters the fingerprint, so a config that differs by one field would give
 another fingerprint.  :func:`get_config` resolves only the configs whose
-families the port runs; any other id raises.
+families the port runs (and the paper's three CNNs, which resolve to
+:class:`repro_torch.models.cnn.ConvNet` s of the zoo); any other id
+raises.  :class:`ShapeConfig`, :data:`SHAPES`, :data:`LONG_CONTEXT_OK`,
+:data:`ARCH_IDS` and :func:`cells` are the JAX package's values.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Mapping
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,19 +115,65 @@ class ArchConfig:
         )
 
 
-#: Config ids whose families the port runs (dense attention transformers
-#: and the RG-LRU hybrid).  The JAX package's other ids (MoE, xLSTM,
-#: M-RoPE models) wait for their blocks: ROADMAP.md queue 1.
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                       # 'train' | 'prefill' | 'decode'
+
+
+SHAPES: Mapping[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+# archs that may run long_500k (sub-quadratic state): ssm/hybrid only
+LONG_CONTEXT_OK = ("recurrentgemma-2b", "xlstm-125m")
+
+ARCH_IDS = (
+    "granite-moe-1b-a400m", "qwen3-moe-30b-a3b", "gemma-7b",
+    "command-r-plus-104b", "qwen2-7b", "smollm-135m", "recurrentgemma-2b",
+    "musicgen-large", "qwen2-vl-7b", "xlstm-125m",
+)
+
+#: Config ids whose families the port runs (dense attention transformers,
+#: the RG-LRU hybrid and the paper's own CNNs).  The JAX package's other
+#: ids (MoE, xLSTM, M-RoPE models, the dense transformers not copied yet)
+#: wait for their blocks: ROADMAP.md queue 1.
 _MODULES = {
     "recurrentgemma-2b": "recurrentgemma_2b",
     "smollm-135m": "smollm_135m",
+    # the paper's own networks
+    "resnet34": "resnet34",
+    "mobilenetv2": "mobilenetv2",
+    "ddpm-cifar10": "ddpm_cifar10",
 }
 
 
-def get_config(arch: str) -> ArchConfig:
+def get_config(arch: str):
+    """The ``CONFIG`` of ``arch``: an :class:`ArchConfig` for a
+    transformer id, a :class:`repro_torch.models.cnn.ConvNet` for a CNN
+    id."""
     if arch not in _MODULES:
         raise KeyError(
             f"arch {arch!r} is not ported; the port runs {sorted(_MODULES)} "
             "(the other families wait in ROADMAP.md queue 1)")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.CONFIG
+
+
+def cells(include_skipped: bool = False):
+    """All (arch, shape) dry-run cells, honouring the long_500k skip rule."""
+    out = []
+    for arch in ARCH_IDS:
+        for shape in SHAPES.values():
+            skipped = (shape.name == "long_500k"
+                       and arch not in LONG_CONTEXT_OK)
+            if skipped and not include_skipped:
+                continue
+            out.append((arch, shape.name) if not include_skipped
+                       else (arch, shape.name, skipped))
+    return out

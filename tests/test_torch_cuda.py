@@ -356,6 +356,33 @@ def test_merged_conv_instances_match_plain_versions(xs, ws, stride, pair):
         float(((y - yr).abs() / scale).max())
 
 
+#: The DDPM UNet's distinct unit shapes at batch 8 (``zoo.ddpm_unet()``):
+#: the Cin-4 stem, the Cout-3 output conv, the convs after the 768- and
+#: 384-channel concats, and boundaries 3 to 6 merged into 11x11 stride 2.
+UNET_UNITS = [((8, 34, 34, 4), (3, 3, 4, 128), 1),
+              ((8, 34, 34, 128), (3, 3, 128, 3), 1),
+              ((8, 18, 18, 768), (3, 3, 768, 256), 1),
+              ((8, 34, 34, 384), (3, 3, 384, 128), 1),
+              ((8, 42, 42, 128), (11, 11, 128, 256), 2)]
+
+
+@pytest.mark.parametrize("xs,ws,stride", UNET_UNITS)
+def test_merged_conv_at_unet_units_matches_plain_version(xs, ws, stride):
+    """|Δ| <= 1e-4 · (|x| ⋆ |w| + |b|) + 1e-6 per output, with the UNet's
+    SiLU epilogue."""
+    dev = _card()
+    x, w, b = _conv_operands(xs, ws, dev)
+    tk.reset_launch_counts()
+    y = tk.merged_conv_op(x, w, b, stride=stride, activation="silu")
+    assert tk.launch_counts()["merged_conv"] == 1
+    yr = tk.apply_activation(tk.merged_conv_ref(x, w, b, stride=stride),
+                             "silu")
+    scale = _conv_scale(x, w, b, stride)
+    assert y.shape == yr.shape and bool(torch.isfinite(y).all())
+    assert bool(((y - yr).abs() <= 1e-4 * scale + 1e-6).all()), \
+        float(((y - yr).abs() / scale).max())
+
+
 def test_merged_conv_int8_mma_stops_at_its_int32_range():
     """K = 2^17: int8 x int8 takes the TF32 instance (the int8 mma's int32
     sum could overflow), and still matches its plain version."""
@@ -458,6 +485,28 @@ def test_tiny_network_on_the_card_matches_the_cpu(tmp_path):
     y_cpu = runtime.load(out, device="cpu").apply(x)
     np.testing.assert_allclose(y.cpu().numpy(), y_cpu.numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+def test_ddpm_unet_on_the_card_matches_the_cpu(tmp_path):
+    """The whole DDPM UNet (full width, analytic tables) compressed and
+    executed on the card: concat, GN, upsample and attention units around
+    merged_conv, held against the same artifact on the CPU."""
+    dev = _card()
+    from repro_torch import runtime
+    from repro_torch.compress import main
+    out = str(tmp_path / "unet.npz")
+    main(["--arch", "ddpm_unet", "--budget-ratio", "0.6", "--out", out])
+    art = runtime.load(out)
+    kinds = {u.kind for u in art.graph.units}
+    assert {"conv", "upsample", "attn"} <= kinds
+    x = torch.randn(2, 32, 32, 4, generator=torch.Generator().manual_seed(0))
+    tk.reset_launch_counts()
+    y = art.apply(x.to(dev))
+    assert tk.launch_counts()["merged_conv"] > 0
+    y_cpu = runtime.load(out, device="cpu").apply(x)
+    assert tuple(y.shape) == (2, 32, 32, 3)
+    assert float((y.cpu() - y_cpu).abs().max()) <= \
+        1e-4 * float(y_cpu.abs().max())
 
 
 def test_tiny_quantized_network_on_the_card(tmp_path):

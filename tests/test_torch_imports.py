@@ -51,6 +51,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
               "repro_torch.kernels.rglru_scan",
               "repro_torch.kernels.flash_attention",
               "repro_torch.configs.recurrentgemma_2b",
+              "repro_torch.configs.resnet34",
+              "repro_torch.configs.mobilenetv2",
+              "repro_torch.configs.ddpm_cifar10",
               "repro_torch.testing.faults"):
         assert m in mods
     code = ("import sys\n"

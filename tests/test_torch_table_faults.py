@@ -50,8 +50,9 @@ from repro_torch.core import (AnalyticOracle, ImportanceSpec, ProbeConfig,
                               Segment, WallClockOracle, accuracy_perf,
                               build_tables, compress, enumerate_probes,
                               layer_latencies, table_cache, xent_loss)
+from repro_torch.core import probe_engine
 from repro_torch.core.probe_engine import (PROBE_MEASURED, PROBE_QUARANTINED,
-                                           PROBE_RETIMED)
+                                           PROBE_RETIMED, ProbeCallable)
 from repro_torch.models import cnn as tcnn
 from repro_torch.models import cnn_host as thost
 from repro_torch.models import zoo as tzoo
@@ -443,9 +444,15 @@ def test_probe_timeout_quarantines_everything(host):
                for _, lat, _ in row.values())
 
 
-def test_straggler_delay_recovers_on_retry(host):
-    """A straggler at 4x the budget, against a timing that does no work:
-    the retry lands microseconds into its budget, whatever the load."""
+def test_straggler_delay_recovers_on_retry(host, monkeypatch):
+    """A straggler at 4x the budget, against a prepare and a timing that
+    do no work: the retry lands microseconds into its budget, whatever
+    the load.  (The prepare is timed against the same budget, and a real
+    one — the merge and one probe run on the CPU — can overrun 0.25 s on
+    a loaded machine and add retries of its own.)"""
+    monkeypatch.setattr(probe_engine, "_prepare_probe",
+                        lambda host, seg, params: ProbeCallable(
+                            lambda: None, ()))
     cfg = _fast_probe(timeout_s=0.25, retries=2)
     with faults.inject(faults.Fault("probe.time", "delay", nth=1,
                                     seconds=1.0)) as plan:
