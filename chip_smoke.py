@@ -297,13 +297,59 @@ Phases, each printing its own line with the seconds it took:
              ``merged_conv@ddpm_unet`` and ``depthwise_conv@ddpm_unet``
              rows).
 
+23. archs — the reference's other transformer families, fp32, weights
+             from seed 0, direct table builds with ``strict_probes()``
+             (0 retries, 0 quarantines): (a) granite-moe-1b-a400m at full
+             size (24 layers, d 1024, 16/8 heads of 64, 32 experts top-8,
+             ``moe_dff`` 512, vocab 49155, tied; about 1.33 B parameters)
+             compressed at budget 0.6 under ``CostEnv(batch=8, seq=128)``
+             with ``method="layermerge"`` (MoE and attention sublayers
+             are prune-or-keep; the depth baseline keeps every layer of
+             a chain with no FFN and meets no budget under 1), lowered in
+             memory (no artifact file: phase 16 covers multi-GB artifact
+             I/O on the card, the CPU tests these kinds' round trips);
+             plan and original served through the captured
+             ``serve_loop`` and ``serve_loop_pertoken`` (8 seeded
+             16-token prompts, 32 tokens: the same tokens), the served
+             logits teacher-forced on the card against the CPU port with
+             every MoE call's routing recorded (``RouteLog``: choices and
+             keep flags that differ, the smallest top-k margin, dropped
+             pairs a step at the config's 1.25); where a choice differs
+             the CPU port replays the card's routing through ``route``'s
+             test hook and that run is held to NET_RTOL; then
+             ``ragged_prompts(0, 24, 4, 32, vocab)`` through
+             ``serve_requests`` at capacity factor 8.0 (nothing drops),
+             every request equal to its prompt served alone; (b)
+             xlstm-125m at full size (12 layers, sLSTM at 3 and 9, d 768,
+             4 heads of 192, vocab 50304, tied) likewise, plus the
+             continuous engine (8 slots, chunks of 8) on the same 24
+             prompts (every request equal to its prompt alone: the fresh
+             state reset) and the captured decode bitwise equal to the
+             eager one at every step; (c) qwen2-vl-7b at full width, 8
+             of its 28 layers (d 3584, 28/4 heads of 128, QKV bias,
+             SwiGLU 18944, vocab 152064, untied, embeddings frontend,
+             M-RoPE), at the tightest budget from 0.6 up whose plan
+             merges an FFN, 16 seeded embedding positions and 32 more
+             through ``executor.decode_step`` with three distinct M-RoPE
+             streams, held against the prefill forward, the CPU port
+             (its first 4 rows) and ``replaced_apply``; each model's
+             decode step as a captured graph (device ms, tok/s, busy
+             share).  rmsnorm must launch
+             in (a)-(c), flash_attention in (a) and (c), merged_ffn in
+             (c).  (d) rmsnorm at D {1024, 768, 3584} × M {1024, 8},
+             flash_attention at ``ARCH_ATTENTION``, merged_ffn at the
+             served D 3584 unit × M {8, 1024}: kernel, plain version,
+             library call and bound (``archs.json``; the ``kernels``
+             line's ``@archs`` rows).
+
 Any failed check raises, so the script exits non-zero.  Per-unit shapes,
 times, bounds and launch plans land in ``build/chip_smoke/units.json``
 (MobileNetV2), ``resnet34.json`` and ``resnet34_wallclock.json``,
 ``qunits.json`` and ``qffn.json`` (the quantized phases), RecurrentGemma's
 in ``rg.json``, the serving numbers of phases 9, 13, 16, 18 and 19 in
 ``serve.json``, phase 20's in ``importance.json``, phase 21's in
-``tables.json``, phase 22's in ``unet.json``.  It exits non-zero
+``tables.json``, phase 22's in ``unet.json``, phase 23's in
+``archs.json``.  It exits non-zero
 without a result where ``torch.cuda.is_available()`` is false or the repo's
 ``src/`` is missing.  The last lines are the ``kernels`` JSON line, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -358,6 +404,21 @@ FFMA_RATE = f"fp32 FFMA, {H100_FP32_FLOPS / 1e12:g} TFLOP/s"
 #: Suffix of the ``kernels`` line's rows of the convs at the DDPM UNet's
 #: units (phase 22), beside their MobileNetV2 rows.
 UNET_ROW = "@ddpm_unet"
+#: Suffix of the ``kernels`` line's rows of phase 23 (d): each kernel's
+#: times summed over its shapes there, its launches over (a)-(c).
+ARCH_ROW = "@archs"
+#: flash_attention shapes (B, S, H, KVH, D) of phase 23's paths:
+#: granite-moe-1b-a400m and qwen2-vl-7b at the probes' S 128 and the
+#: prompts' 16.
+ARCH_ATTENTION = ((8, 128, 16, 8, 64), (8, 16, 16, 8, 64),
+                  (8, 128, 28, 4, 128), (8, 16, 28, 4, 128))
+#: rmsnorm widths of phase 23's paths (granite, xLSTM, qwen2-vl).
+ARCH_NORM_D = (1024, 768, 3584)
+#: MoE capacity factor at which nothing drops (the reference pins it so
+#: in ``tests/test_archs.py``): a request then routes as it would alone.
+MOE_NO_DROP = 8.0
+#: Rows of phase 23 (c)'s batch held against the CPU port.
+CPU_ROWS = 4
 #: Each kernel's source and the TPU kernel (``pl.pallas_call``) it ports.
 KERNEL_SOURCES = {
     "merged_conv": ("src/repro_torch/kernels/csrc/merged_conv.cu",
@@ -862,12 +923,14 @@ def compare_attention(q, k, v, causal):
 
 
 def norm_scan_attention_sweep(dev) -> dict:
-    """rmsnorm over M {1,8,37,1024} × D {32,512,576,2560,2561}; rglru_scan
-    over B {1,8} × S {1,7,128,512} × C {32,256,2560,2561} with a in
-    (0.5, 1), also held bitwise; flash_attention over BH {1,8,80} ×
-    S {1,7,16,128,256,1000} × D {32,64,256}, causal and not (BH 8 as
-    B 2 × H 4 over 2 kv heads, BH 80 as B 8 × H 10 over 1, the MQA of
-    RecurrentGemma); ``benchmarks/run.py``'s three shapes."""
+    """rmsnorm over M {1,8,37,1024} × D {32,512,576,768,1024,2560,2561,
+    3584}; rglru_scan over B {1,8} × S {1,7,128,512} × C {32,256,2560,
+    2561} with a in (0.5, 1), also held bitwise; flash_attention over
+    BH {1,8,80} × S {1,7,16,128,256,1000} × D {32,64,256}, causal and not
+    (BH 8 as B 2 × H 4 over 2 kv heads, BH 80 as B 8 × H 10 over 1, the
+    MQA of RecurrentGemma); ``benchmarks/run.py``'s three shapes; and
+    phase 23's (``ARCH_ATTENTION``: granite's 16 heads of 64 over 8 and
+    qwen2-vl's 28 of 128 over 4, at S 128 and 16)."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels import ref
@@ -883,7 +946,7 @@ def norm_scan_attention_sweep(dev) -> dict:
         return torch.randn(*shape, generator=g).to(dev)
 
     for m, d in [(m, d) for m in (1, 8, 37, 1024)
-                 for d in (32, 512, 576, 2560, 2561)]:
+                 for d in (32, 512, 576, 768, 1024, 2560, 2561, 3584)]:
         x, w = rnd(m, d) * 3.0, rnd(d) * 0.2
         yr = ref.rmsnorm_ref(x, w, 1e-6)
         note("rmsnorm", held("rmsnorm", kernels.rmsnorm_op(x, w, eps=1e-6),
@@ -908,6 +971,9 @@ def norm_scan_attention_sweep(dev) -> dict:
                     note("flash_attention", compare_attention(q, k, v, causal))
     q, k, v = (rnd(2, 256, 4, 64) for _ in range(3))      # benchmarks/run.py
     note("flash_attention", compare_attention(q, k, v, True))
+    for b, s, h, kvh, d in ARCH_ATTENTION:                 # phase 23's paths
+        q, k, v = rnd(b, s, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d)
+        note("flash_attention", compare_attention(q, k, v, True))
     return worst
 
 
@@ -1209,6 +1275,7 @@ def ffn_sweep(dev):
     cases += [(m, 2560, r) for m in (8, 1024) for r in (24, 2560, 7680)]
     cases += [(m, 2561, r) for m in (1, 8, 63, 64, 65, 129, 1024)
               for r in (24, 2560)] + [(8, 2561, 7680)]
+    cases += [(m, 3584, r) for m in (8, 1024) for r in (24, 3584)]
     for m, d, r in cases:
         x = torch.randn(m, d, generator=g).to(dev)
         u = (torch.randn(d, r, generator=g) / d ** 0.5).to(dev)
@@ -3478,6 +3545,618 @@ def resnet34_wallclock(dev, compress_main, analytic, xr) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 23. the reference's other transformer families
+# ---------------------------------------------------------------------------
+
+class RouteLog:
+    """While active, every MoE ``route`` call records the experts it chose
+    (on the host: eager runs only), their keep flags under the call's
+    capacity and the smallest gap between the k-th and the (k+1)-th gate.
+    Given ``forced`` (another run's records, in call order) each call
+    instead replays that run's gates and experts through ``route``'s
+    test hook: how the CPU port follows the card's routing where a
+    near-tie flipped a choice."""
+
+    def __init__(self, forced=None):
+        self.forced = forced
+        self.calls: list = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe as MOE
+        self._orig = orig = MOE.route
+
+        def route(p, xt, cfg, forced=None):
+            if self.forced is not None:
+                rec = self.forced[len(self.calls)]
+                g, e = orig(p, xt, cfg, forced=(rec["g"], rec["e"]))
+            else:
+                g, e = orig(p, xt, cfg)
+            k, n_e = cfg.experts_per_token, cfg.num_experts
+            gates = torch.softmax((xt @ p["router"]).float(), dim=-1)
+            top = torch.topk(gates, k + 1, dim=-1).values
+            # moe_ffn's capacity
+            cap = max(int(math.ceil(xt.shape[0] * k / n_e
+                                    * cfg.capacity_factor)), 1)
+            keep = MOE.capacity_positions(e, n_e, cap)[1]
+            self.calls.append({"g": g.detach().cpu(), "e": e.cpu(),
+                               "keep": keep.cpu(), "margin": float(
+                                   (top[:, k - 1] - top[:, k]).min())})
+            return g, e
+        MOE.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as MOE
+        MOE.route = self._orig
+
+    def dropped(self) -> int:
+        return sum(int((~c["keep"]).sum()) for c in self.calls)
+
+
+def routing_diff(a, b) -> tuple[int, int]:
+    """(routing choices, keep flags) that differ between two runs' route
+    records: a token's k choices compared as a set (sorted by expert),
+    with each choice's keep flag."""
+    check(len(a) == len(b), f"route calls {len(a)} vs {len(b)}")
+    n_e = n_k = 0
+    for x, y in zip(a, b):
+        ex, ix = x["e"].sort(dim=-1)
+        ey, iy = y["e"].sort(dim=-1)
+        n_e += int((ex != ey).sum())
+        n_k += int((x["keep"].gather(1, ix) != y["keep"].gather(1, iy)).sum())
+    return n_e, n_k
+
+
+def step_rel(lg, ref) -> float:
+    """Worst step of (B, T, V) logits: max over t of max |Δ| / max |y|."""
+    lg, ref = lg.detach().cpu(), ref.detach().cpu()
+    return float(((lg - ref).abs().amax(dim=(0, 2))
+                  / ref.abs().amax(dim=(0, 2))).max())
+
+
+def captured_logits(step, new_cache, fed):
+    """(B, T, V) logits of feeding ``fed`` (B, T) teacher-forced through
+    one captured step replayed per position (``serving._StepGraph``, every
+    position inside the prompt), each step's logits copied out inside the
+    graph."""
+    import torch
+    from repro_torch.runtime import serving
+
+    B, T = fed.shape
+    store = {}
+
+    def hook(lg, t):
+        if "buf" not in store:
+            store["buf"] = torch.zeros((B, T, lg.shape[-1]), dtype=lg.dtype,
+                                       device=lg.device)
+        store["buf"].index_copy_(1, t.reshape(1), lg[:, -1:])
+        return lg
+    run = serving._StepGraph(step, new_cache(), B, T, hook)
+    lengths = torch.full((B,), T)
+    run.prepare(fed, lengths)
+    run.reset(fed, lengths)
+    run.advance(T)
+    run.synchronize()
+    return store["buf"].clone()
+
+
+def mrope_streams(b: int, s: int, grid: int = 4):
+    """(3, B, S) int32 M-RoPE position streams: a temporal ``arange``;
+    height and width of a ``grid`` × ``grid`` patch grid over the first
+    ``grid²`` positions, the text position after them."""
+    import torch
+    t = torch.arange(s)
+    n = grid * grid
+    h = torch.where(t < n, t // grid, t)
+    w = torch.where(t < n, t % grid, t)
+    return torch.stack([t, h, w])[:, None, :].expand(3, b, s).to(
+        torch.int32).contiguous()
+
+
+def graph_step_stats(fn, reps: int = 10) -> dict:
+    """One call of ``fn`` captured in a CUDA graph: device ms a replay
+    (the wall-clock oracle's protocol) and the busy share of a replay
+    from a torch.profiler trace (None where it sees no device work)."""
+    import torch
+    from repro_torch.core import WallClockOracle
+    ms = WallClockOracle().time_callable(fn) * 1e3
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    busy_us, rows = device_kernels(graph.replay, reps=reps)
+    return {"ms": ms, "busy_us": busy_us,
+            "busy_share": busy_us / (ms * 1e3) if rows else None,
+            "by_kernel": [[name[:60], us, n] for us, n, name in rows[:6]]}
+
+
+def card_compress(host, budgets, need_merge: bool,
+                  method: str = "depth") -> tuple:
+    """Compress on tables timed on the card (strict probes): the first
+    budget of ``budgets`` whose plan is feasible (and, with
+    ``need_merge``, merges an FFN).  Returns (result, the numbers)."""
+    from repro_torch.core import WallClockOracle, compress
+
+    t0 = time.perf_counter()
+    oracle = WallClockOracle()
+    res, ladder, budget = None, [], None
+    for ratio in budgets:
+        r = compress(host, budget_ratio=ratio, method=method,
+                     latency_oracle=oracle, probe_config=strict_probes())
+        n_m = 0 if r is None else merged_segments(host, r.plan)
+        ladder.append(f"{ratio}: " + ("infeasible" if r is None else
+                                      f"{n_m} merged, predicted speedup "
+                                      f"{r.speedup:.4f}"))
+        if r is not None and (n_m or not need_merge):
+            res, budget = r, ratio
+            break
+    check(res is not None, f"{host.cfg.name}: no budget of {budgets} gives "
+          f"a plan{' that merges an FFN' if need_merge else ''} "
+          f"({'; '.join(ladder)})")
+    st = res.tables.stats
+    row = {"seconds": time.perf_counter() - t0,
+           "probes": st.num_latency_probes,
+           "signatures": st.num_latency_buckets,
+           "signatures_timed": oracle.num_timed,
+           "retried": st.num_probe_retries,
+           "quarantined": st.num_quarantined,
+           "t_orig_s": res.original_latency,
+           "t_plan_s": res.compressed_latency,
+           "predicted_speedup": res.speedup, "budget": budget,
+           "method": method,
+           "ladder": ladder, "plan": plan_line(res.plan),
+           "merged": merged_segments(host, res.plan),
+           "signature_ms": {f"{sig[1]} rank {sig[2]}": sec * 1e3
+                            for sig, sec in oracle.measured.items()}}
+    check(row["retried"] == 0 and row["quarantined"] == 0,
+          f"{host.cfg.name}: {row['retried']} probe retries, "
+          f"{row['quarantined']} quarantined")
+    return res, row
+
+
+def solo_requests(step, make_cache, prompts, tokens: int, *,
+                  continuous: bool) -> dict:
+    """Phase 23's request checks: the ragged ``prompts`` through
+    ``serve_requests`` (8 slots) and, with ``continuous``, the continuous
+    engine (8 slots, chunks of 8), each request held to its prompt served
+    alone (``serve_requests`` with one slot: batch 1, one request a
+    round)."""
+    import torch
+    from repro_torch.runtime import serving
+
+    n = len(prompts)
+    mat, lens = serving.pad_prompts(prompts)
+    t0 = time.perf_counter()
+    served = serving.serve_requests(step, make_cache, mat, lens,
+                                    tokens=tokens, slots=8)
+    solo = serving.serve_requests(step, make_cache, mat, lens,
+                                  tokens=tokens, slots=1, warm=False)
+    out = {"requests": n, "seconds": served[1], "rounds":
+           served.report.rounds, "sustained_tok_s": serving.decode_tok_s(
+               tokens, n, served[1]),
+           "differ_from_alone": [i for i in range(n) if not torch.equal(
+               served[0][i], solo[0][i])]}
+    check(served.report.ok and solo.report.ok and
+          served.report.completed == list(range(n)),
+          f"requests: dispositions {served.report.dispositions}")
+    check(not out["differ_from_alone"], f"requests "
+          f"{out['differ_from_alone']} differ from serving them alone")
+    if continuous:
+        cont = serving.serve_continuous(step, make_cache, mat, lens,
+                                        tokens=tokens, slots=8, chunk=8)
+        out["continuous"] = {
+            "seconds": cont[1], "admitted": cont.report.admitted,
+            "sustained_tok_s": serving.decode_tok_s(tokens, n, cont[1]),
+            "differ_from_alone": [i for i in range(n) if not torch.equal(
+                cont[0][i], solo[0][i])]}
+        check(cont.report.ok and cont.report.admitted == n,
+              f"continuous: dispositions {cont.report.dispositions}")
+        check(not out["continuous"]["differ_from_alone"], "continuous "
+              f"requests {out['continuous']['differ_from_alone']} differ "
+              "from serving them alone")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def cpu_copy(graph):
+    """The CPU port of a lowered graph: every tensor copied to the host."""
+    from repro_torch.models.transformer import _tree_map
+    from repro_torch.runtime import ir
+    return ir.bind_params(graph, _tree_map(lambda t: t.cpu(),
+                                           ir.graph_params(graph)))
+
+
+def lm_card_vs_cpu(graph, fed, moe: bool) -> dict:
+    """Teacher-forced logits of ``fed`` through the lowered ``graph`` on
+    the card (eager) and on the CPU port (:func:`cpu_copy`).  For MoE the
+    routing of both runs is recorded: the choices and keep flags that
+    differ, the card's smallest top-k margin and dropped pairs; where any
+    choice differs the CPU run is repeated on the card's routing
+    (``route``'s test hook) and that run is held."""
+    import contextlib
+
+    from repro_torch import runtime
+
+    B = fed.shape[0]
+    S = fed.shape[1]
+    def step(c, t):
+        return runtime.decode_step(graph, c, {"tokens": t})
+    with RouteLog() if moe else contextlib.nullcontext() as card_log:
+        lg = forced_logits(step, runtime.init_cache(graph, B, S + 1), fed)
+    t0 = time.perf_counter()
+    cpu = cpu_copy(graph)
+
+    def cpu_step(c, t):
+        return runtime.decode_step(cpu, c, {"tokens": t})
+    with RouteLog() if moe else contextlib.nullcontext() as cpu_log:
+        lg_cpu = forced_logits(cpu_step, runtime.init_cache(cpu, B, S + 1),
+                               fed.cpu())
+    out = {"free_running": step_rel(lg, lg_cpu)}
+    if moe:
+        flips, keeps = routing_diff(card_log.calls, cpu_log.calls)
+        out.update(choices_differ=flips, keeps_differ=keeps,
+                   min_margin=min(c["margin"] for c in card_log.calls),
+                   route_calls=len(card_log.calls),
+                   dropped_per_step=card_log.dropped() / S)
+        if flips or keeps:
+            with RouteLog(forced=card_log.calls):
+                lg_cpu = forced_logits(cpu_step,
+                                       runtime.init_cache(cpu, B, S + 1),
+                                       fed.cpu())
+            out["forced"] = step_rel(lg, lg_cpu)
+    out["vs_cpu"] = out.get("forced", out["free_running"])
+    out["cpu_s"] = time.perf_counter() - t0
+    out["logits"] = lg
+    return out
+
+
+def lm_family(dev, label, host, budget, *, moe=False,
+              continuous=False, bitwise=False) -> tuple[dict, dict]:
+    """(a) / (b) of phase 23: ``host`` compressed on card-timed tables at
+    ``budget`` with ``method="layermerge"`` (its sublayers are all
+    prune-or-keep: with no linearizable sublayer the depth baseline keeps
+    every layer and meets no budget under 1), lowered in memory (phase
+    16 writes and reads a gigabytes artifact on the card, and the CPU
+    tests round-trip these kinds' artifacts; here that I/O would cost
+    tens of seconds a model),
+    the plan and the original served through the captured ``serve_loop``
+    beside ``serve_loop_pertoken`` (8 seeded 16-token prompts, 32 greedy
+    tokens), the served logits teacher-forced on the card against the
+    CPU port and the captured step's, the prefill against
+    ``replaced_apply``, then the ragged requests.  MoE requests run at
+    ``MOE_NO_DROP``.  Returns (numbers, launches)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels, runtime
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import serving
+    from repro_torch.runtime.artifact import flatten_tree
+
+    before = kernels.launch_counts()
+    cfg = host.cfg
+    out = {"parameters": sum(t.numel()
+                             for t in flatten_tree(host.params).values())}
+    res, out["compress"] = card_compress(host, (budget,), False,
+                                         method="layermerge")
+    graph = res.lower()
+    out["units"] = runtime.count_units(graph)
+    t0 = time.perf_counter()
+    B, P, N = 8, 16, 32
+    prompt = serving.random_prompts(13, B, P, cfg.vocab_size, device=dev)
+
+    def c_step(c, t):
+        return runtime.decode_step(graph, c, {"tokens": t})
+
+    def c_cache(b, s):
+        return runtime.init_cache(graph, b, s)
+
+    def o_step(c, t):
+        return T.decode_step(cfg, host.params, c, {"tokens": t})
+    _, _, c_logits, seqs, c_serve = serve_both(
+        f"{label} compressed", c_step, lambda: c_cache(B, P + N), prompt, N)
+    _, _, _, _, o_serve = serve_both(
+        f"{label} original", o_step,
+        lambda: T.init_cache(cfg, B, P + N, device=dev), prompt, N)
+    out["serve"] = {
+        "compressed": c_serve, "original": o_serve, "batch": B,
+        "decode_step_ms": {"compressed": c_serve["decode_ms"] / (N - 1),
+                           "original": o_serve["decode_ms"] / (N - 1)},
+        "tok_s": {"compressed": c_serve["tok_s"],
+                  "original": o_serve["tok_s"]},
+        "busy_share": {"compressed": c_serve["busy_share"],
+                       "original": o_serve["busy_share"]}}
+    fed = torch.cat([prompt, seqs[:, :-1]], dim=1)
+    held_ = lm_card_vs_cpu(graph, fed, moe)
+    lg = held_.pop("logits")
+    check(bool(torch.isfinite(lg).all()), f"{label}: non-finite logits")
+    check(bool((lg[:, P - 1:].argmax(-1) == seqs).all()),
+          f"{label}: served ids are not the argmax of the forced logits")
+    cap = captured_logits(c_step, lambda: c_cache(B, P + N), fed)
+    held_["captured_bitwise"] = bool(torch.equal(cap, lg))
+    held_["captured_vs_eager"] = step_rel(cap, lg)
+    y_merged = runtime.execute(graph, {"tokens": prompt}, device=dev)
+    fn, p = host.replaced_apply(res.plan)
+    held_["vs_replaced"] = rel_diff(y_merged, fn(p, {"tokens": prompt}))
+    check(tuple(y_merged.shape) == (B, P, cfg.vocab_size),
+          f"{label}: prefill logits {tuple(y_merged.shape)}")
+    out["held"] = held_
+    out["serve"]["seconds"] = time.perf_counter() - t0
+    check(held_["vs_cpu"] <= NET_RTOL, f"{label}: card vs CPU port "
+          f"differ by {held_['vs_cpu']}")
+    check(held_["vs_replaced"] <= NET_RTOL, f"{label}: merged vs replaced "
+          f"differ by {held_['vs_replaced']}")
+    if bitwise:
+        check(held_["captured_bitwise"], f"{label}: the captured decode "
+              f"differs from the eager one by {held_['captured_vs_eager']}")
+    gr, mk = graph, c_cache
+    if moe:   # requests at the factor where nothing drops
+        gr = dataclasses.replace(graph, meta=dict(
+            graph.meta, config=dataclasses.replace(
+                cfg, capacity_factor=MOE_NO_DROP)))
+
+        def mk(b, s, gr=gr):
+            return runtime.init_cache(gr, b, s)
+
+    def r_step(c, t, gr=gr):
+        return runtime.decode_step(gr, c, {"tokens": t})
+    prompts = serving.ragged_prompts(0, 24, 4, 32, cfg.vocab_size)
+    out["requests"] = solo_requests(r_step, mk, prompts, N,
+                                    continuous=continuous)
+    after = kernels.launch_counts()
+    launches = {k: after[k] - before[k] for k in after}
+    out["launches"] = launches
+    log(f"archs {label}", t0, json.dumps(
+        {k: out[k] for k in ("parameters", "units")}) + " compress "
+        + json.dumps({k: v for k, v in out["compress"].items()
+                      if k != "signature_ms"})
+        + f"; signature ms {json.dumps(out['compress']['signature_ms'])}; "
+        f"held {json.dumps(held_)}; serve: decode step ms "
+        f"{json.dumps(out['serve']['decode_step_ms'])}, tok/s "
+        f"{json.dumps(out['serve']['tok_s'])}, busy share "
+        f"{json.dumps(out['serve']['busy_share'])}; requests "
+        f"{json.dumps(out['requests'])}; launches {launches}")
+    return out, launches
+
+
+def qwen2vl_phase(dev) -> tuple[dict, dict, object]:
+    """(c) of phase 23: qwen2-vl-7b at full width, 8 of its 28 layers,
+    compressed on card-timed tables at the tightest budget from 0.6 up
+    whose plan merges an FFN; 16 seeded embedding positions then 32
+    teacher-forced decode steps through ``executor.decode_step`` with
+    three distinct M-RoPE streams, held against the prefill forward and
+    the CPU port; the decode step of the plan and of the original, each
+    a captured graph.  Returns (numbers, launches, the served artifact's
+    lowrank units)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels, runtime
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer_host import CostEnv, \
+        TransformerHost
+    from repro_torch.runtime.artifact import flatten_tree
+
+    before = kernels.launch_counts()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen2-vl-7b"), num_layers=8,
+                              dtype="float32", remat=False)
+    params, _ = T.init_model(cfg, torch.Generator().manual_seed(0),
+                             device=dev)
+    host = TransformerHost(cfg, params, env=CostEnv(batch=8, seq=128),
+                           device=dev)
+    out = {"parameters": sum(t.numel()
+                             for t in flatten_tree(params).values()),
+           "init_s": time.perf_counter() - t0}
+    res, out["compress"] = card_compress(host, LM_BUDGETS, True)
+    graph = res.lower()
+    out["units"] = runtime.count_units(graph)
+    t1 = time.perf_counter()
+    B, S = 8, 16 + 32
+    embeds = torch.randn(B, S, cfg.d_model,
+                         generator=torch.Generator().manual_seed(17)) * 0.3
+    batch = {"embeds": embeds, "mrope_positions": mrope_streams(B, S)}
+    card = {k: v.to(dev) for k, v in batch.items()}
+
+    def at(b, t):
+        return {"embeds": b["embeds"][:, t:t + 1],
+                "mrope_positions": b["mrope_positions"][:, :, t:t + 1]}
+
+    def decode_all(graph, cache, b):
+        lg = []
+        for t in range(S):
+            y, cache = runtime.decode_step(graph, cache, at(b, t))
+            lg.append(y[:, -1])
+        return torch.stack(lg, dim=1)
+    dec = decode_all(graph, runtime.init_cache(graph, B, S), card)
+    y = runtime.execute(graph, card, device=dev)
+    fn, p = host.replaced_apply(res.plan)
+    held_ = {"vs_prefill": step_rel(dec, y),
+             "vs_replaced": rel_diff(y, fn(p, card))}
+    check(tuple(y.shape) == (B, S, cfg.vocab_size)
+          and bool(torch.isfinite(dec).all()),
+          f"qwen2-vl: logits {tuple(y.shape)}")
+    # the CPU port on the first CPU_ROWS rows (decode is row-wise; the
+    # host's time goes to streaming the weights, not to the rows)
+    t_cpu = time.perf_counter()
+    cpu = cpu_copy(graph)
+    rows = {k: v[:, :CPU_ROWS] if k == "mrope_positions" else v[:CPU_ROWS]
+            for k, v in batch.items()}
+    held_["vs_cpu"] = step_rel(dec[:CPU_ROWS], decode_all(
+        cpu, runtime.init_cache(cpu, CPU_ROWS, S), rows))
+    held_["cpu_s"] = time.perf_counter() - t_cpu
+    del cpu
+    for k in ("vs_prefill", "vs_replaced", "vs_cpu"):
+        check(held_[k] <= NET_RTOL, f"qwen2-vl: {k} {held_[k]}")
+    out["held"] = held_
+    # a decode step of each model, captured: its device time and busy share
+    one = at(card, 0)
+    c_cache = runtime.init_cache(graph, B, S)
+    o_cache = T.init_cache(cfg, B, S, device=dev)
+    steps = {
+        "compressed": graph_step_stats(
+            lambda: runtime.decode_step(graph, c_cache, one)),
+        "original": graph_step_stats(
+            lambda: T.decode_step(cfg, params, o_cache, one))}
+    for v in steps.values():
+        v["tok_s"] = B / (v["ms"] * 1e-3)
+    out["decode_step"] = steps
+    out["serve_s"] = time.perf_counter() - t1
+    after = kernels.launch_counts()
+    launches = {k: after[k] - before[k] for k in after}
+    out["launches"] = launches
+    log("archs qwen2-vl", t0, json.dumps(
+        {k: out[k] for k in ("parameters", "units", "init_s")})
+        + " compress " + json.dumps(
+            {k: v for k, v in out["compress"].items()
+             if k != "signature_ms"})
+        + f"; signature ms {json.dumps(out['compress']['signature_ms'])}"
+        f"; held {json.dumps(held_)}; decode step "
+        + json.dumps({k: {f: v[f] for f in ("ms", "tok_s", "busy_share")}
+                      for k, v in steps.items()})
+        + f"; launches {launches}")
+    units = [u for u in graph.units if u.kind == "lowrank"]
+    del host, params
+    return out, launches, units
+
+
+def time_arch_kernels(dev, lowrank) -> list:
+    """Phase 23 (d): rmsnorm at (M, D) for D of granite, xLSTM and
+    qwen2-vl and M 1024 (the probes) and 8 (a decode step);
+    flash_attention at ``ARCH_ATTENTION``; merged_ffn at D 3584 with the
+    served qwen2-vl unit at M 8 and 1024: kernel, plain version and
+    library call (``F.rms_norm``; SDPA on k, v expanded; ``torch.addmm``)
+    as cold-L2 device times beside the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator().manual_seed(23)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(dev)
+
+    rows = []
+    for d in ARCH_NORM_D:
+        for m in (1024, 8):
+            x, w = rnd(m, d), rnd(d) * 0.2
+            w1 = 1.0 + w
+            yr = ref.rmsnorm_ref(x, w, 1e-6)
+            err = held("rmsnorm", kernels.rmsnorm_op(x, w, eps=1e-6), yr,
+                       yr.abs(), f"x={(m, d)}")[0]
+            rows.append(time_row(
+                "rmsnorm", [m, d], lambda: kernels.rmsnorm_op(x, w, eps=1e-6),
+                lambda: ref.rmsnorm_ref(x, w, 1e-6),
+                lambda: F.rms_norm(x, (d,), w1, 1e-6), norm_bound(m, d),
+                err))
+    for b, s, h, kvh, d in ARCH_ATTENTION:
+        q, k, v = rnd(b, s, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d)
+        err = compare_attention(q, k, v, True)[0]
+        qt, kt, vt = (t.repeat_interleave(h // t.shape[2], dim=2)
+                      .transpose(1, 2) for t in (q, k, v))
+        rows.append(time_row(
+            "flash_attention", [b, s, h, kvh, d],
+            lambda: kernels.flash_attention_op(q, k, v, True),
+            lambda: ops._attention_plain(q, k, v, True),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True),
+            attention_bound(b, s, h, kvh, d), err,
+            tc_rate_label(("fp32", "fp32"))))
+    u = lowrank[0]
+    for m in (8, 1024):
+        r = time_ffn(rnd(m, u.params["u"].shape[0]), u.params["u"],
+                     u.params["v"])
+        rows.append(dict(r, kernel="merged_ffn",
+                         shape=[m, *u.params["u"].shape]))
+    for r in rows:
+        r["slower_than_library"] = bool(r["library_ms"] is not None
+                                        and r["ms"] > r["library_ms"])
+    return rows
+
+
+def arch_phase(dev, build_host) -> tuple[dict, dict, dict]:
+    """Phase 23: granite-moe-1b-a400m and xlstm-125m at full size and
+    qwen2-vl-7b at full width (8 of 28 layers), fp32, weights from seed
+    0, each compressed on card-timed tables, served and held against the
+    CPU port; then (d), the kernels at the new shapes.  Returns (the
+    numbers, launches over (a)-(c) counted from zero, the ``kernels``
+    line's ``@archs`` rows: each kernel's (d) rows summed)."""
+    import gc
+
+    import torch
+    from repro_torch import kernels
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = {}
+    # (a) granite-moe-1b-a400m: 24 layers, d 1024, 16/8 heads of 64, 32
+    # experts top-8 of moe_dff 512, vocab 49155, tied; costed and probed
+    # at batch 8 x seq 128
+    t = time.perf_counter()
+    host, _ = build_host("granite-moe-1b-a400m", seed=0, batch=8, seq=128,
+                         full=True, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    out["granite"], la = lm_family(dev, "granite", host, 0.6, moe=True)
+    out["granite"]["init_s"] = init_s
+    del host
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) xlstm-125m: 12 layers (sLSTM at 3 and 9), d 768, 4 heads of 192,
+    # vocab 50304, tied
+    t = time.perf_counter()
+    host, _ = build_host("xlstm-125m", seed=0, batch=8, seq=128,
+                         full=True, device="cuda")
+    init_s = time.perf_counter() - t
+    out["xlstm"], lb = lm_family(dev, "xlstm", host, 0.6, continuous=True,
+                                 bitwise=True)
+    out["xlstm"]["init_s"] = init_s
+    del host
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) qwen2-vl-7b, 8 layers
+    out["qwen2vl"], lc, lowrank = qwen2vl_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = kernels.launch_counts()
+    for k, part in (("rmsnorm", (la, lb, lc)), ("flash_attention", (la, lc)),
+                    ("merged_ffn", (lc,))):
+        check(all(x[k] > 0 for x in part), f"phase 23: {k} never launched "
+              f"in one of its models ({[x[k] for x in part]})")
+    # (d) the kernels at the new shapes
+    t = time.perf_counter()
+    rows = time_arch_kernels(dev, lowrank)
+    out["kernels"] = rows
+    log("archs kernels", t, " ".join(
+        f"{r['kernel']} {r['shape']}: ms={r['ms']:.4f} "
+        f"plain={r['plain_ms']:.4f} library={r['library_ms']:.4f} "
+        f"bound={r['bound_ms']:.5f} ("
+        f"{'bytes' if r['bytes_ms'] >= r['flops_ms'] else 'operations'}, "
+        f"share {r['bound_ms'] / r['ms']:.3f})"
+        + (" SLOWER than the library;" if r["slower_than_library"] else ";")
+        for r in rows))
+    tot = {}
+    for k in ("rmsnorm", "flash_attention", "merged_ffn"):
+        rs = [r for r in rows if r["kernel"] == k]
+        tot[k] = {f: sum(r[f] for r in rs) for f in
+                  ("ms", "plain_ms", "library_ms", "flops_ms", "bytes_ms",
+                   "bound_ms")}
+        tot[k].update(max_abs_err=max(r["max_abs_err"] for r in rs),
+                      bound_rate=rs[0]["bound_rate"], shapes=len(rs))
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    log("archs", t0, f"phase 23 in {out['seconds']:.2f}s; launches "
+        f"(a)-(c) {launches}")
+    return out, launches, tot
+
+
 def main(argv) -> int:
     import torch
 
@@ -3903,6 +4582,10 @@ def main(argv) -> int:
     with open(os.path.join(WORK, "unet.json"), "w") as f:
         json.dump(unet, f, indent=1, default=str)
     log("unet", t0, f"phase 22 in {unet['seconds']:.2f}s")
+    # 23. the reference's other transformer families ---------------------
+    archs, arch_launch, arch_tot = arch_phase(dev, build_host)
+    with open(os.path.join(WORK, "archs.json"), "w") as f:
+        json.dump(archs, f, indent=1, default=str)
     sweep_err = {k: v[0] for k, v in sweep.items()}
     srcs = dict(KERNEL_SOURCES)
     for k, v in unet_tot.items():
@@ -3911,6 +4594,11 @@ def main(argv) -> int:
             launches[k + UNET_ROW] = unet_launch[k]
             sweep_err[k + UNET_ROW] = sweep_err[k]
             srcs[k + UNET_ROW] = srcs[k]   # the same kernel, other shapes
+    for k, v in arch_tot.items():
+        tot[k + ARCH_ROW] = v
+        launches[k + ARCH_ROW] = arch_launch[k]
+        sweep_err[k + ARCH_ROW] = sweep_err[k]
+        srcs[k + ARCH_ROW] = srcs[k]
 
     line = {"kernels": [{
         "name": k, "route": "cuda", "source": srcs[k][0],

@@ -10,16 +10,22 @@ package's ``.npz`` format:
       --method depth --out lm.npz
   PYTHONPATH=src python -m repro_torch.compress --arch recurrentgemma-2b \
       --device cpu --method depth --budget-ratio 0.9 --out rg.npz
+  PYTHONPATH=src python -m repro_torch.compress \
+      --arch granite-moe-1b-a400m --device cpu --method layermerge \
+      --budget-ratio 0.9 --out g.npz
   PYTHONPATH=src python -m repro_torch.compress --arch tiny_mobilenet \
       --device cpu --quantize w8a8 --budget-ratio 0.5 --out q.npz
   PYTHONPATH=src python -m repro_torch.compress --arch mobilenetv2 \
       --oracle wallclock --max-span 6 --cache-dir tables/ \
       --probe-timeout 2 --probe-retries 2 --out a.npz
 
-Transformer ids resolve through :func:`repro_torch.configs.get_config`,
-reduced to the CPU-sized toy variant unless ``--full``: the full width
-and depth, in fp32 (the published configs are bf16, which rank merging
-cannot factor yet: ROADMAP.md queue 3).
+Transformer ids (all ten of the JAX package's) resolve through
+:func:`repro_torch.configs.get_config`, reduced to the CPU-sized toy
+variant unless ``--full``: the full width and depth, in fp32 (the
+published configs are bf16, which rank merging cannot factor yet:
+ROADMAP.md queue 3).  A chain with no FFN (the MoE and xLSTM configs)
+has nothing to merge: ``--method depth`` keeps every sublayer there,
+``layermerge`` prunes.
 ``--oracle wallclock`` times every distinct merged-segment shape on the
 card through the hand-written kernels; ``--oracle analytic`` prices them
 with the H100 roofline model (transformers: the JAX package's cost
@@ -107,7 +113,8 @@ def main(argv=None, *, latency_oracle=None) -> dict:
     ap.add_argument("--arch", required=True,
                     help=f"CNN zoo ({', '.join(CNN_ARCHS)}) or a "
                          "transformer config id (smollm-135m, "
-                         "recurrentgemma-2b)")
+                         "granite-moe-1b-a400m, xlstm-125m, qwen2-vl-7b, "
+                         "...: configs.ARCH_IDS)")
     ap.add_argument("--budget-ratio", type=float, default=0.6)
     ap.add_argument("--method", default="layermerge",
                     choices=("layermerge", "depth", "layeronly"))

@@ -4,10 +4,10 @@ field, with the JAX package's dry-run shapes and cells.
 The field names, order and defaults are the JAX package's: a transformer
 artifact stores ``dataclasses.asdict(cfg)`` in its spec, and the spec
 enters the fingerprint, so a config that differs by one field would give
-another fingerprint.  :func:`get_config` resolves only the configs whose
-families the port runs (and the paper's three CNNs, which resolve to
-:class:`repro_torch.models.cnn.ConvNet` s of the zoo); any other id
-raises.  :class:`ShapeConfig`, :data:`SHAPES`, :data:`LONG_CONTEXT_OK`,
+another fingerprint.  :func:`get_config` resolves every id of the JAX
+package's registry: its ten transformer configs, and the paper's three
+CNNs, which resolve to :class:`repro_torch.models.cnn.ConvNet` s of the
+zoo; any other id raises.  :class:`ShapeConfig`, :data:`SHAPES`, :data:`LONG_CONTEXT_OK`,
 :data:`ARCH_IDS` and :func:`cells` are the JAX package's values.
 """
 from __future__ import annotations
@@ -92,6 +92,16 @@ class ArchConfig:
         n += self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return n
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top-k experts only)."""
+        if not self.is_moe:
+            return self.param_count()
+        d = self.d_model
+        dense = self.param_count() - self.num_layers * (
+            self.num_experts * 3 * d * self.moe_dff)
+        return dense + self.num_layers * (
+            self.experts_per_token * 3 * d * self.moe_dff)
+
     def reduced(self) -> "ArchConfig":
         """Structurally identical toy config for CPU tests."""
         pat = self.temporal_pattern
@@ -139,13 +149,19 @@ ARCH_IDS = (
     "musicgen-large", "qwen2-vl-7b", "xlstm-125m",
 )
 
-#: Config ids whose families the port runs (dense attention transformers,
-#: the RG-LRU hybrid and the paper's own CNNs).  The JAX package's other
-#: ids (MoE, xLSTM, M-RoPE models, the dense transformers not copied yet)
-#: wait for their blocks: ROADMAP.md queue 1.
+#: Every config id of the JAX package's registry: the ten transformer
+#: configs and the paper's own networks.
 _MODULES = {
-    "recurrentgemma-2b": "recurrentgemma_2b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "gemma-7b": "gemma_7b",
+    "command-r-plus-104b": "command_r_plus_104b",
+    "qwen2-7b": "qwen2_7b",
     "smollm-135m": "smollm_135m",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "musicgen-large": "musicgen_large",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "xlstm-125m": "xlstm_125m",
     # the paper's own networks
     "resnet34": "resnet34",
     "mobilenetv2": "mobilenetv2",
@@ -158,9 +174,8 @@ def get_config(arch: str):
     transformer id, a :class:`repro_torch.models.cnn.ConvNet` for a CNN
     id."""
     if arch not in _MODULES:
-        raise KeyError(
-            f"arch {arch!r} is not ported; the port runs {sorted(_MODULES)} "
-            "(the other families wait in ROADMAP.md queue 1)")
+        raise KeyError(f"arch {arch!r} is not ported: the known ids are "
+                       f"{sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.CONFIG
 

@@ -4,11 +4,13 @@ The paper measures every table entry on the deployment device.  Two
 oracles:
 
 * :class:`AnalyticOracle` — a roofline model: latency of one fused layer
-  is ``overhead + max(flops/peak, bytes/bw)``.  Its constants are
-  parameters; the defaults are the H100 SXM's published fp32
-  (non-tensor-core) rate and HBM rate (NVIDIA's data sheet, at the card's
-  full 700 W power limit).  The parity tests pass the JAX package's
-  constants instead and reproduce its analytic latency column bit for bit.
+  is ``overhead + max(flops/peak, bytes/bw) + link_bytes/link_bw``.  Its
+  constants are parameters; the defaults are the H100 SXM's published
+  fp32 (non-tensor-core) rate and HBM rate (NVIDIA's data sheet, at the
+  card's full 700 W power limit), and no link: on one card an MoE
+  block's dispatch crosses none, so its ``ici_bytes`` cost 0 s.  The
+  parity tests pass the JAX package's constants instead (its link rate
+  included) and reproduce its analytic latency column bit for bit.
 * :class:`WallClockOracle` — times a callable on the card (the paper's
   measured pipeline): ``warmup`` eager calls, then ``iters // groups``
   calls captured in one CUDA graph, replayed ``groups`` times, each
@@ -44,13 +46,20 @@ class CostBreakdown:
 
     flops: float
     hbm_bytes: float
+    #: Bytes that cross a link between devices (an MoE block's token
+    #: dispatch, as the JAX package prices it).
+    ici_bytes: float = 0.0
 
     def __add__(self, other: "CostBreakdown") -> "CostBreakdown":
         return CostBreakdown(self.flops + other.flops,
-                             self.hbm_bytes + other.hbm_bytes)
+                             self.hbm_bytes + other.hbm_bytes,
+                             self.ici_bytes + other.ici_bytes)
 
     def __mul__(self, scale: float) -> "CostBreakdown":
-        return CostBreakdown(self.flops * scale, self.hbm_bytes * scale)
+        return CostBreakdown(self.flops * scale, self.hbm_bytes * scale,
+                             self.ici_bytes * scale)
+
+    __rmul__ = __mul__
 
 
 class LatencyOracle:
@@ -65,10 +74,14 @@ class AnalyticOracle(LatencyOracle):
     # Fixed cost per fused layer: an assumed order of one kernel launch
     # plus eager dispatch, not a measurement.
     op_overhead: float = 5.0e-6
+    #: Bytes/s of the link ``ici_bytes`` cross; None: no link (one
+    #: device), the term costs 0 s.
+    ici_bw: float | None = None
 
     def segment_latency(self, cost: CostBreakdown) -> float:
+        network = 0.0 if self.ici_bw is None else cost.ici_bytes / self.ici_bw
         return self.op_overhead + max(cost.flops / self.peak_flops,
-                                      cost.hbm_bytes / self.hbm_bw)
+                                      cost.hbm_bytes / self.hbm_bw) + network
 
 
 @dataclasses.dataclass

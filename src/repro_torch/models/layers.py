@@ -14,9 +14,10 @@ The norms and prefill attention go through the port's kernel ops:
 versions on the CPU (where the JAX package's layers are plain ``jnp``: the
 two agree to fp32 reassociation).  A local-window prefill longer than its
 window keeps the plain masked softmax (:func:`_sdpa`), and one-token
-decode against the KV cache stays plain.  The FFN and the embedding are
-plain PyTorch.  M-RoPE and the sharded flash-decoding path are not ported
-(ROADMAP.md queue 1).
+decode against the KV cache stays plain.  The FFN, the embedding and the
+rotary embeddings (RoPE, and Qwen2-VL's three-stream M-RoPE,
+:func:`apply_mrope`) are plain PyTorch.  The sharded flash-decoding path
+is not ported (ROADMAP.md queue 1 item 5).
 
 Decode caches are updated in place (the JAX package returns new arrays):
 ``attention_decode`` writes the new key and value into the cache tensors
@@ -35,10 +36,6 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention_op, rmsnorm_op
 
-_NOT_PORTED = ("{what} is not ported: the port runs dense attention "
-               "and RG-LRU transformers (ROADMAP.md queue 1)")
-
-
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
@@ -56,7 +53,7 @@ def init_rmsnorm(d, dtype):
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings
+# Rotary embeddings (RoPE and multimodal M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None):
@@ -69,6 +66,28 @@ def apply_rope(x, positions, theta: float = 10000.0):
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)                  # (D/2,)
     ang = positions[..., None].float() * freqs              # (..., S, D/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, theta: float = 10000.0,
+                sections=(0.25, 0.375, 0.375)):
+    """Qwen2-VL M-RoPE: the rotary frequencies split into (temporal,
+    height, width) sections, each rotated by its own position stream.
+
+    x: (B, S, H, D); positions3: (3, B, S).  The section sizes are
+    Python's ``round`` of ``fraction · D/2`` (banker's rounding, as the
+    JAX package computes them), the last taking the remainder."""
+    d = x.shape[-1]
+    half = d // 2
+    sec = [int(round(s * half)) for s in sections]
+    sec[-1] = half - sum(sec[:-1])
+    freqs = rope_freqs(d, theta, x.device)                  # (half,)
+    pos = torch.cat([positions3[i][..., None].expand(
+        *positions3[i].shape, n) for i, n in enumerate(sec)], dim=-1)
+    ang = pos.float() * freqs                               # (B, S, half)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
@@ -106,15 +125,19 @@ def init_attention(cfg, gen: torch.Generator, dtype):
     return p, attention_axes(cfg)
 
 
-def _qkv(p, x, cfg, positions):
+def _qkv(p, x, cfg, positions, mrope_positions=None):
+    """Projections and rotary embedding.  An M-RoPE config given no
+    position streams rotates by ``positions`` with plain RoPE, as the JAX
+    package does."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    if cfg.rope_kind == "mrope":
-        raise NotImplementedError(_NOT_PORTED.format(what="M-RoPE"))
-    if cfg.rope_kind != "none":
+    if cfg.rope_kind == "mrope" and mrope_positions is not None:
+        q = apply_mrope(q, mrope_positions, cfg.rope_theta)
+        k = apply_mrope(k, mrope_positions, cfg.rope_theta)
+    elif cfg.rope_kind != "none":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -149,7 +172,8 @@ def causal_mask(sq, skv, offset=0, window: int = 0, device=None):
     return m[None, None]
 
 
-def attention(p, x, cfg, positions, *, window: int = 0):
+def attention(p, x, cfg, positions, *, window: int = 0,
+              mrope_positions=None):
     """Full (prefill) causal attention.
 
     The mask decides the route, from the shape alone: with no window, or
@@ -157,8 +181,9 @@ def attention(p, x, cfg, positions, *, window: int = 0):
     the attention goes through ``flash_attention_op`` (k and v keep their
     KVH heads; query head h reads kv head ``h // (H / KVH)``, the grouping
     of :func:`_sdpa`).  A sequence longer than its local window takes the
-    plain masked softmax.  Neither is a fallback for the other."""
-    q, k, v = _qkv(p, x, cfg, positions)
+    plain masked softmax.  Neither is a fallback for the other.
+    ``mrope_positions`` (3, B, S): M-RoPE's position streams."""
+    q, k, v = _qkv(p, x, cfg, positions, mrope_positions)
     s = x.shape[1]
     if window == 0 or s <= window:
         out = flash_attention_op(q.contiguous(), k.contiguous(),
@@ -168,7 +193,8 @@ def attention(p, x, cfg, positions, *, window: int = 0):
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
-def attention_decode(p, x, cfg, cache, *, window: int = 0):
+def attention_decode(p, x, cfg, cache, *, window: int = 0,
+                     mrope_positions=None):
     """One-token decode against a KV cache, written in place.
 
     cache: {"k": (B, S, KVH, D), "v": ..., "pos": int32 tensor} — ``pos``
@@ -186,11 +212,13 @@ def attention_decode(p, x, cfg, cache, *, window: int = 0):
     on the host and before the first step, a prompt plus tokens longer
     than the cache (:func:`repro_torch.runtime.serving.check_room`).
     Only the continuous engine's idle or finished rows run past the end,
-    and their outputs are discarded.
+    and their outputs are discarded.  ``mrope_positions`` (3, B, 1):
+    M-RoPE's position streams of the new token (its rotary positions;
+    the cache slot and the mask still follow ``pos``).
     """
     pos = cache["pos"]
     rows = pos.expand(x.shape[0])[:, None]                  # (B, 1)
-    q, k, v = _qkv(p, x, cfg, rows)
+    q, k, v = _qkv(p, x, cfg, rows, mrope_positions)
     size = cache["k"].shape[1]
     slot = (torch.remainder(rows, size) if window > 0
             else torch.clamp(rows, max=size - 1))

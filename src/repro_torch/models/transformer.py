@@ -8,15 +8,18 @@ params tree crosses between the packages as numpy arrays
 (:func:`params_from_numpy` / :func:`params_to_numpy`).  Layers run in plain
 Python loops (no scan, no remat).
 
-Attention layers (``attn``, ``attn_local``) and RG-LRU layers
-(``rglru``, :mod:`.rglru`) with a dense FFN are ported; the kinds ``moe``,
-``mlstm`` and ``slstm`` raise ``NotImplementedError`` (ROADMAP.md queue
-1).  Decode caches are a list of per-layer dicts: a KV cache
-(:func:`repro_torch.models.layers.attention_decode`) or an RG-LRU state
-``{"h", "conv"}``.  A decode step writes every state tensor in place and
-reads nothing on the host (the position is a device tensor), so each
+Every block of the JAX package's stack is ported: attention layers
+(``attn``, ``attn_local``; RoPE or M-RoPE), RG-LRU layers (``rglru``,
+:mod:`.rglru`), xLSTM's ``mlstm`` and ``slstm`` (:mod:`.xlstm`), and a
+dense FFN or an MoE FFN (:mod:`.moe`).  Decode caches are a list of
+per-layer dicts: a KV cache
+(:func:`repro_torch.models.layers.attention_decode`), an RG-LRU state
+``{"h", "conv"}``, an mLSTM state ``{"C", "n", "m"}`` or an sLSTM state
+``{"c", "n", "m"}``.  A decode step writes every state tensor in place
+and reads nothing on the host (the position is a device tensor), so each
 tensor keeps its storage from step to step and the step can be captured
-in a CUDA graph and replayed.
+in a CUDA graph and replayed.  A fresh state is not all zeros: the
+xLSTM stabilizers start at ``-1e30``.
 """
 from __future__ import annotations
 
@@ -27,7 +30,9 @@ import torch
 
 from ..device import resolve
 from . import layers as L
+from . import moe as MOE
 from . import rglru as RG
+from . import xlstm as XL
 from .cnn import params_from_numpy, params_to_numpy
 
 __all__ = ["GroupSpec", "layer_groups", "init_model", "model_axes",
@@ -35,18 +40,16 @@ __all__ = ["GroupSpec", "layer_groups", "init_model", "model_axes",
            "sublayer_params", "params_from_numpy", "params_to_numpy"]
 
 ATTN_KINDS = ("attn", "attn_local")
-#: Temporal layer kinds the port runs.
-TEMPORAL_KINDS = ATTN_KINDS + ("rglru",)
+#: Temporal layer kinds of the stack.
+TEMPORAL_KINDS = ATTN_KINDS + ("rglru", "mlstm", "slstm")
 
 
 def check_config(cfg) -> None:
-    """Raise unless the port runs every block of ``cfg``."""
-    if cfg.is_moe:
-        raise NotImplementedError(L._NOT_PORTED.format(what="MoE ('moe')"))
+    """Raise on a temporal layer kind the stack does not know."""
     for kind in sorted(set(cfg.layer_kinds())):
         if kind not in TEMPORAL_KINDS:
-            raise NotImplementedError(
-                L._NOT_PORTED.format(what=f"layer kind {kind!r}"))
+            raise ValueError(f"unknown layer kind {kind!r}; the stack has "
+                             f"{TEMPORAL_KINDS}")
 
 
 # ---------------------------------------------------------------------------
@@ -108,30 +111,49 @@ def _layer(gp, i):
 # Init
 # ---------------------------------------------------------------------------
 
+def _init_temporal(cfg, kind, gen, dtype):
+    if kind == "rglru":
+        return RG.init_rglru(cfg, gen, dtype)
+    if kind == "mlstm":
+        return XL.init_mlstm(cfg, gen, dtype)
+    if kind == "slstm":
+        return XL.init_slstm(cfg, gen, dtype)
+    return L.init_attention(cfg, gen, dtype)
+
+
+def temporal_axes(cfg, kind):
+    """Logical axes of one temporal block's params."""
+    if kind == "rglru":
+        return RG.rglru_axes()
+    if kind == "mlstm":
+        return XL.mlstm_axes()
+    if kind == "slstm":
+        return XL.slstm_axes()
+    return L.attention_axes(cfg)
+
+
 def _init_layer(cfg, kind, gen, dtype):
     """One layer's params (``check_config`` has vetted ``kind``)."""
     n1, n1_ax = L.init_rmsnorm(cfg.d_model, dtype)
     p = {"norm1": n1}
     ax = {"norm1": n1_ax}
-    p["temporal"], ax["temporal"] = (
-        RG.init_rglru(cfg, gen, dtype) if kind == "rglru"
-        else L.init_attention(cfg, gen, dtype))
+    p["temporal"], ax["temporal"] = _init_temporal(cfg, kind, gen, dtype)
     if cfg.has_ffn:
         n2, n2_ax = L.init_rmsnorm(cfg.d_model, dtype)
         p["norm2"] = n2
         ax["norm2"] = n2_ax
-        p["ffn"], ax["ffn"] = L.init_ffn(cfg.d_model, cfg.d_ff, cfg.ffn_kind,
-                                         gen, dtype)
+        p["ffn"], ax["ffn"] = (
+            MOE.init_moe(cfg, gen, dtype) if cfg.is_moe
+            else L.init_ffn(cfg.d_model, cfg.d_ff, cfg.ffn_kind, gen, dtype))
     return p, ax
 
 
 def _layer_axes(cfg, kind):
-    ax = {"norm1": ("embed",),
-          "temporal": RG.rglru_axes() if kind == "rglru"
-          else L.attention_axes(cfg)}
+    ax = {"norm1": ("embed",), "temporal": temporal_axes(cfg, kind)}
     if cfg.has_ffn:
         ax["norm2"] = ("embed",)
-        ax["ffn"] = L.ffn_axes(cfg.ffn_kind)
+        ax["ffn"] = MOE.moe_axes() if cfg.is_moe else L.ffn_axes(
+            cfg.ffn_kind)
     return ax
 
 
@@ -176,57 +198,80 @@ def init_model(cfg, gen: torch.Generator | None = None, device="cuda"):
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 
-def temporal_apply(cfg, kind, lp, h, positions):
+def temporal_apply(cfg, kind, lp, h, positions, mrope_positions=None):
     if kind == "rglru":
         return RG.rglru_block(lp, h, cfg)
+    if kind == "mlstm":
+        return XL.mlstm_block(lp, h, cfg)
+    if kind == "slstm":
+        return XL.slstm_block(lp, h, cfg)
     if kind not in ATTN_KINDS:
-        raise NotImplementedError(
-            L._NOT_PORTED.format(what=f"layer kind {kind!r}"))
+        raise ValueError(f"unknown layer kind {kind!r}")
     window = cfg.local_window if kind == "attn_local" else 0
-    return L.attention(lp, h, cfg, positions, window=window)
+    return L.attention(lp, h, cfg, positions, window=window,
+                       mrope_positions=mrope_positions)
+
+
+def ffn_apply(cfg, p, h):
+    """One FFN sublayer's block: the dense FFN, or the MoE FFN at the
+    config's capacity factor."""
+    if cfg.is_moe:
+        return MOE.moe_dispatch(p, h, cfg,
+                                capacity_factor=cfg.capacity_factor)
+    return L.ffn(p, h, cfg.ffn_kind)
 
 
 def init_state(cfg, kind, batch_size, seq_len, device):
-    """Zeroed decode state of one temporal layer: a KV cache (a ring
-    buffer of ``local_window`` entries for ``attn_local``) or the RG-LRU
-    state."""
+    """Fresh decode state of one temporal layer: a zeroed KV cache (a ring
+    buffer of ``local_window`` entries for ``attn_local``), the zeroed
+    RG-LRU state, or an xLSTM state (its stabilizer at ``-1e30``)."""
     if kind == "rglru":
         return RG.init_rglru_state(cfg, batch_size, _dtype(cfg), device)
+    if kind == "mlstm":
+        return XL.init_mlstm_state(cfg, batch_size, device)
+    if kind == "slstm":
+        return XL.init_slstm_state(cfg, batch_size, device)
     if kind not in ATTN_KINDS:
-        raise NotImplementedError(L._NOT_PORTED.format(
-            what=f"decode state of {kind!r}"))
+        raise ValueError(f"unknown layer kind {kind!r}")
     return L.init_cache(cfg, batch_size, seq_len, _dtype(cfg),
                         window=cfg.local_window if kind == "attn_local"
                         else 0, device=device)
 
 
-def temporal_decode(cfg, kind, lp, h, state):
-    """One-token step of one temporal layer: ``(y, state)``, the KV cache
-    or the RG-LRU state written in place (the same dict comes back)."""
+def temporal_decode(cfg, kind, lp, h, state, mrope_positions=None):
+    """One-token step of one temporal layer: ``(y, state)``, the state
+    written in place (the same dict comes back)."""
     if kind == "rglru":
         return RG.rglru_decode(lp, h, cfg, state)
+    if kind == "mlstm":
+        return XL.mlstm_decode(lp, h, cfg, state)
+    if kind == "slstm":
+        return XL.slstm_decode(lp, h, cfg, state)
     window = cfg.local_window if kind == "attn_local" else 0
-    return L.attention_decode(lp, h, cfg, state, window=window)
+    return L.attention_decode(lp, h, cfg, state, window=window,
+                              mrope_positions=mrope_positions)
 
 
-def _layer_fn(cfg, kind, positions, lp, x):
+def _layer_fn(cfg, kind, positions, mrope, lp, x):
     h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
-    x = x + temporal_apply(cfg, kind, lp["temporal"], h, positions)
+    x = x + temporal_apply(cfg, kind, lp["temporal"], h, positions, mrope)
     if cfg.has_ffn:
         h = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = x + L.ffn(lp["ffn"], h, cfg.ffn_kind)
+        x = x + ffn_apply(cfg, lp["ffn"], h)
     return x
 
 
 def embed_in(cfg, params, batch):
     """``batch["tokens"]`` (B, S) through the embedding, or
-    ``batch["embeds"]`` (B, S, D) as they are.  Token ids already on the
-    table's device are read where they lie, not copied first."""
+    ``batch["embeds"]`` (B, S, D) as they are, on the params' device.
+    Token ids already on the table's device are read where they lie, not
+    copied first."""
     if cfg.frontend == "tokens":
         table = params["embed"]
         tokens = torch.as_tensor(batch["tokens"], device=table.device)
         return table[tokens.long()]
-    return torch.as_tensor(batch["embeds"]).to(_dtype(cfg))
+    return torch.as_tensor(batch["embeds"],
+                           device=params["final_norm"].device).to(_dtype(cfg))
 
 
 def unembed(cfg, params, x):
@@ -239,16 +284,24 @@ def default_positions(x):
     return torch.arange(x.shape[1], device=x.device)[None, :]
 
 
+def mrope_of(batch, x):
+    """``batch["mrope_positions"]`` (3, B, S) on ``x``'s device, or None."""
+    m = batch.get("mrope_positions")
+    return None if m is None else torch.as_tensor(m, device=x.device)
+
+
 def forward(cfg, params, batch):
-    """Logits for prefill.  batch: ``tokens`` | ``embeds``[, ``positions``]."""
+    """Logits for prefill.  batch: ``tokens`` | ``embeds``[,
+    ``positions``][, ``mrope_positions`` (3, B, S)]."""
     check_config(cfg)
     x = embed_in(cfg, params, batch)
     positions = batch.get("positions")
     if positions is None:
         positions = default_positions(x)
+    mrope = mrope_of(batch, x)
     for g, gp in zip(layer_groups(cfg), params["groups"]):
         for i in range(g.count):
-            x = _layer_fn(cfg, g.kind, positions, _layer(gp, i), x)
+            x = _layer_fn(cfg, g.kind, positions, mrope, _layer(gp, i), x)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, x)
 
@@ -267,22 +320,24 @@ def init_cache(cfg, batch_size, seq_len, device="cuda"):
 
 
 def decode_step(cfg, params, cache, batch):
-    """One-token decode: batch ``{'tokens': (B, 1)}`` → ``(logits, cache)``;
+    """One-token decode: batch ``{'tokens': (B, 1)}`` (or ``'embeds'``
+    (B, 1, D))[, ``mrope_positions`` (3, B, 1)] → ``(logits, cache)``;
     every state tensor of the cache list is updated in place.  A KV
     cache's ``pos`` is 0-d or one position per row (the continuous
     engine's :func:`repro_torch.runtime.serving.stack_cache`)."""
     x = embed_in(cfg, params, batch)
+    mrope = mrope_of(batch, x)
     li = 0
     for g, gp in zip(layer_groups(cfg), params["groups"]):
         for i in range(g.count):
             lp = _layer(gp, i)
             h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
             t, cache[li] = temporal_decode(cfg, g.kind, lp["temporal"], h,
-                                           cache[li])
+                                           cache[li], mrope)
             x = x + t
             if cfg.has_ffn:
                 h = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
-                x = x + L.ffn(lp["ffn"], h, cfg.ffn_kind)
+                x = x + ffn_apply(cfg, lp["ffn"], h)
             li += 1
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, x), cache

@@ -9,8 +9,8 @@ of the stack.  Block capabilities:
   rank of the residual map (the Eq. 1 analogue).  Linearization folds the
   pre-norm scale ``(1 + g)`` into ``w_up``, drops ``w_gate`` and applies
   the map to the un-normalized stream — the JAX package's semantics.
-* attention and RG-LRU — prunable, not linearizable (the RG-LRU gates
-  depend on the input).
+* attention, MoE, RG-LRU, mLSTM and sLSTM — prunable, not linearizable
+  (routing and the recurrent gates depend on the input).
 
 A merged segment executes as one rank-k residual layer through
 ``merged_ffn_op`` — the hand-written ``merged_ffn`` kernel on the card —
@@ -151,6 +151,17 @@ class TransformerHost:
             c = (matmul_cost(tokens, d, cfg.d_ff, by)
                  + matmul_cost(tokens, cfg.d_ff, d, by))
             return CostBreakdown(c.flops * mult / 2, c.hbm_bytes * mult / 2)
+        if kind == "moe":
+            # k experts a token, three products each; the token dispatch
+            # and combine as link bytes (the JAX package's all-to-all
+            # pair, priced at 0 s on one card by the default oracle)
+            active = cfg.experts_per_token * 3
+            c = matmul_cost(tokens, d, cfg.moe_dff, by)
+            return CostBreakdown(c.flops * active, c.hbm_bytes * active,
+                                 2.0 * tokens * d * by)
+        if kind in ("mlstm", "slstm"):
+            return (matmul_cost(tokens, d, 4 * d, by)
+                    + CostBreakdown(12.0 * tokens * d, 4 * tokens * d * by))
         raise ValueError(kind)
 
     def _rank(self, seg: Segment) -> int:

@@ -14,7 +14,9 @@ one), concat, group norm, and the boundary activation.
   (the segment probes).
 * :func:`init_cache` / :func:`decode_step` — one-token decode through a
   compressed transformer: a KV cache per attention sublayer, the
-  recurrent state per RG-LRU sublayer; lowrank units carry no state.
+  recurrent state per RG-LRU, mLSTM or sLSTM sublayer; lowrank, FFN and
+  MoE units carry no state.  A batch may carry M-RoPE's
+  ``mrope_positions`` (3, B, S) beside ``tokens`` or ``embeds``.
   :func:`slot_state` is the continuous engine's per-slot state.
 * :class:`GraphModule` — an ``nn.Module`` holding a graph's tensors as
   buffers (so ``.to(device)`` moves them), whose ``forward`` is
@@ -29,6 +31,7 @@ from repro_torch import kernels
 from repro_torch.device import resolve
 from repro_torch.models import cnn as _cnn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 
 from . import ir
@@ -120,8 +123,9 @@ def _batch_on(batch, dev) -> dict:
     return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
 
-def _apply_unit(cfg, u, x, positions):
-    """One prefill/probe unit: lowrank residual or kept sublayer."""
+def _apply_unit(cfg, u, x, positions, mrope=None):
+    """One prefill/probe unit: lowrank residual or kept sublayer (an MoE
+    sublayer at the config's capacity factor)."""
     if u.kind == "lowrank":
         us, vs = u.params.get("u_scale"), u.params.get("v_scale")
         aq = u.quant if (us is not None and u.quant == "w8a8") else "none"
@@ -131,10 +135,12 @@ def _apply_unit(cfg, u, x, positions):
         raise ValueError(f"unit kind {u.kind!r} in transformer graph")
     sub = u.params
     h = L.rms_norm(x, sub["norm"], cfg.norm_eps)
-    if u.sub_kind == "ffn":
+    if u.sub_kind == "moe":
+        t = MOE.moe_ffn(sub["p"], h, cfg, capacity_factor=cfg.capacity_factor)
+    elif u.sub_kind == "ffn":
         t = L.ffn(sub["p"], h, cfg.ffn_kind)
     else:
-        t = T.temporal_apply(cfg, u.sub_kind, sub["p"], h, positions)
+        t = T.temporal_apply(cfg, u.sub_kind, sub["p"], h, positions, mrope)
     return x + t
 
 
@@ -154,8 +160,9 @@ def _execute_transformer(graph: ir.UnitGraph, batch):
     positions = batch.get("positions")
     if positions is None:
         positions = T.default_positions(x)
+    mrope = batch.get("mrope_positions")
     for u in graph.units:
-        x = _apply_unit(cfg, u, x, positions)
+        x = _apply_unit(cfg, u, x, positions, mrope)
     x = L.rms_norm(x, gp["final_norm"], cfg.norm_eps)
     return T.unembed(cfg, gp, x)
 
@@ -165,9 +172,11 @@ def _is_temporal(u) -> bool:
 
 
 def init_cache(graph: ir.UnitGraph, batch_size: int, seq_len: int):
-    """Zeroed per-unit decode state: a KV cache for each attention
-    sublayer, the RG-LRU state ``{h, conv}`` for each recurrent one,
-    ``{}`` for stateless units; on the device of the graph's tensors."""
+    """Fresh per-unit decode state: a zeroed KV cache for each attention
+    sublayer, the zeroed RG-LRU state ``{h, conv}``, the mLSTM state
+    ``{C, n, m}`` or the sLSTM state ``{c, n, m}`` (stabilizers at
+    ``-1e30``) for each recurrent one, ``{}`` for stateless units; on the
+    device of the graph's tensors."""
     cfg = graph.meta["config"]
     dev = graph.params["final_norm"].device
     return [T.init_state(cfg, u.sub_kind, batch_size, seq_len, dev)
@@ -185,20 +194,22 @@ def slot_state(graph: ir.UnitGraph, slots: int, seq_len: int):
 
 def decode_step(graph: ir.UnitGraph, cache, batch):
     """One-token decode through the compressed unit chain: ``batch``
-    ``{'tokens': (B, 1)}`` → ``(logits, cache)``, every state tensor of
-    the cache list updated in place and nothing read on the host (the
-    step can be captured in a CUDA graph).  An attention cache's ``pos``
-    is 0-d or one position per row (:func:`slot_state`).  Lowrank units
-    are position-independent residual maps, so each applies to the
-    one-token activation directly (M = B rows)."""
+    ``{'tokens': (B, 1)}`` (or ``'embeds'`` (B, 1, D))[,
+    ``mrope_positions`` (3, B, 1)] → ``(logits, cache)``, every state
+    tensor of the cache list updated in place and nothing read on the
+    host (the step can be captured in a CUDA graph).  An attention
+    cache's ``pos`` is 0-d or one position per row (:func:`slot_state`).
+    Lowrank units are position-independent residual maps, so each
+    applies to the one-token activation directly (M = B rows)."""
     cfg = graph.meta["config"]
     gp = graph.params
     x = T.embed_in(cfg, gp, batch)
+    mrope = T.mrope_of(batch, x)
     for i, u in enumerate(graph.units):
         if _is_temporal(u):
             h = L.rms_norm(x, u.params["norm"], cfg.norm_eps)
             t, cache[i] = T.temporal_decode(cfg, u.sub_kind, u.params["p"],
-                                            h, cache[i])
+                                            h, cache[i], mrope)
             x = x + t
         else:
             x = _apply_unit(cfg, u, x, None)

@@ -97,11 +97,11 @@ class LowRankUnit:
 class SublayerUnit:
     """One kept transformer sublayer: pre-norm → block → residual add.
 
-    ``sub_kind``: 'attn' | 'attn_local' | 'rglru' | 'ffn' (the kinds the
-    port runs; the JAX package's 'moe', 'mlstm', 'slstm' load but raise
-    when executed).  ``params``: {'norm': rmsnorm scale, 'p': the block's
-    params}.  Temporal kinds carry decode state: a KV cache (attention)
-    or the recurrent state ``{h, conv}`` (RG-LRU).
+    ``sub_kind``: 'attn' | 'attn_local' | 'ffn' | 'moe' | 'rglru' |
+    'mlstm' | 'slstm'.  ``params``: {'norm': rmsnorm scale, 'p': the
+    block's params}.  Temporal kinds carry decode state: a KV cache
+    (attention), the recurrent state ``{h, conv}`` (RG-LRU), ``{C, n,
+    m}`` (mLSTM) or ``{c, n, m}`` (sLSTM).
     """
 
     kind = "sublayer"
@@ -206,17 +206,17 @@ def _flat_names(tree, prefix: str = "") -> dict:
 
 def _sublayer_axes(u, cfg) -> dict:
     from repro_torch.models import layers as L
-    from repro_torch.models import rglru as RG
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
 
-    if u.sub_kind in ("attn", "attn_local"):
-        block = L.attention_axes(cfg)
-    elif u.sub_kind == "rglru":
-        block = RG.rglru_axes()
-    elif u.sub_kind == "ffn":
+    if u.sub_kind == "ffn":
         block = L.ffn_axes(cfg.ffn_kind)
+    elif u.sub_kind == "moe":
+        block = MOE.moe_axes()
+    elif u.sub_kind in TEMPORAL_KINDS:
+        block = T.temporal_axes(cfg, u.sub_kind)
     else:
-        raise NotImplementedError(L._NOT_PORTED.format(
-            what=f"sublayer kind {u.sub_kind!r}"))
+        raise ValueError(f"unknown sublayer kind {u.sub_kind!r}")
     ax = {"norm": ["embed"]}
     ax.update(_flat_names({"p": block}))
     return ax

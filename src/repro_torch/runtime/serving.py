@@ -7,7 +7,8 @@ stack's (:func:`repro_torch.models.transformer.decode_step`) or a
 compressed artifact's (:meth:`~repro_torch.runtime.artifact.
 CompressedArtifact.decode`) — that writes the cache's tensors in place
 and reads nothing on the host; ``new_cache()`` and ``make_cache(batch,
-seq_len)`` build zeroed caches.  Both stacks are served and measured the
+seq_len)`` build fresh caches (zeros, but ``-1e30`` for the xLSTM
+stabilizers).  Both stacks are served and measured the
 same way.
 
 Where the reference jit-compiles a ``lax.scan`` of the step, the port
@@ -115,6 +116,29 @@ def _tensors(tree):
             yield from _tensors(v)
 
 
+def fresh_rows(cache) -> list:
+    """Batch-1 copies of a fresh cache's tensors, in :func:`_tensors`
+    order: each tensor's row 0 (a 0-d ``pos`` whole).  What a reset
+    copies back (:func:`restore`): a fresh decode state is not all zeros
+    (the xLSTM stabilizers start at ``-1e30``), so zeroing would not
+    reset it."""
+    return [t.clone() if t.ndim == 0 else t[:1].clone()
+            for t in _tensors(cache)]
+
+
+def restore(cache, fresh, row: int | None = None) -> None:
+    """Copy the fresh state ``fresh`` (:func:`fresh_rows`) into every row
+    of ``cache``, or into row ``row`` only, in place (``copy_`` into the
+    existing storage, so a captured graph still replays against the same
+    tensors)."""
+    for t, f in zip(_tensors(cache), fresh):
+        src = f if f.ndim == 0 else f[0]
+        if row is None:
+            t.copy_(src.expand_as(t) if t.ndim else src)
+        else:
+            t[row].copy_(src)
+
+
 def check_room(cache, positions: int) -> None:
     """Raise unless every KV cache of ``cache`` (a list of per-layer
     states) takes ``positions`` tokens.  A ring buffer of a whole local
@@ -193,13 +217,16 @@ class _StepGraph:
     :meth:`prepare` captures the step in a CUDA graph on the card (and
     records ``capture_s``, the seconds of warm-up and capture, and
     ``launches``, the kernel launches the capture counted: one step's);
-    :meth:`reset` loads a round and zeroes the cache in place;
+    :meth:`reset` loads a round and resets the cache in place to its
+    fresh state (:func:`fresh_rows` of the cache as it was handed over:
+    every cache given to a step is fresh);
     :meth:`advance` runs ``n`` steps, each one replay on the card and
     one eager call of the body on the CPU.
     """
 
     def __init__(self, step, cache, batch: int, steps: int, logit_hook=None):
         self.step, self.cache, self.hook = step, cache, logit_hook
+        self.fresh = fresh_rows(cache)
         self.steps = steps
         self.device = next(_tensors(cache)).device
         dev = self.device
@@ -234,10 +261,9 @@ class _StepGraph:
         self.t.add_(1)
 
     def reset(self, feed, lengths) -> None:
-        """Zero the cache and the step's buffers in place, then load
-        ``feed`` (B, ≤ steps) and ``lengths`` (B,)."""
-        for t in _tensors(self.cache):
-            t.zero_()
+        """Reset the cache to its fresh state and zero the step's buffers,
+        in place, then load ``feed`` (B, ≤ steps) and ``lengths`` (B,)."""
+        restore(self.cache, self.fresh)
         self.feed.zero_()
         self.feed[:, :feed.shape[1]].copy_(feed)
         self.lengths.copy_(lengths)
@@ -289,7 +315,7 @@ def _check_lengths(lengths, P: int) -> None:
 def serve_loop(step, new_cache, prompt, tokens: int, *, warm: bool = True):
     """Prefill ``prompt`` (B, P) and decode ``tokens`` greedy tokens.
 
-    ``new_cache()`` returns a zeroed cache; one is built per call.  On
+    ``new_cache()`` returns a fresh cache; one is built per call.  On
     the card the step is captured once (:class:`_StepGraph`); prefill is
     ``P`` teacher-forced replays and decode ``tokens - 1`` replays, each
     phase timed with CUDA events.  With ``warm`` the whole loop runs
@@ -373,7 +399,7 @@ def generate_fused(step, cache, prompts, lengths, tokens: int, *,
     ``1 <= lengths[b] <= P``.  At step ``t`` slot ``b`` consumes
     ``prompts[b, t]`` while ``t < lengths[b]`` (teacher-forced prefill)
     and its own previous greedy token afterwards (decode), so every
-    slot's cache holds exactly its own sequence.  ``cache`` (zeroed, on
+    slot's cache holds exactly its own sequence.  ``cache`` (fresh, on
     the serving device) must take ``P + tokens`` positions; it is used,
     and on the card reset, in place.  Returns ``(gen (B, tokens),
     cache)`` on the cache's device.
@@ -701,15 +727,19 @@ class _ChunkGraph:
     C, B)`` the tokens and ``ok`` flags of the chunk's steps, read back
     with one copy after the last replay.
 
-    The capture (:meth:`prepare`) runs against the live state and zeroes
-    all of it afterwards: it must happen before the first chunk, while
-    every slot is still fresh.  Chunks go through :meth:`run`, which
-    rewinds ``i``: a replay past ``C`` steps would index past ``feed``.
+    ``fresh`` is the batch-1 fresh state (:func:`fresh_rows` of
+    ``make_cache(1, ·)``): the capture (:meth:`prepare`) runs against the
+    live state and resets all of it to ``fresh`` afterwards, so it must
+    happen before the first chunk, while every slot is still fresh; an
+    admission copies it into the slot's rows (:meth:`reset_slot`).
+    Chunks go through :meth:`run`, which rewinds ``i``: a replay past
+    ``C`` steps would index past ``feed``.
     """
 
-    def __init__(self, step, state, slots: int, chunk: int,
+    def __init__(self, step, state, fresh, slots: int, chunk: int,
                  logit_hook=None):
         self.step, self.state, self.hook = step, state, logit_hook
+        self.fresh = fresh
         self.chunk = chunk
         self.device = next(_tensors(state)).device
         C, B, dev = chunk, slots, self.device
@@ -739,9 +769,8 @@ class _ChunkGraph:
         self.prev.copy_(nxt)
         self.ctl[self.chunk + 3].add_(1)
 
-    def _zero(self):
-        for t in _tensors(self.state):
-            t.zero_()
+    def _reset(self):
+        restore(self.state, self.fresh)
         self.prev.zero_()
         self.out.zero_()
         self.ctl.zero_()
@@ -750,13 +779,13 @@ class _ChunkGraph:
         """Capture the step on the card (once); nothing on the CPU."""
         if self.device.type == "cuda" and self.graph is None:
             self.graph, self.launches = _capture(self.device, self._body,
-                                                 self._zero)
+                                                 self._reset)
 
     def reset_slot(self, b: int) -> None:
-        """Zero slot ``b``'s rows of every state tensor (``pos[b] = 0``)
-        in place: the fresh cache of an admitted request."""
-        for t in _tensors(self.state):
-            t[b].zero_()
+        """Copy the fresh state into slot ``b``'s rows of every state
+        tensor (``pos[b] = 0``) in place: the fresh cache of an admitted
+        request."""
+        restore(self.state, self.fresh, row=b)
 
     def run(self, ctl):
         """Load ``ctl`` (host ``(C + 4, B)`` int64), run the chunk's
@@ -828,7 +857,8 @@ class ContinuousEngine:
 
     The state lives on the cache's device and is written in place: the
     chunk step is captured once (with ``warm``, in the constructor, else
-    at the first chunk), an admitted slot's rows are zeroed in place,
+    at the first chunk), an admitted slot's rows are reset in place to
+    the fresh state of ``make_cache(1, max_seq)``,
     and each chunk is one host-to-device copy of the feed, ``chunk``
     replays and one device-to-host read of the tokens.  The rate
     estimate reads the clock after that read.
@@ -851,9 +881,10 @@ class ContinuousEngine:
         self._max_queue = max_queue
         self._nan_limit = slot_nan_limit
         self._health_check = health_check
-        self._graph = _ChunkGraph(step,
-                                  stack_cache(make_cache(1, max_seq), slots),
-                                  slots, chunk, logit_hook)
+        fresh = make_cache(1, max_seq)
+        self._graph = _ChunkGraph(step, stack_cache(fresh, slots),
+                                  fresh_rows(fresh), slots, chunk,
+                                  logit_hook)
         self._slots = [_Slot() for _ in range(slots)]
         self.requests: dict[int, _Request] = {}
         self._pending: list[_Request] = []     # not yet arrived

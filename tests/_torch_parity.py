@@ -80,18 +80,26 @@ def np_lm_params(cfg, seed=0):
     non-zero norm scales, so the ``(1 + g)`` fold is exercised.  RG-LRU
     leaves: Λ drawn as ``init_rglru`` draws it (``-log a`` at r = 1 is C
     times ``-log`` of a uniform draw in (0.9^C, 0.999^C)), conv taps and
-    bias at 0.1."""
+    bias at 0.1.  xLSTM forget-gate biases ``bf`` near ``init_mlstm``'s
+    3 (3 ± 0.5), its input-gate biases ``bi`` at 0.1; an MoE ``w_down``
+    at 1/sqrt(moe_dff)."""
     shapes = jax.eval_shape(
         lambda: jtr.init_model(cfg, jax.random.PRNGKey(0))[0])
     rng = np.random.default_rng(seed)
     dr = cfg.rnn_width or cfg.d_model
-    fan = {"w_down": cfg.d_ff, "wo": cfg.num_heads * cfg.head_dim,
+    fan = {"w_down": cfg.d_ff or cfg.moe_dff,
+           "wo": cfg.num_heads * cfg.head_dim,
            "w_out": dr, "w_a": dr, "w_x": dr}
 
     def fill(path, leaf):
         name = str(getattr(path[-1], "key", ""))
         if "norm" in name:
             return (0.2 * rng.standard_normal(leaf.shape)).astype(np.float32)
+        if name == "bf":
+            return (3.0 + 0.5 * rng.standard_normal(leaf.shape)
+                    ).astype(np.float32)
+        if name == "bi":
+            return (0.1 * rng.standard_normal(leaf.shape)).astype(np.float32)
         if name == "lam":
             u = rng.uniform(0.9 ** _C_DECAY, 0.999 ** _C_DECAY, leaf.shape)
             return np.log(np.expm1(-np.log(u))).astype(np.float32)

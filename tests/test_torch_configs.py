@@ -5,8 +5,10 @@
   MobileNetV2-1.4 beside them), the ``ArchConfig`` for the transformers;
 * ``ShapeConfig``, ``SHAPES``, ``LONG_CONTEXT_OK``, ``ARCH_IDS`` and
   ``cells`` (with and without the skipped cells) are the reference's;
-* every id of the reference the port does not run raises ``KeyError``
-  naming the queue it waits in, and the CLI does not take a CNN config id;
+* the eight ids the port resolves since the other transformer families
+  were ported give the reference's config, and the host refuses their
+  published bf16 dtype; an unknown id raises ``KeyError``, and the CLI
+  does not take a CNN config id;
 * the config modules import neither ``jax`` nor ``repro``.
 """
 import dataclasses
@@ -24,6 +26,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PORTED = ("smollm-135m", "recurrentgemma-2b", "resnet34", "mobilenetv2",
           "ddpm-cifar10")
+#: The ids the port resolved last (MoE, xLSTM, M-RoPE and the dense
+#: transformers copied with them).
+LATER = tuple(a for a in jconfigs.base._MODULES if a not in PORTED)
 CNN_IDS = ("resnet34", "mobilenetv2", "ddpm-cifar10")
 ALL_IDS = tuple(jconfigs.base._MODULES)
 
@@ -97,10 +102,17 @@ def test_exports_are_the_reference_names():
     assert sorted(tconfigs.__all__) == sorted(jconfigs.__all__)
 
 
-@pytest.mark.parametrize("arch", [a for a in ALL_IDS if a not in PORTED])
+@pytest.mark.parametrize("arch", LATER)
 def test_unported_id_raises(arch):
-    with pytest.raises(KeyError, match="queue 1"):
-        tconfigs.get_config(arch)
+    """Each id that used to raise here resolves to the reference's config
+    now; what still raises is its published dtype: the host runs fp32
+    only (bf16 factors cannot be rank-merged, ROADMAP.md queue 3)."""
+    from repro_torch.models.transformer_host import TransformerHost
+    t, j = tconfigs.get_config(arch), jconfigs.get_config(arch)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.dtype == "bfloat16"
+    with pytest.raises(ValueError, match="fp32"):
+        TransformerHost(t, {}, device="cpu")
 
 
 def test_unknown_id_raises():
@@ -118,7 +130,9 @@ def test_config_modules_import_neither_jax_nor_repro():
     mods = ["repro_torch.configs"] + [
         f"repro_torch.configs.{m}" for m in
         ("base", "resnet34", "mobilenetv2", "ddpm_cifar10", "smollm_135m",
-         "recurrentgemma_2b")]
+         "recurrentgemma_2b", "gemma_7b", "qwen2_7b", "musicgen_large",
+         "command_r_plus_104b", "granite_moe_1b_a400m", "qwen3_moe_30b_a3b",
+         "qwen2_vl_7b", "xlstm_125m")]
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -126,7 +140,7 @@ def test_config_modules_import_neither_jax_nor_repro():
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "from repro_torch.configs import get_config\n"
-            f"for a in {PORTED!r}:\n"
+            f"for a in {ALL_IDS!r}:\n"
             "    get_config(a)\n"
             "assert not any(k == 'jax' or k.startswith('jax.') for k in "
             "sys.modules if sys.modules[k] is not None)\n"

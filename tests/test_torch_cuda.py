@@ -1088,3 +1088,118 @@ def test_table_cache_hit_on_the_card_times_nothing(tmp_path):
     assert hit.plan == first.plan
     assert hit.original_latency == first.original_latency
     assert hit.tables.entries == first.tables.entries
+
+
+# ---------------------------------------------------------------------------
+# The other transformer families: MoE, xLSTM, M-RoPE
+# ---------------------------------------------------------------------------
+
+def _capture_once(fn):
+    """``fn`` warmed up on a side stream, then captured in a CUDA graph."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def test_moe_layer_captured_replays_bitwise():
+    """A granite-shaped MoE FFN (32 experts, top-8, capacity 1.25: pairs
+    drop) on 8 decode rows: a captured replay equals the eager call
+    bitwise, and the port's routing reads nothing on the host."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    dev = _card()
+    cfg = get_config("granite-moe-1b-a400m")
+    gen = torch.Generator().manual_seed(0)
+    p = {k: v.to(dev) for k, v in
+         moe.init_moe(cfg, gen, torch.float32)[0].items()}
+    x = torch.randn(8, 1, cfg.d_model, generator=gen).to(dev)
+    out = torch.empty_like(x)
+
+    def call():
+        out.copy_(moe.moe_ffn(p, x, cfg, capacity_factor=1.25))
+    graph = _capture_once(call)
+    call()
+    eager = out.clone()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    ref = moe.moe_ffn({k: v.cpu() for k, v in p.items()}, x.cpu(), cfg,
+                      capacity_factor=1.25)
+    assert _rel(eager, ref) <= 1e-5
+
+
+def test_xlstm_decode_step_captured_replays_bitwise():
+    """One decode step of a 2-layer xLSTM stack (mLSTM, sLSTM; d 768, 4
+    heads), captured and replayed from the fresh state, against eager
+    steps from the same state: bitwise at every step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    dev = _card()
+    cfg = dataclasses.replace(get_config("xlstm-125m"), num_layers=2,
+                              temporal_pattern=("mlstm", "slstm"),
+                              vocab_size=512, dtype="float32")
+    params, _ = T.init_model(cfg, device=dev)
+    toks = torch.randint(0, 512, (4, 6),
+                         generator=torch.Generator().manual_seed(1)).to(dev)
+    eager_cache = T.init_cache(cfg, 4, 6, device=dev)
+    eager = [T.decode_step(cfg, params, eager_cache,
+                           {"tokens": toks[:, t:t + 1]})[0]
+             for t in range(6)]
+    cache = T.init_cache(cfg, 4, 6, device=dev)
+    fresh = [{k: v.clone() for k, v in c.items()} for c in cache]
+    feed = torch.zeros((4, 1), dtype=torch.long, device=dev)
+    out = torch.empty_like(eager[0])
+
+    def step():
+        out.copy_(T.decode_step(cfg, params, cache, {"tokens": feed})[0])
+    graph = _capture_once(step)
+    for c, f in zip(cache, fresh):
+        for k in c:
+            c[k].copy_(f[k])
+    for t in range(6):
+        feed.copy_(toks[:, t:t + 1])
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager[t]), t
+
+
+@pytest.mark.parametrize("m,d", [(m, d) for m in (1024, 8)
+                                 for d in (1024, 768, 3584)])
+def test_rmsnorm_at_the_new_widths(m, d):
+    dev = _card()
+    g = torch.Generator().manual_seed(m + d)
+    x, w = torch.randn(m, d, generator=g), torch.randn(d, generator=g) * 0.2
+    y = tk.rmsnorm_op(x.to(dev), w.to(dev), eps=1e-6)
+    yr = tk.rmsnorm_ref(x, w, 1e-6)
+    assert _rel(y, yr) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(8, 128, 16, 8, 64), (8, 16, 16, 8, 64),
+                                   (8, 128, 28, 4, 128), (8, 16, 28, 4, 128)])
+def test_flash_attention_at_the_new_shapes(shape):
+    from repro_torch.kernels import ops
+    dev = _card()
+    b, s, h, kvh, d = shape
+    g = torch.Generator().manual_seed(s + h)
+    q = torch.randn(b, s, h, d, generator=g)
+    k, v = (torch.randn(b, s, kvh, d, generator=g) for _ in range(2))
+    y = tk.flash_attention_op(q.to(dev), k.to(dev), v.to(dev), True)
+    assert _rel(y, ops._attention_plain(q, k, v, True)) <= 1e-5
+
+
+@pytest.mark.parametrize("m", [8, 1024])
+def test_merged_ffn_at_d3584(m):
+    """qwen2-vl's merged unit width (D = R = 3584), held as the wide
+    cases are: within 1e-4 of each output's scale."""
+    dev = _card()
+    x, u, v = _ffn_factors(m, 3584, 3584, dev)
+    _within_scale(tk.merged_ffn_op(x, u, v), tk.merged_ffn_ref(x, u, v),
+                  x, x, u, v)

@@ -54,7 +54,15 @@ def test_every_module_imports_with_jax_and_repro_blocked():
               "repro_torch.configs.resnet34",
               "repro_torch.configs.mobilenetv2",
               "repro_torch.configs.ddpm_cifar10",
-              "repro_torch.testing.faults"):
+              "repro_torch.testing.faults", "repro_torch.models.moe",
+              "repro_torch.models.xlstm", "repro_torch.configs.gemma_7b",
+              "repro_torch.configs.qwen2_7b",
+              "repro_torch.configs.musicgen_large",
+              "repro_torch.configs.command_r_plus_104b",
+              "repro_torch.configs.granite_moe_1b_a400m",
+              "repro_torch.configs.qwen3_moe_30b_a3b",
+              "repro_torch.configs.qwen2_vl_7b",
+              "repro_torch.configs.xlstm_125m"):
         assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
