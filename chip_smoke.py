@@ -341,6 +341,39 @@ Phases, each printing its own line with the seconds it took:
              served D 3584 unit × M {8, 1024}: kernel, plain version,
              library call and bound (``archs.json``; the ``kernels``
              line's ``@archs`` rows).
+24. train — LM training (``repro_torch.train``), fp32, data from
+             ``SyntheticTokens(vocab, B, S, seed=0)``: (a) SmolLM-135M at
+             full size (134.5 M parameters), batch 8 x seq 1024 (the
+             reference's ``examples/train_lm.py`` "100m" preset), AdamW
+             lr 1e-3, warmup 20, 40 steps, weight decay 0.01, under
+             ``train_loop`` (checkpoints every 10, keep 3) with a
+             ``RuntimeError`` at step 25: exactly one restart, the state
+             restored from step 20 bitwise what was saved
+             (:class:`CkptSpy`), the loss of the last 5 steps under the
+             first 5; the replayed steps' max |Δloss| and the gradient
+             leaves that differ between two runs of one step; median ms
+             a step and tok/s, steps with a checkpoint, the background
+             writes' seconds, peak memory, launches a step (rmsnorm 61,
+             flash_attention 30, as many as a forward: none in the
+             backward), busy share over 3 steps; one loss and its
+             gradients on 1 x 256 tokens against the CPU port (1e-5
+             relative; 1e-4 of each leaf's max |g|); (b) phase 8's
+             artifact fine-tuned 10 steps at 8 x 1024 through
+             ``make_compressed_forward`` (merged_ffn at M 8192): the loss
+             drops; the tuned graph saved, reloaded (logits bitwise) and
+             served through the captured ``serve_loop``, 32 tokens of
+             batch 8 equal to the eager decode of the tuned graph; (c)
+             RecurrentGemma-2B at full size, batch 8 x seq 128, 4 steps
+             of ``make_train_step`` (no checkpoint): finite losses, ms a
+             step, busy share, peak memory, launches a step (rglru_scan
+             18, flash_attention 8); full width at 3 layers against the
+             CPU port on 1 x 64 tokens as in (a); (d) rmsnorm (8192,
+             576), flash_attention (8, 1024, 9, 64) over 3 kv heads and
+             merged_ffn (8192, 576) at the plan's rank: kernel, plain
+             version, library call and bound (``train.json``; the
+             ``kernels`` line's ``@train`` rows, with launches over
+             (a)-(c)).  Phase 3 holds the three shapes against their
+             plain versions too.
 
 Any failed check raises, so the script exits non-zero.  Per-unit shapes,
 times, bounds and launch plans land in ``build/chip_smoke/units.json``
@@ -349,7 +382,7 @@ times, bounds and launch plans land in ``build/chip_smoke/units.json``
 in ``rg.json``, the serving numbers of phases 9, 13, 16, 18 and 19 in
 ``serve.json``, phase 20's in ``importance.json``, phase 21's in
 ``tables.json``, phase 22's in ``unet.json``, phase 23's in
-``archs.json``.  It exits non-zero
+``archs.json``, phase 24's in ``train.json``.  It exits non-zero
 without a result where ``torch.cuda.is_available()`` is false or the repo's
 ``src/`` is missing.  The last lines are the ``kernels`` JSON line, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -419,6 +452,15 @@ ARCH_NORM_D = (1024, 768, 3584)
 MOE_NO_DROP = 8.0
 #: Rows of phase 23 (c)'s batch held against the CPU port.
 CPU_ROWS = 4
+#: Suffix of the ``kernels`` line's rows of phase 24 (d): the kernels at
+#: the training shapes, their launches over phase 24 (a)-(c).
+TRAIN_ROW = "@train"
+#: Phase 24's SmolLM-135M batch (``examples/train_lm.py``'s "100m"
+#: preset) and its kernel shapes: rmsnorm's rows, flash_attention's (B,
+#: S, H, KVH, D).
+TRAIN_BATCH = (8, 1024)
+TRAIN_NORM = (8 * 1024, 576)
+TRAIN_ATTENTION = (8, 1024, 9, 3, 64)
 #: Each kernel's source and the TPU kernel (``pl.pallas_call``) it ports.
 KERNEL_SOURCES = {
     "merged_conv": ("src/repro_torch/kernels/csrc/merged_conv.cu",
@@ -946,7 +988,8 @@ def norm_scan_attention_sweep(dev) -> dict:
         return torch.randn(*shape, generator=g).to(dev)
 
     for m, d in [(m, d) for m in (1, 8, 37, 1024)
-                 for d in (32, 512, 576, 768, 1024, 2560, 2561, 3584)]:
+                 for d in (32, 512, 576, 768, 1024, 2560, 2561, 3584)] + [
+                     TRAIN_NORM]:
         x, w = rnd(m, d) * 3.0, rnd(d) * 0.2
         yr = ref.rmsnorm_ref(x, w, 1e-6)
         note("rmsnorm", held("rmsnorm", kernels.rmsnorm_op(x, w, eps=1e-6),
@@ -971,7 +1014,7 @@ def norm_scan_attention_sweep(dev) -> dict:
                     note("flash_attention", compare_attention(q, k, v, causal))
     q, k, v = (rnd(2, 256, 4, 64) for _ in range(3))      # benchmarks/run.py
     note("flash_attention", compare_attention(q, k, v, True))
-    for b, s, h, kvh, d in ARCH_ATTENTION:                 # phase 23's paths
+    for b, s, h, kvh, d in ARCH_ATTENTION + (TRAIN_ATTENTION,):
         q, k, v = rnd(b, s, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d)
         note("flash_attention", compare_attention(q, k, v, True))
     return worst
@@ -1276,6 +1319,7 @@ def ffn_sweep(dev):
     cases += [(m, 2561, r) for m in (1, 8, 63, 64, 65, 129, 1024)
               for r in (24, 2560)] + [(8, 2561, 7680)]
     cases += [(m, 3584, r) for m in (8, 1024) for r in (24, 3584)]
+    cases += [(TRAIN_NORM[0], TRAIN_NORM[1], TRAIN_NORM[1])]
     for m, d, r in cases:
         x = torch.randn(m, d, generator=g).to(dev)
         u = (torch.randn(d, r, generator=g) / d ** 0.5).to(dev)
@@ -3766,9 +3810,9 @@ def solo_requests(step, make_cache, prompts, tokens: int, *,
 
 def cpu_copy(graph):
     """The CPU port of a lowered graph: every tensor copied to the host."""
-    from repro_torch.models.transformer import _tree_map
+    from repro_torch.tree import tree_map
     from repro_torch.runtime import ir
-    return ir.bind_params(graph, _tree_map(lambda t: t.cpu(),
+    return ir.bind_params(graph, tree_map(lambda t: t.cpu(),
                                            ir.graph_params(graph)))
 
 
@@ -4027,36 +4071,35 @@ def qwen2vl_phase(dev) -> tuple[dict, dict, object]:
     return out, launches, units
 
 
-def time_arch_kernels(dev, lowrank) -> list:
-    """Phase 23 (d): rmsnorm at (M, D) for D of granite, xLSTM and
-    qwen2-vl and M 1024 (the probes) and 8 (a decode step);
-    flash_attention at ``ARCH_ATTENTION``; merged_ffn at D 3584 with the
-    served qwen2-vl unit at M 8 and 1024: kernel, plain version and
-    library call (``F.rms_norm``; SDPA on k, v expanded; ``torch.addmm``)
-    as cold-L2 device times beside the bound."""
+def time_kernel_rows(dev, norms, attentions, ffn_unit, ffn_ms,
+                     seed: int) -> list:
+    """rmsnorm at each (M, D) of ``norms``, flash_attention at each (B, S,
+    H, KVH, D) of ``attentions`` (causal), merged_ffn with ``ffn_unit``'s
+    factors at each M of ``ffn_ms``: kernel, plain version and library
+    call (``F.rms_norm``; SDPA on k, v expanded; ``torch.addmm``) as
+    cold-L2 device times beside the bound, each held against its plain
+    version first."""
     import torch
     import torch.nn.functional as F
     from repro_torch import kernels
     from repro_torch.kernels import ops, ref
-    g = torch.Generator().manual_seed(23)
+    g = torch.Generator().manual_seed(seed)
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g).to(dev)
 
     rows = []
-    for d in ARCH_NORM_D:
-        for m in (1024, 8):
-            x, w = rnd(m, d), rnd(d) * 0.2
-            w1 = 1.0 + w
-            yr = ref.rmsnorm_ref(x, w, 1e-6)
-            err = held("rmsnorm", kernels.rmsnorm_op(x, w, eps=1e-6), yr,
-                       yr.abs(), f"x={(m, d)}")[0]
-            rows.append(time_row(
-                "rmsnorm", [m, d], lambda: kernels.rmsnorm_op(x, w, eps=1e-6),
-                lambda: ref.rmsnorm_ref(x, w, 1e-6),
-                lambda: F.rms_norm(x, (d,), w1, 1e-6), norm_bound(m, d),
-                err))
-    for b, s, h, kvh, d in ARCH_ATTENTION:
+    for m, d in norms:
+        x, w = rnd(m, d), rnd(d) * 0.2
+        w1 = 1.0 + w
+        yr = ref.rmsnorm_ref(x, w, 1e-6)
+        err = held("rmsnorm", kernels.rmsnorm_op(x, w, eps=1e-6), yr,
+                   yr.abs(), f"x={(m, d)}")[0]
+        rows.append(time_row(
+            "rmsnorm", [m, d], lambda: kernels.rmsnorm_op(x, w, eps=1e-6),
+            lambda: ref.rmsnorm_ref(x, w, 1e-6),
+            lambda: F.rms_norm(x, (d,), w1, 1e-6), norm_bound(m, d), err))
+    for b, s, h, kvh, d in attentions:
         q, k, v = rnd(b, s, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d)
         err = compare_attention(q, k, v, True)[0]
         qt, kt, vt = (t.repeat_interleave(h // t.shape[2], dim=2)
@@ -4069,16 +4112,48 @@ def time_arch_kernels(dev, lowrank) -> list:
                                                    is_causal=True),
             attention_bound(b, s, h, kvh, d), err,
             tc_rate_label(("fp32", "fp32"))))
-    u = lowrank[0]
-    for m in (8, 1024):
-        r = time_ffn(rnd(m, u.params["u"].shape[0]), u.params["u"],
-                     u.params["v"])
-        rows.append(dict(r, kernel="merged_ffn",
-                         shape=[m, *u.params["u"].shape]))
+    u, v = ffn_unit.params["u"], ffn_unit.params["v"]
+    for m in ffn_ms:
+        r = time_ffn(rnd(m, u.shape[0]), u, v)
+        rows.append(dict(r, kernel="merged_ffn", shape=[m, *u.shape]))
     for r in rows:
         r["slower_than_library"] = bool(r["library_ms"] is not None
                                         and r["ms"] > r["library_ms"])
     return rows
+
+
+def kernel_rows_line(rows) -> str:
+    return " ".join(
+        f"{r['kernel']} {r['shape']}: ms={r['ms']:.4f} "
+        f"plain={r['plain_ms']:.4f} library={r['library_ms']:.4f} "
+        f"bound={r['bound_ms']:.5f} ("
+        f"{'bytes' if r['bytes_ms'] >= r['flops_ms'] else 'operations'}, "
+        f"share {r['bound_ms'] / r['ms']:.3f})"
+        + (" SLOWER than the library;" if r["slower_than_library"] else ";")
+        for r in rows)
+
+
+def rows_by_kernel(rows) -> dict:
+    """The ``kernels`` line's row of each kernel: its rows summed."""
+    tot = {}
+    for k in ("rmsnorm", "flash_attention", "merged_ffn"):
+        rs = [r for r in rows if r["kernel"] == k]
+        tot[k] = {f: sum(r[f] for r in rs) for f in
+                  ("ms", "plain_ms", "library_ms", "flops_ms", "bytes_ms",
+                   "bound_ms")}
+        tot[k].update(max_abs_err=max(r["max_abs_err"] for r in rs),
+                      bound_rate=rs[0]["bound_rate"], shapes=len(rs))
+    return tot
+
+
+def time_arch_kernels(dev, lowrank) -> list:
+    """Phase 23 (d): rmsnorm at (M, D) for D of granite, xLSTM and
+    qwen2-vl and M 1024 (the probes) and 8 (a decode step);
+    flash_attention at ``ARCH_ATTENTION``; merged_ffn at D 3584 with the
+    served qwen2-vl unit at M 8 and 1024 (:func:`time_kernel_rows`)."""
+    return time_kernel_rows(dev, [(m, d) for d in ARCH_NORM_D
+                                  for m in (1024, 8)],
+                            ARCH_ATTENTION, lowrank[0], (8, 1024), 23)
 
 
 def arch_phase(dev, build_host) -> tuple[dict, dict, dict]:
@@ -4134,27 +4209,466 @@ def arch_phase(dev, build_host) -> tuple[dict, dict, dict]:
     t = time.perf_counter()
     rows = time_arch_kernels(dev, lowrank)
     out["kernels"] = rows
-    log("archs kernels", t, " ".join(
-        f"{r['kernel']} {r['shape']}: ms={r['ms']:.4f} "
-        f"plain={r['plain_ms']:.4f} library={r['library_ms']:.4f} "
-        f"bound={r['bound_ms']:.5f} ("
-        f"{'bytes' if r['bytes_ms'] >= r['flops_ms'] else 'operations'}, "
-        f"share {r['bound_ms'] / r['ms']:.3f})"
-        + (" SLOWER than the library;" if r["slower_than_library"] else ";")
-        for r in rows))
-    tot = {}
-    for k in ("rmsnorm", "flash_attention", "merged_ffn"):
-        rs = [r for r in rows if r["kernel"] == k]
-        tot[k] = {f: sum(r[f] for r in rs) for f in
-                  ("ms", "plain_ms", "library_ms", "flops_ms", "bytes_ms",
-                   "bound_ms")}
-        tot[k].update(max_abs_err=max(r["max_abs_err"] for r in rs),
-                      bound_rate=rs[0]["bound_rate"], shapes=len(rs))
+    log("archs kernels", t, kernel_rows_line(rows))
+    tot = rows_by_kernel(rows)
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t0
     log("archs", t0, f"phase 23 in {out['seconds']:.2f}s; launches "
         f"(a)-(c) {launches}")
     return out, launches, tot
+
+
+# ---------------------------------------------------------------------------
+# 24. LM training
+# ---------------------------------------------------------------------------
+
+class CkptSpy:
+    """While active, wraps ``checkpoint.ckpt.save`` (the background write of
+    every ``AsyncCheckpointer`` save: its seconds, and the host arrays of
+    the save at ``watch_step``) and ``restore`` (each restored tree is
+    held bitwise against those arrays as it comes back, before a step
+    writes it in place)."""
+
+    def __init__(self, watch_step: int):
+        self.watch_step = watch_step
+        self.write_s, self.restored = [], []
+        self.saved = None
+
+    def __enter__(self):
+        from repro_torch.checkpoint import ckpt as C
+        from repro_torch.tree import flatten_tree
+        self.C, self._save, self._restore = C, C.save, C.restore
+
+        def save(ckpt_dir, step, tree, **kw):
+            t = time.perf_counter()
+            out = self._save(ckpt_dir, step, tree, **kw)
+            self.write_s.append(time.perf_counter() - t)
+            if step == self.watch_step:
+                self.saved = flatten_tree(tree)
+            return out
+
+        def restore(ckpt_dir, step, like, **kw):
+            out = self._restore(ckpt_dir, step, like, **kw)
+            flat = flatten_tree(out)
+            same = (step == self.watch_step and self.saved is not None
+                    and sorted(flat) == sorted(self.saved)
+                    and all(v.cpu().numpy().tobytes()
+                            == self.saved[k].tobytes()
+                            for k, v in flat.items()))
+            self.restored.append({"step": step, "leaves": len(flat),
+                                  "bitwise": same})
+            return out
+        C.save, C.restore = save, restore
+        return self
+
+    def __exit__(self, *exc):
+        self.C.save, self.C.restore = self._save, self._restore
+
+
+def grads_vs_cpu(cfg, params_cpu, batch_np, dev, forward_fn=None) -> dict:
+    """One ``make_loss_fn`` value and its gradients on the card against the
+    CPU port, from the same weights and batch: the loss's relative
+    difference, and each gradient leaf's max |Δ| over its max |g|."""
+    import torch
+    from repro_torch.train.step import make_loss_fn, value_and_grad
+    from repro_torch.tree import flatten_tree, tree_map
+    b_cpu = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    l_cpu, g_cpu = value_and_grad(make_loss_fn(cfg, forward_fn), params_cpu,
+                                  b_cpu)
+    p_dev = tree_map(lambda t: t.to(dev), params_cpu)
+    l_dev, g_dev = value_and_grad(make_loss_fn(cfg, forward_fn), p_dev,
+                                  {k: v.to(dev) for k, v in b_cpu.items()})
+    gd = flatten_tree(g_dev)
+    worst, worst_key = 0.0, None
+    for k, v in flatten_tree(g_cpu).items():
+        r = float((gd[k].cpu() - v).abs().max() / max(float(v.abs().max()),
+                                                       1e-30))
+        if r >= worst:
+            worst, worst_key = r, k
+    out = {"loss_cpu": float(l_cpu), "loss_card": float(l_dev),
+           "loss_rel": abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu)),
+           "grad_rel": worst, "grad_rel_leaf": worst_key,
+           "leaves": len(gd)}
+    check(out["loss_rel"] <= 1e-5, f"loss on the card vs the CPU port: "
+          f"{out['loss_rel']:.3g} relative (limit 1e-5)")
+    check(worst <= 1e-4, f"gradient {worst_key} on the card vs the CPU "
+          f"port: {worst:.3g} of its max |g| (limit 1e-4)")
+    return out
+
+
+def nondeterministic_leaves(step_grads, params, batch) -> list:
+    """Gradient leaves that differ bitwise between two runs of one loss
+    and gradient on the same params and batch."""
+    import torch
+    from repro_torch.tree import flatten_tree
+    a = flatten_tree(step_grads(params, batch)[1])
+    b = flatten_tree(step_grads(params, batch)[1])
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def launch_delta(fn) -> dict:
+    """The kernel launches ``fn()`` makes (counted without a reset, so a
+    phase's running totals keep them)."""
+    import torch
+    from repro_torch import kernels
+    before = kernels.launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    return {k: v - before.get(k, 0)
+            for k, v in kernels.launch_counts().items()}
+
+
+def step_busy(fn, step_ms: float, reps: int) -> dict:
+    """Device-busy share of ``reps`` calls of ``fn`` (torch.profiler): the
+    device time a call over ``step_ms``, and the top kernels."""
+    busy_us, rows = device_kernels(fn, reps=reps)
+    return {"busy_us": busy_us, "busy_share": busy_us / (step_ms * 1e3),
+            "top": [(name[:60], round(us, 1), n) for us, n, name in rows[:8]]}
+
+
+def smollm_train(dev) -> dict:
+    """Phase 24 (a): SmolLM-135M full size, fp32, batch 8 x seq 1024,
+    ``examples/train_lm.py``'s "100m" preset under ``train_loop`` (40
+    steps, checkpoints every 10, keep 3) with one simulated device loss
+    at step 25."""
+    import dataclasses
+    import shutil
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import GlobalBatcher, SyntheticTokens
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.step import (make_loss_fn, make_train_step,
+                                        value_and_grad)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("smollm-135m"), dtype="float32",
+                              remat=False)
+    p_cpu, _ = T.init_model(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    params = tree_map(lambda t: t.to(dev), p_cpu)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    B, S = TRAIN_BATCH
+    batcher = GlobalBatcher(SyntheticTokens(cfg.vocab_size, B, S, seed=0),
+                            device=dev)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=40,
+                      weight_decay=0.01)
+    ckpt_dir = os.path.join(WORK, "train_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    loop = LoopConfig(total_steps=40, ckpt_every=10, keep=3,
+                      ckpt_dir=ckpt_dir, log_every=10)
+    calls, fired = [], []
+
+    def hook(step):
+        torch.cuda.synchronize()
+        calls.append((step, time.perf_counter()))
+        if step == 25 and not fired:
+            fired.append(step)
+            raise RuntimeError("simulated device loss at step 25")
+
+    logs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with CkptSpy(20) as spy:
+        res = train_loop(cfg, opt, loop, params, batcher, failure_hook=hook,
+                         logger=logs.append)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    # step intervals: hook to next hook, the same run; a step whose end
+    # saves a checkpoint apart
+    plain, with_ckpt = [], []
+    for (s0, a), (s1, b) in zip(calls, calls[1:]):
+        if s1 == s0 + 1:
+            (with_ckpt if s1 % loop.ckpt_every == 0 else plain).append(b - a)
+    step_ms = statistics.median(plain[1:]) * 1e3
+    losses = res.losses
+    replay = [abs(a - b) for a, b in zip(losses[20:25], losses[25:30])]
+    out = {"params": n_params, "batch": [B, S], "loop_s": loop_s,
+           "steps_run": len(losses), "restarts": res.restarts,
+           "final_step": res.final_step, "losses": losses,
+           "step_ms": step_ms, "tok_s": B * S / (step_ms * 1e-3),
+           "step_ms_all": [x * 1e3 for x in plain],
+           "ckpt_step_ms": [x * 1e3 for x in with_ckpt],
+           "ckpt_write_s": spy.write_s, "restored": spy.restored,
+           "peak_bytes": peak, "first5": statistics.mean(losses[:5]),
+           "last5": statistics.mean(losses[-5:]),
+           "replay_max_abs": max(replay), "log": logs}
+    check(res.restarts == 1 and res.final_step == 40, f"smollm train: "
+          f"{res.restarts} restarts, final step {res.final_step}")
+    check(len(losses) == 45 and all(math.isfinite(x) for x in losses),
+          "smollm train: losses missing or not finite")
+    check(out["last5"] < out["first5"], f"smollm train: the loss did not "
+          f"drop ({out['first5']:.4f} -> {out['last5']:.4f})")
+    check([r["step"] for r in spy.restored] == [20]
+          and spy.restored[0]["bitwise"], f"smollm train: the restored "
+          f"state is not bitwise what step 20 saved ({spy.restored})")
+    # what makes the replay differ, if it does: the gradient leaves that
+    # differ between two runs of one step's gradient
+    loss_fn = make_loss_fn(cfg)
+    b0 = batcher(0)
+    out["nondeterministic_grads"] = nondeterministic_leaves(
+        lambda p, b: value_and_grad(loss_fn, p, b), res.params, b0)
+    # launches of one step (the forward's kernels; the backward runs the
+    # plain versions' gradients) against one forward
+    step = make_train_step(cfg, opt)
+    p, state = res.params, res.opt_state
+    out["launches_per_step"] = launch_delta(lambda: step(p, state, b0))
+    with torch.no_grad():
+        out["launches_per_forward"] = launch_delta(
+            lambda: T.forward(cfg, p, b0))
+    out["busy"] = step_busy(lambda: step(p, state, b0), step_ms, 3)
+    # card against the CPU port: one loss and its gradients, 1 x 256
+    out["vs_cpu"] = grads_vs_cpu(cfg, p_cpu, SyntheticTokens(
+        cfg.vocab_size, 1, 256, seed=0).batch_at(0), dev)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    check(out["launches_per_step"] == out["launches_per_forward"],
+          f"smollm train: a step launched {out['launches_per_step']}, a "
+          f"forward {out['launches_per_forward']}")
+    lp = out["launches_per_forward"]
+    check((lp["rmsnorm"], lp["flash_attention"]) == (61, 30), f"smollm "
+          f"train: a forward launched {lp}")
+    log("train smollm", t0, f"{n_params / 1e6:.2f}M params, {B}x{S}, 40 "
+        f"steps + {len(losses) - 40} replayed, restarts {res.restarts}; "
+        f"step {step_ms:.2f} ms median ({out['tok_s']:.0f} tok/s), steps "
+        f"with a checkpoint {[round(x, 1) for x in out['ckpt_step_ms']]} "
+        f"ms, background writes {[round(x, 2) for x in spy.write_s]} s; "
+        f"loss first 5 {out['first5']:.4f} -> last 5 {out['last5']:.4f}; "
+        f"restored step 20 bitwise {spy.restored[0]['bitwise']} "
+        f"({spy.restored[0]['leaves']} leaves); replayed steps 20-24 max "
+        f"|dloss| {out['replay_max_abs']:.3g}, gradient leaves that differ "
+        f"run to run {out['nondeterministic_grads']}; peak "
+        f"{peak / 2**30:.2f} GiB; launches per step "
+        f"{json.dumps(out['launches_per_step'])}; busy "
+        f"{out['busy']['busy_share']:.3f} ({out['busy']['top'][:4]}); vs "
+        f"CPU port (1x256) loss {out['vs_cpu']['loss_rel']:.3g}, gradients "
+        f"{out['vs_cpu']['grad_rel']:.3g} ({out['vs_cpu']['grad_rel_leaf']})")
+    return out
+
+
+def compressed_finetune(dev, lm_path) -> tuple[dict, object]:
+    """Phase 24 (b): phase 8's SmolLM-135M artifact fine-tuned 10 steps at
+    batch 8 x seq 1024 through its unit graph, saved, reloaded (logits
+    bitwise), and served through the captured ``serve_loop`` (the eager
+    decode's tokens).  Returns the numbers and a lowrank unit."""
+    import statistics
+
+    import torch
+    from repro_torch import runtime
+    from repro_torch.data.pipeline import GlobalBatcher, SyntheticTokens
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.runtime import executor, serving
+    from repro_torch.train.step import make_compressed_forward, \
+        make_train_step
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    art = runtime.load(lm_path, device=dev)
+    graph = art.graph
+    cfg = graph.meta["config"]
+    gp = runtime.graph_params(graph)
+    fwd = make_compressed_forward(graph, device=dev)
+    B, S = TRAIN_BATCH
+    batcher = GlobalBatcher(SyntheticTokens(cfg.vocab_size, B, S, seed=0),
+                            device=dev)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                            total_steps=10), forward_fn=fwd)
+    state = init_opt_state(gp)
+    b0 = batcher(0)
+    with torch.no_grad():
+        per_forward = launch_delta(lambda: fwd(gp, b0))
+    losses, times = [], []
+    for i in range(10):
+        t = time.perf_counter()
+        gp, state, m = step(gp, state, batcher(i))
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t)
+    step_ms = statistics.median(times[1:]) * 1e3
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"compressed fine-tune: losses {losses}")
+    busy = step_busy(lambda: step(gp, state, b0), step_ms, 3)
+    tuned = runtime.bind_params(graph, gp)
+    path = os.path.join(WORK, "smollm135m_tuned.npz")
+    t = time.perf_counter()
+    runtime.save(path, tuned, plan=art.plan,
+                 meta=dict(art.meta, finetune_steps=10))
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    again = runtime.load(path, device=dev)
+    load_s = time.perf_counter() - t
+    with torch.no_grad():
+        y_mem = runtime.execute(tuned, b0, device=dev)
+        y_disk = again.apply(b0)
+    bitwise = bool(torch.equal(y_mem, y_disk))
+    del y_mem, y_disk
+    check(bitwise, "compressed fine-tune: the reloaded artifact's logits "
+          "differ from the tuned graph's")
+    P, N = 16, 32
+    prompt = serving.random_prompts(7, B, P, cfg.vocab_size, device=dev)
+    with torch.no_grad():
+        pre, dec, _, seqs = serving.serve_loop(
+            lambda c, tok: again.decode(c, tok),
+            lambda: again.init_cache(B, P + N), prompt, N)
+        _, _, _, seqs_eager = serving.serve_loop_pertoken(
+            lambda c, tok: executor.decode_step(tuned, c, {"tokens": tok}),
+            lambda: executor.init_cache(tuned, B, P + N), prompt, N)
+    same = bool(torch.equal(seqs, seqs_eager))
+    check(same, "compressed fine-tune: the captured decode of the reloaded "
+          "artifact and the eager decode of the tuned graph differ")
+    out = {"units": json.loads(unit_census(graph)), "losses": losses,
+           "step_ms": step_ms, "tok_s": B * S / (step_ms * 1e-3),
+           "launches_per_forward": per_forward, "busy": busy,
+           "param_leaves": len(tree_leaves(gp)), "save_s": save_s,
+           "load_s": load_s, "artifact_bytes": os.path.getsize(path),
+           "logits_bitwise": bitwise, "decode_tokens_equal": same,
+           "decode_tok_s": serving.decode_tok_s(N - 1, B, dec),
+           "seconds": time.perf_counter() - t0}
+    os.remove(path)
+    log("train compressed", t0, f"units {out['units']}; 10 steps at "
+        f"{B}x{S}: {step_ms:.2f} ms a step ({out['tok_s']:.0f} tok/s), "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; {out['param_leaves']} "
+        f"param leaves; busy {busy['busy_share']:.3f} ({busy['top'][:4]}); "
+        f"launches per forward {json.dumps(per_forward)}; artifact "
+        f"{out['artifact_bytes'] / 2**20:.1f} MiB saved {save_s:.2f} s, "
+        f"loaded {load_s:.2f} s, logits bitwise {bitwise}; captured decode "
+        f"of the reload = eager decode of the tuned graph: {same} "
+        f"({out['decode_tok_s']:.1f} tok/s)")
+    check(per_forward["merged_ffn"] > 0, "compressed fine-tune: merged_ffn "
+          "never launched")
+    unit = next(u for u in tuned.units if u.kind == "lowrank")
+    return out, unit
+
+
+def rg_train(dev) -> dict:
+    """Phase 24 (c): RecurrentGemma-2B full size, fp32, batch 8 x seq 128:
+    4 steps of ``make_train_step`` (no loop, no checkpoint); then the card
+    against the CPU port at full width and 3 layers on 1 x 64 tokens."""
+    import dataclasses
+    import gc
+    import statistics
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import GlobalBatcher, SyntheticTokens
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b"),
+                              dtype="float32", remat=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, _ = T.init_model(cfg, torch.Generator().manual_seed(0),
+                             device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    init_s = time.perf_counter() - t0
+    B, S = 8, 128
+    batcher = GlobalBatcher(SyntheticTokens(cfg.vocab_size, B, S, seed=0),
+                            device=dev)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                            total_steps=4,
+                                            weight_decay=0.01))
+    state = init_opt_state(params)
+    losses, times = [], []
+    for i in range(4):
+        before = kernels.launch_counts()
+        t = time.perf_counter()
+        params, state, m = step(params, state, batcher(i))
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t)
+        if i == 0:
+            per_step = {k: v - before[k]
+                        for k, v in kernels.launch_counts().items()}
+    step_ms = statistics.median(times[1:]) * 1e3
+    b0 = batcher(0)
+    busy = step_busy(lambda: step(params, state, b0), step_ms, 1)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses), f"recurrentgemma train: "
+          f"losses {losses}")
+    del params, state, m, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg3 = dataclasses.replace(cfg, num_layers=3)
+    p3, _ = T.init_model(cfg3, torch.Generator().manual_seed(0),
+                         device="cpu")
+    vs = grads_vs_cpu(cfg3, p3, SyntheticTokens(
+        cfg.vocab_size, 1, 64, seed=0).batch_at(0), dev)
+    del p3
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"params": n_params, "init_s": init_s, "batch": [B, S],
+           "losses": losses, "step_ms": step_ms,
+           "step_ms_all": [x * 1e3 for x in times],
+           "tok_s": B * S / (step_ms * 1e-3), "peak_bytes": peak,
+           "launches_per_step": per_step, "busy": busy, "vs_cpu": vs,
+           "seconds": time.perf_counter() - t0}
+    log("train recurrentgemma", t0, f"{n_params / 1e9:.3f} B params "
+        f"(init {init_s:.2f} s), {B}x{S}: step {step_ms:.1f} ms median "
+        f"(all {[round(x * 1e3, 1) for x in times]}), losses "
+        f"{[round(x, 4) for x in losses]}; peak {peak / 2**30:.2f} GiB; "
+        f"launches per step {json.dumps(per_step)}; busy "
+        f"{busy['busy_share']:.3f} ({busy['top'][:4]}); vs CPU port (3 "
+        f"layers, 1x64) loss {vs['loss_rel']:.3g}, gradients "
+        f"{vs['grad_rel']:.3g} ({vs['grad_rel_leaf']})")
+    check(per_step["rglru_scan"] == 18 and per_step["flash_attention"] == 8,
+          f"recurrentgemma train: a step launched {per_step}")
+    return out
+
+
+def train_phase(dev, lm_path) -> tuple[dict, dict, dict]:
+    """Phase 24: (a) SmolLM-135M under the fault-tolerant loop, (b) the
+    compressed SmolLM-135M artifact fine-tuned, saved and served, (c)
+    RecurrentGemma-2B's train steps, (d) the kernels at the training
+    shapes.  Returns (the numbers, launches over (a)-(c) counted from
+    zero, the ``kernels`` line's ``@train`` rows)."""
+    import gc
+
+    import torch
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"allocated_at_start": torch.cuda.memory_allocated()}
+    launches: dict = {}
+
+    def take():
+        for k, v in kernels.launch_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        kernels.reset_launch_counts()
+
+    kernels.reset_launch_counts()
+    out["smollm"] = smollm_train(dev)
+    take()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["compressed"], unit = compressed_finetune(dev, lm_path)
+    take()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["recurrentgemma"] = rg_train(dev)
+    take()
+    for k in ("rmsnorm", "flash_attention", "merged_ffn", "rglru_scan"):
+        check(launches[k] > 0, f"phase 24: {k} never launched")
+    t = time.perf_counter()
+    rows = time_kernel_rows(dev, [TRAIN_NORM], [TRAIN_ATTENTION], unit,
+                            (TRAIN_NORM[0],), 24)
+    out["kernels"] = rows
+    log("train kernels", t, kernel_rows_line(rows))
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    log("train", t0, f"phase 24 in {out['seconds']:.2f}s; launches (a)-(c) "
+        f"{launches}")
+    return out, launches, rows_by_kernel(rows)
 
 
 def main(argv) -> int:
@@ -4586,6 +5100,10 @@ def main(argv) -> int:
     archs, arch_launch, arch_tot = arch_phase(dev, build_host)
     with open(os.path.join(WORK, "archs.json"), "w") as f:
         json.dump(archs, f, indent=1, default=str)
+    # 24. LM training -------------------------------------------------------
+    trn, trn_launch, trn_tot = train_phase(dev, lm_path)
+    with open(os.path.join(WORK, "train.json"), "w") as f:
+        json.dump(trn, f, indent=1, default=str)
     sweep_err = {k: v[0] for k, v in sweep.items()}
     srcs = dict(KERNEL_SOURCES)
     for k, v in unet_tot.items():
@@ -4594,11 +5112,13 @@ def main(argv) -> int:
             launches[k + UNET_ROW] = unet_launch[k]
             sweep_err[k + UNET_ROW] = sweep_err[k]
             srcs[k + UNET_ROW] = srcs[k]   # the same kernel, other shapes
-    for k, v in arch_tot.items():
-        tot[k + ARCH_ROW] = v
-        launches[k + ARCH_ROW] = arch_launch[k]
-        sweep_err[k + ARCH_ROW] = sweep_err[k]
-        srcs[k + ARCH_ROW] = srcs[k]
+    for row, rows_tot, row_launch in ((ARCH_ROW, arch_tot, arch_launch),
+                                      (TRAIN_ROW, trn_tot, trn_launch)):
+        for k, v in rows_tot.items():
+            tot[k + row] = v
+            launches[k + row] = row_launch[k]
+            sweep_err[k + row] = sweep_err[k]
+            srcs[k + row] = srcs[k]
 
     line = {"kernels": [{
         "name": k, "route": "cuda", "source": srcs[k][0],

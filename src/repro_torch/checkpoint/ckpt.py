@@ -1,9 +1,26 @@
-"""Atomic single-file publishes and the write-ahead journal.
+"""Pytree checkpoints, atomic single-file publishes and the write-ahead
+journal.
 
-The port's copy of the journal and atomic-write helpers of the JAX
-package's ``repro.checkpoint.ckpt`` (its pytree checkpoints are not
-ported yet).  Two crash contracts:
+The port's copy of the JAX package's ``repro.checkpoint.ckpt``.  Crash
+contracts:
 
+* **checkpoints** — :func:`save` writes ``<dir>/step_<N>.tmp/`` with
+  ``arrays.npz`` (host arrays flattened by key path, ``a/b/0/c``:
+  :func:`flatten_leaves`, the layout merged-model artifacts share) and
+  ``meta.json`` (step, keys, caller metadata), fsyncs both and renames
+  the directory to ``step_<N>``; :func:`latest_step` sees only complete
+  checkpoints, a crash mid-write leaves a ``.tmp`` directory that the
+  next save removes, and ``keep`` bounds how many stay.
+  :class:`AsyncCheckpointer` copies the tree to the host on the caller's
+  thread and writes it on a background thread, one save in flight.
+  :func:`restore` rebuilds a tree shaped like ``like`` on its leaves'
+  devices and dtypes.  The layout and keys are the JAX package's, so a
+  checkpoint written by either package restores in the other bitwise.
+  numpy has no bfloat16: a bf16 leaf is written widened to fp32 (exact)
+  and a JAX-written bf16 leaf (stored as raw 2-byte ``|V2`` records) is
+  read back from its bits; both restore to ``like``'s dtype.  The
+  elastic restore onto a mesh (``shardings=``) belongs to the port's
+  distribution slice (ROADMAP.md queue 1 item 5).
 * **atomic publish** — :func:`atomic_write_text`, :func:`atomic_writer`
   and :func:`atomic_write_bytes` write ``path + '.tmp'``, flush and fsync
   it, then rename it over ``path``: a reader sees the old file or the new
@@ -19,9 +36,17 @@ ported yet).  Two crash contracts:
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import re
+import shutil
+import threading
+
+import numpy as np
+import torch
 
 from repro_torch.testing import faults
+from repro_torch.tree import flatten_tree, tree_map, tree_map_with_path
 
 
 def atomic_write_text(path: str, text: str) -> str:
@@ -90,3 +115,165 @@ def read_journal_lines(path: str) -> list[str]:
             f.truncate(cut)
         raw = raw[:cut]
     return raw.decode(errors="replace").splitlines()
+
+
+# ---------------------------------------------------------------------------
+# Pytree checkpoints
+# ---------------------------------------------------------------------------
+
+def _to_host(x) -> np.ndarray:
+    """A host copy of ``x`` that nothing else writes (a CPU tensor's
+    ``numpy()`` would share its memory)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        if x.dtype == torch.bfloat16:         # numpy has no bfloat16
+            x = x.float()
+        return x.to("cpu", copy=True).numpy()
+    return np.array(x, copy=True)
+
+
+def _from_host(arr: np.ndarray) -> torch.Tensor:
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:   # JAX's bf16
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(arr if arr.flags.c_contiguous else arr.copy())
+
+
+def flatten_leaves(tree) -> dict:
+    """Host arrays keyed by key path (``a/b/0/c``): the on-disk layout of
+    checkpoints, shared with the merged-model artifacts."""
+    return {k: _to_host(v) for k, v in flatten_tree(tree).items()}
+
+
+def _write_synced(path: str, write) -> None:
+    with open(path, "wb") as f:
+        write(f)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def save(ckpt_dir: str, step: int, tree, *, metadata: dict | None = None,
+         keep: int = 3) -> str:
+    """Synchronous atomic save of ``tree`` as ``<ckpt_dir>/step_<step>``;
+    prunes all but the newest ``keep`` complete checkpoints."""
+    final = os.path.join(ckpt_dir, f"step_{step}")
+    tmp = final + ".tmp"
+    os.makedirs(tmp, exist_ok=True)
+    leaves = flatten_leaves(tree)
+    _write_synced(os.path.join(tmp, "arrays.npz"),
+                  lambda f: np.savez(f, **leaves))
+    meta = json.dumps({"step": step, "keys": sorted(leaves),
+                       "metadata": metadata or {}})
+    _write_synced(os.path.join(tmp, "meta.json"),
+                  lambda f: f.write(meta.encode()))
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    _gc(ckpt_dir, keep)
+    return final
+
+
+class AsyncCheckpointer:
+    """Saves on a background thread, one in flight.
+
+    :meth:`save` waits for the previous save, copies the tree to the host
+    (so the caller may overwrite its tensors as soon as it returns) and
+    writes it in the background.  As a context manager, ``__exit__``
+    joins the save in flight, on a clean exit and on an exception, so an
+    interrupted run never leaves its newest checkpoint half-written; a
+    save's error is raised by the next :meth:`wait` (never over the
+    body's own exception)::
+
+        with AsyncCheckpointer(ckpt_dir) as ckpt:
+            for step in ...:
+                ckpt.save(step, state)
+    """
+
+    def __init__(self, ckpt_dir: str, keep: int = 3):
+        self.ckpt_dir = ckpt_dir
+        self.keep = keep
+        self._thread: threading.Thread | None = None
+        self.error: Exception | None = None
+
+    def save(self, step: int, tree, metadata=None):
+        self.wait()
+        host_tree = tree_map(_to_host, tree)
+
+        def run():
+            try:
+                save(self.ckpt_dir, step, host_tree, metadata=metadata,
+                     keep=self.keep)
+            except Exception as e:        # raised by the next wait()
+                self.error = e
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self.error is not None:
+            err, self.error = self.error, None
+            raise err
+
+    def __enter__(self) -> "AsyncCheckpointer":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if exc_type is None:
+            self.wait()                      # surface any save error
+        else:
+            try:                             # still join the writer, but
+                self.wait()                  # never mask the body's error
+            except Exception:
+                pass
+        return False
+
+
+def _complete_steps(ckpt_dir: str) -> list[int]:
+    steps = []
+    for name in os.listdir(ckpt_dir):
+        m = re.fullmatch(r"step_(\d+)", name)
+        if m and os.path.exists(os.path.join(ckpt_dir, name, "meta.json")):
+            steps.append(int(m.group(1)))
+    return steps
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    """The newest complete checkpoint's step, or None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = _complete_steps(ckpt_dir)
+    return max(steps) if steps else None
+
+
+def restore(ckpt_dir: str, step: int, like, *, shardings=None):
+    """The checkpoint of ``step`` in the structure of ``like``, each leaf
+    on the device and in the dtype of ``like``'s tensor there (a leaf
+    that is not a tensor gives a CPU tensor of the stored dtype)."""
+    if shardings is not None:
+        raise NotImplementedError(
+            "restore(shardings=...): the elastic restore onto a mesh "
+            "belongs to the port's distribution slice (ROADMAP.md queue 1 "
+            "item 5)")
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    with np.load(os.path.join(path, "arrays.npz")) as z:
+        data = {k: z[k] for k in z.files}
+
+    def one(key, leaf):
+        if key not in data:
+            raise KeyError(f"checkpoint missing {key}")
+        t = _from_host(data[key])
+        if isinstance(leaf, torch.Tensor):
+            t = t.to(device=leaf.device, dtype=leaf.dtype)
+        return t
+    return tree_map_with_path(one, like)
+
+
+def _gc(ckpt_dir: str, keep: int):
+    for name in os.listdir(ckpt_dir):
+        if name.endswith(".tmp"):
+            shutil.rmtree(os.path.join(ckpt_dir, name), ignore_errors=True)
+    for s in sorted(_complete_steps(ckpt_dir))[:-keep]:
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s}"),
+                      ignore_errors=True)

@@ -20,6 +20,11 @@ and reads nothing on the host (the position is a device tensor), so each
 tensor keeps its storage from step to step and the step can be captured
 in a CUDA graph and replayed.  A fresh state is not all zeros: the
 xLSTM stabilizers start at ``-1e30``.
+
+Training: :func:`lm_loss` is the causal LM cross-entropy (fp32
+log-softmax, an optional ``loss_mask``) over :func:`upcast_for_loss`'s
+fp32 view of the logits, whose cotangent keeps the logits' dtype
+(:mod:`repro_torch.train.step` differentiates it).
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import math
 import torch
 
 from ..device import resolve
+from ..tree import tree_map
 from . import layers as L
 from . import moe as MOE
 from . import rglru as RG
@@ -36,8 +42,9 @@ from . import xlstm as XL
 from .cnn import params_from_numpy, params_to_numpy
 
 __all__ = ["GroupSpec", "layer_groups", "init_model", "model_axes",
-           "forward", "init_cache", "decode_step", "sublayer_kinds",
-           "sublayer_params", "params_from_numpy", "params_to_numpy"]
+           "forward", "upcast_for_loss", "lm_loss", "token_nll",
+           "init_cache", "decode_step", "sublayer_kinds", "sublayer_params",
+           "params_from_numpy", "params_to_numpy"]
 
 ATTN_KINDS = ("attn", "attn_local")
 #: Temporal layer kinds of the stack.
@@ -80,14 +87,6 @@ def _dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
 def _stack_axes(ax):
     """Prepend the stacked ``layers`` axis to every logical-axes tuple of
     a (nested dict) axes tree; the tuples are the leaves."""
@@ -104,7 +103,7 @@ def _stack(trees):
 
 def _layer(gp, i):
     """Layer ``i`` of a stacked group (views, no copies)."""
-    return _tree_map(lambda t: t[i], gp)
+    return tree_map(lambda t: t[i], gp)
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +190,7 @@ def init_model(cfg, gen: torch.Generator | None = None, device="cuda"):
         params["unembed"] = (torch.randn((cfg.d_model, cfg.vocab_size),
                                          generator=gen)
                              / math.sqrt(cfg.d_model)).to(dtype)
-    return _tree_map(lambda t: t.to(device), params), model_axes(cfg)
+    return tree_map(lambda t: t.to(device), params), model_axes(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -304,6 +303,47 @@ def forward(cfg, params, batch):
             x = _layer_fn(cfg, g.kind, positions, mrope, _layer(gp, i), x)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, x)
+
+
+class _UpcastForLoss(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+def upcast_for_loss(x):
+    """fp32 view of low-precision logits whose cotangent keeps the
+    logits' dtype: the fp32 loss does not promote the whole backward to
+    fp32.  fp32 logits come back as they are."""
+    if x.dtype == torch.float32:
+        return x
+    return _UpcastForLoss.apply(x)
+
+
+def token_nll(logits, targets):
+    """(B, S) negative log-likelihood of ``targets`` under fp32 logits
+    (B, S, V): the log-softmax in fp32."""
+    targets = torch.as_tensor(targets, device=logits.device).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, targets[..., None])[..., 0]
+
+
+def lm_loss(cfg, params, batch):
+    """Causal LM cross-entropy: the mean over tokens of the fp32
+    log-softmax NLL of ``batch["targets"]`` (B, S), or its mean over the
+    tokens where ``batch["loss_mask"]`` is set."""
+    logits = upcast_for_loss(forward(cfg, params, batch))
+    nll = token_nll(logits, batch["targets"])
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=nll.device).to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.tree import flatten_tree, unflatten_tree
+
 from . import ir
 
 FORMAT_VERSION = 3
@@ -42,42 +44,6 @@ SUPPORTED_FORMATS = (1, 2, 3)
 
 class ArtifactError(RuntimeError):
     """Raised when an artifact is missing, torn, corrupt, or stale."""
-
-
-def flatten_tree(tree, prefix: str = "") -> dict[str, Any]:
-    """``{'a/b/0/c': leaf}`` for a nested dict/list tree (sorted keys)."""
-    if isinstance(tree, dict):
-        out: dict = {}
-        for k in sorted(tree):
-            out.update(flatten_tree(tree[k], f"{prefix}{k}/"))
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = {}
-        for i, v in enumerate(tree):
-            out.update(flatten_tree(v, f"{prefix}{i}/"))
-        return out
-    return {prefix[:-1]: tree}
-
-
-def _listify(node):
-    if not isinstance(node, dict):
-        return node
-    node = {k: _listify(v) for k, v in node.items()}
-    if node and all(k.isdigit() for k in node):
-        return [node[str(i)] for i in range(len(node))]
-    return node
-
-
-def unflatten_tree(flat: dict[str, Any]):
-    """Rebuild the nested tree from key paths (all-digit levels are lists)."""
-    root: dict = {}
-    for key, val in flat.items():
-        parts = key.split("/")
-        node = root
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = val
-    return _listify(root)
 
 
 def _to_numpy(t) -> np.ndarray:

@@ -35,7 +35,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 
 from . import ir
-from .artifact import flatten_tree, unflatten_tree
+from repro_torch.tree import flatten_tree, unflatten_tree
 
 
 def execute(graph: ir.UnitGraph, inputs, params=None, *, device="cuda"):

@@ -1203,3 +1203,108 @@ def test_merged_ffn_at_d3584(m):
     x, u, v = _ffn_factors(m, 3584, 3584, dev)
     _within_scale(tk.merged_ffn_op(x, u, v), tk.merged_ffn_ref(x, u, v),
                   x, x, u, v)
+
+
+# ---------------------------------------------------------------------------
+# LM training on the card
+# ---------------------------------------------------------------------------
+
+def _train_cfg(dtype="float32"):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(
+        get_config("smollm-135m"), num_layers=2, d_model=64, num_heads=2,
+        num_kv_heads=1, head_dim=32, d_ff=96, vocab_size=128, dtype=dtype,
+        remat=False)
+
+
+def _flat(tree):
+    from repro_torch.tree import flatten_tree
+    return {k: v.detach().cpu() for k, v in flatten_tree(tree).items()}
+
+
+def test_train_step_on_the_card_matches_the_cpu():
+    """One SmolLM-shaped train step (2 layers, d 64): the loss within 1e-5
+    relative, every gradient leaf within 1e-4 · max |g| of the CPU port's,
+    the updates within 1e-3 · lr + 1e-3 · |update| where |g| > 1e-6; the
+    forward launches rmsnorm 5 and flash_attention 2 times, the backward
+    neither (the plain versions' gradients)."""
+    dev = _card()
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.step import (make_loss_fn, make_train_step,
+                                        value_and_grad)
+    from repro_torch.tree import tree_map
+    cfg = _train_cfg()
+    p_cpu, _ = T.init_model(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    p_dev = tree_map(lambda t: t.to(dev), p_cpu)
+    nb = SyntheticTokens(cfg.vocab_size, 2, 64, seed=0).batch_at(0)
+    b_cpu = {k: torch.from_numpy(v) for k, v in nb.items()}
+    b_dev = {k: v.to(dev) for k, v in b_cpu.items()}
+    loss_fn = make_loss_fn(cfg)
+    l_cpu, g_cpu = value_and_grad(loss_fn, p_cpu, b_cpu)
+    tk.reset_launch_counts()
+    l_dev, g_dev = value_and_grad(loss_fn, p_dev, b_dev)
+    torch.cuda.synchronize()
+    n = tk.launch_counts()
+    assert (n["rmsnorm"], n["flash_attention"]) == (5, 2)
+    assert float(l_dev) == pytest.approx(float(l_cpu), rel=1e-5)
+    gc, gd = _flat(g_cpu), _flat(g_dev)
+    for k, v in gc.items():
+        assert float((gd[k] - v).abs().max()) <= \
+            1e-4 * float(v.abs().max()) + 1e-12, k
+    opt = AdamWConfig(lr=1e-2, warmup_steps=0, total_steps=4)
+    step = make_train_step(cfg, opt)
+    before = _flat(p_cpu)
+    p_cpu, _, m_cpu = step(p_cpu, init_opt_state(p_cpu), b_cpu)
+    p_dev, _, m_dev = step(p_dev, init_opt_state(p_dev), b_dev)
+    after_c, after_d = _flat(p_cpu), _flat(p_dev)
+    for k, g in gc.items():
+        live = g.abs() > 1e-6
+        du_c = (after_c[k] - before[k])[live]
+        du_d = (after_d[k] - before[k])[live]
+        assert bool(((du_d - du_c).abs() <= 1e-3 * opt.lr
+                     + 1e-3 * du_c.abs()).all()), k
+
+
+def test_bf16_config_raises_at_the_first_kernel():
+    dev = _card()
+    from repro_torch.models import transformer as T
+    cfg = _train_cfg("bfloat16")
+    params, _ = T.init_model(cfg, torch.Generator().manual_seed(0),
+                             device=dev)
+    batch = {"tokens": torch.zeros(1, 8, dtype=torch.int32, device=dev),
+             "targets": torch.zeros(1, 8, dtype=torch.int32, device=dev)}
+    with pytest.raises(TypeError, match="float32"):
+        T.lm_loss(cfg, params, batch)
+
+
+@pytest.mark.parametrize("kind", ["rmsnorm", "flash_attention",
+                                  "merged_ffn"])
+def test_kernels_at_the_training_shapes(kind):
+    """SmolLM-135M at batch 8 x seq 1024: rmsnorm (8192, 576),
+    flash_attention (8, 1024, 9, 64) over 3 kv heads, merged_ffn (8192,
+    576) at rank 576."""
+    dev = _card()
+    g = torch.Generator().manual_seed(24)
+    if kind == "rmsnorm":
+        x = (torch.randn(8192, 576, generator=g) * 3).to(dev)
+        w = (torch.randn(576, generator=g) * 0.2).to(dev)
+        assert _rel(tk.rmsnorm_op(x, w, eps=1e-6),
+                    tk.rmsnorm_ref(x, w, 1e-6)) <= 1e-5
+    elif kind == "flash_attention":
+        q = torch.randn(8, 1024, 9, 64, generator=g).to(dev)
+        k, v = (torch.randn(8, 1024, 3, 64, generator=g).to(dev)
+                for _ in range(2))
+        ke, ve = (t.repeat_interleave(3, dim=2) for t in (k, v))
+        assert _rel(tk.flash_attention_op(q, k, v, True),
+                    tk.flash_attention_ref(q, ke, ve, True)) <= 1e-5
+    else:
+        x = torch.randn(8192, 576, generator=g).to(dev)
+        u = (torch.randn(576, 576, generator=g) / 24).to(dev)
+        v = (torch.randn(576, 576, generator=g) / 24).to(dev)
+        y, yr = tk.merged_ffn_op(x, u, v), tk.merged_ffn_ref(x, u, v)
+        scale = tk.merged_ffn_ref(x.abs(), u.abs(), v.abs())
+        assert bool(((y - yr).abs() <= 1e-4 * scale + 1e-6).all())

@@ -62,7 +62,11 @@ def test_every_module_imports_with_jax_and_repro_blocked():
               "repro_torch.configs.granite_moe_1b_a400m",
               "repro_torch.configs.qwen3_moe_30b_a3b",
               "repro_torch.configs.qwen2_vl_7b",
-              "repro_torch.configs.xlstm_125m"):
+              "repro_torch.configs.xlstm_125m", "repro_torch.tree",
+              "repro_torch.optim.adamw", "repro_torch.optim.compress",
+              "repro_torch.data.pipeline", "repro_torch.checkpoint.ckpt",
+              "repro_torch.train.step", "repro_torch.train.loop",
+              "repro_torch.launch.train"):
         assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -130,6 +134,18 @@ def test_default_device_raises_without_a_card(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         main(["--arch", "tiny_mobilenet", "--out", str(tmp_path / "b.npz")])
     assert not os.path.exists(tmp_path / "b.npz")
+    # the training path: batches, the compressed forward, the launcher
+    from repro_torch.data.pipeline import GlobalBatcher, SyntheticTokens
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.train.step import make_compressed_forward
+    with pytest.raises(RuntimeError, match="cuda"):
+        GlobalBatcher(SyntheticTokens(16, 2, 4))
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_compressed_forward(graph)(None, torch.zeros(1, 16, 16, 3))
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_main(["--arch", "smollm-135m", "--reduced", "--steps", "1",
+                    "--ckpt-dir", str(tmp_path / "ck")])
+    assert not os.path.exists(tmp_path / "ck")
 
 
 def test_wallclock_oracle_refuses_the_cpu():
