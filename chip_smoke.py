@@ -374,6 +374,28 @@ Phases, each printing its own line with the seconds it took:
              ``kernels`` line's ``@train`` rows, with launches over
              (a)-(c)).  Phase 3 holds the three shapes against their
              plain versions too.
+25. dist  — the distributed table build
+             (``repro_torch.core.dist_build``) of MobileNetV2 as phase 4
+             builds it (224², batch 8, ``--max-span 6``: 262 probes, 127
+             signatures), workers on the card: (a) two workers at once
+             under the analytic oracle, the tables bitwise a
+             single-process build's, a second call a cache hit that
+             spawns no worker; (b) wall-clock, one worker after the other
+             (``serial_spawn``), ``kill-worker:0@dist.item:40`` with a 2 s
+             lease: worker 0 exits 17 holding item 40, worker 1 steals it
+             and times the rest (127 items, ``strict_probes()``), every
+             entry bitwise its merged record, a fresh coordinator's resume
+             from those records bitwise with nothing timed; each
+             signature's seconds over phase 21 (a)'s single-process
+             seconds, and the 0.6 plan against phase 4's (reported, not
+             failed); (c) ``python -m repro_torch.compress ... --workers
+             2 --cache-dir``, its two workers timing the card at once,
+             then again: a cache hit with 0 signatures timed and the same
+             plan; each signature's seconds over (b)'s.  The workers'
+             ``launch_counts`` (their final log lines) join the
+             ``kernels`` line's merged_conv and depthwise_conv launches;
+             both must be > 0 in (b) (``dist.json``; worker logs under
+             ``build/chip_smoke/dist/w*/logs``).
 
 Any failed check raises, so the script exits non-zero.  Per-unit shapes,
 times, bounds and launch plans land in ``build/chip_smoke/units.json``
@@ -382,13 +404,15 @@ times, bounds and launch plans land in ``build/chip_smoke/units.json``
 in ``rg.json``, the serving numbers of phases 9, 13, 16, 18 and 19 in
 ``serve.json``, phase 20's in ``importance.json``, phase 21's in
 ``tables.json``, phase 22's in ``unet.json``, phase 23's in
-``archs.json``, phase 24's in ``train.json``.  It exits non-zero
+``archs.json``, phase 24's in ``train.json``, phase 25's in
+``dist.json``.  It exits non-zero
 without a result where ``torch.cuda.is_available()`` is false or the repo's
 ``src/`` is missing.  The last lines are the ``kernels`` JSON line, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -3147,10 +3171,13 @@ def table_phase(dev, cnn_h, lm_host, lm_budget) -> tuple[dict, dict]:
         if len(runs) == 1:
             left = glob.glob(os.path.join(cache_a, "*.journal"))
             check(not left, f"(a) run 1 left a journal: {left}")
+            # run 1's single-process timings, phase 25's yardstick
+            timings_a = {repr(sig): sec for sig, sec in ora.measured.items()}
     (s1, s2), specs = runs, [artifact_spec(p) for p in paths]
     row["a"] = {"run_s": secs, "timed": [r["signatures_timed"] for r in runs],
                 "cache_hit": [r["cache_hit"] for r in runs],
-                "signatures": s1["latency_signatures"]}
+                "signatures": s1["latency_signatures"],
+                "timings": timings_a}
     log("tables cache", t0, f"mobilenetv2 through the CLI with --cache-dir: "
         f"run 1 {secs[0]:.2f}s, {s1['signatures_timed']} of "
         f"{s1['latency_signatures']} signatures timed, published; run 2 "
@@ -4671,6 +4698,294 @@ def train_phase(dev, lm_path) -> tuple[dict, dict, dict]:
     return out, launches, rows_by_kernel(rows)
 
 
+# ---------------------------------------------------------------------------
+# 25. the distributed table build
+# ---------------------------------------------------------------------------
+
+#: Phase 25 (b): the ``dist.item`` hit at which worker 0 dies, holding the
+#: lease of its 40th item (it has timed 39), and a lease that expires
+#: before worker 1 reaches that item.
+DIST_KILL_AT = 40
+DIST_LEASE_S = 2.0
+#: MobileNetV2 as phases 4 and 21 build it, as the host spec the workers
+#: rebuild (``cli_host`` is the CLI's ``build_host``: the same
+#: fingerprint).
+DIST_HOST = {"arch": "mobilenetv2", "seed": 0, "batch": 8, "seq": 128,
+             "full": False, "max_span": 6, "device": "cuda"}
+DIST_CLI = ["--arch", "mobilenetv2", "--oracle", "wallclock",
+            "--max-span", "6", "--budget-ratio", "0.6", "--batch", "8",
+            "--workers", "2"]
+
+
+def log_tails(wd: str, workers: int, n: int = 20) -> str:
+    """The last ``n`` lines of each worker's log, for a failed check."""
+    from repro_torch.core.dist_build import worker_log_path
+    parts = []
+    for w in range(workers):
+        try:
+            with open(worker_log_path(wd, w)) as f:
+                tail = f.read().splitlines()[-n:]
+        except OSError as e:
+            tail = [f"(no log: {e})"]
+        parts.append(f"--- worker {w} ({worker_log_path(wd, w)}) ---\n"
+                     + "\n".join(tail))
+    return "\n".join(parts)
+
+
+def ratio_stats(num: dict, den: dict) -> dict:
+    """``num[sig] / den[sig]`` over the signatures both hold: median, 5th
+    and 95th percentile, extremes, and the worst (farthest from 1)."""
+    import numpy as np
+    sigs = sorted(set(num) & set(den))
+    r = np.array([num[s] / den[s] for s in sigs])
+    w = int(np.argmax(np.abs(np.log(r))))
+    return {"signatures": len(sigs), "median": float(np.median(r)),
+            "p5": float(np.percentile(r, 5)),
+            "p95": float(np.percentile(r, 95)), "min": float(r.min()),
+            "max": float(r.max()), "worst": float(r[w]),
+            "worst_sig": sigs[w]}
+
+
+def ratio_line(st: dict) -> str:
+    return (f"median {st['median']:.4f}, p5 {st['p5']:.4f}, p95 "
+            f"{st['p95']:.4f}, worst {st['worst']:.4f} "
+            f"({st['worst_sig']}) over {st['signatures']} signatures")
+
+
+def worker_launches(lines: dict) -> dict:
+    """The kernel launches the workers' summary lines report, summed."""
+    out: dict = {}
+    for line in lines.values():
+        for k, v in ((line or {}).get("launches") or {}).items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def start_line(lines: dict) -> str:
+    return "; ".join(
+        f"w{w} " + ("died" if line is None else
+                    f"{line['items_done']} items, ready at "
+                    f"{line['start_s']['host']:.2f}s (python "
+                    f"{line['start_s']['python']:.2f}, imports "
+                    f"{line['start_s']['imports']:.2f}, cuda "
+                    f"{line['start_s']['cuda']:.2f}), probes "
+                    f"{line['run_s']:.2f}s")
+        for w, line in lines.items())
+
+
+def cli_summary(out: str) -> dict:
+    """The JSON summary ``python -m repro_torch.compress`` prints last."""
+    lines = out.splitlines()
+    start = max(i for i, ln in enumerate(lines) if ln == "{")
+    return json.loads("\n".join(lines[start:]))
+
+
+def dist_phase(dev, ref_timings=None, ref_plan=None) -> tuple[dict, dict]:
+    """Phase 25: the distributed table build on the card; ``(row,
+    launches)``, the launches the workers reported.  ``ref_timings``
+    (phase 21 (a)'s single-process seconds by signature) and ``ref_plan``
+    (phase 4's plan at 0.6) are timed and planned here when not given."""
+    import glob
+    import shutil
+
+    from repro_torch.compress import build_host
+    from repro_torch.core import (AnalyticOracle, WallClockOracle,
+                                  build_tables, compress, dist_build_tables,
+                                  enumerate_probes, latency_work_items,
+                                  table_cache)
+    from repro_torch.core.dist_build import merge_shards
+    from repro_torch.core.probe_engine import PROBE_QUARANTINED
+    from repro_torch.testing import faults
+    from repro_torch.testing.subproc import subprocess_env
+
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK, "dist")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    host, _ = build_host("mobilenetv2", seed=0, batch=8, max_span=6,
+                         device=dev)
+    spec = {"factory": "repro_torch.testing.hosts:cli_host",
+            "kwargs": DIST_HOST}
+    items = latency_work_items(host)
+    n = len(items)
+    key = table_cache.cache_key(host, WallClockOracle(), "layermerge",
+                                "magnitude")
+    row: dict = {"items": n}
+
+    # (a) the protocol under the analytic oracle, two workers at once ------
+    t0 = time.perf_counter()
+    single = build_tables(host, latency_oracle=AnalyticOracle())
+    wa, cache_a = os.path.join(root, "wa"), os.path.join(root, "a")
+    kw_a = dict(cache_dir=cache_a, workers=2, host_spec=spec,
+                work_dir=wa, keep_work_dir=True, lease_s=30.0)
+    t1 = time.perf_counter()
+    ta, ra = dist_build_tables(host, latency_oracle=AnalyticOracle(),
+                               **kw_a)
+    a_s = time.perf_counter() - t1
+    check(ra.dead_workers == [] and ra.items == n
+          and sum(ra.completed_by.values()) == n,
+          f"(a) {ra.as_dict()}\n{log_tails(wa, 2)}")
+    check(ta.entries == single.entries
+          and ta.num_pruned == single.num_pruned,
+          "(a) the distributed analytic tables are not the single-process "
+          "build's")
+    t1 = time.perf_counter()
+    ta2, ra2 = dist_build_tables(host, latency_oracle=AnalyticOracle(),
+                                 **kw_a)
+    hit_s = time.perf_counter() - t1
+    check(ra2.cache_hit and not ra2.exit_codes and ra2.items == 0
+          and ta2.entries == ta.entries,
+          f"(a) the second call is not a cache hit that spawns no worker: "
+          f"{ra2.as_dict()}")
+    row["a"] = {"wall_s": a_s, "completed_by": ra.completed_by,
+                "coordinator_items": ra.coordinator_items,
+                "workers": ra.worker_lines, "hit_s": hit_s}
+    log("dist analytic", t0, f"mobilenetv2, {n} items over 2 concurrent "
+        f"workers on the card in {a_s:.2f}s, completed by "
+        f"{ra.completed_by}; {start_line(ra.worker_lines)}; tables bitwise "
+        f"the single-process build's; second call a cache hit in "
+        f"{hit_s:.3f}s, no worker spawned")
+
+    # (b) worker 0 killed mid-bucket, wall-clock, one worker at a time ----
+    t0 = time.perf_counter()
+    wb, cache_b = os.path.join(root, "wb"), os.path.join(root, "b")
+    with faults.inject(faults.Fault("dist.item", "kill-worker",
+                                    nth=DIST_KILL_AT, widx=0)):
+        tb, rb = dist_build_tables(
+            host, cache_dir=cache_b, workers=2, host_spec=spec,
+            latency_oracle=WallClockOracle(), probe_config=strict_probes(),
+            lease_s=DIST_LEASE_S, serial_spawn=True, work_dir=wb,
+            keep_work_dir=True)
+    b_s = time.perf_counter() - t0
+    killed = items[DIST_KILL_AT - 1].key
+    records, _events, corrupt = merge_shards(wb, ["w0", "w1", "coord"])
+    check(rb.dead_workers == [0] and rb.exit_codes == {0: 17, 1: 0}
+          and killed in rb.reassigned and rb.coordinator_items == 0
+          and sum(rb.completed_by.values()) == n
+          and rb.completed_by.get("w0") == DIST_KILL_AT - 1
+          and not corrupt and not rb.repaired,
+          f"(b) worker 0 was to die with exit 17 at item {DIST_KILL_AT} "
+          f"({killed}) and worker 1 to steal it: {rb.as_dict()}, corrupt "
+          f"{corrupt}\n{log_tails(wb, 2)}")
+    w1 = rb.worker_lines.get(1) or {}
+    bad = [k for k, (v, p, _) in records.items()
+           if v is None or p == PROBE_QUARANTINED]
+    check(not bad and w1.get("retried") == 0 and w1.get("quarantined") == 0,
+          f"(b) probes retried or quarantined: worker 1 {w1}, records "
+          f"{bad[:4]}\n{log_tails(wb, 2)}")
+    checked = 0
+    for i, j, k, _, _, seg in enumerate_probes(host):
+        opts = tb.entries.get((i, j), {})
+        if k in opts:
+            want = records[f"latb:{host.probe_signature(seg)!r}"][0]
+            check(opts[k][1] == want, f"(b) entry ({i},{j}] k={k} "
+                  f"{opts[k][1]!r} is not its merged record {want!r}")
+            checked += 1
+    # a fresh coordinator resumes from the merged records alone
+    cache_f = os.path.join(root, "fresh")
+    table_cache.BuildJournal(cache_f, key).put_many(
+        [(k, v, p) for k, (v, p, _) in records.items()])
+    ora_f = WallClockOracle()
+    tf = build_tables(host, latency_oracle=ora_f, cache_dir=cache_f,
+                      probe_config=strict_probes())
+    check(tf.entries == tb.entries and tf.num_pruned == tb.num_pruned
+          and ora_f.num_timed == 0 and tf.stats.num_journal_hits == n,
+          f"(b) the fresh resume from the merged journal differs or timed "
+          f"{ora_f.num_timed} signatures ({tf.stats.num_journal_hits} "
+          "journal hits)")
+    b_launch = worker_launches(rb.worker_lines)
+    for name in ("merged_conv", "depthwise_conv"):
+        check(b_launch.get(name, 0) > 0,
+              f"(b) the workers never launched {name}: {b_launch}")
+    b_sec = {k[len("latb:"):]: v for k, (v, _, _) in records.items()}
+    if ref_timings is None or ref_plan is None:
+        ora_r = WallClockOracle()         # phase 4 / 21 (a) in one process
+        ref_plan = compress(host, budget_ratio=0.6, latency_oracle=ora_r,
+                            probe_config=strict_probes()).plan
+        ref_timings = {repr(sg): v for sg, v in ora_r.measured.items()}
+    vs_single = ratio_stats(b_sec, ref_timings)
+    ora_p = WallClockOracle()
+    res_b = compress(host, budget_ratio=0.6, latency_oracle=ora_p,
+                     cache_dir=cache_b, probe_config=strict_probes())
+    check(res_b.tables.stats.cache_hit and ora_p.num_timed == 0,
+          "(b) the 0.6 plan on (b)'s tables timed again")
+    pb, pr = plan_segments(res_b.plan), plan_segments(ref_plan)
+    plan_diff = {"b_only": [s for s in pb if s not in pr],
+                 "phase4_only": [s for s in pr if s not in pb]}
+    row["b"] = {"wall_s": b_s, "report": rb.as_dict(), "killed_item": killed,
+                "entries_checked": checked, "launches": b_launch,
+                "vs_single": vs_single, "plan_equal": pb == pr,
+                "plan_diff": plan_diff,
+                "predicted_speedup": res_b.speedup}
+    log("dist kill", t0, f"wall-clock, serial workers: w0 exited "
+        f"{rb.exit_codes[0]} at item {DIST_KILL_AT} after "
+        f"{rb.completed_by.get('w0')} items, w1 stole it and timed "
+        f"{rb.completed_by.get('w1')} ({start_line(rb.worker_lines)}); "
+        f"{checked} entries bitwise their merged records, a fresh resume "
+        f"from them bitwise with 0 timed; workers' launches {b_launch}; "
+        f"seconds / phase 21 (a)'s single-process seconds: "
+        f"{ratio_line(vs_single)}; 0.6 plan (speedup "
+        f"{res_b.speedup:.4f}) " + ("equal to phase 4's" if pb == pr else
+                                    f"differs from phase 4's: {plan_diff}"))
+
+    # (c) the CLI, two workers timing the card at once, twice ------------
+    t0 = time.perf_counter()
+    cache_c = os.path.join(root, "c")
+    runs, secs = [], []
+    for m in (1, 2):
+        t1 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.compress", *DIST_CLI,
+             "--cache-dir", cache_c, "--out",
+             os.path.join(root, f"c{m}.npz")],
+            env=subprocess_env(device="cuda"), cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        secs.append(time.perf_counter() - t1)
+        kept = glob.glob(os.path.join(cache_c, "dist_*"))
+        check(r.returncode == 0, f"(c) run {m} exited {r.returncode}:\n"
+              f"{r.stdout[-3000:]}{r.stderr[-3000:]}"
+              + "".join(log_tails(wd, 2) for wd in kept))
+        runs.append(cli_summary(r.stdout))
+    c1, c2 = runs
+    d1, d2 = c1["dist"], c2["dist"]
+    wl = d1["worker_lines"]
+    check(d1["dead_workers"] == [] and not d1["cache_hit"]
+          and d1["items"] == n and sum(d1["completed_by"].values()) == n
+          and c1["signatures_timed"] == 0
+          and all(w and w["retried"] == 0 and w["quarantined"] == 0
+                  for w in wl.values()),
+          f"(c) run 1: {json.dumps(c1)}")
+    timings_c = table_cache.load(cache_c, key).timings
+    check(all(v is not None for v, _ in timings_c.values()),
+          "(c) a quarantined signature in the CLI's tables")
+    plans = [artifact_spec(os.path.join(root, f"c{m}.npz"))[0]["plan"]
+             for m in (1, 2)]
+    check(c2["cache_hit"] and d2["cache_hit"]
+          and c2["signatures_timed"] == 0 and plans[0] == plans[1]
+          and c1["original_latency_s"] == c2["original_latency_s"],
+          f"(c) run 2 is not a cache hit of run 1's plan: {json.dumps(c2)}")
+    vs_b = ratio_stats({s: v for s, (v, _) in timings_c.items()}, b_sec)
+    c_launch = worker_launches(wl)
+    pc = [[sg["i"], sg["j"], sg["k"], sg["kept"]]
+          for sg in plans[0]["segments"]]
+    row["c"] = {"run_s": secs, "summaries": runs, "vs_b": vs_b,
+                "launches": c_launch, "plan_equal_b": pc == pb}
+    log("dist cli", t0, f"python -m repro_torch.compress --workers 2: run "
+        f"1 {secs[0]:.2f}s (fan-out {d1['wall_s']:.2f}s, completed by "
+        f"{d1['completed_by']}; {start_line({int(w): v for w, v in wl.items()})}"
+        f"), {c1['signatures_timed']} signatures timed in the coordinator, "
+        f"T_orig {c1['original_latency_s']!r}; run 2 {secs[1]:.2f}s, cache "
+        f"hit, {c2['signatures_timed']} timed, the same plan; seconds "
+        f"timed concurrently / timed alone in (b): {ratio_line(vs_b)}; "
+        f"plan " + ("equal to (b)'s" if pc == pb else "differs from (b)'s")
+        + f"; workers' launches {c_launch}")
+    launches = {k: b_launch.get(k, 0) + c_launch.get(k, 0)
+                + worker_launches(ra.worker_lines).get(k, 0)
+                for k in ("merged_conv", "depthwise_conv")}
+    row["seconds"] = time.perf_counter() - t_phase
+    return row, launches
+
+
 def main(argv) -> int:
     import torch
 
@@ -5104,6 +5419,19 @@ def main(argv) -> int:
     trn, trn_launch, trn_tot = train_phase(dev, lm_path)
     with open(os.path.join(WORK, "train.json"), "w") as f:
         json.dump(trn, f, indent=1, default=str)
+    # 25. the distributed table build -----------------------------------------
+    # phase 24's state is freed: the workers' own contexts and probe
+    # buffers share the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dist, dist_launch = dist_phase(dev, tab["a"]["timings"], art.plan)
+    with open(os.path.join(WORK, "dist.json"), "w") as f:
+        json.dump(dist, f, indent=1, default=str)
+    log("dist", t0, f"phase 25 in {dist['seconds']:.2f}s; the workers' "
+        f"launches {dist_launch}")
+    for k, v in dist_launch.items():
+        launches[k] += v
     sweep_err = {k: v[0] for k, v in sweep.items()}
     srcs = dict(KERNEL_SOURCES)
     for k, v in unet_tot.items():

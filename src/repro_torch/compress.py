@@ -18,6 +18,9 @@ package's ``.npz`` format:
   PYTHONPATH=src python -m repro_torch.compress --arch mobilenetv2 \
       --oracle wallclock --max-span 6 --cache-dir tables/ \
       --probe-timeout 2 --probe-retries 2 --out a.npz
+  PYTHONPATH=src python -m repro_torch.compress --arch mobilenetv2 \
+      --oracle wallclock --max-span 6 --cache-dir tables/ --workers 2 \
+      --out a.npz
 
 Transformer ids (all ten of the JAX package's) resolve through
 :func:`repro_torch.configs.get_config`, reduced to the CPU-sized toy
@@ -37,7 +40,13 @@ times nothing) and journals a build while it runs, so a killed run
 resumes where it stopped (``--no-resume`` starts it over);
 ``--probe-timeout`` and ``--probe-retries`` bound each card timing, and
 a probe that keeps failing gets the analytic estimate, flagged in the
-artifact's ``probe_provenance``.  ``--device cpu`` runs the plain PyTorch
+artifact's ``probe_provenance``.  ``--workers N`` fans the latency probes
+out over N worker processes on the same device
+(:mod:`repro_torch.core.dist_build`: leases, shard merge, a killed
+worker's items reassigned; needs ``--cache-dir``, coordinates in
+``--work-dir``, under the cache by default); the summary's ``"dist"``
+block reports the fan-out, and a failed fan-out exits 3.
+``--device cpu`` runs the plain PyTorch
 versions instead (the default, ``cuda``, raises where there is no card).
 Parameters are seed-initialised: the command demonstrates the
 plan→artifact path, a production run would load trained weights.
@@ -151,9 +160,18 @@ def main(argv=None, *, latency_oracle=None) -> dict:
                          "retries, then gets the analytic estimate")
     ap.add_argument("--probe-retries", type=int, default=2,
                     help="attempts per failing probe before quarantine")
+    ap.add_argument("--workers", type=int, default=0,
+                    help="fan the latency probes out over N worker "
+                         "processes with lease-based reassignment (needs "
+                         "--cache-dir; the tables are the workers' "
+                         "records)")
+    ap.add_argument("--work-dir", default=None,
+                    help="shared coordination directory for --workers "
+                         "(default: under --cache-dir)")
     args = ap.parse_args(argv)
 
-    from repro_torch.core import ProbeConfig, WallClockOracle, compress
+    from repro_torch.core import (DistBuildError, ProbeConfig,
+                                  WallClockOracle, compress)
 
     host, source = build_host(args.arch, seed=args.seed, batch=args.batch,
                               seq=args.seq, full=args.full,
@@ -162,12 +180,23 @@ def main(argv=None, *, latency_oracle=None) -> dict:
     if oracle is None and args.oracle == "wallclock":
         oracle = WallClockOracle()
     timed = getattr(oracle, "num_timed", 0)
-    res = compress(host, budget_ratio=args.budget_ratio, P=args.P,
-                   method=args.method, latency_oracle=oracle,
-                   quantize=args.quantize, cache_dir=args.cache_dir,
-                   probe_config=ProbeConfig(timeout_s=args.probe_timeout,
-                                            retries=args.probe_retries),
-                   resume=args.resume)
+    host_spec = {"factory": "repro_torch.testing.hosts:cli_host",
+                 "kwargs": {"arch": args.arch, "seed": args.seed,
+                            "batch": args.batch, "seq": args.seq,
+                            "full": args.full, "max_span": args.max_span,
+                            "device": str(host.device)}}
+    try:
+        res = compress(host, budget_ratio=args.budget_ratio, P=args.P,
+                       method=args.method, latency_oracle=oracle,
+                       quantize=args.quantize, cache_dir=args.cache_dir,
+                       probe_config=ProbeConfig(
+                           timeout_s=args.probe_timeout,
+                           retries=args.probe_retries),
+                       resume=args.resume, workers=args.workers,
+                       host_spec=host_spec, work_dir=args.work_dir)
+    except DistBuildError as e:
+        print(f"[repro_torch.compress] distributed build failed: {e}")
+        raise SystemExit(3)
     if res is None:
         raise SystemExit(
             f"[repro_torch.compress] infeasible: no plan fits "
@@ -202,6 +231,16 @@ def main(argv=None, *, latency_oracle=None) -> dict:
         "artifact": args.out,
         "fingerprint": fp[:16],
     }
+    if res.dist_report is not None:
+        rep = res.dist_report
+        summary["dist"] = {"workers": rep.workers, "items": rep.items,
+                           "reassigned": len(rep.reassigned),
+                           "dead_workers": rep.dead_workers,
+                           "cache_hit": rep.cache_hit,
+                           "completed_by": rep.completed_by,
+                           "coordinator_items": rep.coordinator_items,
+                           "wall_s": rep.wall_s,
+                           "worker_lines": rep.worker_lines}
     print(json.dumps(summary, indent=2))
     return summary
 

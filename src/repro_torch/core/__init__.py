@@ -1,8 +1,10 @@
 """LayerMerge core: plans, segment enumeration, the DP, merging, latency
 oracles, tables (with their cache and build journal) and the compression
-pipeline."""
+pipeline, and the distributed table build."""
 from . import table_cache
 from .compress import CompressResult, compress, original_latency
+from .dist_build import (DistBuildError, DistReport, WorkItem,
+                         dist_build_tables, latency_work_items)
 from .dp import DPResult, brute_force, solve_dp, solve_dp_reference, \
     solve_knapsack
 from .importance import (ImportanceSpec, accuracy_perf,
@@ -24,6 +26,8 @@ from .tables import Tables, build_tables, enumerate_probes, one_segment_plan
 __all__ = [
     "table_cache",
     "CompressResult", "compress", "original_latency",
+    "DistBuildError", "DistReport", "WorkItem", "dist_build_tables",
+    "latency_work_items",
     "DPResult", "brute_force", "solve_dp", "solve_dp_reference",
     "solve_knapsack",
     "ImportanceSpec", "accuracy_perf", "adam_finetune_batched",

@@ -36,6 +36,8 @@ class CompressResult:
     oracle: LatencyOracle | None = None   # the resolved latency oracle
     host: object = None                   # the host that planned
     params: object = None                 # params the plan was built against
+    dist_report: object = None            # the DistReport of a table build
+    #                                       fanned out over workers
 
     @property
     def speedup(self) -> float:
@@ -97,6 +99,9 @@ def compress(
     resume: bool = True,
     quantize: str | None = None,
     ratio_oracle: AnalyticOracle | None = None,
+    workers: int = 0,
+    host_spec: dict | None = None,
+    work_dir: str | None = None,
 ) -> CompressResult | None:
     """Run LayerMerge (or a baseline) at ``T0 = budget_ratio · T_orig``;
     ``None`` when no plan fits the budget.
@@ -119,13 +124,38 @@ def compress(
     so a cache hit's or a journal's timings are what the oracle holds
     when it prices the original network: ``T_orig`` and the table
     entries read one timing of each shape.
+
+    ``workers > 0`` fans the latency probes out over subprocess workers
+    (:func:`.dist_build.dist_build_tables`: needs ``cache_dir`` and a
+    ``host_spec`` naming a factory that rebuilds this host in another
+    process; ``work_dir`` is the shared coordination directory, under
+    ``cache_dir`` by default); the fan-out's report lands on
+    ``result.dist_report``.  The merged records seed the oracle as a
+    resumed journal does, so ``T_orig`` reads the workers' seconds.
     """
     if quantize and quantize != "none" and method == "layeronly":
         raise ValueError("quantize is a merged-segment feature; "
                          "method='layeronly' has no merged units")
     oracle = latency_oracle or AnalyticOracle()
-    tables = None
-    if method != "layeronly":
+    tables = dist_report = None
+    if method != "layeronly" and workers > 0:
+        from .dist_build import DistBuildError, dist_build_tables
+        from .tables import with_quant_siblings
+
+        if cache_dir is None:
+            raise DistBuildError(
+                "workers > 0 requires cache_dir (worker results merge "
+                "through the build journal)")
+        tables, dist_report = dist_build_tables(
+            host, cache_dir=cache_dir, workers=workers, host_spec=host_spec,
+            method=method, latency_oracle=oracle, importance=importance,
+            base_perf=base_perf, params=params, engine=engine,
+            probe_config=probe_config, resume=resume, work_dir=work_dir,
+            worker_device=getattr(host, "device", "cuda"))
+        # precision siblings are derived after the merge: the manifest and
+        # the journal stay fp-only
+        tables = with_quant_siblings(tables, host, quantize, ratio_oracle)
+    elif method != "layeronly":
         tables = build_tables(host, method=method, latency_oracle=oracle,
                               importance=importance, base_perf=base_perf,
                               params=params, engine=engine,
@@ -153,7 +183,7 @@ def compress(
                           original_latency=t_orig,
                           compressed_latency=res.latency,
                           dp_seconds=dp_s, oracle=oracle, host=host,
-                          params=params)
+                          params=params, dist_report=dist_report)
 
 
 def _layer_only(host, T0, P, oracle, importance, base_perf, params, t_orig,

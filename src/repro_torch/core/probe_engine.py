@@ -36,7 +36,8 @@ Crash safety (a table build of a large network is a long job):
 
 Two deliberate differences from the JAX package (ROADMAP.md queue 3):
 the sequential engine, too, times once per signature and journals
-``latb:`` keys (not ``lat:i:j:k`` per entry); and no worker thread
+``latb:`` keys (not ``lat:i:j:k`` per entry; a ``lat:`` record is
+replayed for its bucket); and no worker thread
 prepares the next bucket while one is timed — there is no XLA compile
 to hide, and a probe built on one thread while another captures a CUDA
 graph would break the capture.
@@ -253,7 +254,10 @@ def measure_latencies(
 
     ``journal``: completed buckets (``latb:<repr(sig)>``) are durably
     recorded and replayed on a resume; a replayed wall-clock value is
-    held by the oracle as if timed now.  A wall-clock signature the
+    held by the oracle as if timed now.  A bucket with no ``latb:``
+    record replays the ``lat:<i>:<j>:<k>`` record of its representative,
+    the JAX package's sequential key (a sequential distributed build's
+    work items, :func:`~.dist_build.latency_work_items`).  A wall-clock signature the
     oracle already holds is not timed again (it is journaled).
     ``probe_config``: the retry, timeout and quarantine policy
     (wall-clock only).  ``provenance``: an optional caller-owned list of
@@ -297,6 +301,8 @@ def measure_latencies(
     per_bucket: dict = {}                  # sig -> (value or None, flag)
     for bi, (sig, seg) in enumerate(buckets.items()):
         rec = journal_get(f"latb:{sig!r}")
+        if rec is None:                    # the JAX package's sequential key
+            rec = journal_get(f"lat:{seg.i}:{seg.j}:{seg.k}")
         if rec is not None:
             per_bucket[sig] = rec
             if wallclock:

@@ -62,6 +62,7 @@ import platform
 import numpy as np
 import torch
 
+from repro_torch.launch.distributed import is_main as _dist_is_main
 from repro_torch.testing import faults
 
 from .latency import oracle_token
@@ -70,10 +71,10 @@ FORMAT_VERSION = 2
 
 
 def is_main() -> bool:
-    """True in the process that publishes caches and journals.  The port
-    runs one process per build (the distributed build is ROADMAP.md
-    queue 1, item 5), so it is always that process."""
-    return True
+    """True in the process that publishes caches and journals
+    (:func:`repro_torch.launch.distributed.is_main`: process index 0).
+    A distributed build's workers are not: they write only their shards."""
+    return _dist_is_main()
 
 
 def _leaves(tree, path: str = ""):

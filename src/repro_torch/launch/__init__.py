@@ -1,1 +1,2 @@
-"""Launchers: the train / serve CLI (:mod:`.train`)."""
+"""Launchers: the train CLI (:mod:`.train`), and process identity, publish
+gating and the distributed table build's workers (:mod:`.distributed`)."""

@@ -146,11 +146,17 @@ class CompressedArtifact:
 def save(path: str, graph: ir.UnitGraph, plan=None,
          meta: dict | None = None) -> str:
     """Atomically publish ``graph`` (+ plan + metadata) to ``path``;
-    returns the content fingerprint."""
+    returns the content fingerprint.  Only the main process
+    (:func:`repro_torch.launch.distributed.is_main`) writes the file;
+    every process computes and returns the fingerprint, so all agree on
+    the artifact's identity."""
     from repro_torch.checkpoint.ckpt import atomic_writer
+    from repro_torch.launch.distributed import is_main
 
     spec, arrays = _payload(graph, plan, meta)
     fp = _digest(spec, arrays)
+    if not is_main():
+        return fp
     with atomic_writer(path) as f:
         np.savez(f, __spec__=np.array(json.dumps(spec)),
                  __fingerprint__=np.array(fp), **arrays)

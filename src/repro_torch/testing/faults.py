@@ -1,10 +1,8 @@
 """Deterministic fault injection for the table build and the serving
 engine.
 
-The port's copy of the JAX package's ``repro.testing.faults`` (all but
-the distributed build's points and actions), with its names, semantics
-and environment
-interface (``REPRO_FAULTS``).  Production code calls :func:`hit(point)`
+The port's copy of the JAX package's ``repro.testing.faults``, with its
+names, semantics and environment interface (``REPRO_FAULTS``).  Production code calls :func:`hit(point)`
 at a named injection point (and :func:`mangle(point, data)` around a
 guarded write); with no plan active both are one ``is None`` check, so
 the hooks stay in shipping code.  A test activates a :class:`FaultPlan`
@@ -18,6 +16,16 @@ Actions: ``"raise"`` (a retryable :class:`FaultError`), ``"kill"`` (a
 (``os._exit``, a real crash), ``"delay"`` (``time.sleep``), ``"torn"``
 and ``"garble"`` (a truncated or unparsable guarded write, through
 :func:`mangle`), and ``"nan"`` (the declarative ``serve.nan`` rule).
+
+**Process-level actions** target a worker subprocess of the distributed
+table build by index: ``kill-worker:<idx>@<point>``,
+``stall-worker:<idx>@<point>~seconds`` and
+``corrupt-shard:<idx>@<point>``.  They never fire in the process that
+holds the plan: the coordinator translates them into each worker's
+``REPRO_FAULTS`` through :func:`worker_env_spec` (``kill-worker`` →
+``exit``, a real crash with status 17; ``stall-worker`` → ``delay``;
+``corrupt-shard`` → ``garble``), so "kill worker 0 at its 40th claimed
+item" is one rule on the coordinator.
 
 Injection points the port wires:
 
@@ -44,12 +52,15 @@ Injection points the port wires:
 ``serve.worker``       before each chunk dispatch, raised as
                        :class:`~repro_torch.runtime.serving.WorkerLost`
                        (a lost serving process ⇒ drain, re-form, replay)
+``dist.claim``         after a distributed worker claims a work-item lease
+``dist.item``          after the claim, before the item runs (a kill here
+                       dies holding the lease with no result: the
+                       canonical mid-bucket worker death)
+``dist.done``          after an item's done marker is written
+``dist.shard.append``  ``mangle`` over a worker's shard line (``garble`` or
+                       ``torn`` ⇒ a corrupt or torn shard record;
+                       ``dist.shard.append.done`` after the fsync)
 =====================  =====================================================
-
-The distributed build's points (``dist.*``), ``worker_env_spec`` and the
-process-level actions that target a worker subprocess (``kill-worker``,
-``stall-worker``, ``corrupt-shard``) come with the distributed build
-(ROADMAP.md queue 1, item 5).
 
 NaN injection cannot go through :func:`hit` (it runs inside a captured
 step): :func:`nan_logits_hook` builds a ``logit_hook`` for the fixed-slot
@@ -70,7 +81,13 @@ import os
 import threading
 import time
 
-ACTIONS = ("raise", "kill", "exit", "delay", "torn", "nan", "garble")
+ACTIONS = ("raise", "kill", "exit", "delay", "torn", "nan", "garble",
+           "kill-worker", "stall-worker", "corrupt-shard")
+
+#: Actions that target a worker subprocess: they carry a worker index and
+#: are translated into that worker's environment by
+#: :func:`worker_env_spec` instead of firing where the plan is held.
+PROCESS_ACTIONS = ("kill-worker", "stall-worker", "corrupt-shard")
 
 #: What a ``garble`` rule leaves on disk: a complete (newline-terminated)
 #: but unparsable line.
@@ -103,6 +120,7 @@ class Fault:
     exit_code: int = 17     # "exit": status for the hard crash
     rid: int = -1           # "nan": target request id (serve.nan)
     at: int = -1            # "nan": generation index to poison
+    widx: int = -1          # process actions: target worker index
 
     def __post_init__(self):
         if self.action not in ACTIONS:
@@ -139,9 +157,14 @@ class FaultPlan:
         self._lock = threading.Lock()
 
     def _arm(self, point: str) -> Fault | None:
-        """Count one hit of ``point`` and return the rule it arms."""
+        """Count one hit of ``point`` and return the rule it arms.
+        Worker-targeted rules (``widx >= 0``) never arm here: they are
+        directives for :func:`worker_env_spec`, and the coordinator hits
+        the same points itself on its inline fallback."""
         n = self._counts[point] = self._counts.get(point, 0) + 1
         for rule in self.rules:
+            if rule.widx >= 0:
+                continue
             if rule.point == point and rule.armed(n):
                 self.fired.append((point, n, rule.action))
                 return rule
@@ -189,27 +212,61 @@ def parse_env_spec(spec: str) -> FaultPlan:
     ``delay@serve.chunk:1x2~0.5`` (0.5 s stragglers on the first two
     chunks).  Request-targeted serve rules use key=value counts instead:
     ``nan@serve.nan:rid=1,t=2`` poisons request 1's logits at generation
-    index 2 (see :func:`serve_nan_spec`).
+    index 2 (see :func:`serve_nan_spec`).  Process actions carry the
+    target worker's index on the action token:
+    ``kill-worker:0@dist.item:40`` kills worker 0 at its 40th claimed
+    item.
     """
     rules = []
     for item in filter(None, (s.strip() for s in spec.split(";"))):
         action, _, rest = item.partition("@")
         point, _, counts = rest.partition(":")
+        widx = -1
+        base, sep, wid = action.partition(":")
+        if sep and base in PROCESS_ACTIONS:
+            action, widx = base, int(wid)
         if not (action and point):
             raise ValueError(f"bad {ENV_VAR} item {item!r} "
                              "(want action@point[:nth[xtimes][~seconds]])")
         if "=" in counts:                    # key=value form (serve.nan)
             kv = dict(p.split("=", 1) for p in counts.split(","))
-            rules.append(Fault(point=point, action=action,
+            rules.append(Fault(point=point, action=action, widx=widx,
                                rid=int(kv.get("rid", -1)),
                                at=int(kv.get("t", kv.get("at", -1)))))
             continue
         counts, _, seconds = (counts or "1").partition("~")
         nth, _, times = counts.partition("x")
-        rules.append(Fault(point=point, action=action, nth=int(nth or 1),
-                           times=int(times or 1),
+        rules.append(Fault(point=point, action=action, widx=widx,
+                           nth=int(nth or 1), times=int(times or 1),
                            seconds=float(seconds or 0.0)))
     return FaultPlan(*rules)
+
+
+def worker_env_spec(widx: int, plan: FaultPlan | None = None) -> str | None:
+    """The ``REPRO_FAULTS`` spec for worker ``widx``, or None.
+
+    Translates the plan's process-level rules that target this worker
+    into worker-local ones: ``kill-worker`` → ``exit`` (a real crash,
+    status 17), ``stall-worker`` → ``delay`` (the worker lives on but its
+    leases expire), ``corrupt-shard`` → ``garble`` at ``dist.shard.append``
+    (the record lands complete but unparsable).  The coordinator calls it
+    for every worker it starts; ``plan`` defaults to the active one.
+    """
+    plan = plan if plan is not None else active()
+    if plan is None:
+        return None
+    parts = []
+    for r in plan.rules:
+        if r.widx != widx:
+            continue
+        counts = f"{r.nth}x{r.times}"
+        if r.action == "kill-worker":
+            parts.append(f"exit@{r.point}:{counts}")
+        elif r.action == "stall-worker":
+            parts.append(f"delay@{r.point}:{counts}~{r.seconds}")
+        elif r.action == "corrupt-shard":
+            parts.append(f"garble@{r.point or 'dist.shard.append'}:{counts}")
+    return ";".join(parts) or None
 
 
 def active() -> FaultPlan | None:

@@ -1090,6 +1090,47 @@ def test_table_cache_hit_on_the_card_times_nothing(tmp_path):
     assert hit.tables.entries == first.tables.entries
 
 
+def test_distributed_build_with_a_killed_worker_on_the_card(tmp_path):
+    """Two workers time ``tiny_resnet``'s probes on the card, one after the
+    other; worker 0 dies at its 2nd item holding the lease (exit 17) and
+    worker 1 steals it.  No probe fails (strict policy), the workers
+    launched merged_conv, and the merged tables are bitwise a fresh
+    coordinator's resume from the merged records, which times nothing."""
+    _card()
+    from repro_torch.core import (ProbeConfig, WallClockOracle, build_tables,
+                                  dist_build_tables, table_cache)
+    from repro_torch.core.dist_build import merge_shards
+    from repro_torch.testing import faults, hosts
+    host, params = hosts.tiny_resnet_host(device="cuda")
+    wd = str(tmp_path / "wd")
+    strict = ProbeConfig(retries=0, quarantine=False)
+    with faults.inject(faults.Fault("dist.item", "kill-worker", nth=2,
+                                    widx=0)):
+        tables, rep = dist_build_tables(
+            host, params=params, cache_dir=str(tmp_path / "c"), workers=2,
+            host_spec={"factory": "repro_torch.testing.hosts:tiny_resnet_host",
+                       "kwargs": {"device": "cuda"}},
+            latency_oracle=WallClockOracle(), probe_config=strict,
+            lease_s=0.5, serial_spawn=True, work_dir=wd, keep_work_dir=True)
+    assert rep.dead_workers == [0] and rep.exit_codes == {0: 17, 1: 0}
+    assert rep.reassigned and rep.coordinator_items == 0
+    assert sum(rep.completed_by.values()) == rep.items
+    assert rep.worker_lines[1]["launches"]["merged_conv"] > 0
+    records, _, corrupt = merge_shards(wd, ["w0", "w1", "coord"])
+    assert corrupt == 0 and all(v is not None for v, _, _ in records.values())
+    key = table_cache.cache_key(host, WallClockOracle(), "layermerge",
+                                "magnitude")
+    fresh = str(tmp_path / "fresh")
+    table_cache.BuildJournal(fresh, key).put_many(
+        [(k, v, p) for k, (v, p, _) in records.items()])
+    ora = WallClockOracle()
+    again = build_tables(host, params=params, latency_oracle=ora,
+                         cache_dir=fresh, probe_config=strict)
+    assert ora.num_timed == 0
+    assert again.entries == tables.entries
+    assert again.num_pruned == tables.num_pruned
+
+
 # ---------------------------------------------------------------------------
 # The other transformer families: MoE, xLSTM, M-RoPE
 # ---------------------------------------------------------------------------

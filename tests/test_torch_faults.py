@@ -48,11 +48,14 @@ def test_parse_env_spec():
 
 
 def test_actions_are_the_references_but_the_worker_ones():
-    assert faults.ACTIONS == tuple(a for a in jfaults.ACTIONS
-                                   if a not in jfaults.PROCESS_ACTIONS)
+    """The worker actions came with the distributed build: the port's
+    actions, process actions included, are now the reference's."""
+    assert faults.ACTIONS == jfaults.ACTIONS
+    assert faults.PROCESS_ACTIONS == jfaults.PROCESS_ACTIONS
     assert faults.ENV_VAR == jfaults.ENV_VAR == "REPRO_FAULTS"
+    assert faults.Fault("dist.item", "kill-worker", widx=0).widx == 0
     with pytest.raises(ValueError, match="unknown action"):
-        faults.Fault("dist.item", "kill-worker")
+        faults.Fault("dist.item", "frobnicate")
 
 
 def test_parse_env_spec_serve_nan_kv_form():

@@ -66,7 +66,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
               "repro_torch.optim.adamw", "repro_torch.optim.compress",
               "repro_torch.data.pipeline", "repro_torch.checkpoint.ckpt",
               "repro_torch.train.step", "repro_torch.train.loop",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train", "repro_torch.core.dist_build",
+              "repro_torch.launch.distributed", "repro_torch.testing.hosts",
+              "repro_torch.testing.subproc"):
         assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -146,6 +148,28 @@ def test_default_device_raises_without_a_card(tmp_path):
         train_main(["--arch", "smollm-135m", "--reduced", "--steps", "1",
                     "--ckpt-dir", str(tmp_path / "ck")])
     assert not os.path.exists(tmp_path / "ck")
+
+
+def test_distributed_entry_points_default_to_the_card():
+    _no_card()
+    import inspect
+
+    from repro_torch.core.dist_build import dist_build_tables
+    from repro_torch.launch import distributed as dist
+    from repro_torch.testing import hosts
+    params = inspect.signature(dist_build_tables).parameters
+    assert params["worker_device"].default == "cuda"
+    assert inspect.signature(dist.worker_env).parameters[
+        "device"].default == "cuda"
+    for factory in (hosts.tiny_resnet_host, hosts.conv_chain_host):
+        with pytest.raises(RuntimeError, match="cuda"):
+            factory()
+    with pytest.raises(RuntimeError, match="cuda"):
+        hosts.cli_host(arch="tiny_resnet")
+    for smoke in (dist.dist_smoke, dist.dist_fault_smoke,
+                  dist.serve_failover_smoke):
+        with pytest.raises(RuntimeError, match="cuda"):
+            smoke()
 
 
 def test_wallclock_oracle_refuses_the_cpu():
