@@ -37,7 +37,13 @@ Phases, each printing its own line with the seconds it took:
              flash_attention over BH {1,8,80} × S {1,7,16,128,256,1000} ×
              D {32,64,256}, causal and not, with grouped and multi-query
              kv heads; ``benchmarks/run.py``'s three shapes; the
-             gradient of ``flash_attention_op`` through the kernel; and
+             gradient of ``flash_attention_op`` through the kernel; the
+             bf16 bodies (:func:`bf16_sweep`: rmsnorm over M {1,37} ×
+             D {32,576,2561}, g bf16 and fp32; flash_attention at
+             D {36,64,100,256} × S {1,7,130}, grouped and multi-query,
+             causal and not; each element within one bf16 ulp of the
+             plain version, beyond the attention's fp32 allowance; the
+             log's ``max_rel_err`` is then the most ulps); and
              twice on the same inputs, bitwise equal, flash_attention at
              the path's four shapes, depthwise_conv (fp32 and w8a8) at
              three MobileNetV2 units and merged_conv (fp32 and w8a8) at
@@ -162,7 +168,8 @@ Phases, each printing its own line with the seconds it took:
 
 15. rg compress — RecurrentGemma-2B at full size in fp32 (26 layers:
              rglru, rglru, attn_local; d 2560, 10 heads over 1 kv head,
-             GeGLU 7680, vocab 256000; random weights, seed 0),
+             GeGLU 7680, vocab 256000; random weights drawn on the
+             card, seed 0),
              ``CostEnv(batch=8, seq=128)``, ``method="depth"``, tables
              timed on the card (probes through rmsnorm, rglru_scan,
              flash_attention and merged_ffn), phase 8's budget ladder to
@@ -172,8 +179,9 @@ Phases, each printing its own line with the seconds it took:
 16. rg serve — the artifact on the card serves phase 9's protocol (8
              prompts x 16 tokens, 32 greedy tokens, RG-LRU state and the
              local KV ring buffer; both loops, as in phase 9); every
-             step's logits, teacher-forced,
-             against the CPU port of the artifact, and the prefill
+             step's logits, teacher-forced, against the CPU port of the
+             artifact (``CPU_ROWS`` prompts, the first ``RG_CPU_STEPS``
+             steps: the prompt and 8 decode steps), and the prefill
              forward against ``replaced_apply``; CUDA-event prefill and
              decode beside the original model; launches per decode step
              (counted at the capture) and per prefill forward.  The launches of rmsnorm,
@@ -325,7 +333,7 @@ Phases, each printing its own line with the seconds it took:
              continuous engine (8 slots, chunks of 8) on the same 24
              prompts (every request equal to its prompt alone: the fresh
              state reset) and the captured decode bitwise equal to the
-             eager one at every step; (c) qwen2-vl-7b at full width, 8
+             eager one at every step; (c) qwen2-vl-7b at full width, 4
              of its 28 layers (d 3584, 28/4 heads of 128, QKV bias,
              SwiGLU 18944, vocab 152064, untied, embeddings frontend,
              M-RoPE), at the tightest budget from 0.6 up whose plan
@@ -363,7 +371,8 @@ Phases, each printing its own line with the seconds it took:
              drops; the tuned graph saved, reloaded (logits bitwise) and
              served through the captured ``serve_loop``, 32 tokens of
              batch 8 equal to the eager decode of the tuned graph; (c)
-             RecurrentGemma-2B at full size, batch 8 x seq 128, 4 steps
+             RecurrentGemma-2B at full size (weights drawn on the card),
+             batch 8 x seq 128, 4 steps
              of ``make_train_step`` (no checkpoint): finite losses, ms a
              step, busy share, peak memory, launches a step (rglru_scan
              18, flash_attention 8); full width at 3 layers against the
@@ -396,6 +405,48 @@ Phases, each printing its own line with the seconds it took:
              ``kernels`` line's merged_conv and depthwise_conv launches;
              both must be > 0 in (b) (``dist.json``; worker logs under
              ``build/chip_smoke/dist/w*/logs``).
+26. bf16  — the published configs at their own dtype, bf16 (every
+             published config is; fp32 is the reduced configs' and the
+             compression paths'): (b) SmolLM-135M, RecurrentGemma-2B
+             (about 5.4 GB), gemma-7b (28 layers, d 3072, 16 heads of
+             256, GeGLU 24576, vocab 256000, tied; about 17 GB) and
+             qwen2-7b (28 layers, d 3584, 28/4 heads of 128, QKV bias,
+             SwiGLU 18944, vocab 152064, untied; about 15 GB) at full
+             size, one after another, each drawn on the card from seed 0
+             and freed before the next: 8 prompts x 16 tokens and 32 new
+             tokens through the captured ``serve_loop`` and
+             ``serve_loop_pertoken`` (the same tokens, finite logits;
+             prefill ms, decode tok/s, launches a decode step, peak
+             memory, the decode step beside its weight-read bound at
+             3.35 TB/s, SmolLM's and RecurrentGemma's beside their fp32
+             steps of phases 9 and 16), the full model's prefill forward,
+             and the card against the CPU port at full width and 2 layers
+             (RecurrentGemma 3), the card's own weights copied to the
+             host: prefill logits and every step of a decode through the
+             prompt, within ``BF16_NET_RTOL``; (c) SmolLM-135M trained in
+             bf16 through ``python -m repro_torch.launch.train`` at 8 x
+             1024 for 10 steps (warmup 2): the loss of the last 5 steps
+             under the first 5, params bf16 and moments fp32, ms a step
+             and peak memory beside phase 24's fp32 step, one loss and its
+             gradients on 1 x 256 against the CPU port (``BF16_LOSS_RTOL``,
+             ``BF16_GRAD_RTOL``); the bf16 bodies' launches over (b)-(c),
+             counted from zero, must be > 0 (rglru_scan's too) and the
+             fp32 bodies' of the norm and the attention 0; (a) rmsnorm's
+             bf16 body at ``BF16_NORMS`` and flash_attention's at
+             ``BF16_ATTENTION``: within one bf16 ulp of the plain version
+             (the attention beyond its fp32 allowance; the most ulps and
+             the elements beyond one are reported), bitwise across two
+             calls, gradients through the op as phase 3 holds them,
+             whether each equals the fp32 body on the widened operands
+             rounded, and cold-L2 times beside the bf16 bound,
+             ``F.rms_norm`` and SDPA (which rounds p to bf16: another
+             function) on the same bf16 inputs (``bf16.json``; the
+             ``kernels`` line's ``rmsnorm_bf16`` and
+             ``flash_attention_bf16`` rows, their launches those of
+             (b)-(c)).
+
+Each phase's seconds (its last log line's) end in a ``[phases]`` line
+and ``phases.json``.
 
 Any failed check raises, so the script exits non-zero.  Per-unit shapes,
 times, bounds and launch plans land in ``build/chip_smoke/units.json``
@@ -405,7 +456,7 @@ in ``rg.json``, the serving numbers of phases 9, 13, 16, 18 and 19 in
 ``serve.json``, phase 20's in ``importance.json``, phase 21's in
 ``tables.json``, phase 22's in ``unet.json``, phase 23's in
 ``archs.json``, phase 24's in ``train.json``, phase 25's in
-``dist.json``.  It exits non-zero
+``dist.json``, phase 26's in ``bf16.json``.  It exits non-zero
 without a result where ``torch.cuda.is_available()`` is false or the repo's
 ``src/`` is missing.  The last lines are the ``kernels`` JSON line, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -474,8 +525,14 @@ ARCH_NORM_D = (1024, 768, 3584)
 #: MoE capacity factor at which nothing drops (the reference pins it so
 #: in ``tests/test_archs.py``): a request then routes as it would alone.
 MOE_NO_DROP = 8.0
-#: Rows of phase 23 (c)'s batch held against the CPU port.
+#: Rows of phase 23 (c)'s batch held against the CPU port (and of phase
+#: 16's and phase 26 (b)'s).
 CPU_ROWS = 4
+#: Phase 23 (c): qwen2-vl-7b's layers (of 28) at full width.
+QWEN2VL_LAYERS = 4
+#: Phase 16: teacher-forced steps held against the CPU port (the prompt's
+#: 16 positions and the first 8 decode steps).
+RG_CPU_STEPS = 24
 #: Suffix of the ``kernels`` line's rows of phase 24 (d): the kernels at
 #: the training shapes, their launches over phase 24 (a)-(c).
 TRAIN_ROW = "@train"
@@ -501,6 +558,8 @@ KERNEL_SOURCES = {
                         "src/repro/kernels/flash_attention.py:78")}
 for _k in ("merged_conv", "depthwise_conv", "merged_ffn"):
     KERNEL_SOURCES[_k + "_q"] = KERNEL_SOURCES[_k]   # quant=True
+for _k in ("rmsnorm", "flash_attention"):
+    KERNEL_SOURCES[_k + "_bf16"] = KERNEL_SOURCES[_k]   # the bf16 body
 Q_FIELDS = ("ms", "plain_ms", "library_ms", "fp32_ms", "op_ms", "qpass_ms",
             "flops_ms", "bytes_ms", "bound_ms")
 
@@ -508,9 +567,15 @@ IMPORT_ERROR = ("chip_smoke.py runs from a checkout of the repository: "
                 "src/repro_torch is missing")
 
 
+#: Seconds of each logged phase (its last line's), in the order logged:
+#: the ``[phases]`` line and ``phases.json``.
+PHASE_SECONDS: dict = {}
+
+
 def log(phase: str, t0: float, msg: str = "") -> None:
-    print(f"[{phase}] {time.perf_counter() - t0:.2f}s {msg}".rstrip(),
-          flush=True)
+    secs = time.perf_counter() - t0
+    PHASE_SECONDS[phase] = round(secs, 2)
+    print(f"[{phase}] {secs:.2f}s {msg}".rstrip(), flush=True)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1041,6 +1106,51 @@ def norm_scan_attention_sweep(dev) -> dict:
     for b, s, h, kvh, d in ARCH_ATTENTION + (TRAIN_ATTENTION,):
         q, k, v = rnd(b, s, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d)
         note("flash_attention", compare_attention(q, k, v, True))
+    return worst
+
+
+def bf16_sweep(dev) -> dict:
+    """The bf16 bodies off the configs' shapes: rmsnorm over M {1,37} ×
+    D {32,576,2561} with g bf16 and fp32 (the vector and scalar paths);
+    flash_attention over (B, S, H, KVH) {(2, S, 4, 2), (1, S, 10, 1)} ×
+    S {1,7,130} × D {36,64,100,256} (16-byte and element copies), causal
+    and not: each element within one bf16 ulp of the plain version
+    (:func:`held_ulp`).  Returns ``{body: [max |Δ|, most ulps, cases,
+    elements more than one ulp apart]}``."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator().manual_seed(27)
+    worst = {k: [0.0, 0.0, 0, 0] for k in ("rmsnorm_bf16",
+                                           "flash_attention_bf16")}
+
+    def note(kind, res):
+        w = worst[kind]
+        w[0], w[1], w[2] = max(w[0], res[0]), max(w[1], res[1]), w[2] + 1
+        w[3] += res[2]
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev).bfloat16()
+
+    for m in (1, 37):
+        for d in (32, 576, 2561):
+            x, w = rnd(m, d, scale=3.0), rnd(d, scale=0.2)
+            for gw in (w, w.float()):
+                note("rmsnorm_bf16", held_ulp(
+                    "rmsnorm_bf16", kernels.rmsnorm_op(x, gw),
+                    ref.rmsnorm_ref(x, gw), f"x={(m, d)} g {gw.dtype}"))
+    for b, h, kvh in ((2, 4, 2), (1, 10, 1)):
+        for s in (1, 7, 130):
+            for d in (36, 64, 100, 256):
+                q, k, v = rnd(b, s, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d)
+                for causal in (True, False):
+                    note("flash_attention_bf16", held_ulp(
+                        "flash_attention_bf16",
+                        kernels.flash_attention_op(q, k, v, causal),
+                        ops._attention_plain(q, k, v, causal),
+                        f"q={(b, s, h, d)} kv={kvh} causal={causal}",
+                        ops._attention_plain(q.float(), k.float(),
+                                             v.float().abs(), causal)))
     return worst
 
 
@@ -2274,7 +2384,27 @@ def time_rg_kernels(dev, cfg, art, host) -> list:
     return rows
 
 
-def rg_phases(dev, build_host):
+def card_lm_host(arch: str, dev, batch: int, seq: int):
+    """(host, source) of a transformer config at full size in fp32, its
+    weights drawn on the card from seed 0 (``build_host`` draws them on the
+    host, minutes for billions of parameters)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer_host import CostEnv, TransformerHost
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", remat=False)
+    params, _ = T.init_model(cfg, torch.Generator(dev).manual_seed(0),
+                             device=dev)
+    host = TransformerHost(cfg, params, env=CostEnv(batch=batch, seq=seq),
+                           device=dev)
+    return host, {"arch": arch, "seed": 0, "family": "transformer",
+                  "reduced": False, "generator": "cuda"}
+
+
+def rg_phases(dev):
     """Phases 15-17: RecurrentGemma-2B at full size in fp32 compressed on
     card-timed tables, its artifact served and held against the CPU port
     and ``replaced_apply``, and the path's kernels at its shapes.
@@ -2293,10 +2423,9 @@ def rg_phases(dev, build_host):
     t0 = time.perf_counter()
     # 26 layers (rglru, rglru, attn_local; window 2048), d 2560, 10 heads
     # over 1 kv head of 256, GeGLU 7680, vocab 256000, tied embeddings:
-    # full size, fp32, weights from seed 0; costed and probed at batch 8 x
-    # seq 128 (probes at M = 1024)
-    host, source = build_host("recurrentgemma-2b", seed=0, batch=8, seq=128,
-                              full=True, device="cuda")
+    # full size, fp32, weights drawn on the card from seed 0; costed and
+    # probed at batch 8 x seq 128 (probes at M = 1024)
+    host, source = card_lm_host("recurrentgemma-2b", dev, batch=8, seq=128)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     cfg = host.cfg
@@ -2377,21 +2506,25 @@ def rg_phases(dev, build_host):
     kernels.reset_launch_counts()
     art.apply({"tokens": prompt})
     per_prefill = {k: n for k, n in kernels.launch_counts().items() if n}
+    # the CPU port on CPU_ROWS rows and the first RG_CPU_STEPS steps
+    # (decode is row-wise; the host's time goes to streaming the weights,
+    # one pass a step)
     t_cpu = time.perf_counter()
     cpu = runtime.load(rg_path, device="cpu")
     lg_cpu = forced_logits(lambda c, t: cpu.decode(c, t),
-                           cpu.init_cache(B, P + N), fed.cpu())
+                           cpu.init_cache(CPU_ROWS, P + N),
+                           fed[:CPU_ROWS, :RG_CPU_STEPS].cpu())
     t_cpu = time.perf_counter() - t_cpu
     del cpu
-    d_steps = ((lg.cpu() - lg_cpu).abs().amax(dim=(0, 2))
-               / lg_cpu.abs().amax(dim=(0, 2)))
+    d_steps = ((lg[:CPU_ROWS, :RG_CPU_STEPS].cpu() - lg_cpu).abs().amax(
+        dim=(0, 2)) / lg_cpu.abs().amax(dim=(0, 2)))
     d_cpu, d_last = float(d_steps.max()), float(d_steps[-1])
     steps = N - 1
     log("rg serve", t0, f"artifact loaded on the card in {t_load:.2f}s, "
         f"units {json.dumps(census, sort_keys=True)}; {B} prompts x {P} "
         f"tokens, {N} new; worst step logits vs CPU port {d_cpu:.3g} (last "
-        f"step {d_last:.3g}; {B} prompts x {P + N - 1} steps on the CPU in "
-        f"{t_cpu:.2f}s), prefill forward vs replaced_apply {d_rep:.3g} "
+        f"step {d_last:.3g}; {CPU_ROWS} prompts x {RG_CPU_STEPS} steps on "
+        f"the CPU in {t_cpu:.2f}s), prefill forward vs replaced_apply {d_rep:.3g} "
         f"(limit {NET_RTOL}); compressed prefill {c_pre * 1e3:.3f} ms, "
         f"decode {c_dec * 1e3:.3f} ms "
         f"({serving.decode_tok_s(steps, B, c_dec):.1f} tok/s); original "
@@ -3997,9 +4130,10 @@ def lm_family(dev, label, host, budget, *, moe=False,
 
 
 def qwen2vl_phase(dev) -> tuple[dict, dict, object]:
-    """(c) of phase 23: qwen2-vl-7b at full width, 8 of its 28 layers,
-    compressed on card-timed tables at the tightest budget from 0.6 up
-    whose plan merges an FFN; 16 seeded embedding positions then 32
+    """(c) of phase 23: qwen2-vl-7b at full width, ``QWEN2VL_LAYERS`` of
+    its 28 layers (weights drawn on the card from seed 0), compressed on
+    card-timed tables at the tightest budget from 0.6 up whose plan
+    merges an FFN; 16 seeded embedding positions then 32
     teacher-forced decode steps through ``executor.decode_step`` with
     three distinct M-RoPE streams, held against the prefill forward and
     the CPU port; the decode step of the plan and of the original, each
@@ -4017,9 +4151,10 @@ def qwen2vl_phase(dev) -> tuple[dict, dict, object]:
 
     before = kernels.launch_counts()
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config("qwen2-vl-7b"), num_layers=8,
-                              dtype="float32", remat=False)
-    params, _ = T.init_model(cfg, torch.Generator().manual_seed(0),
+    cfg = dataclasses.replace(get_config("qwen2-vl-7b"),
+                              num_layers=QWEN2VL_LAYERS, dtype="float32",
+                              remat=False)
+    params, _ = T.init_model(cfg, torch.Generator(dev).manual_seed(0),
                              device=dev)
     host = TransformerHost(cfg, params, env=CostEnv(batch=8, seq=128),
                            device=dev)
@@ -4185,7 +4320,7 @@ def time_arch_kernels(dev, lowrank) -> list:
 
 def arch_phase(dev, build_host) -> tuple[dict, dict, dict]:
     """Phase 23: granite-moe-1b-a400m and xlstm-125m at full size and
-    qwen2-vl-7b at full width (8 of 28 layers), fp32, weights from seed
+    qwen2-vl-7b at full width (4 of 28 layers), fp32, weights from seed
     0, each compressed on card-timed tables, served and held against the
     CPU port; then (d), the kernels at the new shapes.  Returns (the
     numbers, launches over (a)-(c) counted from zero, the ``kernels``
@@ -4223,7 +4358,7 @@ def arch_phase(dev, build_host) -> tuple[dict, dict, dict]:
     del host
     gc.collect()
     torch.cuda.empty_cache()
-    # (c) qwen2-vl-7b, 8 layers
+    # (c) qwen2-vl-7b, QWEN2VL_LAYERS layers
     out["qwen2vl"], lc, lowrank = qwen2vl_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4292,10 +4427,12 @@ class CkptSpy:
         self.C.save, self.C.restore = self._save, self._restore
 
 
-def grads_vs_cpu(cfg, params_cpu, batch_np, dev, forward_fn=None) -> dict:
+def grads_vs_cpu(cfg, params_cpu, batch_np, dev, forward_fn=None, *,
+                 loss_rtol: float = 1e-5, grad_rtol: float = 1e-4) -> dict:
     """One ``make_loss_fn`` value and its gradients on the card against the
     CPU port, from the same weights and batch: the loss's relative
-    difference, and each gradient leaf's max |Δ| over its max |g|."""
+    difference (at most ``loss_rtol``), and each gradient leaf's max |Δ|
+    over its max |g| (at most ``grad_rtol``), in fp32."""
     import torch
     from repro_torch.train.step import make_loss_fn, value_and_grad
     from repro_torch.tree import flatten_tree, tree_map
@@ -4308,18 +4445,19 @@ def grads_vs_cpu(cfg, params_cpu, batch_np, dev, forward_fn=None) -> dict:
     gd = flatten_tree(g_dev)
     worst, worst_key = 0.0, None
     for k, v in flatten_tree(g_cpu).items():
-        r = float((gd[k].cpu() - v).abs().max() / max(float(v.abs().max()),
-                                                       1e-30))
+        v = v.float()
+        r = float((gd[k].cpu().float() - v).abs().max()
+                  / max(float(v.abs().max()), 1e-30))
         if r >= worst:
             worst, worst_key = r, k
     out = {"loss_cpu": float(l_cpu), "loss_card": float(l_dev),
            "loss_rel": abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu)),
            "grad_rel": worst, "grad_rel_leaf": worst_key,
            "leaves": len(gd)}
-    check(out["loss_rel"] <= 1e-5, f"loss on the card vs the CPU port: "
-          f"{out['loss_rel']:.3g} relative (limit 1e-5)")
-    check(worst <= 1e-4, f"gradient {worst_key} on the card vs the CPU "
-          f"port: {worst:.3g} of its max |g| (limit 1e-4)")
+    check(out["loss_rel"] <= loss_rtol, f"loss on the card vs the CPU "
+          f"port: {out['loss_rel']:.3g} relative (limit {loss_rtol})")
+    check(worst <= grad_rtol, f"gradient {worst_key} on the card vs the CPU "
+          f"port: {worst:.3g} of its max |g| (limit {grad_rtol})")
     return out
 
 
@@ -4573,8 +4711,9 @@ def compressed_finetune(dev, lm_path) -> tuple[dict, object]:
 
 
 def rg_train(dev) -> dict:
-    """Phase 24 (c): RecurrentGemma-2B full size, fp32, batch 8 x seq 128:
-    4 steps of ``make_train_step`` (no loop, no checkpoint); then the card
+    """Phase 24 (c): RecurrentGemma-2B full size, fp32 (weights drawn on
+    the card), batch 8 x seq 128: 4 steps of ``make_train_step`` (no
+    loop, no checkpoint); then the card
     against the CPU port at full width and 3 layers on 1 x 64 tokens."""
     import dataclasses
     import gc
@@ -4594,7 +4733,7 @@ def rg_train(dev) -> dict:
                               dtype="float32", remat=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    params, _ = T.init_model(cfg, torch.Generator().manual_seed(0),
+    params, _ = T.init_model(cfg, torch.Generator(dev).manual_seed(0),
                              device=dev)
     n_params = sum(t.numel() for t in tree_leaves(params))
     init_s = time.perf_counter() - t0
@@ -4986,6 +5125,460 @@ def dist_phase(dev, ref_timings=None, ref_plan=None) -> tuple[dict, dict]:
     return row, launches
 
 
+# ---------------------------------------------------------------------------
+# 26. the published configs at their own dtype: bf16
+# ---------------------------------------------------------------------------
+
+#: Phase 26 (a): rmsnorm (M, D) at the four configs' widths (SmolLM-135M,
+#: RecurrentGemma-2B, gemma-7b, qwen2-7b) and at 8 rows (a decode step),
+#: 128 (a prefill of 8 x 16) and 1024 (8 x 128), SmolLM also at the
+#: training rows (8 x 1024).
+BF16_NORMS = tuple((m, d) for d in (576, 2560, 3072, 3584)
+                   for m in (8, 128, 1024)) + (TRAIN_NORM,)
+#: flash_attention (B, S, H, KVH, D) of the four configs at S 16 and 128,
+#: then SmolLM-135M's training shape.
+BF16_ATTENTION = tuple((8, s, h, kvh, d) for h, kvh, d in (
+    (9, 3, 64), (10, 1, 256), (16, 16, 256), (28, 4, 128))
+    for s in (16, 128)) + (TRAIN_ATTENTION,)
+#: Phase 26 (b): the configs served at full size in bf16, one after
+#: another, each with the layers held against the CPU port at full width
+#: (RecurrentGemma's 3: rglru, rglru, attn_local).
+BF16_SERVE = (("smollm-135m", 2), ("recurrentgemma-2b", 3), ("gemma-7b", 2),
+              ("qwen2-7b", 2))
+#: bf16 card against the CPU port, both at bf16 and rounding in other
+#: orders (cuBLAS and the CPU's bf16 GEMMs): max |Δ| over max |y|, the
+#: tolerance of tests/test_torch_bf16.py's whole models.
+BF16_NET_RTOL = 4e-2
+#: A bf16 loss and its gradients, card against the CPU port: the loss
+#: relative, each gradient leaf's max |Δ| over its max |g| (the tolerances
+#: of tests/test_torch_bf16.py's train step).
+BF16_LOSS_RTOL, BF16_GRAD_RTOL = 1e-2, 5e-2
+#: The rate a bf16 kernel's operations are priced at.
+BF16_RATE = f"bf16 tensor cores, {H100_FP16_FLOPS / 1e12:g} TFLOP/s"
+#: Phase 26 (c): SmolLM-135M trained through the launcher.
+BF16_TRAIN_STEPS = 10
+
+
+def bf16_ulp(y):
+    """One bf16 ulp at each |y| (2^-7 of its binade), fp32."""
+    import torch
+    a = y.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def held_ulp(name, y, yr, case, scale=None) -> tuple[float, float, int]:
+    """Each element of bf16 ``y`` within one bf16 ulp (of the larger of the
+    two) of ``yr``, its plain version — beyond, where ``scale`` is given,
+    the fp32 sums' own reassociation allowance ``RTOL · scale + ATOL``
+    (phase 3's): two fp32 results that differ by δ round to bf16 values at
+    most δ + 1 ulp apart, and where an output cancels to near zero (a sum
+    of terms of both signs) δ exceeds its own ulp.  Returns (max |Δ|, the
+    most ulps apart, the elements more than one ulp apart)."""
+    import torch
+    torch.cuda.synchronize()
+    check(y.dtype == yr.dtype == torch.bfloat16 and y.shape == yr.shape,
+          f"{name} {case}: {y.dtype} {tuple(y.shape)} vs {yr.dtype} "
+          f"{tuple(yr.shape)}")
+    check(bool(torch.isfinite(y).all()), f"{name} {case}: non-finite output")
+    err = (y.float() - yr.float()).abs()
+    ulp = bf16_ulp(torch.maximum(y.float().abs(), yr.float().abs()))
+    limit = ulp if scale is None else ulp + RTOL * scale.float() + ATOL
+    bad = int((err > limit).sum())
+    check(bad == 0, f"{name} {case}: {bad} elements beyond one bf16 ulp"
+          + ("" if scale is None else " and the fp32 allowance")
+          + f" of the plain version (max |Δ| {float(err.max()):.3g})")
+    return (float(err.max()), float((err / ulp).max()),
+            int((err > ulp).sum()))
+
+
+def norm_bound_bf16(m: int, d: int) -> tuple[float, float]:
+    """rmsnorm's bf16 body on (M, D): 5 FLOPs an element; x read and y
+    written once, g read once, 2 bytes each."""
+    return (5.0 * m * d / H100_FP32_FLOPS * 1e3,
+            2.0 * (2 * m * d + d) / H100_HBM_BW * 1e3)
+
+
+def attention_bound_bf16(b, s, h, kvh, d) -> tuple[float, float]:
+    """flash_attention's bf16 body, causal: 4·D FLOPs a kept (query, key)
+    pair at the bf16 tensor-core rate; q and o at H heads, k and v at KVH,
+    2 bytes an element."""
+    pairs = s * (s + 1) / 2
+    return (4.0 * b * h * d * pairs / H100_FP16_FLOPS * 1e3,
+            2.0 * (2 * b * s * h * d + 2 * b * s * kvh * d) / H100_HBM_BW
+            * 1e3)
+
+
+def bf16_kernels(dev) -> tuple[list, dict]:
+    """Phase 26 (a): the bf16 bodies at ``BF16_NORMS`` and
+    ``BF16_ATTENTION``: each within one bf16 ulp of its plain version
+    (the attention beyond its fp32 allowance, :func:`held_ulp`; the most
+    ulps and the elements beyond one reported), bitwise equal across two
+    calls, and timed (kernel, plain version,
+    library call, bound; cold L2); whether each equals the fp32 body on
+    the widened operands, rounded (reported); the gradients through each
+    op against the plain version's autograd, as phase 3 holds them."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator().manual_seed(26)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev).bfloat16()
+
+    rows, same_fp32, ulp_stats = [], {}, {}
+    for m, d in BF16_NORMS:
+        x, w = rnd(m, d, scale=3.0), rnd(d, scale=0.2)
+        y = kernels.rmsnorm_op(x, w, eps=1e-6)
+        err, ulps, beyond = held_ulp(
+            "rmsnorm_bf16", y, ref.rmsnorm_ref(x, w, 1e-6), f"x={(m, d)}")
+        ulp_stats[f"rmsnorm {(m, d)}"] = [ulps, beyond, y.numel()]
+        check(torch.equal(y, kernels.rmsnorm_op(x, w, eps=1e-6)),
+              f"rmsnorm_bf16 {(m, d)}: two calls differ bitwise")
+        same_fp32[f"rmsnorm {(m, d)}"] = bool(torch.equal(
+            y, kernels.rmsnorm_op(x.float(), w.float(), eps=1e-6)
+            .bfloat16()))
+        w1 = 1.0 + w
+        rows.append(time_row(
+            "rmsnorm_bf16", [m, d],
+            lambda: kernels.rmsnorm_op(x, w, eps=1e-6),
+            lambda: ref.rmsnorm_ref(x, w, 1e-6),
+            lambda: F.rms_norm(x, (d,), w1, 1e-6), norm_bound_bf16(m, d),
+            err))
+    for b, s, h, kvh, d in BF16_ATTENTION:
+        q, k, v = rnd(b, s, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d)
+        y = kernels.flash_attention_op(q, k, v, True)
+        err, ulps, beyond = held_ulp(
+            "flash_attention_bf16", y, ops._attention_plain(q, k, v, True),
+            f"q={(b, s, h, d)} kv={kvh}",
+            ops._attention_plain(q.float(), k.float(), v.float().abs(),
+                                 True))
+        ulp_stats[f"flash_attention {(b, s, h, kvh, d)}"] = [ulps, beyond,
+                                                            y.numel()]
+        check(torch.equal(y, kernels.flash_attention_op(q, k, v, True)),
+              f"flash_attention_bf16 {(b, s, h, kvh, d)}: two calls differ "
+              "bitwise")
+        same_fp32[f"flash_attention {(b, s, h, kvh, d)}"] = bool(torch.equal(
+            y, kernels.flash_attention_op(q.float(), k.float(), v.float(),
+                                          True).bfloat16()))
+        qt, kt, vt = (t.repeat_interleave(h // t.shape[2], dim=2)
+                      .transpose(1, 2) for t in (q, k, v))
+        rows.append(time_row(
+            "flash_attention_bf16", [b, s, h, kvh, d],
+            lambda: kernels.flash_attention_op(q, k, v, True),
+            lambda: ops._attention_plain(q, k, v, True),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True),
+            attention_bound_bf16(b, s, h, kvh, d), err, BF16_RATE))
+    for r in rows:
+        r["slower_than_library"] = bool(r["ms"] > r["library_ms"])
+    # gradients through the ops (the kernel forward, the plain version's
+    # gradient backward) against the plain version's autograd
+    grads = {}
+
+    def grad_case(name, kernel, op, plain, args):
+        start = kernels.launch_counts()[kernel]
+        sides = []
+        for fn in (op, plain):
+            leaves = [a.clone().requires_grad_() for a in args]
+            sides.append((fn(*leaves), leaves))
+        (y, leaves), (yr, ref_leaves) = sides
+        check(y.grad_fn is not None and y.dtype == torch.bfloat16,
+              f"{name}: the output through the kernel has no grad_fn")
+        wt = rnd(*y.shape)
+        got = torch.autograd.grad(y, leaves, wt)
+        want = torch.autograd.grad(yr, ref_leaves, wt)
+        n_launch = kernels.launch_counts()[kernel] - start
+        check(n_launch == 1, f"{name}: {n_launch} launches of {kernel} (want "
+              "the forward's 1)")
+        for n, (a, b) in enumerate(zip(got, want)):
+            res = held(f"{name} gradient", a.float(), b.float(),
+                       b.float().abs().amax(), f"wrt input {n}")
+            wst = grads.setdefault(name, [0.0, 0.0, 0])
+            wst[0], wst[1] = max(wst[0], res[0]), max(wst[1], res[1])
+            wst[2] += 1
+
+    grad_case("rmsnorm_bf16", "rmsnorm_bf16",
+              lambda x, s: kernels.rmsnorm_op(x, s),
+              lambda x, s: ref.rmsnorm_ref(x, s),
+              (rnd(8, 128, 576, scale=3.0), rnd(576, scale=0.2)))
+    for b, s, h, kvh, d in ((8, 128, 9, 3, 64), (8, 128, 16, 16, 256)):
+        grad_case("flash_attention_bf16", "flash_attention_bf16",
+                  lambda q, k, v: kernels.flash_attention_op(q, k, v, True),
+                  lambda q, k, v: ops._attention_plain(q, k, v, True),
+                  (rnd(b, s, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d)))
+    return rows, {"same_as_fp32_body": same_fp32, "gradients": grads,
+                  "ulps": ulp_stats}
+
+
+def cut_layers(cfg, params, layers: int):
+    """(config, params) of the first ``layers`` layers of a stacked
+    params tree: views of its tensors, the embeddings and the final norm
+    shared."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    cfg_n = dataclasses.replace(cfg, num_layers=layers)
+    out = {k: v for k, v in params.items() if k != "groups"}
+    out["groups"] = [tree_map(lambda t, n=g.count: t[:n], gp)
+                     for g, gp in zip(T.layer_groups(cfg_n),
+                                      params["groups"])]
+    return cfg_n, out
+
+
+def bf16_vs_cpu(cfg, params, prompt, layers: int) -> dict:
+    """The model's first ``layers`` layers at full width, the card's own
+    weights copied to the host, on ``CPU_ROWS`` prompts: the prefill
+    logits and every step of a decode teacher-forced through the prompt
+    (its first step included), card against CPU, within
+    ``BF16_NET_RTOL``."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg_n, p_dev = cut_layers(cfg, params, layers)
+    p_cpu = tree_map(lambda t: t.cpu(), p_dev)
+    rows = prompt[:CPU_ROWS]
+    P = rows.shape[1]
+    out = {}
+    with torch.no_grad():
+        for name, p, toks, dev in (("card", p_dev, rows, rows.device),
+                                   ("cpu", p_cpu, rows.cpu(), "cpu")):
+            out[name] = (
+                T.forward(cfg_n, p, {"tokens": toks}),
+                forced_logits(
+                    lambda c, t, p=p: T.decode_step(cfg_n, p, c,
+                                                    {"tokens": t}),
+                    T.init_cache(cfg_n, CPU_ROWS, P, device=dev), toks))
+    (y, lg), (y_cpu, lg_cpu) = out["card"], out["cpu"]
+    check(bool(torch.isfinite(y).all() and torch.isfinite(lg).all()),
+          f"{cfg.name} bf16: non-finite logits at {layers} layers")
+    res = {"layers": layers, "prefill": rel_diff(y.float(), y_cpu.float()),
+           "first_step": rel_diff(lg[:, 0].float(), lg_cpu[:, 0].float()),
+           "steps": step_rel(lg.float(), lg_cpu.float()),
+           "seconds": time.perf_counter() - t0}
+    for k in ("prefill", "first_step", "steps"):
+        check(res[k] <= BF16_NET_RTOL, f"{cfg.name} bf16 at {layers} layers: "
+              f"{k} card vs CPU port {res[k]:.3g} (limit {BF16_NET_RTOL})")
+    return res
+
+
+def bf16_serve_one(dev, arch: str, layers: int, fp32_row) -> dict:
+    """One config of phase 26 (b) at full size in bf16 (weights drawn on the
+    card from seed 0): 8 prompts of 16 tokens and 32 new tokens through the
+    captured ``serve_loop`` and ``serve_loop_pertoken`` (the same tokens,
+    finite logits), the full model's prefill forward, peak memory, the
+    decode step beside its weight-read bound, and :func:`bf16_vs_cpu`."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import serving
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    check(cfg.dtype == "bfloat16", f"{arch}: published dtype {cfg.dtype}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, _ = T.init_model(cfg, torch.Generator(dev).manual_seed(0),
+                             device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    check(all(t.dtype == torch.bfloat16 for t in leaves),
+          f"{arch}: a weight is not bf16")
+    n_params = sum(t.numel() for t in leaves)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    B, P, N = 8, 16, 32
+    prompt = serving.random_prompts(7, B, P, cfg.vocab_size, device=dev)
+
+    def step(c, t):
+        return T.decode_step(cfg, params, c, {"tokens": t})
+    pre, dec, lg, seqs, res = serve_both(
+        f"{arch} bf16", step, lambda: T.init_cache(cfg, B, P + N, device=dev),
+        prompt, N)
+    check(tuple(seqs.shape) == (B, N) and lg.dtype == torch.bfloat16
+          and bool(torch.isfinite(lg).all()),
+          f"{arch} bf16: served ids {tuple(seqs.shape)}, logits {lg.dtype}")
+    with torch.no_grad():
+        y = T.forward(cfg, params, {"tokens": prompt})
+        fwd_ms = cuda_time(lambda: T.forward(cfg, params, {"tokens": prompt}),
+                           iters=5, warmup=1)
+    check(bool(torch.isfinite(y).all()), f"{arch} bf16: non-finite prefill")
+    peak = torch.cuda.max_memory_allocated()
+    # a decode step reads every weight once, but of an untied input
+    # embedding only the batch's rows
+    read = weight_bytes
+    if not cfg.tie_embeddings:
+        read -= params["embed"].numel() * 2 - B * cfg.d_model * 2
+    step_ms = res["decode_ms"] / (N - 1)
+    out = dict(res, params=n_params, weight_bytes=weight_bytes,
+               init_s=init_s, prefill_forward_ms=fwd_ms,
+               prefill_argmax_agrees=float(
+                   (y[:, -1].argmax(-1) == seqs[:, 0]).float().mean()),
+               peak_bytes=peak, decode_step_ms=step_ms,
+               weight_read_bound_ms=read / H100_HBM_BW * 1e3)
+    out["bound_share"] = out["weight_read_bound_ms"] / step_ms
+    out["vs_cpu"] = bf16_vs_cpu(cfg, params, prompt, layers)
+    if fp32_row is not None:
+        out["fp32_decode_ms"] = fp32_row["decode_ms"] / (N - 1)
+        out["fp32_tok_s"] = fp32_row["tok_s"]
+    del params, y, lg
+    out["seconds"] = time.perf_counter() - t0
+    log(f"bf16 serve {arch}", t0, f"{n_params / 1e9:.3f} B parameters, "
+        f"{weight_bytes / 1e9:.2f} GB (drawn on the card in {init_s:.2f}s); "
+        f"captured prefill {out['prefill_ms']:.3f} ms, decode "
+        f"{res['decode_ms']:.3f} ms ({res['tok_s']:.1f} tok/s), a step "
+        f"{step_ms:.4f} ms against its weight-read bound "
+        f"{out['weight_read_bound_ms']:.4f} ms (share "
+        f"{out['bound_share']:.3f})"
+        + (f"; fp32 (phases 9, 16) a step {out['fp32_decode_ms']:.4f} ms, "
+           f"{out['fp32_tok_s']:.1f} tok/s" if fp32_row else "")
+        + f"; per-token {res['pertoken_tok_s']:.1f} tok/s; launches per "
+        f"step {json.dumps(res['launches_per_step'])}; prefill forward "
+        f"{fwd_ms:.3f} ms (its last argmax = the first served token on "
+        f"{out['prefill_argmax_agrees']:.3f} of rows); peak "
+        f"{peak / 2**30:.2f} GiB; vs CPU port at {layers} layers "
+        f"{json.dumps(out['vs_cpu'])}")
+    return out
+
+
+def bf16_train(dev, fp32_step=None) -> dict:
+    """Phase 26 (c): the full SmolLM-135M config (bf16) trained through
+    ``python -m repro_torch.launch.train`` (8 x 1024, ``BF16_TRAIN_STEPS``
+    steps, warmup 2): the loss of the last 5 steps under the first 5, the
+    params bf16 and the moments fp32; ms a step, peak memory beside phase
+    24's fp32 step; one loss and its gradients on 1 x 256 tokens against
+    the CPU port at ``BF16_LOSS_RTOL`` / ``BF16_GRAD_RTOL``."""
+    import shutil
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(WORK, "bf16_ckpt")
+    B, S = TRAIN_BATCH
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = launch_train.main([
+        "--arch", "smollm-135m", "--steps", str(BF16_TRAIN_STEPS),
+        "--warmup", "2", "--batch", str(B), "--seq", str(S),
+        "--ckpt-dir", ckpt])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    losses = res.losses
+    check(len(losses) == BF16_TRAIN_STEPS
+          and all(math.isfinite(x) for x in losses),
+          f"bf16 train: losses {losses}")
+    first5, last5 = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    check(last5 < first5, f"bf16 train: the loss did not drop ({first5:.4f}"
+          f" -> {last5:.4f})")
+    check(all(t.dtype == torch.bfloat16 for t in tree_leaves(res.params)),
+          "bf16 train: a param is not bf16")
+    check(all(t.dtype == torch.float32 for t in tree_leaves(
+        [res.opt_state["mu"], res.opt_state["nu"]])),
+        "bf16 train: a moment is not fp32")
+    step_ms = statistics.median(res.step_s[1:]) * 1e3
+    del res
+    cfg = get_config("smollm-135m")
+    p_cpu, _ = T.init_model(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    t_cpu = time.perf_counter()
+    vs = grads_vs_cpu(cfg, p_cpu, SyntheticTokens(
+        cfg.vocab_size, 1, 256, seed=0).batch_at(0), dev,
+        loss_rtol=BF16_LOSS_RTOL, grad_rtol=BF16_GRAD_RTOL)
+    vs["seconds"] = time.perf_counter() - t_cpu
+    out = {"batch": [B, S], "losses": losses, "first5": first5,
+           "last5": last5, "step_ms": step_ms,
+           "tok_s": B * S / (step_ms * 1e-3), "peak_bytes": peak,
+           "vs_cpu": vs, "seconds": time.perf_counter() - t0}
+    fp32 = "not run"
+    if fp32_step is not None:
+        out.update(fp32_step_ms=fp32_step["step_ms"],
+                   fp32_peak_bytes=fp32_step["peak_bytes"])
+        fp32 = (f"{fp32_step['step_ms']:.2f} ms a step, peak "
+                f"{fp32_step['peak_bytes'] / 2**30:.2f} GiB")
+    log("bf16 train", t0, f"smollm-135m bf16 through launch.train, {B}x{S}, "
+        f"{BF16_TRAIN_STEPS} steps: loss first 5 {first5:.4f} -> last 5 "
+        f"{last5:.4f}; step {step_ms:.2f} ms median ({out['tok_s']:.0f} "
+        f"tok/s); peak {peak / 2**30:.2f} GiB; fp32 (phase 24): {fp32}; "
+        f"vs CPU port (1x256, "
+        f"bf16) loss {vs['loss_rel']:.3g}, gradients {vs['grad_rel']:.3g} "
+        f"({vs['grad_rel_leaf']}) in {vs['seconds']:.2f}s")
+    return out
+
+
+def bf16_phase(dev, serve_rows=None, trn=None) -> tuple[dict, dict, dict]:
+    """Phase 26: the published configs at their own dtype.  (b) SmolLM-135M,
+    RecurrentGemma-2B, gemma-7b and qwen2-7b served at full size in bf16;
+    (c) SmolLM-135M trained in bf16 through the launcher; the bf16 bodies'
+    launches over (b)-(c), counted from zero, must be > 0 and the fp32
+    bodies' of the norm and the attention 0; then (a) the bf16 bodies at
+    the four configs' shapes.  Returns (numbers, launches over (b)-(c), the
+    ``kernels`` line's rows of the bf16 bodies).  ``serve_rows`` (phases 9
+    and 16) and ``trn`` (phase 24) give the fp32 numbers to compare with;
+    without them the phase runs alone."""
+    import gc
+
+    import torch
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"serve": {}}
+    kernels.reset_launch_counts()
+    serve_rows = serve_rows or {}
+    fp32 = {"smollm-135m": serve_rows.get("smollm-135m original"),
+            "recurrentgemma-2b": serve_rows.get("recurrentgemma-2b original")}
+    for arch, layers in BF16_SERVE:
+        out["serve"][arch] = bf16_serve_one(dev, arch, layers,
+                                            fp32.get(arch))
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["train"] = bf16_train(dev, (trn or {}).get("smollm"))
+    launches = kernels.launch_counts()
+    out["launches"] = launches
+    for k in ("rmsnorm_bf16", "flash_attention_bf16", "rglru_scan"):
+        check(launches[k] > 0, f"phase 26: {k} never launched on the bf16 "
+              "path")
+    check(launches["rmsnorm"] == 0 and launches["flash_attention"] == 0,
+          f"phase 26: the fp32 bodies launched on the bf16 path {launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    rows, extra = bf16_kernels(dev)
+    out["kernels"] = rows
+    out.update(extra)
+    log("bf16 kernels", t, kernel_rows_line(rows) + "; most bf16 ulps "
+        "from the plain version, elements beyond one ulp, elements "
+        f"{json.dumps(extra['ulps'])}; the fp32 body's "
+        "output on the widened operands, rounded, bitwise on "
+        f"{sum(extra['same_as_fp32_body'].values())}/"
+        f"{len(extra['same_as_fp32_body'])} shapes; gradients "
+        f"{json.dumps(extra['gradients'])}")
+    tot = {}
+    for k in ("rmsnorm_bf16", "flash_attention_bf16"):
+        rs = [r for r in rows if r["kernel"] == k]
+        tot[k] = {f: sum(r[f] for r in rs) for f in
+                  ("ms", "plain_ms", "library_ms", "flops_ms", "bytes_ms",
+                   "bound_ms")}
+        tot[k].update(max_abs_err=max(r["max_abs_err"] for r in rs),
+                      bound_rate=rs[0]["bound_rate"], shapes=len(rs))
+    out["seconds"] = time.perf_counter() - t0
+    log("bf16", t0, f"phase 26 in {out['seconds']:.2f}s; launches (b)-(c) "
+        f"{launches}")
+    return out, launches, tot
+
+
 def main(argv) -> int:
     import torch
 
@@ -5047,6 +5640,7 @@ def main(argv) -> int:
                     sweep[k][2] + v[2]]
     sweep["merged_ffn_q"] = qffn_sweep(dev)
     sweep.update(norm_scan_attention_sweep(dev))
+    sweep.update(bf16_sweep(dev))
     n_q = quantize_matches_cpu(dev)
     n_det = ffn_determinism(dev)
     n_det_ad = attn_dw_determinism(dev)
@@ -5373,7 +5967,7 @@ def main(argv) -> int:
     launches["merged_ffn_q"] = lq_launch["merged_ffn_q"]
 
     # 15-17. RecurrentGemma-2B ----------------------------------------------------
-    rg_rows, rg_launch, rg_art, rg_serve = rg_phases(dev, build_host)
+    rg_rows, rg_launch, rg_art, rg_serve = rg_phases(dev)
     serve_rows.update(rg_serve)
 
     # 18. ragged requests through the slot scheduler ----------------------------
@@ -5432,7 +6026,14 @@ def main(argv) -> int:
         f"launches {dist_launch}")
     for k, v in dist_launch.items():
         launches[k] += v
+    # 26. the published configs at their own dtype (bf16) ---------------------
+    bf16, bf16_launch, bf16_tot = bf16_phase(dev, serve_rows, trn)
+    with open(os.path.join(WORK, "bf16.json"), "w") as f:
+        json.dump(bf16, f, indent=1, default=str)
     sweep_err = {k: v[0] for k, v in sweep.items()}
+    for k, v in bf16_tot.items():
+        tot[k] = v
+        launches[k] = bf16_launch[k]
     srcs = dict(KERNEL_SOURCES)
     for k, v in unet_tot.items():
         if v["units"]:
@@ -5459,6 +6060,9 @@ def main(argv) -> int:
         "library_ms": v["library_ms"]} for k, v in tot.items()]}
     for v in line["kernels"]:
         check_bound(v["name"], v["ms"], v["bound_ms"])
+    with open(os.path.join(WORK, "phases.json"), "w") as f:
+        json.dump(PHASE_SECONDS, f, indent=1)
+    print("[phases] " + json.dumps(PHASE_SECONDS), flush=True)
     print(f"[total] {time.perf_counter() - t_all:.2f}s", flush=True)
     print(json.dumps(line))
     print(smi_line)

@@ -2,7 +2,8 @@
 
 Every kernel source under ``csrc/`` exposes plain C functions (an fp32
 entry point and, for the three merged-segment kernels, its quantized
-variant), so it builds in seconds without PyTorch's headers.  A library is built at first use into
+variant; for the norm and the attention, a bf16 body), so it builds in
+seconds without PyTorch's headers.  A library is built at first use into
 ``build/repro_torch/`` at the root of the checkout — or, for an installed
 package, into ``$XDG_CACHE_HOME/repro_torch`` (``~/.cache/repro_torch``) —
 named by a hash of its source, the shared headers (``csrc/*.cuh``) and
@@ -65,12 +66,18 @@ SIGNATURES = {
     "merged_ffn_slots": ("merged_ffn", "merged_ffn_slots", [_I] * 3),
     # x, g, y, m, d, eps, vec, stream
     "rmsnorm": ("rmsnorm", "rmsnorm_f32", [_P] * 3 + [_I, _I, _F, _I, _P]),
+    # the bf16 body: x, g, y, m, d, eps, g_f32, vec, stream
+    "rmsnorm_bf16": ("rmsnorm", "rmsnorm_bf16",
+                     [_P] * 3 + [_I, _I, _F, _I, _I, _P]),
     # a, b, h, batch, s, c, stream
     "rglru_scan": ("rglru_scan", "rglru_scan_f32", [_P] * 3 + [_I] * 3 + [_P]),
     # q, k, v, o, b, s, h, kvh, d, causal, then the plan (wr, dsplit),
     # stream
     "flash_attention": ("flash_attention", "flash_attention_f32",
                         [_P] * 4 + [_I] * 8 + [_P]),
+    # the bf16 body, the same arguments
+    "flash_attention_bf16": ("flash_attention", "flash_attention_bf16",
+                             [_P] * 4 + [_I] * 8 + [_P]),
 }
 
 #: The kernel sources, one library each.

@@ -9,6 +9,10 @@ and accumulator lived in VMEM across its sequential kv grid axis; here
 they live in registers across a kv loop inside one block.  Both products
 run on the tensor cores as 3xTF32 (hi/lo splits, fp32 sums), so the
 result keeps fp32 accuracy, and K/V tiles stream through a cp.async ring.
+A bf16 body (q, k, v and o bf16), the same template on the element type,
+computes the TPU kernel's function at bf16: the operands widened (a bf16
+value is exact in TF32, so q·kᵀ takes one TF32 product and p·v two), p
+kept fp32, every sum fp32, o rounded once at its store.
 It reads the (B, S, H, D) layout in place, and k / v with fewer heads
 (KVH dividing H; query head h reads kv head h // (H / KVH)): a block's
 query rows are the (s, head) pairs of one (batch, kv head), s-major, so
@@ -29,12 +33,19 @@ import torch
 
 from . import cuda_build
 
-#: Kernel launches made by :func:`flash_attention` in this process.
+#: Kernel launches made by :func:`flash_attention` in this process: the
+#: fp32 body and the bf16 body.
 launches = 0
+launches_bf16 = 0
 
-#: Largest head dim the kernel takes (instantiated for head dims rounded
-#: up to 32, 64, 128 and 256).
+#: Largest head dim the kernel takes.
 MAX_HEAD_DIM = 256
+#: The head-dim tiles instantiated for each element size in bytes: the
+#: bf16 body only at the configs' head dims (64, 128 and 256).
+HEAD_DIM_TILES = {4: (32, 64, 128, 256), 2: (64, 128, 256)}
+#: The dtypes the kernel takes: fp32 and bf16, one C entry point each.
+ENTRY = {torch.float32: "flash_attention",
+         torch.bfloat16: "flash_attention_bf16"}
 #: K/V tiles in flight (``STAGES`` in the source).
 STAGES = 3
 #: Row groups of 16 query rows a block may hold, largest first, by head-dim
@@ -45,9 +56,10 @@ ROW_GROUPS = {32: (4, 2, 1), 64: (4, 2, 1), 128: (4, 2, 1), 256: (2, 1)}
 MIN_WARPS = 4
 
 
-def head_dim_tile(d: int) -> int:
-    """The head dim rounded up to an instantiated tile."""
-    for dp in (32, 64, 128, 256):
+def head_dim_tile(d: int, elem: int = 4) -> int:
+    """The head dim rounded up to a tile instantiated for elements of
+    ``elem`` bytes."""
+    for dp in HEAD_DIM_TILES[elem]:
         if d <= dp:
             return dp
     raise ValueError(f"flash_attention: head dim {d} above {MAX_HEAD_DIM}")
@@ -57,7 +69,8 @@ def head_dim_tile(d: int) -> int:
 class LaunchPlan:
     """Blocks of ``wr`` row groups of 16 query rows over the s-major (s,
     head) rows of each (batch, kv head); ``dsplit`` blocks per row tile,
-    block ``z`` computing output columns ``[z·dv, (z+1)·dv)``.  The
+    block ``z`` computing output columns ``[z·dv, (z+1)·dv)``; ``elem``
+    the bytes of an element (4 for the fp32 body, 2 for bf16).  The
     constants mirror the source's ``Cfg``."""
     b: int
     s: int
@@ -66,10 +79,11 @@ class LaunchPlan:
     d: int
     wr: int
     dsplit: int
+    elem: int = 4
 
     @property
     def dp(self) -> int:
-        return head_dim_tile(self.d)
+        return head_dim_tile(self.d, self.elem)
 
     @property
     def wd(self) -> int:
@@ -109,10 +123,12 @@ class LaunchPlan:
 
     @property
     def smem_bytes(self) -> int:
-        stage = self.bkv * ((self.dp + 8) + (self.dv + 4))
+        """The K/V ring in elements (V's pitch padded by 16 bytes), the
+        partial-score exchange in fp32."""
+        stage = self.bkv * ((self.dp + 8) + (self.dv + 16 // self.elem))
         xs = (self.wr * self.wd * (self.bkv // 8) * 32 * 4
               if self.wd > 1 else 0)
-        return (STAGES * stage + xs) * 4
+        return STAGES * stage * self.elem + xs * 4
 
     def args(self) -> tuple[int, int]:
         """The plan's arguments of the C entry point."""
@@ -133,14 +149,14 @@ class LaunchPlan:
 
 @functools.lru_cache(maxsize=1024)
 def launch_plan(b: int, s: int, h: int, kvh: int, d: int,
-                sms: int = 132) -> LaunchPlan:
+                sms: int = 132, elem: int = 4) -> LaunchPlan:
     """The most query rows a block that still gives every SM a block, at
     ``MIN_WARPS`` warps a block or more.  Where no such block shape fills
     the card (short prefills): at D 256, whose row group alone is 4 warps,
     two blocks a row tile, each half of the output columns; below, the
     smallest such block."""
-    plan = functools.partial(LaunchPlan, b, s, h, kvh, d)
-    shapes = [wr for wr in ROW_GROUPS[head_dim_tile(d)]
+    plan = functools.partial(LaunchPlan, b, s, h, kvh, d, elem=elem)
+    shapes = [wr for wr in ROW_GROUPS[head_dim_tile(d, elem)]
               if plan(wr, 1).threads >= 32 * MIN_WARPS]
     for wr in shapes:
         if plan(wr, 1).blocks >= sms:
@@ -151,14 +167,15 @@ def launch_plan(b: int, s: int, h: int, kvh: int, d: int,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Launch the CUDA kernel: q (B, S, H, D), k and v (B, S, KVH, D) →
-    o (B, S, H, D), all fp32.
+    o (B, S, H, D), all fp32 or all bf16 (the body of that dtype).
 
-    Contiguous fp32 tensors on one CUDA device; another dtype or layout
-    raises, as do ``H % KVH != 0``, ``D > 256`` and ``B·H > 65535``.  The
-    output is allocated here; the launch is asynchronous on the current
-    stream and raises if the launch is refused.
+    Contiguous tensors of one of those dtypes on one CUDA device; another
+    dtype or layout raises, as do ``H % KVH != 0``, ``D > 256`` and
+    ``B·H > 65535``.  The output is allocated here; the launch is
+    asynchronous on the current stream and raises if the launch is
+    refused.
     """
-    global launches
+    global launches, launches_bf16
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}: want "
@@ -172,13 +189,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: head dim {d} (at most "
                          f"{MAX_HEAD_DIM}) or B·H = {b * h} (at most 65535) "
                          "beyond the kernel")
-    cuda_build.check_operands("flash_attention", q, k, v)
+    one = (q.dtype,) if q.dtype in ENTRY else tuple(ENTRY)
+    cuda_build.check_operands("flash_attention", q, k, v, dtypes=(one,) * 3)
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    plan = launch_plan(b, s, h, kvh, d, cuda_build.sm_count(q.device))
-    cuda_build.launch("flash_attention", q.device, q.data_ptr(),
-                      k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h, kvh,
-                      d, int(bool(causal)), *plan.args())
-    launches += 1
+    plan = launch_plan(b, s, h, kvh, d, cuda_build.sm_count(q.device),
+                       q.element_size())
+    cuda_build.launch(ENTRY[q.dtype], q.device, q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), o.data_ptr(), b, s, h, kvh, d,
+                      int(bool(causal)), *plan.args())
+    if q.dtype == torch.bfloat16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return o

@@ -21,8 +21,12 @@ never leaves the device: the kernel reads the folded vector from device
 memory, so the op makes no host sync and can be captured in a CUDA graph.
 
 The norm, scan and attention ops take their CUDA operands as they are:
-a non-contiguous or non-fp32 CUDA tensor raises, it is never copied or
-cast behind the caller's back.
+a non-contiguous CUDA tensor, or one of a dtype the kernel has no body
+for, raises; it is never copied or cast behind the caller's back.  The
+norm and the attention have an fp32 and a bf16 body (the TPU kernels'
+function at either dtype: fp32 inside, the input's dtype out); the scan
+takes fp32 only, as the JAX package's RG-LRU block feeds it at every
+dtype.
 
 Gradients: on the card every op is differentiable (:class:`_PlainGrad`).
 The forward is the kernel; the backward is the gradient of the op's plain
@@ -33,7 +37,8 @@ input requires a gradient (``torch.no_grad()``, a captured inference
 step) the op launches the kernel alone and records nothing.
 
 Launch counts: each kernel wrapper adds one to its module's ``launches``
-(fp32) or ``launches_q`` (quantized variant) per launch it makes;
+(fp32), ``launches_q`` (quantized variant) or ``launches_bf16`` (bf16
+body) per launch it makes;
 :func:`launch_counts` reads them and :func:`reset_launch_counts` sets them
 to zero, so a run can show that its path went through the kernels.  They
 count wrapper calls on the host: a step captured in a CUDA graph counts
@@ -205,7 +210,9 @@ def merged_ffn_op(x, u, v, *, u_scale=None, v_scale=None,
 
 def rmsnorm_op(x, g, *, eps: float = 1e-6):
     """``x · rsqrt(mean x² + eps) · (1 + g)`` over the last axis of ``x``
-    (any leading shape).  On the card x and g must be contiguous fp32."""
+    (any leading shape), in fp32, cast to ``x.dtype``.  On the card x and
+    g must be contiguous: x fp32 with g fp32 (the fp32 body), or x bf16
+    with g bf16 or fp32 (the bf16 body)."""
     def plain(x, g):
         return ref.rmsnorm_ref(x, g, eps)
 
@@ -242,7 +249,8 @@ def flash_attention_op(q, k, v, causal: bool = True):
     """Softmax attention over (B, S, H, D) q and (B, S, KVH, D) k, v with
     KVH dividing H (the JAX op's contract when KVH == H: it equals the
     plain version on k and v expanded to H heads).  On the card the
-    operands must be contiguous fp32."""
+    operands must be contiguous and all fp32 (the fp32 body) or all bf16
+    (the bf16 body)."""
     causal = bool(causal)
 
     def plain(q, k, v):
@@ -255,13 +263,15 @@ def flash_attention_op(q, k, v, causal: bool = True):
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches in this process since the last reset: each fp32
-    kernel and (``*_q``) the quantized variants.  Wrapper calls: a CUDA
-    graph's replays add nothing."""
+    kernel, (``*_q``) the quantized variants and (``*_bf16``) the bf16
+    bodies.  Wrapper calls: a CUDA graph's replays add nothing."""
     return {"merged_conv": _mc.launches, "depthwise_conv": _dw.launches,
             "merged_ffn": _mf.launches, "merged_conv_q": _mc.launches_q,
             "depthwise_conv_q": _dw.launches_q,
             "merged_ffn_q": _mf.launches_q, "rmsnorm": _rn.launches,
-            "rglru_scan": _rg.launches, "flash_attention": _fa.launches}
+            "rglru_scan": _rg.launches, "flash_attention": _fa.launches,
+            "rmsnorm_bf16": _rn.launches_bf16,
+            "flash_attention_bf16": _fa.launches_bf16}
 
 
 def reset_launch_counts() -> None:
@@ -270,3 +280,5 @@ def reset_launch_counts() -> None:
         mod.launches_q = 0
     for mod in (_rn, _rg, _fa):
         mod.launches = 0
+    for mod in (_rn, _fa):
+        mod.launches_bf16 = 0

@@ -1,7 +1,8 @@
 """Launcher: ``--arch <id> --shape <shape> --mode train|serve``, on one device.
 
 The JAX package's ``launch/train.py`` in PyTorch: it builds a config's
-model (random weights from seed 0) and either trains it on the synthetic
+model (random weights from seed 0, drawn on the run's device) and either
+trains it on the synthetic
 Markov data through the fault-tolerant loop (:mod:`repro_torch.train.
 loop`) or decodes greedily through the serve step.  It runs on the card
 unless ``--device cpu`` is given.  The port has one device: no mesh, no
@@ -9,15 +10,20 @@ sharding rules; ``--distributed`` exits with an error (the distribution
 slice, ROADMAP.md queue 1 item 5).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+      --steps 10 --warmup 2 --batch 8 --seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-7b \\
+      --mode serve --tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --reduced --steps 50
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --reduced --steps 5 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
       --reduced --mode serve --tokens 16 --device cpu
 
-The full configs are bf16, which the card's norm and attention kernels
-do not take (they raise at the first kernel): ``--reduced`` configs are
-fp32.
+A full config runs at its own dtype, bf16 for every published config:
+the card's norm and attention kernels have bf16 bodies, the params stay
+bf16 and AdamW's moments fp32, as in the JAX package.  ``--reduced``
+configs are fp32, as there.
 """
 from __future__ import annotations
 
@@ -46,6 +52,9 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true",
                     help="run the reduced config (CPU-sized, fp32)")
     ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--warmup", type=int, default=100,
+                    help="AdamW warmup steps (the reference's 100; a short "
+                         "run needs fewer to move bf16 weights)")
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -71,11 +80,11 @@ def main(argv=None):
         raise SystemExit(f"{args.arch} uses an embeddings frontend stub; "
                          "train it through the dry-run cells")
 
-    params, _ = T.init_model(cfg, torch.Generator().manual_seed(0),
+    params, _ = T.init_model(cfg, torch.Generator(dev).manual_seed(0),
                              device=dev)
     n = sum(x.numel() for x in tree_leaves(params))
-    print(f"[launch] {cfg.name} ({n / 1e6:.2f}M params) on {dev}, "
-          f"mode={args.mode}")
+    print(f"[launch] {cfg.name} ({n / 1e6:.2f}M params, {cfg.dtype}) on "
+          f"{dev}, mode={args.mode}")
 
     if args.mode == "train":
         if not args.resume:
@@ -83,7 +92,8 @@ def main(argv=None):
         data = SyntheticTokens(cfg.vocab_size, args.batch, args.seq)
         batcher = GlobalBatcher(data, device=dev)
         res = train_loop(
-            cfg, AdamWConfig(lr=1e-3, total_steps=args.steps),
+            cfg, AdamWConfig(lr=1e-3, warmup_steps=args.warmup,
+                             total_steps=args.steps),
             LoopConfig(total_steps=args.steps, ckpt_every=25,
                        ckpt_dir=args.ckpt_dir, log_every=10),
             params, batcher)

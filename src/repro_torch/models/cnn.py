@@ -213,23 +213,41 @@ def init_params(net: ConvNet, generator: torch.Generator | None = None,
     return {"layers": layers, "skips": skips, "head": head}
 
 
+def _is_bf16(arr: np.ndarray) -> bool:
+    """``ml_dtypes.bfloat16``, what ``np.asarray`` makes of a JAX bf16 leaf
+    (numpy has no bf16 of its own)."""
+    return arr.dtype.name == "bfloat16" and arr.dtype.itemsize == 2
+
+
 def params_from_numpy(tree, device="cpu"):
     """Tensors on ``device`` from a nested structure of numpy arrays (the
-    JAX package's CNN params after ``np.asarray`` on every leaf)."""
+    JAX package's params after ``np.asarray`` on every leaf).  A bf16 leaf
+    (``ml_dtypes.bfloat16``) crosses bit for bit through a 16-bit view,
+    never through fp32."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device) for v in tree]
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+    arr = np.array(tree, copy=True)
+    if _is_bf16(arr):
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def params_to_numpy(tree):
-    """The inverse of :func:`params_from_numpy`: numpy arrays on the host."""
+    """The inverse of :func:`params_from_numpy`: numpy arrays on the host;
+    a bf16 tensor comes back as ``ml_dtypes.bfloat16``, bit for bit (the
+    ``ml_dtypes`` package, which JAX installs, is imported only then)."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_to_numpy(v) for v in tree]
-    return tree.detach().cpu().numpy()
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,8 @@ The norms and prefill attention go through the port's kernel ops:
 ``flash_attention_op`` whenever its mask is plain causal — the hand-written
 ``rmsnorm`` and ``flash_attention`` kernels on the card, their plain
 versions on the CPU (where the JAX package's layers are plain ``jnp``: the
-two agree to fp32 reassociation).  A local-window prefill longer than its
+two agree to fp32 reassociation at fp32; at bf16 the port computes the TPU
+kernels' function, fp32 inside and one rounding at the end).  A local-window prefill longer than its
 window keeps the plain masked softmax (:func:`_sdpa`), and one-token
 decode against the KV cache stays plain.  The FFN, the embedding and the
 rotary embeddings (RoPE, and Qwen2-VL's three-stream M-RoPE,
@@ -42,9 +43,13 @@ from repro_torch.kernels import flash_attention_op, rmsnorm_op
 
 def rms_norm(x, scale, eps: float = 1e-6):
     """``x · rsqrt(mean x² + eps) · (1 + g)`` through ``rmsnorm_op``: fp32
-    throughout, cast to ``x.dtype`` at the end.  The JAX package's layer
-    casts the rsqrt to ``x.dtype`` first; at fp32, the only dtype the
-    port's transformer host runs, the two are the same function."""
+    throughout, cast to ``x.dtype`` once, at the end — the TPU kernel's
+    function (``repro.kernels.rmsnorm``), which the card's bf16 body
+    computes.  The JAX package's layer differs at bf16: it rounds the
+    rsqrt to bf16 first and multiplies in bf16, so the two differ by a
+    few bf16 ulps of y (a deliberate divergence: the port follows the
+    kernel; the CPU tests bound the gap).  At fp32 they are the same
+    function."""
     return rmsnorm_op(x.contiguous(), scale.contiguous(), eps=eps)
 
 
@@ -108,7 +113,8 @@ def attention_axes(cfg):
 
 
 def _normal(gen, shape, dtype, scale):
-    return (torch.randn(shape, generator=gen) * scale).to(dtype)
+    return (torch.randn(shape, generator=gen, device=gen.device)
+            * scale).to(dtype)
 
 
 def init_attention(cfg, gen: torch.Generator, dtype):

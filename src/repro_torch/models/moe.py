@@ -45,7 +45,8 @@ def moe_axes():
 
 
 def _normal(gen, shape, dtype, scale):
-    return (torch.randn(shape, generator=gen) * scale).to(dtype)
+    return (torch.randn(shape, generator=gen, device=gen.device)
+            * scale).to(dtype)
 
 
 def init_moe(cfg, gen: torch.Generator, dtype):

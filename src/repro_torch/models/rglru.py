@@ -42,17 +42,18 @@ def rglru_axes():
 
 
 def _normal(gen, shape, dtype, scale):
-    return (torch.randn(shape, generator=gen) * scale).to(dtype)
+    return (torch.randn(shape, generator=gen, device=gen.device)
+            * scale).to(dtype)
 
 
 def init_rglru(cfg, gen: torch.Generator, dtype):
-    """``(params, axes)`` drawn from ``gen`` on the CPU: the JAX package's
+    """``(params, axes)`` drawn from ``gen`` on its device: the JAX package's
     scales, and Λ such that ``-log a`` (at r = 1) is ``C_DECAY`` times
     ``-log`` of a uniform draw in (0.9^C, 0.999^C)."""
     d = cfg.d_model
     dr = cfg.rnn_width or d
-    u = torch.empty((dr,)).uniform_(0.9 ** C_DECAY, 0.999 ** C_DECAY,
-                                    generator=gen)
+    u = torch.empty((dr,), device=gen.device).uniform_(
+        0.9 ** C_DECAY, 0.999 ** C_DECAY, generator=gen)
     p = {
         "w_in": _normal(gen, (d, dr), dtype, 1.0 / math.sqrt(d)),
         "w_out": _normal(gen, (dr, d), dtype, 1.0 / math.sqrt(dr)),

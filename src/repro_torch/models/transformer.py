@@ -95,10 +95,21 @@ def _stack_axes(ax):
     return ("layers",) + tuple(ax)
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _empty_stack(tree, n: int, device):
+    """Uninitialised tensors on ``device`` shaped like ``tree``'s leaves
+    with a leading axis of ``n`` (the dict's key order kept)."""
+    if isinstance(tree, dict):
+        return {k: _empty_stack(v, n, device) for k, v in tree.items()}
+    return torch.empty((n, *tree.shape), dtype=tree.dtype, device=device)
+
+
+def _put(stacked, tree, i: int) -> None:
+    """Copy ``tree``'s leaves into slot ``i`` of ``stacked``'s."""
+    if isinstance(stacked, dict):
+        for k, v in stacked.items():
+            _put(v, tree[k], i)
+    else:
+        stacked[i].copy_(tree)
 
 
 def _layer(gp, i):
@@ -170,17 +181,28 @@ def model_axes(cfg):
 
 
 def init_model(cfg, gen: torch.Generator | None = None, device="cuda"):
-    """``(params, axes)``: weights drawn on the CPU from ``gen`` (a
-    ``torch.Generator``; seed 0 by default), then moved to ``device`` (the
-    card by default; raises without one)."""
+    """``(params, axes)``: weights drawn from ``gen`` (a ``torch.Generator``;
+    a CPU one at seed 0 by default) on the generator's device, layer by
+    layer, each layer copied into its group's stacked tensors, which are
+    allocated once on ``device`` (the card by default; raises without
+    one): no device holds two copies of the weights.  A generator on the
+    card draws there, in seconds for a 7B config where the CPU takes
+    minutes; it gives other values than a CPU generator of the same
+    seed.  A CPU generator's draws do not depend on ``device``."""
     check_config(cfg)
     device = resolve(device)
     gen = gen if gen is not None else torch.Generator().manual_seed(0)
     dtype = _dtype(cfg)
     gparams = []
     for g in layer_groups(cfg):
-        gparams.append(_stack([_init_layer(cfg, g.kind, gen, dtype)[0]
-                               for _ in range(g.count)]))
+        stacked = None
+        for i in range(g.count):
+            lp = _init_layer(cfg, g.kind, gen, dtype)[0]
+            if stacked is None:
+                stacked = _empty_stack(lp, g.count, device)
+            _put(stacked, lp, i)
+            del lp
+        gparams.append(stacked)
     params = {"groups": gparams}
     params["final_norm"], _ = L.init_rmsnorm(cfg.d_model, dtype)
     if cfg.frontend == "tokens":
@@ -188,8 +210,10 @@ def init_model(cfg, gen: torch.Generator | None = None, device="cuda"):
                                               gen, dtype)
     if not cfg.tie_embeddings or cfg.frontend != "tokens":
         params["unembed"] = (torch.randn((cfg.d_model, cfg.vocab_size),
-                                         generator=gen)
+                                         generator=gen, device=gen.device)
                              / math.sqrt(cfg.d_model)).to(dtype)
+    # the tree in sorted key order (as tree_map builds it), the stacked
+    # leaves as they are
     return tree_map(lambda t: t.to(device), params), model_axes(cfg)
 
 

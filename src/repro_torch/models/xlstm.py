@@ -40,7 +40,8 @@ def mlstm_axes():
 
 
 def _normal(gen, shape, dtype, scale):
-    return (torch.randn(shape, generator=gen) * scale).to(dtype)
+    return (torch.randn(shape, generator=gen, device=gen.device)
+            * scale).to(dtype)
 
 
 def init_mlstm(cfg, gen: torch.Generator, dtype):

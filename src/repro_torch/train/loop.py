@@ -63,6 +63,9 @@ class LoopResult:
     final_step: int
     params: Any
     opt_state: Any
+    #: seconds of each step that completed, in the order they ran (from
+    #: its start to its loss on the host)
+    step_s: list = dataclasses.field(default_factory=list)
 
 
 def train_loop(cfg, opt_cfg: AdamWConfig, loop: LoopConfig, params, batch_fn,
@@ -141,4 +144,5 @@ def train_loop(cfg, opt_cfg: AdamWConfig, loop: LoopConfig, params, batch_fn,
     saver.wait()
     return LoopResult(losses=losses, restarts=restarts,
                       straggler_events=stragglers, final_step=step,
-                      params=params, opt_state=opt_state)
+                      params=params, opt_state=opt_state,
+                      step_s=step_times)

@@ -94,6 +94,44 @@ def test_attention_plan_fits_shared_memory(d, s):
         assert plan.threads <= 256 and plan.args() == (plan.wr, plan.dsplit)
 
 
+#: The bf16 body's shapes: the four published configs' attention (SmolLM,
+#: RecurrentGemma, gemma-7b, qwen2-7b) at S 16 and 128, SmolLM's training
+#: shape, and ragged ones (head dims up to 64 take the tile 64).
+BF16_ATTN_SHAPES = [(8, s, h, kvh, d) for h, kvh, d in (
+    (9, 3, 64), (10, 1, 256), (16, 16, 256), (28, 4, 128)) for s in (16, 128)
+] + [(8, 1024, 9, 3, 64), (2, 7, 4, 2, 36), (1, 130, 2, 1, 100),
+     (1, 1, 1, 1, 1)]
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d", BF16_ATTN_SHAPES)
+def test_bf16_attention_plan_covers_each_output_once(b, s, h, kvh, d):
+    """The bf16 body's plan: the tiles 64, 128, 256, every output once,
+    the fp32 body's block shape, and at most its shared memory (the ring
+    holds 2-byte elements, V's pitch padded by 16 bytes either way)."""
+    plan = fa.launch_plan(b, s, h, kvh, d, elem=2)
+    assert plan.dp == max(64, fa.head_dim_tile(d))
+    seen = np.zeros((b, s, h, d), dtype=np.int32)
+    gx, gy, gz = plan.grid
+    for x in range(gx):
+        for y in range(gy):
+            for z in range(gz):
+                bb, heads, pos, (lo, hi) = plan.block_outputs(x, y, z)
+                seen[bb, pos, heads, lo:hi] += 1
+    assert (seen == 1).all()
+    f32 = fa.launch_plan(b, s, h, kvh, d)
+    assert plan.args() == f32.args() and plan.smem_bytes <= SMEM_LIMIT
+    if d > 32:
+        assert plan.smem_bytes < f32.smem_bytes
+
+
+def test_bf16_attention_smem_mirrors_the_source():
+    """The source's Cfg at D 256, WR 2, bf16: 3 stages of 16 rows of K at
+    pitch 264 and of V at pitch 264, 2 bytes each, plus the 8 KB
+    partial-score exchange; the fp32 body's 108,800 bytes."""
+    assert fa.launch_plan(8, 128, 10, 1, 256, elem=2).smem_bytes == 58_880
+    assert fa.launch_plan(8, 128, 10, 1, 256).smem_bytes == 108_800
+
+
 @pytest.mark.parametrize("shape", [(8, 128, 10, 1, 256), (8, 128, 9, 3, 64)])
 def test_attention_plan_fills_the_card_at_the_probes(shape):
     assert fa.launch_plan(*shape).blocks >= 132

@@ -10,7 +10,13 @@ against the plain ``*_qref`` versions on the same card inputs (the same
 integer codes on both sides), with the same tolerance relative to the
 largest output.  ``rmsnorm``, ``rglru_scan`` and ``flash_attention``: 1e-5
 of the largest output (fp32 sums in another order; the scan rounds as its
-plain version does and is held bitwise).
+plain version does and is held bitwise).  Their bf16 bodies: each element
+within one bf16 ulp of the plain version (both compute in fp32 and round
+once), bitwise across two calls, and bitwise the fp32 body's output on the
+widened operands, rounded (the same arithmetic in the same order); the
+attention's one ulp is beyond its fp32 tolerance, since an output that
+cancels to near zero differs by more than its own ulp between two fp32
+sum orders.
 """
 import itertools
 
@@ -656,7 +662,8 @@ def test_new_ops_refuse_other_layouts_and_dtypes():
     with pytest.raises(ValueError, match="contiguous"):
         tk.rmsnorm_op(x.t(), torch.zeros(4, device=dev))
     with pytest.raises(TypeError, match="float32"):
-        tk.rmsnorm_op(x.bfloat16(), torch.zeros(64, device=dev))
+        tk.rmsnorm_op(x.double(), torch.zeros(64, device=dev,
+                                              dtype=torch.float64))
     a = torch.rand(2, 5, 8, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         tk.rglru_scan_op(a.transpose(1, 2), a.transpose(1, 2))
@@ -1310,16 +1317,115 @@ def test_train_step_on_the_card_matches_the_cpu():
                      + 1e-3 * du_c.abs()).all()), k
 
 
-def test_bf16_config_raises_at_the_first_kernel():
+def test_bf16_train_step_on_the_card_matches_the_cpu():
+    """A SmolLM-shaped bf16 config (2 layers, d 64): the loss within 1e-2
+    relative and every gradient leaf within 5e-2 · max |g| of the CPU
+    port's (both bf16, rounding in other orders), the forward through the
+    bf16 bodies (rmsnorm 5, flash_attention 2 launches, the fp32 bodies
+    none); one AdamW step keeps the params bf16 and the moments fp32."""
     dev = _card()
+    from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.step import (make_loss_fn, make_train_step,
+                                        value_and_grad)
+    from repro_torch.tree import tree_leaves, tree_map
     cfg = _train_cfg("bfloat16")
-    params, _ = T.init_model(cfg, torch.Generator().manual_seed(0),
-                             device=dev)
-    batch = {"tokens": torch.zeros(1, 8, dtype=torch.int32, device=dev),
-             "targets": torch.zeros(1, 8, dtype=torch.int32, device=dev)}
+    p_cpu, _ = T.init_model(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    p_dev = tree_map(lambda t: t.to(dev), p_cpu)
+    nb = SyntheticTokens(cfg.vocab_size, 2, 64, seed=0).batch_at(0)
+    b_cpu = {k: torch.from_numpy(v) for k, v in nb.items()}
+    b_dev = {k: v.to(dev) for k, v in b_cpu.items()}
+    loss_fn = make_loss_fn(cfg)
+    l_cpu, g_cpu = value_and_grad(loss_fn, p_cpu, b_cpu)
+    tk.reset_launch_counts()
+    l_dev, g_dev = value_and_grad(loss_fn, p_dev, b_dev)
+    torch.cuda.synchronize()
+    n = tk.launch_counts()
+    assert (n["rmsnorm_bf16"], n["flash_attention_bf16"]) == (5, 2)
+    assert (n["rmsnorm"], n["flash_attention"]) == (0, 0)
+    assert float(l_dev) == pytest.approx(float(l_cpu), rel=1e-2)
+    gc, gd = _flat(g_cpu), _flat(g_dev)
+    for k, v in gc.items():
+        assert gd[k].dtype == torch.bfloat16, k
+        assert float((gd[k].float() - v.float()).abs().max()) <= \
+            5e-2 * float(v.float().abs().max()) + 1e-12, k
+    step = make_train_step(cfg, AdamWConfig(lr=1e-2, warmup_steps=0,
+                                            total_steps=4))
+    p_dev, state, _ = step(p_dev, init_opt_state(p_dev), b_dev)
+    assert all(t.dtype == torch.bfloat16 for t in tree_leaves(p_dev))
+    assert all(t.dtype == torch.float32
+               for t in tree_leaves([state["mu"], state["nu"]]))
+
+
+def _bf16_within(y, yr, allowance: float = 0.0) -> bool:
+    """Every element of y within one bf16 ulp (of the larger of the two)
+    of yr, beyond an fp32 allowance: two fp32 sums that differ by δ round
+    to bf16 values at most δ + 1 ulp apart (an attention output that
+    cancels to near zero differs by more than its own ulp in fp32)."""
+    y, yr = y.float().cpu(), yr.float().cpu()
+    assert y.shape == yr.shape and bool(torch.isfinite(y).all())
+    a = torch.maximum(y.abs(), yr.abs()).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(a)) - 7)
+    return bool(((y - yr).abs() <= ulp + allowance).all())
+
+
+@pytest.mark.parametrize("m,d,g32", [(8, 2560, False), (37, 2561, True),
+                                     (1024, 3072, False), (8192, 576, True),
+                                     (5, 3584, False)])
+def test_rmsnorm_bf16_matches_plain_version(m, d, g32):
+    dev = _card()
+    g = torch.Generator().manual_seed(m + d)
+    x = (torch.randn(m, d, generator=g) * 3).to(dev).bfloat16()
+    w = (torch.randn(d, generator=g) * 0.2).to(dev)
+    w = w if g32 else w.bfloat16()
+    before = tk.launch_counts()["rmsnorm_bf16"]
+    y = tk.rmsnorm_op(x, w, eps=1e-6)
+    assert tk.launch_counts()["rmsnorm_bf16"] == before + 1
+    assert y.dtype == torch.bfloat16
+    assert _bf16_within(y, tk.rmsnorm_ref(x, w, 1e-6))
+    assert torch.equal(y, tk.rmsnorm_op(x, w, eps=1e-6))
+    assert torch.equal(y, tk.rmsnorm_op(x.float(), w.float(),
+                                        eps=1e-6).bfloat16())
+
+
+@pytest.mark.parametrize("shape,kvh,causal", [
+    ((8, 128, 16, 256), 16, True), ((8, 16, 28, 128), 4, True),
+    ((8, 128, 10, 256), 1, True), ((2, 37, 9, 64), 3, False),
+    ((2, 7, 4, 36), 2, True), ((1, 130, 2, 100), 1, False),
+    ((8, 1024, 9, 64), 3, True)])
+def test_flash_attention_bf16_matches_plain_version(shape, kvh, causal):
+    """The configs' head dims (64, 128, 256) and ragged ones (36: element
+    copies, not 16-byte ones; 100), grouped and multi-query heads."""
+    dev = _card()
+    b, s, h, d = shape
+    g = torch.Generator().manual_seed(s + d + h)
+    q = torch.randn(b, s, h, d, generator=g).to(dev).bfloat16()
+    k, v = (torch.randn(b, s, kvh, d, generator=g).to(dev).bfloat16()
+            for _ in range(2))
+    before = tk.launch_counts()["flash_attention_bf16"]
+    y = tk.flash_attention_op(q, k, v, causal)
+    assert tk.launch_counts()["flash_attention_bf16"] == before + 1
+    assert y.dtype == torch.bfloat16
+    ke, ve = (t.repeat_interleave(h // kvh, dim=2) for t in (k, v))
+    yr = tk.flash_attention_ref(q, ke, ve, causal)
+    # the fp32 body's own tolerance (1e-5 of the largest output)
+    assert _bf16_within(y, yr, 1e-5 * float(yr.float().abs().max()))
+    assert torch.equal(y, tk.flash_attention_op(q, k, v, causal))
+    assert torch.equal(y, tk.flash_attention_op(
+        q.float(), k.float(), v.float(), causal).bfloat16())
+
+
+def test_bf16_ops_refuse_mixed_dtypes():
+    dev = _card()
+    q = torch.randn(1, 6, 2, 64, device=dev)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tk.flash_attention_op(q.bfloat16(), q, q.bfloat16())
+    x = torch.randn(4, 64, device=dev)
     with pytest.raises(TypeError, match="float32"):
-        T.lm_loss(cfg, params, batch)
+        tk.rmsnorm_op(x, torch.zeros(64, device=dev, dtype=torch.bfloat16))
 
 
 @pytest.mark.parametrize("kind", ["rmsnorm", "flash_attention",

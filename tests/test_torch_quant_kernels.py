@@ -141,8 +141,9 @@ def test_launch_counts_cover_the_quantized_variants():
     assert set(tk.launch_counts()) == {
         "merged_conv", "depthwise_conv", "merged_ffn", "merged_conv_q",
         "depthwise_conv_q", "merged_ffn_q", "rmsnorm", "rglru_scan",
-        "flash_attention"}
+        "flash_attention", "rmsnorm_bf16", "flash_attention_bf16"}
     tmc.launches_q = tdw.launches_q = tmf.launches_q = 3
     rmsnorm.launches = rglru_scan.launches = flash_attention.launches = 2
+    rmsnorm.launches_bf16 = flash_attention.launches_bf16 = 4
     tk.reset_launch_counts()
     assert set(tk.launch_counts().values()) == {0}
