@@ -436,14 +436,20 @@ Phases, each printing its own line with the seconds it took:
              ``BF16_ATTENTION``: within one bf16 ulp of the plain version
              (the attention beyond its fp32 allowance; the most ulps and
              the elements beyond one are reported), bitwise across two
-             calls, gradients through the op as phase 3 holds them,
-             whether each equals the fp32 body on the widened operands
-             rounded, and cold-L2 times beside the bf16 bound,
-             ``F.rms_norm`` and SDPA (which rounds p to bf16: another
-             function) on the same bf16 inputs (``bf16.json``; the
-             ``kernels`` line's ``rmsnorm_bf16`` and
-             ``flash_attention_bf16`` rows, their launches those of
-             (b)-(c)).
+             calls, gradients through the op as phase 3 holds them, the
+             norm bitwise the fp32 body's output on the widened operands
+             rounded (the attention's, a kernel of its own that sums in
+             another order, only reported: expected false), and cold-L2
+             times beside the bf16 bound, ``F.rms_norm`` and SDPA on the
+             same bf16 inputs (which rounds p to bf16: another function)
+             and on the inputs widened to fp32 (``library_fp32_ms``: the
+             same function, p fp32) (``bf16.json``; the ``kernels``
+             line's ``rmsnorm_bf16`` and ``flash_attention_bf16`` rows,
+             their launches those of (b)-(c)).  Phase 2 prints the bf16
+             attention's instances with their registers and spills and
+             fails on a spill, and counts its ``HGMMA`` (wgmma) and
+             ``UTMALDG`` (TMA) instructions with ``cuobjdump``, failing
+             where either is 0.
 
 Each phase's seconds (its last log line's) end in a ``[phases]`` line
 and ``phases.json``.
@@ -558,8 +564,10 @@ KERNEL_SOURCES = {
                         "src/repro/kernels/flash_attention.py:78")}
 for _k in ("merged_conv", "depthwise_conv", "merged_ffn"):
     KERNEL_SOURCES[_k + "_q"] = KERNEL_SOURCES[_k]   # quant=True
-for _k in ("rmsnorm", "flash_attention"):
-    KERNEL_SOURCES[_k + "_bf16"] = KERNEL_SOURCES[_k]   # the bf16 body
+KERNEL_SOURCES["rmsnorm_bf16"] = KERNEL_SOURCES["rmsnorm"]   # the bf16 body
+KERNEL_SOURCES["flash_attention_bf16"] = (          # a Hopper kernel of its own
+    "src/repro_torch/kernels/csrc/flash_attention_bf16.cu",
+    KERNEL_SOURCES["flash_attention"][1])
 Q_FIELDS = ("ms", "plain_ms", "library_ms", "fp32_ms", "op_ms", "qpass_ms",
             "flops_ms", "bytes_ms", "bound_ms")
 
@@ -5214,9 +5222,14 @@ def bf16_kernels(dev) -> tuple[list, dict]:
     (the attention beyond its fp32 allowance, :func:`held_ulp`; the most
     ulps and the elements beyond one reported), bitwise equal across two
     calls, and timed (kernel, plain version,
-    library call, bound; cold L2); whether each equals the fp32 body on
-    the widened operands, rounded (reported); the gradients through each
-    op against the plain version's autograd, as phase 3 holds them."""
+    library call, bound; cold L2; the attention also against SDPA on the
+    inputs widened to fp32, ``library_fp32_ms``, the one call that keeps p
+    fp32 as the kernel does); the norm's output bitwise the fp32 body's on
+    the widened operands, rounded (checked: one reduction order for both
+    bodies); the attention's equality to it reported (expected false: the
+    bf16 body is a kernel of its own, summing in another order); the
+    gradients through each op against the plain version's autograd, as
+    phase 3 holds them."""
     import torch
     import torch.nn.functional as F
     from repro_torch import kernels
@@ -5238,6 +5251,8 @@ def bf16_kernels(dev) -> tuple[list, dict]:
         same_fp32[f"rmsnorm {(m, d)}"] = bool(torch.equal(
             y, kernels.rmsnorm_op(x.float(), w.float(), eps=1e-6)
             .bfloat16()))
+        check(same_fp32[f"rmsnorm {(m, d)}"], f"rmsnorm_bf16 {(m, d)}: not "
+              "bitwise the fp32 body's output on the widened operands")
         w1 = 1.0 + w
         rows.append(time_row(
             "rmsnorm_bf16", [m, d],
@@ -5270,6 +5285,10 @@ def bf16_kernels(dev) -> tuple[list, dict]:
             lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                    is_causal=True),
             attention_bound_bf16(b, s, h, kvh, d), err, BF16_RATE))
+        qf, kf, vf = qt.float(), kt.float(), vt.float()
+        rows[-1]["library_fp32_ms"] = kernel_time(
+            lambda: F.scaled_dot_product_attention(qf, kf, vf,
+                                                   is_causal=True))
     for r in rows:
         r["slower_than_library"] = bool(r["ms"] > r["library_ms"])
     # gradients through the ops (the kernel forward, the plain version's
@@ -5558,12 +5577,19 @@ def bf16_phase(dev, serve_rows=None, trn=None) -> tuple[dict, dict, dict]:
     rows, extra = bf16_kernels(dev)
     out["kernels"] = rows
     out.update(extra)
-    log("bf16 kernels", t, kernel_rows_line(rows) + "; most bf16 ulps "
+    same = extra["same_as_fp32_body"]
+    log("bf16 kernels", t, kernel_rows_line(rows) + "; SDPA on the inputs "
+        "widened to fp32 (p fp32, the kernel's function) " + json.dumps(
+            {str(r["shape"]): r["library_fp32_ms"] for r in rows
+             if "library_fp32_ms" in r}) + "; most bf16 ulps "
         "from the plain version, elements beyond one ulp, elements "
         f"{json.dumps(extra['ulps'])}; the fp32 body's "
-        "output on the widened operands, rounded, bitwise on "
-        f"{sum(extra['same_as_fp32_body'].values())}/"
-        f"{len(extra['same_as_fp32_body'])} shapes; gradients "
+        "output on the widened operands, rounded, bitwise: the norm on "
+        f"{sum(v for k, v in same.items() if k.startswith('rmsnorm'))}/"
+        f"{sum(k.startswith('rmsnorm') for k in same)} shapes (checked), "
+        "the attention on "
+        f"{sum(v for k, v in same.items() if k.startswith('flash'))}/"
+        f"{sum(k.startswith('flash') for k in same)} (reported); gradients "
         f"{json.dumps(extra['gradients'])}")
     tot = {}
     for k in ("rmsnorm_bf16", "flash_attention_bf16"):
@@ -5571,12 +5597,56 @@ def bf16_phase(dev, serve_rows=None, trn=None) -> tuple[dict, dict, dict]:
         tot[k] = {f: sum(r[f] for r in rs) for f in
                   ("ms", "plain_ms", "library_ms", "flops_ms", "bytes_ms",
                    "bound_ms")}
+        if "library_fp32_ms" in rs[0]:
+            tot[k]["library_fp32_ms"] = sum(r["library_fp32_ms"] for r in rs)
         tot[k].update(max_abs_err=max(r["max_abs_err"] for r in rs),
                       bound_rate=rs[0]["bound_rate"], shapes=len(rs))
     out["seconds"] = time.perf_counter() - t0
     log("bf16", t0, f"phase 26 in {out['seconds']:.2f}s; launches (b)-(c) "
         f"{launches}")
     return out, launches, tot
+
+
+def hopper_resources(build) -> dict:
+    """The bf16 attention's instances (``Cfg<DP, DV, CW>``) with their
+    registers and spill bytes from ``-Xptxas -v`` (a spill fails: its
+    consumers hold the accumulator in registers), and the ``HGMMA`` (wgmma)
+    and ``UTMALDG`` (TMA tensor load) instructions of its library's SASS
+    (``cuobjdump -sass``; 0 of either fails).  Only the lines of a library
+    built in this run are there to read: a cached one reports none."""
+    import re
+
+    from repro_torch.kernels import cuda_build
+    inst, cur = {}, None
+    for ln in build.log.splitlines():
+        m = re.search(r"Function properties for \S*CfgILi(\d+)ELi(\d+)ELi(\d+)E",
+                      ln)
+        if m:
+            cur = "Cfg<%s,%s,%s>" % m.groups()
+            inst[cur] = {}
+        elif cur and "spill stores" in ln:
+            inst[cur]["spill_bytes"] = int(re.search(
+                r"(\d+) bytes spill stores", ln).group(1))
+        elif cur and "Used" in ln and "registers" in ln:
+            inst[cur]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                   ln).group(1))
+            cur = None
+    for k, v in inst.items():
+        print(f"  flash_attention_bf16 {k}: {v.get('registers')} registers, "
+              f"{v.get('spill_bytes')} bytes spilled", flush=True)
+        check(v.get("spill_bytes", 0) == 0,
+              f"flash_attention_bf16 {k} spills {v['spill_bytes']} bytes")
+    check(build.cached or len(inst) == 7, f"flash_attention_bf16: "
+          f"{len(inst)} instances in ptxas's output (want 7)")
+    sass = subprocess.run([os.path.join(os.path.dirname(cuda_build._nvcc()),
+                                        "cuobjdump"), "-sass",
+                           str(build.path)], capture_output=True, text=True,
+                          timeout=120).stdout
+    ops = {op: len(re.findall(r"\b" + op + r"\b", sass))
+           for op in ("HGMMA", "UTMALDG")}
+    check(all(ops.values()), f"flash_attention_bf16: SASS {ops} (wgmma and "
+          "TMA loads expected)")
+    return {"instances": inst, "sass": ops}
 
 
 def main(argv) -> int:
@@ -5627,7 +5697,9 @@ def main(argv) -> int:
                if "registers" in ln or "spill" in ln or "smem" in ln]
         print(f"  {b.name}: {b.seconds:.1f}s cached={b.cached} "
               f"{' | '.join(res)}", flush=True)
-    log("build", t0, f"{len(builds)} kernels")
+    hopper = hopper_resources(builds["flash_attention_bf16"])
+    log("build", t0, f"{len(builds)} kernels; flash_attention_bf16 "
+        f"{json.dumps(hopper)}")
 
     # 3. kernel sweep -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -6057,7 +6129,9 @@ def main(argv) -> int:
         "bound_ms": v["bound_ms"],
         "bound_by": "bytes" if v["bytes_ms"] >= v["flops_ms"]
         else "operations", "bound_rate": v.get("bound_rate", FFMA_RATE),
-        "library_ms": v["library_ms"]} for k, v in tot.items()]}
+        "library_ms": v["library_ms"],
+        **({"library_fp32_ms": v["library_fp32_ms"]}
+           if "library_fp32_ms" in v else {})} for k, v in tot.items()]}
     for v in line["kernels"]:
         check_bound(v["name"], v["ms"], v["bound_ms"])
     with open(os.path.join(WORK, "phases.json"), "w") as f:

@@ -1,4 +1,4 @@
-// Flash attention (forward) for Hopper (sm_90a), fp32 and bf16 bodies:
+// Flash attention (forward) for Hopper (sm_90a), the fp32 body:
 //   o = softmax(q k^T / sqrt(D) [+ causal mask]) v
 // over q (B, S, H, D), k and v (B, S, KVH, D) with H % KVH == 0 (query head
 // h reads kv head h / (H / KVH): GQA and MQA without expanding k and v),
@@ -48,30 +48,15 @@
 //   kernels/flash_attention.py, where the CPU tests check that it covers
 //   every output once.  The row tiles with the most kv tiles (largest s)
 //   are scheduled first.
-// - The bf16 body (q, k, v, o bf16) is the same template on the element
-//   type, and computes the TPU kernel's function at bf16: q, k and v are
-//   widened (exactly), every sum runs in fp32, p stays fp32 into p·v, and
-//   o is rounded once, at its store, to bf16 (round to nearest even).  A
-//   bf16 value is exact in TF32 and a product of two is exact in fp32, so
-//   q·k^T takes one TF32 mma a tile where the fp32 body takes three, and
-//   p·v two (p's hi/lo split against the exact v).  The dropped products
-//   are exactly zero in the fp32 body on the widened operands (their lo
-//   parts are 0), so the bf16 body's o is bitwise the fp32 body's on
-//   q.float(), k.float(), v.float(), rounded.  The ring holds bf16 tiles
-//   (16-byte copies of 8 elements where D % 8 == 0 and k, v are 16-byte
-//   aligned, else element copies), half the fp32 body's shared memory at
-//   the same tile shapes.  It is instantiated for the configs' head dims:
-//   tiles 64, 128 and 256.  Rounding p to bf16 before p·v, as common bf16
-//   flash kernels do, would be another function; this body does not.
 // - Deterministic: no atomics, every sum in a fixed order, so two calls on
 //   the same inputs give bitwise the same o.
 //
-// Shared memory: STAGES x (BKV rows of K at pitch DP + 8 elements and of
-// the block's V columns at pitch DV + 4 floats or DV + 8 bf16:
-// conflict-free fragment loads), plus the partial-score exchange (fp32).
-// At D 256, WR 2: 108,800 bytes in fp32, 58,880 in bf16.  Set once per
+// The bf16 body is a kernel of its own (flash_attention_bf16.cu).
+//
+// Shared memory: STAGES x (BKV rows of K at pitch DP + 8 floats and of the
+// block's V columns at pitch DV + 4: conflict-free fragment loads), plus
+// the partial-score exchange.  At D 256, WR 2: 108,800 bytes.  Set once per
 // device, outside graph capture.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -84,49 +69,11 @@ namespace {
 constexpr float NEG = -1e30f;
 constexpr int STAGES = 3;   // K/V tiles in flight
 
-// How an element type is read, widened and stored.  WIDE: fp32 operands
-// need the 3xTF32 hi/lo split; a bf16 value is exact in TF32.  VPAD: the
-// V pitch's padding in elements (4 floats, 8 bf16: 16 bytes either way).
-template <typename T>
-struct Io;
-template <>
-struct Io<float> {
-  static constexpr bool WIDE = true;
-  static constexpr int VPAD = 4;
-  static __device__ __forceinline__ float ld(const float* p) {
-    return __ldg(p);
-  }
-  static __device__ __forceinline__ float f32(float v) { return v; }
-  static __device__ __forceinline__ float2 pair(const float* p) {
-    return *reinterpret_cast<const float2*>(p);
-  }
-  static __device__ __forceinline__ float st(float v) { return v; }
-};
-template <>
-struct Io<__nv_bfloat16> {
-  static constexpr bool WIDE = false;
-  static constexpr int VPAD = 8;
-  static __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ float f32(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-  }
-  static __device__ __forceinline__ float2 pair(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-  static __device__ __forceinline__ __nv_bfloat16 st(float v) {
-    return __float2bfloat16_rn(v);
-  }
-};
-
-// T: the element type of q, k, v and o; DP: head dim rounded up (32, 64,
-// 128 or 256); WR row groups of 16 query rows per block; DSPLIT blocks
-// share a row tile, each DP / DSPLIT output columns.
-template <typename T, int DP_, int WR_, int DSPLIT_>
+// DP: head dim rounded up (32, 64, 128 or 256); WR row groups of 16 query
+// rows per block; DSPLIT blocks share a row tile, each DP / DSPLIT output
+// columns.
+template <int DP_, int WR_, int DSPLIT_>
 struct Cfg {
-  using E = T;
-  static constexpr bool WIDE = Io<T>::WIDE;
   static constexpr int DP = DP_, WR = WR_, DSPLIT = DSPLIT_;
   static constexpr int WD = DP >= 128 ? DP / 64 : 1;   // warps splitting D
   static constexpr int WARPS = WR * WD, THREADS = WARPS * 32;
@@ -136,22 +83,19 @@ struct Cfg {
   static constexpr int DV = DP / DSPLIT;                // out columns a block
   static constexpr int DO = DV / WD;                    // out columns a warp
   static constexpr int KS = DQ / 8, NT = BKV / 8, NO = DO / 8;
-  static constexpr int LDK = DP + 8, LDV = DV + Io<T>::VPAD;  // pitches
-  static constexpr int STAGE = BKV * (LDK + LDV);       // elements a stage
-  static constexpr int XS = WD > 1 ? WARPS * NT * 32 * 4 : 0;   // floats
-  static constexpr int BYTES =
-      STAGES * STAGE * static_cast<int>(sizeof(T)) + XS * 4;
-  static constexpr int CH = 16 / static_cast<int>(sizeof(T));  // a 16-B copy
+  static constexpr int LDK = DP + 8, LDV = DV + 4;      // pitches (floats)
+  static constexpr int STAGE = BKV * (LDK + LDV);       // floats a stage
+  static constexpr int XS = WD > 1 ? WARPS * NT * 32 * 4 : 0;
+  static constexpr int BYTES = (STAGES * STAGE + XS) * 4;
   static_assert(DQ % 8 == 0 && DO % 8 == 0, "whole mma tiles per warp");
-  static_assert(DV % 16 == 0, "V pitch = 16 bytes mod 64: conflict-free");
+  static_assert(DV % 16 == 0, "V pitch = 4 mod 16: conflict-free loads");
 };
 
-template <typename T>
 struct Params {
-  const T* q;
-  const T* k;
-  const T* v;
-  T* o;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
   int S, H, KVH, D;
   float scale;
   int causal;
@@ -159,13 +103,8 @@ struct Params {
 };
 
 template <class C>
-__global__ void __launch_bounds__(C::THREADS)
-    attention_kernel(const Params<typename C::E> p) {
-  using T = typename C::E;
-  using IO = Io<T>;
-  constexpr bool W = C::WIDE;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
+__global__ void __launch_bounds__(C::THREADS) attention_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wr = warp / C::WD, wc = warp % C::WD;
@@ -176,8 +115,8 @@ __global__ void __launch_bounds__(C::THREADS)
   const int col0 = blockIdx.z * C::DV;
   // Offsets fit in int: the wrapper refuses tensors above 2^31 - 1 elements.
   const int q_row = p.H * p.D, kv_row = p.KVH * p.D;
-  const T* kb = p.k + b * p.S * kv_row + hk * p.D;
-  const T* vb = p.v + b * p.S * kv_row + hk * p.D;
+  const float* kb = p.k + b * p.S * kv_row + hk * p.D;
+  const float* vb = p.v + b * p.S * kv_row + hk * p.D;
   const int qb = b * p.S * q_row + hk * G * p.D;   // row (s, j): + s*q_row + j*D
 
   // The lane's two rows (g and g + 8 of the warp's m-tile): their s, and
@@ -192,16 +131,16 @@ __global__ void __launch_bounds__(C::THREADS)
   const int n_tiles = last_key / C::BKV + 1;
 
   auto load = [&](int stage, int tile) {
-    T* Ks = smem + stage * C::STAGE;
-    T* Vs = Ks + C::BKV * C::LDK;
+    float* Ks = smem + stage * C::STAGE;
+    float* Vs = Ks + C::BKV * C::LDK;
     const int key0 = tile * C::BKV;
     if (p.vec) {
-      constexpr int KC = C::BKV * C::DP / C::CH, VC = C::BKV * C::DV / C::CH;
+      constexpr int KC = C::BKV * C::DP / 4, VC = C::BKV * C::DV / 4;
 #pragma unroll
       for (int i = 0; i < (KC + C::THREADS - 1) / C::THREADS; ++i) {
         const int c = tid + i * C::THREADS;
         if (KC % C::THREADS == 0 || c < KC) {
-          const int r = c / (C::DP / C::CH), cc = (c % (C::DP / C::CH)) * C::CH;
+          const int r = c / (C::DP / 4), cc = (c % (C::DP / 4)) * 4;
           const bool ok = key0 + r < p.S && cc < p.D;
           cp_async16(Ks + r * C::LDK + cc,
                      ok ? kb + (key0 + r) * kv_row + cc : kb, ok);
@@ -211,13 +150,13 @@ __global__ void __launch_bounds__(C::THREADS)
       for (int i = 0; i < (VC + C::THREADS - 1) / C::THREADS; ++i) {
         const int c = tid + i * C::THREADS;
         if (VC % C::THREADS == 0 || c < VC) {
-          const int r = c / (C::DV / C::CH), cc = (c % (C::DV / C::CH)) * C::CH;
+          const int r = c / (C::DV / 4), cc = (c % (C::DV / 4)) * 4;
           const bool ok = key0 + r < p.S && col0 + cc < p.D;
           cp_async16(Vs + r * C::LDV + cc,
                      ok ? vb + (key0 + r) * kv_row + col0 + cc : vb, ok);
         }
       }
-    } else if constexpr (W) {
+    } else {
       for (int c = tid; c < C::BKV * C::DP; c += C::THREADS) {
         const int r = c / C::DP, cc = c % C::DP;
         const bool ok = key0 + r < p.S && cc < p.D;
@@ -229,25 +168,6 @@ __global__ void __launch_bounds__(C::THREADS)
         const bool ok = key0 + r < p.S && col0 + cc < p.D;
         cp_async4(Vs + r * C::LDV + cc,
                   ok ? vb + (key0 + r) * kv_row + col0 + cc : vb, ok);
-      }
-    } else {
-      // 2-byte elements, which cp.async does not copy: plain loads and
-      // stores, visible to the tile's readers after the barrier that
-      // precedes them, as the copies are.
-      uint16_t* K16 = reinterpret_cast<uint16_t*>(Ks);
-      uint16_t* V16 = reinterpret_cast<uint16_t*>(Vs);
-      const uint16_t* k16 = reinterpret_cast<const uint16_t*>(kb);
-      const uint16_t* v16 = reinterpret_cast<const uint16_t*>(vb);
-      for (int c = tid; c < C::BKV * C::DP; c += C::THREADS) {
-        const int r = c / C::DP, cc = c % C::DP;
-        const bool ok = key0 + r < p.S && cc < p.D;
-        K16[r * C::LDK + cc] = ok ? k16[(key0 + r) * kv_row + cc] : 0;
-      }
-      for (int c = tid; c < C::BKV * C::DV; c += C::THREADS) {
-        const int r = c / C::DV, cc = c % C::DV;
-        const bool ok = key0 + r < p.S && col0 + cc < p.D;
-        V16[r * C::LDV + cc] =
-            ok ? v16[(key0 + r) * kv_row + col0 + cc] : 0;
       }
     }
   };
@@ -266,19 +186,16 @@ __global__ void __launch_bounds__(C::THREADS)
     if (s < n_tiles) load(s, s);
     cp_async_commit();
   }
-  // q split once: A fragments of the warp's DQ columns (a bf16 q is exact
-  // in TF32: its hi alone).
-  uint32_t qh[C::KS][4], ql[W ? C::KS : 1][4];
+  // q split once: A fragments of the warp's DQ columns.
+  uint32_t qh[C::KS][4], ql[C::KS][4];
 #pragma unroll
   for (int ks = 0; ks < C::KS; ++ks)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = wc * C::DQ + ks * 8 + 2 * t + (j >> 1);
       const int off = (j & 1) ? ob : oa;
-      const float f = (off >= 0 && col < p.D) ? IO::ld(p.q + off + col) : 0.f;
-      uint32_t lo;
-      split<W>(f, qh[ks][j], lo);
-      if constexpr (W) ql[ks][j] = lo;
+      const float f = (off >= 0 && col < p.D) ? __ldg(p.q + off + col) : 0.f;
+      split<true>(f, qh[ks][j], ql[ks][j]);
     }
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -289,54 +206,43 @@ __global__ void __launch_bounds__(C::THREADS)
     const int nxt = it + STAGES - 1;
     if (nxt < n_tiles) load(nxt % STAGES, nxt);
     cp_async_commit();
-    const T* Ks = smem + (it % STAGES) * C::STAGE;
-    const T* Vs = Ks + C::BKV * C::LDK;
+    const float* Ks = smem + (it % STAGES) * C::STAGE;
+    const float* Vs = Ks + C::BKV * C::LDK;
 
     // Scores of the warp's 16 rows against the tile's BKV keys over its
     // DQ columns of q: B[k][n] = K[key n][column k].
-    // fp32: the small terms and hi·hi in two accumulators (two dependent
-    // chains of mma per n-tile instead of one), added at the end; bf16:
-    // hi·hi alone, exact.
-    float sc[C::NT][4], sl[W ? C::NT : 1][4];
+    // The small terms and hi·hi in two accumulators (two dependent chains
+    // of mma per n-tile instead of one), added at the end.
+    float sc[C::NT][4], sl[C::NT][4];
 #pragma unroll
     for (int nt = 0; nt < C::NT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[nt][e] = 0.f;
-        if constexpr (W) sl[nt][e] = 0.f;
-      }
+      for (int e = 0; e < 4; ++e) sc[nt][e] = sl[nt][e] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < C::KS; ++ks) {
-      uint32_t bh[C::NT][2], bl[W ? C::NT : 1][2];
+      uint32_t bh[C::NT][2], bl[C::NT][2];
 #pragma unroll
       for (int nt = 0; nt < C::NT; ++nt) {
-        const float2 kk = IO::pair(
+        const float2 kk = *reinterpret_cast<const float2*>(
             Ks + (nt * 8 + g) * C::LDK + wc * C::DQ + ks * 8 + 2 * t);
-        uint32_t lo0, lo1;
-        split<W>(kk.x, bh[nt][0], lo0);
-        split<W>(kk.y, bh[nt][1], lo1);
-        if constexpr (W) bl[nt][0] = lo0, bl[nt][1] = lo1;
+        split<true>(kk.x, bh[nt][0], bl[nt][0]);
+        split<true>(kk.y, bh[nt][1], bl[nt][1]);
       }
-      if constexpr (W) {
 #pragma unroll
-        for (int nt = 0; nt < C::NT; ++nt) mma(sl[nt], ql[ks], bh[nt]);
+      for (int nt = 0; nt < C::NT; ++nt) mma(sl[nt], ql[ks], bh[nt]);
 #pragma unroll
-        for (int nt = 0; nt < C::NT; ++nt) mma(sl[nt], qh[ks], bl[nt]);
-      }
+      for (int nt = 0; nt < C::NT; ++nt) mma(sl[nt], qh[ks], bl[nt]);
 #pragma unroll
       for (int nt = 0; nt < C::NT; ++nt) mma(sc[nt], qh[ks], bh[nt]);
     }
-    if constexpr (W) {
 #pragma unroll
-      for (int nt = 0; nt < C::NT; ++nt)
+    for (int nt = 0; nt < C::NT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) sc[nt][e] += sl[nt][e];
-    }
+      for (int e = 0; e < 4; ++e) sc[nt][e] += sl[nt][e];
     if constexpr (C::WD > 1) {
       // The row group's WD partial sums, added in column-slice order by
       // each of its warps alike.
-      float4* X = reinterpret_cast<float4*>(
-          smem_raw + STAGES * C::STAGE * sizeof(T));
+      float4* X = reinterpret_cast<float4*>(smem + STAGES * C::STAGE);
 #pragma unroll
       for (int nt = 0; nt < C::NT; ++nt)
         X[(warp * C::NT + nt) * 32 + lane] =
@@ -407,8 +313,7 @@ __global__ void __launch_bounds__(C::THREADS)
 
     // acc += p @ V[:, the warp's DO columns]: the scores' fragment of
     // n-tile ks is the A fragment of k-step ks (a0 = c0, a1 = c2,
-    // a2 = c1, a3 = c3 under the permuted k index).  p stays fp32 (hi and
-    // lo); a bf16 v is exact (its hi alone).
+    // a2 = c1, a3 = c3 under the permuted k index).
 #pragma unroll
     for (int ks = 0; ks < C::NT; ++ks) {
       uint32_t ah[4], al[4];
@@ -416,22 +321,18 @@ __global__ void __launch_bounds__(C::THREADS)
       split<true>(sc[ks][2], ah[1], al[1]);
       split<true>(sc[ks][1], ah[2], al[2]);
       split<true>(sc[ks][3], ah[3], al[3]);
-      uint32_t bh[C::NO][2], bl[W ? C::NO : 1][2];
+      uint32_t bh[C::NO][2], bl[C::NO][2];
 #pragma unroll
       for (int no = 0; no < C::NO; ++no) {
-        const T* vp =
+        const float* vp =
             Vs + (ks * 8 + 2 * t) * C::LDV + wc * C::DO + no * 8 + g;
-        uint32_t lo0, lo1;
-        split<W>(IO::f32(vp[0]), bh[no][0], lo0);
-        split<W>(IO::f32(vp[C::LDV]), bh[no][1], lo1);
-        if constexpr (W) bl[no][0] = lo0, bl[no][1] = lo1;
+        split<true>(vp[0], bh[no][0], bl[no][0]);
+        split<true>(vp[C::LDV], bh[no][1], bl[no][1]);
       }
 #pragma unroll
       for (int no = 0; no < C::NO; ++no) mma(acc[no], al, bh[no]);
-      if constexpr (W) {
 #pragma unroll
-        for (int no = 0; no < C::NO; ++no) mma(acc[no], ah, bl[no]);
-      }
+      for (int no = 0; no < C::NO; ++no) mma(acc[no], ah, bl[no]);
 #pragma unroll
       for (int no = 0; no < C::NO; ++no) mma(acc[no], ah, bh[no]);
     }
@@ -443,18 +344,18 @@ __global__ void __launch_bounds__(C::THREADS)
   for (int no = 0; no < C::NO; ++no) {
     const int col = col0 + wc * C::DO + no * 8 + 2 * t;
     if (oa >= 0) {
-      if (col < p.D) p.o[oa + col] = IO::st(acc[no][0] / den_a);
-      if (col + 1 < p.D) p.o[oa + col + 1] = IO::st(acc[no][1] / den_a);
+      if (col < p.D) p.o[oa + col] = acc[no][0] / den_a;
+      if (col + 1 < p.D) p.o[oa + col + 1] = acc[no][1] / den_a;
     }
     if (ob >= 0) {
-      if (col < p.D) p.o[ob + col] = IO::st(acc[no][2] / den_b);
-      if (col + 1 < p.D) p.o[ob + col + 1] = IO::st(acc[no][3] / den_b);
+      if (col < p.D) p.o[ob + col] = acc[no][2] / den_b;
+      if (col + 1 < p.D) p.o[ob + col + 1] = acc[no][3] / den_b;
     }
   }
 }
 
 template <class C>
-int launch(const Params<typename C::E>& p, int b, cudaStream_t stream) {
+int launch(const Params& p, int b, cudaStream_t stream) {
   // The dynamic shared memory attribute once per device, so that a launch
   // inside CUDA-graph capture makes no call that capture forbids.
   static bool ready[64] = {};
@@ -475,44 +376,20 @@ int launch(const Params<typename C::E>& p, int b, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance of element type T and head-dim tile DP that the plan (wr,
-// dsplit) names.
-template <typename T, int DP>
-int dispatch(const Params<T>& p, int b, int wr, int dsplit,
+// The instance of head-dim tile DP that the plan (wr, dsplit) names.
+template <int DP>
+int dispatch(const Params& p, int b, int wr, int dsplit,
              cudaStream_t stream) {
   if (dsplit == 1) {
-    if (wr == 1) return launch<Cfg<T, DP, 1, 1>>(p, b, stream);
-    if (wr == 2) return launch<Cfg<T, DP, 2, 1>>(p, b, stream);
+    if (wr == 1) return launch<Cfg<DP, 1, 1>>(p, b, stream);
+    if (wr == 2) return launch<Cfg<DP, 2, 1>>(p, b, stream);
     if constexpr (DP < 256) {
-      if (wr == 4) return launch<Cfg<T, DP, 4, 1>>(p, b, stream);
+      if (wr == 4) return launch<Cfg<DP, 4, 1>>(p, b, stream);
     }
   } else if (dsplit == 2 && wr == 1) {
-    return launch<Cfg<T, DP, 1, 2>>(p, b, stream);
+    return launch<Cfg<DP, 1, 2>>(p, b, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <typename T>
-int run(const void* q, const void* k, const void* v, void* o, int b, int s,
-        int h, int kvh, int d, int causal, int wr, int dsplit,
-        void* stream) {
-  if (b <= 0 || s <= 0 || h <= 0 || kvh <= 0 || h % kvh != 0 ||
-      b * kvh > 65535 || d <= 0 || d > 256)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool aligned = reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  const int ch = 16 / static_cast<int>(sizeof(T));
-  const Params<T> p{static_cast<const T*>(q), static_cast<const T*>(k),
-                    static_cast<const T*>(v), static_cast<T*>(o), s, h, kvh,
-                    d, 1.0f / std::sqrt(static_cast<float>(d)), causal,
-                    (d % ch == 0 && aligned) ? 1 : 0};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if constexpr (Io<T>::WIDE) {
-    if (d <= 32) return dispatch<T, 32>(p, b, wr, dsplit, st);
-  }
-  if (d <= 64) return dispatch<T, 64>(p, b, wr, dsplit, st);
-  if (d <= 128) return dispatch<T, 128>(p, b, wr, dsplit, st);
-  return dispatch<T, 256>(p, b, wr, dsplit, st);
 }
 
 }  // namespace
@@ -527,15 +404,17 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, float* o, int b, int s,
                                    int h, int kvh, int d, int causal, int wr,
                                    int dsplit, void* stream) {
-  return run<float>(q, k, v, o, b, s, h, kvh, d, causal, wr, dsplit, stream);
-}
-
-// The bf16 body: q, k, v and o bf16, the rest as flash_attention_f32 (head
-// dims up to 64 take the tile 64).
-extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int b, int s,
-                                    int h, int kvh, int d, int causal,
-                                    int wr, int dsplit, void* stream) {
-  return run<__nv_bfloat16>(q, k, v, o, b, s, h, kvh, d, causal, wr, dsplit,
-                            stream);
+  if (b <= 0 || s <= 0 || h <= 0 || kvh <= 0 || h % kvh != 0 ||
+      b * kvh > 65535 || d <= 0 || d > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool aligned = reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  const Params p{q, k, v, o, s, h, kvh, d,
+                 1.0f / std::sqrt(static_cast<float>(d)), causal,
+                 (d % 4 == 0 && aligned) ? 1 : 0};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d <= 32) return dispatch<32>(p, b, wr, dsplit, st);
+  if (d <= 64) return dispatch<64>(p, b, wr, dsplit, st);
+  if (d <= 128) return dispatch<128>(p, b, wr, dsplit, st);
+  return dispatch<256>(p, b, wr, dsplit, st);
 }

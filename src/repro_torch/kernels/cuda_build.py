@@ -2,9 +2,12 @@
 
 Every kernel source under ``csrc/`` exposes plain C functions (an fp32
 entry point and, for the three merged-segment kernels, its quantized
-variant; for the norm and the attention, a bf16 body), so it builds in
-seconds without PyTorch's headers.  A library is built at first use into
-``build/repro_torch/`` at the root of the checkout — or, for an installed
+variant; for the norm, a bf16 body; the attention's bf16 body is a source
+of its own), so it builds in seconds without PyTorch's headers.  None
+links a library beyond the CUDA runtime: the bf16 attention finds
+libcuda's tensor-map encoder through the runtime's entry-point query.
+A library is built at first use into ``build/repro_torch/`` at the root
+of the checkout — or, for an installed
 package, into ``$XDG_CACHE_HOME/repro_torch`` (``~/.cache/repro_torch``) —
 named by a hash of its source, the shared headers (``csrc/*.cuh``) and
 the flags, so an edited source rebuilds and an unchanged one is reused.
@@ -64,19 +67,21 @@ SIGNATURES = {
                      [_P] * 8 + [_I] * 13 + [_P]),
     # bm, bn, splits: resident blocks in clusters of splits (no stream)
     "merged_ffn_slots": ("merged_ffn", "merged_ffn_slots", [_I] * 3),
-    # x, g, y, m, d, eps, vec, stream
-    "rmsnorm": ("rmsnorm", "rmsnorm_f32", [_P] * 3 + [_I, _I, _F, _I, _P]),
-    # the bf16 body: x, g, y, m, d, eps, g_f32, vec, stream
+    # x, g, y, m, d, eps, then the plan (path, wr, nc), stream
+    "rmsnorm": ("rmsnorm", "rmsnorm_f32",
+                [_P] * 3 + [_I, _I, _F, _I, _I, _I, _P]),
+    # the bf16 body: x, g, y, m, d, eps, g_f32, the plan as above, stream
     "rmsnorm_bf16": ("rmsnorm", "rmsnorm_bf16",
-                     [_P] * 3 + [_I, _I, _F, _I, _I, _P]),
+                     [_P] * 3 + [_I, _I, _F, _I, _I, _I, _I, _P]),
     # a, b, h, batch, s, c, stream
     "rglru_scan": ("rglru_scan", "rglru_scan_f32", [_P] * 3 + [_I] * 3 + [_P]),
     # q, k, v, o, b, s, h, kvh, d, causal, then the plan (wr, dsplit),
     # stream
     "flash_attention": ("flash_attention", "flash_attention_f32",
                         [_P] * 4 + [_I] * 8 + [_P]),
-    # the bf16 body, the same arguments
-    "flash_attention_bf16": ("flash_attention", "flash_attention_bf16",
+    # the bf16 body (a Hopper kernel of its own): q, k, v, o, b, s, h,
+    # kvh, d, causal, then the plan (cw, dsplit), stream
+    "flash_attention_bf16": ("flash_attention_bf16", "flash_attention_bf16",
                              [_P] * 4 + [_I] * 8 + [_P]),
 }
 

@@ -7,10 +7,12 @@ the sources derive their grid and index arithmetic from the same numbers,
 which the plans mirror (``block_outputs``, ``thread_outputs``), so the
 coverage arithmetic is checked here: every output index written by
 exactly one block or thread, ragged S, D, Wo and channel counts included.
-The attention multiplies fp32 operands as 3xTF32 with the q·kᵀ depth split
-over a row group's warps; a plain PyTorch emulation of those products is
-held against float64 for one RecurrentGemma-shaped tile.  Nothing here
-imports JAX.
+The fp32 attention multiplies fp32 operands as 3xTF32 with the q·kᵀ depth
+split over a row group's warps; a plain PyTorch emulation of those
+products is held against float64 for one RecurrentGemma-shaped tile.  The
+bf16 attention (``csrc/flash_attention_bf16.cu``) has a plan of its own,
+whose constants are read back from the source, and keeps p fp32 in p·v as
+three bf16 pieces: emulated here too.  Nothing here imports JAX.
 """
 import re
 
@@ -21,6 +23,7 @@ import torch
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels import depthwise_conv as dw
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rmsnorm as rn
 
 #: Most shared memory a block may take on an H100.
 SMEM_LIMIT = 232_448
@@ -103,32 +106,89 @@ BF16_ATTN_SHAPES = [(8, s, h, kvh, d) for h, kvh, d in (
      (1, 1, 1, 1, 1)]
 
 
+BF16_SOURCE = cuda_build.CSRC / "flash_attention_bf16.cu"
+
+
+def _cu_ints(*names):
+    """``constexpr int NAME = value`` of the bf16 attention's source (an
+    expression of integers, as ``1024 + 128``, evaluated)."""
+    text = BF16_SOURCE.read_text()
+    out = []
+    for name in names:
+        m = re.search(r"\b" + name + r" = ([0-9 +*]+)[;,]", text)
+        assert m, name
+        out.append(eval(m.group(1)))
+    return out
+
+
+def test_bf16_attention_constants_mirror_the_source():
+    """The plan's constants are the source's: kv tile, rows a warpgroup,
+    chunk width, the ring's stages, the shared-memory budgets; the block
+    shapes (head-dim tile, output columns) the plan can name are the
+    instances the source dispatches."""
+    assert _cu_ints("BKV", "ROWS", "CHUNK", "MIN_STAGES", "MAX_STAGES",
+                    "SMEM_LIMIT", "SMEM_HALF", "SMEM_EXTRA") == [
+        fa.BKV, fa.ROWS, fa.CHUNK, fa.MIN_STAGES, fa.MAX_STAGES,
+        fa.SMEM_LIMIT, fa.SMEM_HALF, fa.SMEM_EXTRA]
+    text = BF16_SOURCE.read_text()
+    assert "THREADS = OWN ? 128 : 384" in text
+    # two warpgroups are instantiated at 128 output columns only
+    assert "if constexpr (DV == 128) {" in text
+    dispatched = set(re.findall(r"if \(dp == (\d+) && dv == (\d+)\)", text))
+    planned = {(str(dp), str(dv)) for dp in fa.HEAD_DIM_TILES[2]
+               for dv in fa.BF16_DV if dv <= dp}
+    assert dispatched == planned
+
+
 @pytest.mark.parametrize("b,s,h,kvh,d", BF16_ATTN_SHAPES)
 def test_bf16_attention_plan_covers_each_output_once(b, s, h, kvh, d):
-    """The bf16 body's plan: the tiles 64, 128, 256, every output once,
-    the fp32 body's block shape, and at most its shared memory (the ring
-    holds 2-byte elements, V's pitch padded by 16 bytes either way)."""
+    """The bf16 body's plan: every output written by exactly one block,
+    blocks of one or two consumer warpgroups of 64 rows, 64 or 128 output
+    columns, at most the card's shared memory, and the instance's
+    constants as the source computes them (``Cfg``: stages that fit its
+    budget, the threads of its warpgroups)."""
     plan = fa.launch_plan(b, s, h, kvh, d, elem=2)
-    assert plan.dp == max(64, fa.head_dim_tile(d))
+    assert isinstance(plan, fa.HopperPlan)
+    assert plan.dp == max(64, fa.head_dim_tile(d)) and plan.dp >= d
     seen = np.zeros((b, s, h, d), dtype=np.int32)
     gx, gy, gz = plan.grid
     for x in range(gx):
         for y in range(gy):
             for z in range(gz):
                 bb, heads, pos, (lo, hi) = plan.block_outputs(x, y, z)
+                assert 0 < len(pos) <= plan.bm
                 seen[bb, pos, heads, lo:hi] += 1
     assert (seen == 1).all()
-    f32 = fa.launch_plan(b, s, h, kvh, d)
-    assert plan.args() == f32.args() and plan.smem_bytes <= SMEM_LIMIT
-    if d > 32:
-        assert plan.smem_bytes < f32.smem_bytes
+    assert plan.bm == 64 * plan.cw and plan.dv in fa.BF16_DV
+    assert plan.cw == 1 or plan.dv == 128   # the source's instances
+    assert plan.dv * plan.dsplit == plan.dp and plan.bkv == 64
+    assert plan.threads == (384 if plan.cw == 2 else 128)
+    limit, extra = _cu_ints("SMEM_LIMIT", "SMEM_EXTRA")
+    budget = limit if plan.cw == 2 else _cu_ints("SMEM_HALF")[0]
+    q_bytes = plan.cw * 64 * plan.dp * 2
+    stage = 64 * (plan.dp + plan.dv) * 2
+    assert plan.ring_stages == min(4, max(2, (budget - extra - q_bytes)
+                                          // stage))
+    assert plan.stages == min(plan.ring_stages, -(-s // 64))
+    assert plan.smem_bytes == extra + q_bytes + plan.stages * stage
+    assert plan.smem_bytes <= SMEM_LIMIT
+    assert plan.args() == (plan.cw, plan.dsplit)
 
 
 def test_bf16_attention_smem_mirrors_the_source():
-    """The source's Cfg at D 256, WR 2, bf16: 3 stages of 16 rows of K at
-    pitch 264 and of V at pitch 264, 2 bytes each, plus the 8 KB
-    partial-score exchange; the fp32 body's 108,800 bytes."""
-    assert fa.launch_plan(8, 128, 10, 1, 256, elem=2).smem_bytes == 58_880
+    """The source's Cfg at the plans of RecurrentGemma's probe (D 256: two
+    warpgroups, 128 columns, 2 stages of 128 keys' worth: q 64 KB, K 32
+    KB and V 16 KB a stage, 1 KB of slack) and of SmolLM-135M's training
+    shape (D 64: one warpgroup, 4 stages of 16 KB); a single kv tile (S
+    16) takes one stage."""
+    rg = fa.launch_plan(8, 128, 10, 1, 256, elem=2)
+    assert (rg.args(), rg.ring_stages, rg.smem_bytes) == ((2, 2), 3, 164_864)
+    train = fa.launch_plan(8, 1024, 9, 3, 64, elem=2)
+    assert (train.args(), train.stages, train.smem_bytes) == ((1, 1), 4,
+                                                              74_752)
+    prefill = fa.launch_plan(8, 16, 16, 16, 256, elem=2)
+    assert (prefill.args(), prefill.stages, prefill.smem_bytes) == (
+        (1, 2), 1, 82_944)
     assert fa.launch_plan(8, 128, 10, 1, 256).smem_bytes == 108_800
 
 
@@ -208,7 +268,8 @@ def test_dw_plan_takes_the_vector_path_where_one_load_serves_four(shape, vec):
 
 
 @pytest.mark.parametrize("entry,plan_args", [
-    ("flash_attention", 2), ("depthwise_conv", 4), ("depthwise_conv_q", 4)])
+    ("flash_attention", 2), ("depthwise_conv", 4), ("depthwise_conv_q", 4),
+    ("flash_attention_bf16", 2), ("rmsnorm", 3), ("rmsnorm_bf16", 3)])
 def test_c_entry_points_take_the_bound_arguments(entry, plan_args):
     """ctypes passes exactly the C function's parameters, the plan's
     arguments last before the stream."""
@@ -219,8 +280,12 @@ def test_c_entry_points_take_the_bound_arguments(entry, plan_args):
     assert len(params) == len(argtypes)
     for p, t in zip(params, argtypes):
         assert (t is cuda_build.ctypes.c_int) == p.startswith("int "), p
-    plan = (fa.launch_plan(1, 8, 2, 1, 64) if entry == "flash_attention"
-            else dw.launch_plan(1, 4, 4, 8, 3, 3, 1, 8, 8, 1))
+    plan = {"flash_attention": lambda: fa.launch_plan(1, 8, 2, 1, 64),
+            "flash_attention_bf16": lambda: fa.launch_plan(1, 8, 2, 1, 64,
+                                                           elem=2),
+            "rmsnorm": lambda: rn.launch_plan(8, 576),
+            "rmsnorm_bf16": lambda: rn.launch_plan(8, 576)}.get(
+        entry, lambda: dw.launch_plan(1, 4, 4, 8, 3, 3, 1, 8, 8, 1))()
     assert len(plan.args()) == plan_args
     assert all(p.startswith("int ") for p in params[-1 - plan_args:-1])
 
@@ -282,3 +347,43 @@ def test_attention_products_keep_fp32_accuracy():
     one = _ulps(_tf32(p) @ _tf32(v), exact, scale)
     assert err <= 4.0 and fp32 <= 4.0, (err, fp32)
     assert one >= 64.0
+
+
+def _pieces(p: torch.Tensor):
+    """The kernel's split of fp32 p: hi = bf16(p), mid = bf16(p - hi), lo
+    = bf16(p - hi - mid), each rounded to nearest even as
+    ``__floats2bfloat162_rn``."""
+    hi = p.bfloat16().float()
+    mid = (p - hi).bfloat16().float()
+    lo = (p - hi - mid).bfloat16().float()
+    return lo, mid, hi
+
+
+def test_bf16_attention_keeps_p_fp32_in_three_pieces():
+    """One SmolLM-135M training tile (a warpgroup's 64 rows against a kv
+    tile of 64 keys, D 64, bf16 v): the three bf16 pieces of p sum to it
+    exactly, and p·v as the kernel takes it — three products of bf16
+    operands (each exact in fp32), summed in fp32 the small pieces first
+    — is within 4 fp32 ulps of Σ p·|v| of the float64 product, as the
+    fp32 product is; p rounded to bf16 before p·v (what
+    scaled_dot_product_attention does at bf16) is 64 ulps or more off."""
+    rng = np.random.default_rng(27)
+    rows, keys, d = 64, 64, 64
+    q = torch.from_numpy(rng.standard_normal((rows, d))).bfloat16().float()
+    k = torch.from_numpy(rng.standard_normal((keys, d))).bfloat16().float()
+    v = torch.from_numpy(rng.standard_normal((keys, d))).bfloat16().float()
+    s = (q.double() @ k.double().T / np.sqrt(d)).float()
+    p = torch.exp(s - s.amax(dim=1, keepdim=True))
+    lo, mid, hi = _pieces(p)
+    assert torch.equal(lo.double() + mid.double() + hi.double(), p.double())
+    for piece in (lo, mid, hi):
+        assert torch.equal(piece.bfloat16().float(), piece)
+    o = lo @ v
+    o = o + mid @ v
+    o = o + hi @ v
+    exact = p.double() @ v.double()
+    scale = p.double() @ v.double().abs()
+    err, fp32 = _ulps(o, exact, scale), _ulps(p @ v, exact, scale)
+    rounded = _ulps(hi @ v, exact, scale)
+    assert err <= 4.0 and fp32 <= 4.0, (err, fp32)
+    assert rounded >= 64.0, rounded

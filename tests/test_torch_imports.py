@@ -184,11 +184,10 @@ def test_cuda_kernels_build_lazily():
     from repro_torch.kernels import cuda_build
     merged = ("depthwise_conv", "merged_conv", "merged_ffn")
     assert cuda_build.SOURCES == ("depthwise_conv", "flash_attention",
-                                  "merged_conv", "merged_ffn", "rglru_scan",
-                                  "rmsnorm")
+                                  "flash_attention_bf16", "merged_conv",
+                                  "merged_ffn", "rglru_scan", "rmsnorm")
     assert set(cuda_build.SIGNATURES) == set(cuda_build.SOURCES) | {
-        f"{s}_q" for s in merged} | {"merged_ffn_slots", "rmsnorm_bf16",
-                                     "flash_attention_bf16"}
+        f"{s}_q" for s in merged} | {"merged_ffn_slots", "rmsnorm_bf16"}
     for name in cuda_build.SOURCES:
         src = cuda_build.CSRC / f"{name}.cu"
         assert src.exists()
