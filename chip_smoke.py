@@ -33,7 +33,10 @@ Phases, each printing its own line with the seconds it took:
              operands; ``quant.quantize_int8`` on the card bitwise
              equal to the CPU's; rmsnorm over M {1,8,37,1024} ×
              D {32,512,576,2560,2561}; rglru_scan over B {1,8} ×
-             S {1,7,128,512} × C {32,256,2560,2561} (also bitwise);
+             S {1,7,128,512} × C {32,256,2560,2561} (also bitwise), and
+             its backward kernel at the same shapes, bitwise its plain
+             version (``rglru_scan_bwd_ref``) and the plain scan's
+             autograd;
              flash_attention over BH {1,8,80} × S {1,7,16,128,256,1000} ×
              D {32,64,256}, causal and not, with grouped and multi-query
              kv heads; ``benchmarks/run.py``'s three shapes; the
@@ -59,7 +62,8 @@ Phases, each printing its own line with the seconds it took:
              op (the kernel forward, the plain version's gradient
              backward) against the plain version's autograd within
              ``RTOL · max|gradient| + ATOL``, one launch in the forward and
-             none in the backward: the six fp32 ops (the convs at
+             none in the backward (the scan: its backward kernel, one
+             launch, every gradient bitwise): the six fp32 ops (the convs at
              MobileNetV2's units, merged_ffn, rmsnorm and flash_attention
              at SmolLM-135M's replaced path, rglru_scan at (8, 128, 2560))
              and the three quantized bodies under w8a8.
@@ -188,12 +192,15 @@ Phases, each printing its own line with the seconds it took:
              rglru_scan, flash_attention and merged_ffn over phases 15-16
              (counted from zero) must each be > 0.
 17. rg kernels — rmsnorm, rglru_scan and flash_attention at the path's
-             shapes (and SmolLM's), merged_ffn at D 2560: kernel, plain
-             version, library yardstick (``F.rms_norm``,
-             ``F.scaled_dot_product_attention``, ``addmm``; none for the
-             scan) and bound (attention's operations at the 3xTF32
-             rate), as device times; the new kernels' rows of
-             the ``kernels`` line are their probe shapes.
+             shapes (and SmolLM's), the scan's backward kernel at 8 × 128
+             (beside its plain version, and the eager plain gradient
+             that the train step took before the kernel), merged_ffn at D
+             2560: kernel, plain version, library yardstick
+             (``F.rms_norm``, ``F.scaled_dot_product_attention``,
+             ``addmm``; none for the scan or its backward) and bound
+             (attention's operations at the 3xTF32 rate), as device
+             times; the new kernels' rows of the ``kernels`` line are
+             their probe shapes (the backward's launches: phase 24's).
 18. lm requests — phase 8's SmolLM-135M artifact serves
              ``ragged_prompts(0, 24, 4, 32, vocab)`` and phase 15's
              RecurrentGemma-2B artifact 8 such prompts through
@@ -375,8 +382,11 @@ Phases, each printing its own line with the seconds it took:
              batch 8 x seq 128, 4 steps
              of ``make_train_step`` (no checkpoint): finite losses, ms a
              step, busy share, peak memory, launches a step (rglru_scan
-             18, flash_attention 8); full width at 3 layers against the
-             CPU port on 1 x 64 tokens as in (a); (d) rmsnorm (8192,
+             18, rglru_scan_bwd 18, flash_attention 8), the step's
+             elementwise launches and device-to-device copies
+             (torch.profiler) beside ``PLAIN_GRAD_STEP``'s; full width
+             at 3 layers against the CPU port on 1 x 64 tokens as in
+             (a); (d) rmsnorm (8192,
              576), flash_attention (8, 1024, 9, 64) over 3 kv heads and
              merged_ffn (8192, 576) at the plan's rank: kernel, plain
              version, library call and bound (``train.json``; the
@@ -560,6 +570,9 @@ KERNEL_SOURCES = {
                 "src/repro/kernels/rmsnorm.py:32"),
     "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
                    "src/repro/kernels/rglru_scan.py:45"),
+    # no pallas_call: the gradient XLA takes of the reference's scan
+    "rglru_scan_bwd": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
+                       "src/repro/models/rglru.py:81"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:78")}
 for _k in ("merged_conv", "depthwise_conv", "merged_ffn"):
@@ -1064,7 +1077,9 @@ def compare_attention(q, k, v, causal):
 def norm_scan_attention_sweep(dev) -> dict:
     """rmsnorm over M {1,8,37,1024} × D {32,512,576,768,1024,2560,2561,
     3584}; rglru_scan over B {1,8} × S {1,7,128,512} × C {32,256,2560,
-    2561} with a in (0.5, 1), also held bitwise; flash_attention over
+    2561} with a in (0.5, 1), also held bitwise, and its backward kernel
+    at the same shapes, bitwise ``rglru_scan_bwd_ref`` and the plain
+    version's autograd (:func:`scan_bwd_case`); flash_attention over
     BH {1,8,80} × S {1,7,16,128,256,1000} × D {32,64,256}, causal and not
     (BH 8 as B 2 × H 4 over 2 kv heads, BH 80 as B 8 × H 10 over 1, the
     MQA of RecurrentGemma); ``benchmarks/run.py``'s three shapes; and
@@ -1074,8 +1089,9 @@ def norm_scan_attention_sweep(dev) -> dict:
     from repro_torch import kernels
     from repro_torch.kernels import ref
     g = torch.Generator().manual_seed(7)
+    gw = torch.Generator().manual_seed(28)     # the scan's output gradients
     worst = {k: [0.0, 0.0, 0] for k in ("rmsnorm", "rglru_scan",
-                                        "flash_attention")}
+                                        "rglru_scan_bwd", "flash_attention")}
 
     def note(kind, res):
         w = worst[kind]
@@ -1102,6 +1118,8 @@ def norm_scan_attention_sweep(dev) -> dict:
                                 f"a={(b, s, c)}"))
         check(torch.equal(h, hr), f"rglru_scan {(b, s, c)}: the kernel and "
               "its plain version round alike, yet differ bitwise")
+        note("rglru_scan_bwd", scan_bwd_case(
+            a, x, torch.randn(b, s, c, generator=gw).to(dev)))
     heads = {1: (1, 1, 1), 8: (2, 4, 2), 80: (8, 10, 1)}
     for bh, (b, h, kvh) in heads.items():
         for s in (1, 7, 16, 128, 256, 1000):
@@ -1115,6 +1133,41 @@ def norm_scan_attention_sweep(dev) -> dict:
         q, k, v = rnd(b, s, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d)
         note("flash_attention", compare_attention(q, k, v, True))
     return worst
+
+
+def scan_bwd_case(a, x, w) -> tuple[float, float]:
+    """The scan's backward kernel on a, the plain scan's output h and the
+    output's gradient w against its plain version
+    (``rglru_scan_bwd_ref``) and the plain scan's autograd: bitwise both
+    (the same rounded product and sum a step; autograd's two-term sums
+    commute and its zero-fill adds are exact), one launch.  Returns
+    (max |Δ|, max |Δ| / scale), both 0 when it holds."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg_mod
+    h = ref.rglru_scan_ref(a, x)
+    start = kernels.launch_counts()["rglru_scan_bwd"]
+    da, db = rg_mod.rglru_scan_bwd(a, h, w)
+    n = kernels.launch_counts()["rglru_scan_bwd"] - start
+    want = ref.rglru_scan_bwd_ref(a, h, w)
+    leaves = [a.clone().requires_grad_(), x.clone().requires_grad_()]
+    auto = torch.autograd.grad(ref.rglru_scan_ref(*leaves), leaves, w)
+    torch.cuda.synchronize()
+    case = f"a={tuple(a.shape)}"
+    check(n == 1, f"rglru_scan_bwd {case}: {n} launches (want 1)")
+    err = 0.0
+    for got, plain, grad, what in ((da, want[0], auto[0], "da"),
+                                   (db, want[1], auto[1], "db")):
+        check(bool(torch.isfinite(got).all()),
+              f"rglru_scan_bwd {case}: non-finite {what}")
+        err = max(err, float((got - plain).abs().max()))
+        check(torch.equal(got, plain), f"rglru_scan_bwd {case}: {what} "
+              f"differs bitwise from rglru_scan_bwd_ref (max |Δ| {err:.3g})")
+        check(torch.equal(plain, grad), f"rglru_scan_bwd {case}: "
+              f"rglru_scan_bwd_ref's {what} differs bitwise from the plain "
+              "scan's autograd")
+    return err, 0.0
 
 
 def bf16_sweep(dev) -> dict:
@@ -1166,7 +1219,8 @@ def gradient_sweep(dev) -> dict:
     """The gradient through each kernel op against the plain version's
     autograd on the same card inputs: every input's gradient within
     ``RTOL · max|plain gradient| + ATOL``, the output carrying a
-    ``grad_fn``, and the forward one kernel launch.  The fp32 ops at this
+    ``grad_fn``, and the forward one kernel launch (the scan: its backward
+    kernel one launch too, every gradient bitwise).  The fp32 ops at this
     slice's path shapes (merged_conv and depthwise_conv at MobileNetV2's
     units, batch 8; merged_ffn at M 1024, D 576, R 1536, rmsnorm at
     (8, 128, 576) and causal flash_attention at (8, 128, 9, 64) over 3 kv
@@ -1183,10 +1237,13 @@ def gradient_sweep(dev) -> dict:
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(dev)
 
-    def case(name, kernel, op, plain, args, diff):
+    def case(name, kernel, op, plain, args, diff, bwd=None):
         """``op(*args)`` against ``plain(*args)``, differentiated in the
-        inputs whose positions are in ``diff``."""
+        inputs whose positions are in ``diff``; with ``bwd`` (the op's
+        backward kernel) one launch of it too, and every gradient
+        bitwise."""
         start = kernels.launch_counts()[kernel]
+        bwd_start = kernels.launch_counts()[bwd] if bwd else 0
         sides = []
         for fn in (op, plain):
             leaves = [a.clone().requires_grad_() if n in diff else a
@@ -1202,6 +1259,13 @@ def gradient_sweep(dev) -> dict:
         check(n_launch == 1, f"{name}: {n_launch} launches of {kernel} "
               "over the forward, the plain version and both backwards "
               "(want the forward's 1)")
+        if bwd:
+            n_bwd = kernels.launch_counts()[bwd] - bwd_start
+            check(n_bwd == 1, f"{name}: {n_bwd} launches of {bwd} over "
+                  "both backwards (want the op's 1)")
+            for n, a, b in zip(diff, got, want):
+                check(torch.equal(a, b), f"{name}: the gradient wrt input "
+                      f"{n} differs bitwise from the plain autograd")
         for n, a, b in zip(diff, got, want):
             res = held(f"{name} gradient", a, b, b.abs().amax(),
                        f"wrt input {n} of {[tuple(t.shape) for t in args]}")
@@ -1258,7 +1322,8 @@ def gradient_sweep(dev) -> dict:
     # off this slice's path: the scan, and the quantized bodies
     a = (torch.rand(8, 128, 2560, generator=g) * 0.5 + 0.5).to(dev)
     case("rglru_scan", "rglru_scan", kernels.rglru_scan_op,
-         ref.rglru_scan_ref, (a, rnd(8, 128, 2560, scale=0.1)), (0, 1))
+         ref.rglru_scan_ref, (a, rnd(8, 128, 2560, scale=0.1)), (0, 1),
+         bwd="rglru_scan_bwd")
     conv("merged_conv", rnd(8, 28, 28, 32), rnd(1, 1, 32, 192, scale=0.18),
          rnd(192, scale=0.1), 1, wq="int8")
     conv("depthwise_conv", rnd(8, 30, 30, 192), rnd(3, 3, 1, 192, scale=0.33),
@@ -2291,6 +2356,14 @@ def scan_bound(b: int, s: int, c: int) -> tuple[float, float]:
             12.0 * b * s * c / H100_HBM_BW * 1e3)
 
 
+def scan_bwd_bound(b: int, s: int, c: int) -> tuple[float, float]:
+    """rglru_scan's backward on (B, S, C): a multiply and an add (d) and a
+    multiply (da) an element; a, h and g read once, da and db written
+    once."""
+    return (3.0 * b * s * c / H100_FP32_FLOPS * 1e3,
+            20.0 * b * s * c / H100_HBM_BW * 1e3)
+
+
 def attention_bound(b, s, h, kvh, d, causal=True) -> tuple[float, float]:
     """flash_attention: 4·D FLOPs (q·k and p·v) for each (query, key) pair
     the mask keeps, S(S+1)/2 per head when causal, at the 3xTF32 rate of
@@ -2320,7 +2393,9 @@ def time_row(kernel, shape, run, plain, library, bound, err,
 def time_rg_kernels(dev, cfg, art, host) -> list:
     """rmsnorm, rglru_scan and flash_attention at RecurrentGemma-2B's
     shapes (probe: batch 8 × seq 128; prefill: 8 × 16; decode: 8 rows)
-    and SmolLM-135M's, and merged_ffn at D 2560 (each served lowrank unit
+    and SmolLM-135M's, the scan's backward kernel at 8 × 128 (beside its
+    plain version, and the eager plain gradient the train step took
+    before it), and merged_ffn at D 2560 (each served lowrank unit
     at M 8, 128, 1024; the replaced path's R 7680 unit at M 128): the
     kernel, the plain version and the library yardstick
     (``F.rms_norm``; ``F.scaled_dot_product_attention`` on k, v expanded,
@@ -2330,6 +2405,7 @@ def time_rg_kernels(dev, cfg, art, host) -> list:
     import torch.nn.functional as F
     from repro_torch import kernels
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rglru_scan as rg_mod
     g = torch.Generator().manual_seed(8)
 
     def rnd(*shape):
@@ -2359,6 +2435,26 @@ def time_rg_kernels(dev, cfg, art, host) -> list:
             "rglru_scan", [b, s, dr], lambda: kernels.rglru_scan_op(a, x),
             lambda: ref.rglru_scan_ref(a, x), None, scan_bound(b, s, dr),
             err))
+    # the backward kernel at the training and probe shape, beside its plain
+    # version (the reverse loop) and the plain gradient the card took
+    # before it had one (autograd through the plain scan, its forward
+    # recomputed; CUDA events around eager calls: what a train step paid)
+    b, s = 8, 128
+    gb = torch.Generator().manual_seed(28)
+    a = (torch.rand(b, s, dr, generator=gb) * 0.5 + 0.5).to(dev)
+    x, w = (torch.randn(b, s, dr, generator=gb).to(dev) for _ in range(2))
+    x = x * 0.1
+    h = ref.rglru_scan_ref(a, x)
+    err = scan_bwd_case(a, x, w)[0]
+    row = time_row("rglru_scan_bwd", [b, s, dr],
+                   lambda: rg_mod.rglru_scan_bwd(a, h, w),
+                   lambda: ref.rglru_scan_bwd_ref(a, h, w), None,
+                   scan_bwd_bound(b, s, dr), err)
+    leaves = [a.clone().requires_grad_(), x.clone().requires_grad_()]
+    row["plain_grad_eager_ms"] = cuda_time(lambda: torch.autograd.grad(
+        ref.rglru_scan_ref(*leaves), leaves, w), iters=5, warmup=2)
+    row["eager_ms"] = cuda_time(lambda: rg_mod.rglru_scan_bwd(a, h, w))
+    rows.append(row)
     for b, s, h, kvh, d in ((8, 128, cfg.num_heads, cfg.num_kv_heads,
                              cfg.head_dim),
                             (8, 16, cfg.num_heads, cfg.num_kv_heads,
@@ -2564,7 +2660,10 @@ def rg_phases(dev):
         + f" bound={r['bound_ms']:.5f} ("
         f"{'bytes' if r['bytes_ms'] >= r['flops_ms'] else 'operations'}, "
         f"share {r['bound_ms'] / r['ms']:.3f})"
-        + (f" host {r['host_us']:.1f} us a call;" if "host_us" in r else ";")
+        + (f" host {r['host_us']:.1f} us a call;" if "host_us" in r else "")
+        + (f" eager {r['eager_ms']:.4f} ms, the plain gradient eager "
+           f"(forward recomputed) {r['plain_grad_eager_ms']:.3f} ms;"
+           if "plain_grad_eager_ms" in r else ";")
         for r in rows))
     return rows, rg_launches, art, {"recurrentgemma-2b compressed": c_serve,
                                     "recurrentgemma-2b original": o_serve}
@@ -4491,12 +4590,37 @@ def launch_delta(fn) -> dict:
             for k, v in kernels.launch_counts().items()}
 
 
+#: PyTorch's small ops in a profile, by what the kernel's name holds:
+#: ``[launches, µs, launches of its busiest name]`` of each kind a call
+#: (:func:`step_busy`).
+SMALL_OPS = (("vectorized_elementwise", "vectorized_elementwise_kernel"),
+             ("elementwise", "elementwise_kernel"),
+             ("memcpy_dtod", "Memcpy DtoD"))
+#: Phase 24 (c)'s step while the scan's gradient was autograd of its plain
+#: loop (no backward kernel), on an H100 80GB HBM3 at 700 W: the busiest
+#: kernel name of each small-op kind (launches, device ms a step; the
+#: totals over names were not taken) and the peak memory in GiB.
+PLAIN_GRAD_STEP = {"vectorized_elementwise": (8388, 97.5),
+                   "elementwise": (5547, 33.7), "memcpy_dtod": (2900, 30.3),
+                   "peak_gib": 58.49}
+
+
 def step_busy(fn, step_ms: float, reps: int) -> dict:
     """Device-busy share of ``reps`` calls of ``fn`` (torch.profiler): the
-    device time a call over ``step_ms``, and the top kernels."""
+    device time a call over ``step_ms``, the top kernels, and the launches
+    and µs a call of PyTorch's elementwise kernels and device-to-device
+    copies (``small_ops``)."""
     busy_us, rows = device_kernels(fn, reps=reps)
+    small = {k: [0, 0.0, 0] for k, _ in SMALL_OPS}
+    for us, n, name in rows:
+        kind = next((k for k, key in SMALL_OPS if key in name), None)
+        if kind is not None:
+            small[kind][0] += n
+            small[kind][1] += us
+            small[kind][2] = max(small[kind][2], n)
     return {"busy_us": busy_us, "busy_share": busy_us / (step_ms * 1e3),
-            "top": [(name[:60], round(us, 1), n) for us, n, name in rows[:8]]}
+            "top": [(name[:60], round(us, 1), n) for us, n, name in rows[:8]],
+            "small_ops": small}
 
 
 def smollm_train(dev) -> dict:
@@ -4785,15 +4909,24 @@ def rg_train(dev) -> dict:
            "tok_s": B * S / (step_ms * 1e-3), "peak_bytes": peak,
            "launches_per_step": per_step, "busy": busy, "vs_cpu": vs,
            "seconds": time.perf_counter() - t0}
+    small = busy["small_ops"]
     log("train recurrentgemma", t0, f"{n_params / 1e9:.3f} B params "
         f"(init {init_s:.2f} s), {B}x{S}: step {step_ms:.1f} ms median "
         f"(all {[round(x * 1e3, 1) for x in times]}), losses "
-        f"{[round(x, 4) for x in losses]}; peak {peak / 2**30:.2f} GiB; "
-        f"launches per step {json.dumps(per_step)}; busy "
-        f"{busy['busy_share']:.3f} ({busy['top'][:4]}); vs CPU port (3 "
-        f"layers, 1x64) loss {vs['loss_rel']:.3g}, gradients "
-        f"{vs['grad_rel']:.3g} ({vs['grad_rel_leaf']})")
-    check(per_step["rglru_scan"] == 18 and per_step["flash_attention"] == 8,
+        f"{[round(x, 4) for x in losses]}; peak {peak / 2**30:.2f} GiB "
+        f"(plain-gradient step: {PLAIN_GRAD_STEP['peak_gib']}); launches "
+        f"per step {json.dumps(per_step)}; busy "
+        f"{busy['busy_share']:.3f} ({busy['top'][:4]}); small ops a step "
+        "(launches, device ms, launches of the busiest name; the "
+        "plain-gradient step's busiest name in brackets): " + ", ".join(
+            f"{k} {small[k][0]}, {small[k][1] / 1e3:.1f}, {small[k][2]} "
+            f"[{PLAIN_GRAD_STEP[k][0]}, {PLAIN_GRAD_STEP[k][1]} ms]"
+            for k, _ in SMALL_OPS)
+        + f"; vs CPU port (3 layers, 1x64) loss "
+        f"{vs['loss_rel']:.3g}, gradients {vs['grad_rel']:.3g} "
+        f"({vs['grad_rel_leaf']})")
+    check(per_step["rglru_scan"] == 18 and per_step["flash_attention"] == 8
+          and per_step["rglru_scan_bwd"] == 18,
           f"recurrentgemma train: a step launched {per_step}")
     return out
 
@@ -4831,7 +4964,8 @@ def train_phase(dev, lm_path) -> tuple[dict, dict, dict]:
     torch.cuda.empty_cache()
     out["recurrentgemma"] = rg_train(dev)
     take()
-    for k in ("rmsnorm", "flash_attention", "merged_ffn", "rglru_scan"):
+    for k in ("rmsnorm", "flash_attention", "merged_ffn", "rglru_scan",
+              "rglru_scan_bwd"):
         check(launches[k] > 0, f"phase 24: {k} never launched")
     t = time.perf_counter()
     rows = time_kernel_rows(dev, [TRAIN_NORM], [TRAIN_ATTENTION], unit,
@@ -6085,6 +6219,11 @@ def main(argv) -> int:
     trn, trn_launch, trn_tot = train_phase(dev, lm_path)
     with open(os.path.join(WORK, "train.json"), "w") as f:
         json.dump(trn, f, indent=1, default=str)
+    # the scan's backward: its row timed in phase 17, its launches those
+    # of phase 24's training steps (the path that takes gradients)
+    tot["rglru_scan_bwd"] = next(r for r in rg_rows
+                                 if r["kernel"] == "rglru_scan_bwd")
+    launches["rglru_scan_bwd"] = trn_launch["rglru_scan_bwd"]
     # 25. the distributed table build -----------------------------------------
     # phase 24's state is freed: the workers' own contexts and probe
     # buffers share the card

@@ -2,8 +2,8 @@
 
 Every kernel source under ``csrc/`` exposes plain C functions (an fp32
 entry point and, for the three merged-segment kernels, its quantized
-variant; for the norm, a bf16 body; the attention's bf16 body is a source
-of its own), so it builds in seconds without PyTorch's headers.  None
+variant; for the norm, a bf16 body; for the scan, its gradient; the
+attention's bf16 body is a source of its own), so it builds in seconds without PyTorch's headers.  None
 links a library beyond the CUDA runtime: the bf16 attention finds
 libcuda's tensor-map encoder through the runtime's entry-point query.
 A library is built at first use into ``build/repro_torch/`` at the root
@@ -73,8 +73,11 @@ SIGNATURES = {
     # the bf16 body: x, g, y, m, d, eps, g_f32, the plan as above, stream
     "rmsnorm_bf16": ("rmsnorm", "rmsnorm_bf16",
                      [_P] * 3 + [_I, _I, _F, _I, _I, _I, _I, _P]),
-    # a, b, h, batch, s, c, stream
-    "rglru_scan": ("rglru_scan", "rglru_scan_f32", [_P] * 3 + [_I] * 3 + [_P]),
+    # a, b, h, batch, s, c, then the plan (ct, tc, stages, vec), stream
+    "rglru_scan": ("rglru_scan", "rglru_scan_f32", [_P] * 3 + [_I] * 7 + [_P]),
+    # its gradient: a, h, g, da, db, batch, s, c, the plan as above, stream
+    "rglru_scan_bwd": ("rglru_scan", "rglru_scan_bwd_f32",
+                       [_P] * 5 + [_I] * 7 + [_P]),
     # q, k, v, o, b, s, h, kvh, d, causal, then the plan (wr, dsplit),
     # stream
     "flash_attention": ("flash_attention", "flash_attention_f32",

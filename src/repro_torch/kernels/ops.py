@@ -28,17 +28,20 @@ function at either dtype: fp32 inside, the input's dtype out); the scan
 takes fp32 only, as the JAX package's RG-LRU block feeds it at every
 dtype.
 
-Gradients: on the card every op is differentiable (:class:`_PlainGrad`).
-The forward is the kernel; the backward is the gradient of the op's plain
-version (its CPU branch, the ``*_qref`` one for a quantized body),
-recomputed from the saved inputs: the JAX package's design for
+Gradients: on the card every op is differentiable.  The scan's backward
+is a kernel of its own (:class:`_ScanGrad`: the forward kernel saves a and
+its output h, the backward kernel reads them and the output's gradient
+once, recomputing nothing), the gradient the JAX package takes through
+XLA.  Every other op's backward is the gradient of its plain version (its
+CPU branch, the ``*_qref`` one for a quantized body), recomputed from the
+saved inputs (:class:`_PlainGrad`): the JAX package's design for
 ``flash_attention_op`` (``_fa_bwd``), with no backward kernel.  When no
 input requires a gradient (``torch.no_grad()``, a captured inference
-step) the op launches the kernel alone and records nothing.
+step) the op launches the forward kernel alone and records nothing.
 
 Launch counts: each kernel wrapper adds one to its module's ``launches``
-(fp32), ``launches_q`` (quantized variant) or ``launches_bf16`` (bf16
-body) per launch it makes;
+(fp32), ``launches_q`` (quantized variant), ``launches_bf16`` (bf16
+body) or ``launches_bwd`` (the scan's backward) per launch it makes;
 :func:`launch_counts` reads them and :func:`reset_launch_counts` sets them
 to zero, so a run can show that its path went through the kernels.  They
 count wrapper calls on the host: a step captured in a CUDA graph counts
@@ -227,12 +230,34 @@ def rmsnorm_op(x, g, *, eps: float = 1e-6):
     return _launch(kernel, plain, x, g)
 
 
+class _ScanGrad(torch.autograd.Function):
+    """The scan's forward kernel, and its backward kernel for the
+    gradient: a and the output h saved (the memory that a and b would
+    take), one backward launch, nothing recomputed."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _rg.rglru_scan(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h = ctx.saved_tensors
+        da, db = _rg.rglru_scan_bwd(a, h, g.contiguous())
+        return (da if ctx.needs_input_grad[0] else None,
+                db if ctx.needs_input_grad[1] else None)
+
+
 def rglru_scan_op(a, b):
     """``h_t = a_t ⊙ h_{t-1} + b_t`` over axis 1 of (B, S, C), h₀ = 0,
-    fp32.  On the card a and b must be contiguous fp32."""
+    fp32.  On the card a and b must be contiguous fp32; the gradient is
+    the backward kernel's."""
     if not _on_cuda(a, "rglru_scan_op"):
         return ref.rglru_scan_ref(a, b)
-    return _launch(_rg.rglru_scan, ref.rglru_scan_ref, a, b)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _ScanGrad.apply(a, b)
+    return _rg.rglru_scan(a, b)
 
 
 def _attention_plain(q, k, v, causal):
@@ -264,14 +289,16 @@ def flash_attention_op(q, k, v, causal: bool = True):
 def launch_counts() -> dict[str, int]:
     """Kernel launches in this process since the last reset: each fp32
     kernel, (``*_q``) the quantized variants and (``*_bf16``) the bf16
-    bodies.  Wrapper calls: a CUDA graph's replays add nothing."""
+    bodies, and the scan's backward (``rglru_scan_bwd``).  Wrapper calls:
+    a CUDA graph's replays add nothing."""
     return {"merged_conv": _mc.launches, "depthwise_conv": _dw.launches,
             "merged_ffn": _mf.launches, "merged_conv_q": _mc.launches_q,
             "depthwise_conv_q": _dw.launches_q,
             "merged_ffn_q": _mf.launches_q, "rmsnorm": _rn.launches,
             "rglru_scan": _rg.launches, "flash_attention": _fa.launches,
             "rmsnorm_bf16": _rn.launches_bf16,
-            "flash_attention_bf16": _fa.launches_bf16}
+            "flash_attention_bf16": _fa.launches_bf16,
+            "rglru_scan_bwd": _rg.launches_bwd}
 
 
 def reset_launch_counts() -> None:
@@ -282,3 +309,4 @@ def reset_launch_counts() -> None:
         mod.launches = 0
     for mod in (_rn, _fa):
         mod.launches_bf16 = 0
+    _rg.launches_bwd = 0

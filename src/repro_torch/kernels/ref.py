@@ -90,6 +90,25 @@ def rglru_scan_ref(a, gated, h0=None):
     return out
 
 
+def rglru_scan_bwd_ref(a, h, g):
+    """The gradient of :func:`rglru_scan_ref` (``h0`` None) in ``a`` and
+    ``gated``, from a, its output h and the output's gradient g: the
+    reverse loop ``d_{S-1} = g_{S-1}``, ``d_t = g_t + a_{t+1} ⊙ d_{t+1}``
+    (a rounded product, then a rounded sum), ``dgated_t = d_t``,
+    ``da_t = d_t ⊙ h_{t-1}`` with ``h_{-1} = 0``; returns (da, dgated).
+    Bitwise the autograd of :func:`rglru_scan_ref`: its sums of two terms
+    commute and its zero-filled slices add exactly."""
+    s = a.shape[1]
+    a, h, g = a.float(), h.float(), g.float()
+    da, db = torch.empty_like(g), torch.empty_like(g)
+    d = None
+    for t in range(s - 1, -1, -1):
+        d = g[:, t] if d is None else g[:, t] + a[:, t + 1] * d
+        db[:, t] = d
+        da[:, t] = d * (h[:, t - 1] if t > 0 else torch.zeros_like(d))
+    return da, db
+
+
 def merged_ffn_ref(x, u, v):
     """LayerMerge rank-r residual ``x + (x@U)@V``: fp32 products and fp32
     residual add, cast to ``x.dtype`` at the end."""

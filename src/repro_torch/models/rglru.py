@@ -10,11 +10,12 @@ Linear Recurrence Unit::
     a_t = exp(-c · softplus(Λ) · r_t)    (per-channel decay, c = 8)
     h_t = a_t ⊙ h_{t-1} + √(1 − a_t²) ⊙ (i_t ⊙ x_t)
 
-For prefill and the probes the recurrence runs through
-:func:`repro_torch.kernels.rglru_scan_op` — the hand-written ``rglru_scan``
-kernel on the card, a sequential loop on the CPU — where the JAX package
-uses ``lax.associative_scan``: the two agree to fp32 reassociation, not
-bitwise.  Decode is one fused state update in plain PyTorch (the JAX
+For prefill, the probes and training the recurrence runs through
+:func:`rglru_scan` and :func:`repro_torch.kernels.rglru_scan_op` — the
+hand-written ``rglru_scan`` kernels on the card (the forward, and the
+backward for its gradient), a sequential loop on the CPU — where the JAX
+package uses ``lax.associative_scan``: the two agree to fp32
+reassociation, not bitwise.  Decode is one fused state update in plain PyTorch (the JAX
 package keeps it in XLA), written into the state's tensors in place.  The conv is plain PyTorch too; it is no kernel
 in the JAX package either.
 
@@ -93,12 +94,23 @@ def _causal_conv1d(p, u, state=None):
     return out, pad[:, -(k - 1):]
 
 
+def rglru_scan(a, gated, h0=None):
+    """``h_t = a_t h_{t-1} + gated_t`` over axis 1 of (B, S, C), from
+    ``h0`` (B, C) or zeros: ``a_0 h0`` is folded into ``gated_0`` as the
+    JAX package folds it, then :func:`rglru_scan_op` runs the scan (its
+    kernels on the card), differentiable in a, gated and h0."""
+    if h0 is not None:
+        gated = torch.cat([gated[:, :1] + a[:, :1] * h0[:, None],
+                           gated[:, 1:]], dim=1)
+    return rglru_scan_op(a.contiguous(), gated.contiguous())
+
+
 def rglru_block(p, x, cfg):
     """Full temporal block for prefill: (B, S, D) → (B, S, D)."""
     u = x @ p["w_in"]
     u, _ = _causal_conv1d(p, u)
     a, gated = _gates(p, u)
-    h = rglru_scan_op(a.contiguous(), gated.contiguous())
+    h = rglru_scan(a, gated)
     return (h.to(x.dtype) * F.gelu(u, approximate="tanh")) @ p["w_out"]
 
 

@@ -10,9 +10,9 @@ against the plain ``*_qref`` versions on the same card inputs (the same
 integer codes on both sides), with the same tolerance relative to the
 largest output.  ``rmsnorm``, ``rglru_scan`` and ``flash_attention``: 1e-5
 of the largest output (fp32 sums in another order; the scan rounds as its
-plain version does and is held bitwise).  Their bf16 bodies: each element
-within one bf16 ulp of the plain version (both compute in fp32 and round
-once) and bitwise across two calls; the norm's bitwise the fp32 body's
+plain version does and is held bitwise, its backward kernel too).  Their
+bf16 bodies: each element within one bf16 ulp of the plain version (both
+compute in fp32 and round once) and bitwise across two calls; the norm's bitwise the fp32 body's
 output on the widened operands, rounded (the same arithmetic in the same
 order); the attention's (a Hopper kernel of its own, summing in another
 order) within one bf16 ulp of that output beyond the fp32 tolerance.  The
@@ -584,6 +584,28 @@ def test_rglru_scan_matches_plain_version(b, s, c):
     assert torch.equal(h, tk.rglru_scan_ref(a, x))
 
 
+@pytest.mark.parametrize("b,s,c", [(8, 128, 2560), (1, 7, 2561),
+                                   (2, 130, 37), (1, 1, 32)])
+def test_rglru_scan_bwd_matches_plain_version(b, s, c):
+    """The backward kernel bitwise its plain version (the reverse loop) and
+    the plain version's autograd, one launch."""
+    from repro_torch.kernels import rglru_scan as rg
+    dev = _card()
+    g = torch.Generator().manual_seed(b + s + c + 1)
+    a = (torch.rand(b, s, c, generator=g) * 0.5 + 0.5).to(dev)
+    x = torch.randn(b, s, c, generator=g).to(dev)
+    w = torch.randn(b, s, c, generator=g).to(dev)
+    h = tk.rglru_scan_ref(a, x)
+    before = tk.launch_counts()["rglru_scan_bwd"]
+    da, db = rg.rglru_scan_bwd(a, h, w)
+    assert tk.launch_counts()["rglru_scan_bwd"] == before + 1
+    want = tk.rglru_scan_bwd_ref(a, h, w)
+    assert torch.equal(da, want[0]) and torch.equal(db, want[1])
+    leaves = [a.clone().requires_grad_(), x.clone().requires_grad_()]
+    ga, gx = torch.autograd.grad(tk.rglru_scan_ref(*leaves), leaves, w)
+    assert torch.equal(da, ga) and torch.equal(db, gx)
+
+
 @pytest.mark.parametrize("shape,kvh,causal", [
     ((8, 128, 10, 256), 1, True), ((2, 37, 9, 64), 3, False),
     ((1, 7, 2, 32), 2, True)])
@@ -963,7 +985,8 @@ def _qweights(shape):
 def test_op_gradient_through_the_kernel(name):
     """The gradient of every input through the kernel op equals the plain
     version's autograd (``*_qref`` for the quantized bodies) within 1e-5
-    of its largest element; one kernel launch, in the forward."""
+    of its largest element; one kernel launch, in the forward.  The scan's
+    gradient is its backward kernel's: bitwise, one launch of it."""
     dev = _card()
     kernel, op, plain, shapes = _grad_cases()[name]
     g = torch.Generator().manual_seed(len(name))
@@ -994,6 +1017,7 @@ def test_op_gradient_through_the_kernel(name):
             plain = lambda x, b, ws: fref(x, wq, b, ws,        # noqa: E731
                                           act_quant="w8a8")
     before = tk.launch_counts()[kernel]
+    bwd_before = tk.launch_counts()["rglru_scan_bwd"]
     sides = []
     for fn in (op, plain):
         leaves = [a.clone().requires_grad_() for a in args]
@@ -1005,6 +1029,9 @@ def test_op_gradient_through_the_kernel(name):
     assert tk.launch_counts()[kernel] - before == 1
     for a, b in zip(got, want):
         assert _rel(a, b) <= 1e-5
+    if name == "rglru_scan":        # its backward kernel, bitwise
+        assert tk.launch_counts()["rglru_scan_bwd"] - bwd_before == 1
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def _eq4_host(norm=None):

@@ -187,7 +187,8 @@ def test_cuda_kernels_build_lazily():
                                   "flash_attention_bf16", "merged_conv",
                                   "merged_ffn", "rglru_scan", "rmsnorm")
     assert set(cuda_build.SIGNATURES) == set(cuda_build.SOURCES) | {
-        f"{s}_q" for s in merged} | {"merged_ffn_slots", "rmsnorm_bf16"}
+        f"{s}_q" for s in merged} | {"merged_ffn_slots", "rmsnorm_bf16",
+                                     "rglru_scan_bwd"}
     for name in cuda_build.SOURCES:
         src = cuda_build.CSRC / f"{name}.cu"
         assert src.exists()

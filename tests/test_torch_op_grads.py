@@ -9,8 +9,10 @@ of the kernel itself.  Each case requires:
 * the output has a ``grad_fn`` whenever an input requires a gradient, and
   every gradient equals the plain version's autograd (``torch.equal``: the
   backward is the plain version's gradient, recomputed from the same
-  inputs);
-* the forward launches the kernel once, the backward not at all;
+  inputs; the scan's is its backward kernel, whose stand-in is the
+  backward's plain version ``rglru_scan_bwd_ref``, bitwise that autograd);
+* the forward launches the kernel once; the backward launches the scan's
+  backward kernel once and no other kernel;
 * under ``torch.no_grad()``, and when no input requires a gradient, the op
   launches once and saves no tensor (no ``saved_tensors_hooks`` pack).
 
@@ -56,6 +58,7 @@ STAND_INS = {
     (_mf, "merged_ffn"): _ffn_kernel,
     (_rn, "rmsnorm"): lambda x, g, eps: ref.rmsnorm_ref(x, g, eps),
     (_rg, "rglru_scan"): ref.rglru_scan_ref,
+    (_rg, "rglru_scan_bwd"): ref.rglru_scan_bwd_ref,
     (_fa, "flash_attention"): ops._attention_plain,
 }
 
@@ -205,6 +208,8 @@ def test_gradient_through_the_kernel_branch(case, launches):
     got = torch.autograd.grad(y, leaves, g, allow_unused=True)
     want = torch.autograd.grad(y_ref, ref_leaves, g, allow_unused=True)
     assert launches[kernel] == 1, "the backward launched the kernel"
+    assert launches["rglru_scan_bwd"] == (kernel == "rglru_scan"), \
+        "the scan's backward kernel: one launch in its backward, else none"
     for n, (a, b) in enumerate(zip(got, want)):
         assert (a is None) == (b is None), (case, n)
         if a is not None:

@@ -141,9 +141,11 @@ def test_launch_counts_cover_the_quantized_variants():
     assert set(tk.launch_counts()) == {
         "merged_conv", "depthwise_conv", "merged_ffn", "merged_conv_q",
         "depthwise_conv_q", "merged_ffn_q", "rmsnorm", "rglru_scan",
-        "flash_attention", "rmsnorm_bf16", "flash_attention_bf16"}
+        "flash_attention", "rmsnorm_bf16", "flash_attention_bf16",
+        "rglru_scan_bwd"}
     tmc.launches_q = tdw.launches_q = tmf.launches_q = 3
     rmsnorm.launches = rglru_scan.launches = flash_attention.launches = 2
     rmsnorm.launches_bf16 = flash_attention.launches_bf16 = 4
+    rglru_scan.launches_bwd = 5
     tk.reset_launch_counts()
     assert set(tk.launch_counts().values()) == {0}
