@@ -87,8 +87,11 @@ Phases, each printing its own line with the seconds it took:
              ``units.json``).
              Times are device times with a cold L2: 50 calls, each after
              a read that evicts the L2, captured in a CUDA graph and
-             replayed, less the evicting reads alone (:func:`kernel_time`);
-             so the inputs come from HBM, as the byte bound prices them.
+             replayed, less the evicting reads alone, the two graphs
+             replayed in 10 adjacent pairs and the median difference
+             taken (:func:`kernel_time`; since PR 29, before which they
+             were timed one after the other); so the inputs come from
+             HBM, as the byte bound prices them.
 7. resnet34 — ResNet34 at full width with the analytic oracle: lower,
              execute on the card (pool, projection shortcuts, the 7×7
              stride-2 stem), and hold against the CPU port; then each of
@@ -170,10 +173,11 @@ Phases, each printing its own line with the seconds it took:
              and one unit's kernel alone in each variant (fp32, int8,
              w8a8, fp8).
 
-15. rg compress — RecurrentGemma-2B at full size in fp32 (26 layers:
-             rglru, rglru, attn_local; d 2560, 10 heads over 1 kv head,
+15. rg compress — RecurrentGemma-2B at full width in fp32 and
+             ``RG_LAYERS`` (13) of its 26 layers, the block pattern kept
+             (rglru, rglru, attn_local; d 2560, 10 heads over 1 kv head,
              GeGLU 7680, vocab 256000; random weights drawn on the
-             card, seed 0),
+             card, seed 0; phase 26 serves all 26 at bf16),
              ``CostEnv(batch=8, seq=128)``, ``method="depth"``, tables
              timed on the card (probes through rmsnorm, rglru_scan,
              flash_attention and merged_ffn), phase 8's budget ladder to
@@ -184,7 +188,8 @@ Phases, each printing its own line with the seconds it took:
              prompts x 16 tokens, 32 greedy tokens, RG-LRU state and the
              local KV ring buffer; both loops, as in phase 9); every
              step's logits, teacher-forced, against the CPU port of the
-             artifact (``CPU_ROWS`` prompts, the first ``RG_CPU_STEPS``
+             artifact (its loaded tensors copied to the host since PR 29;
+             ``CPU_ROWS`` prompts, the first ``RG_CPU_STEPS``
              steps: the prompt and 8 decode steps), and the prefill
              forward against ``replaced_apply``; CUDA-event prefill and
              decode beside the original model; launches per decode step
@@ -246,11 +251,15 @@ Phases, each printing its own line with the seconds it took:
              150 fine-tuning steps, merged accuracy equal to replaced, the
              artifact reloaded) and the vmapped span batches forced
              against the sequential engine (rtol 1e-6, atol 1e-7); (c)
-             SmolLM-135M as in phase 8 (``method="depth"`` at phase 8's
-             budget) with ``distill_loss`` on seeded (8, 128) tokens, 8
-             steps: 30 fine-tunes through ``replaced_apply`` whose
+             SmolLM-135M at full width and the first ``EQ4_LM_LAYERS``
+             (15) of phase 8's 30 layers (since PR 29; ``method="depth"``
+             at the first budget from phase 8's on that merges an FFN,
+             beside the magnitude plan of the same layers on phase 8's
+             timings) with ``distill_loss`` on seeded (8, 128) tokens, 8
+             steps: 15 fine-tunes through ``replaced_apply`` whose
              forwards launch merged_ffn, rmsnorm and flash_attention (each
-             > 0, counted from zero), the plan served as phase 9 serves.
+             > 0, counted from zero), the plan and the original served as
+             phase 9 serves.
              Each part prints probes, fine-tunes and batches, seconds and
              ms per fine-tune step, peak device memory, a torch.profiler
              busy share over one fine-tune and the importance column's
@@ -316,8 +325,8 @@ Phases, each printing its own line with the seconds it took:
              from seed 0, direct table builds with ``strict_probes()``
              (0 retries, 0 quarantines): (a) granite-moe-1b-a400m at full
              size (24 layers, d 1024, 16/8 heads of 64, 32 experts top-8,
-             ``moe_dff`` 512, vocab 49155, tied; about 1.33 B parameters)
-             compressed at budget 0.6 under ``CostEnv(batch=8, seq=128)``
+             ``moe_dff`` 512, vocab 49155, tied; about 1.33 B parameters,
+             drawn on the card since PR 29) compressed at budget 0.6 under ``CostEnv(batch=8, seq=128)``
              with ``method="layermerge"`` (MoE and attention sublayers
              are prune-or-keep; the depth baseline keeps every layer of
              a chain with no FFN and meets no budget under 1), lowered in
@@ -358,7 +367,8 @@ Phases, each printing its own line with the seconds it took:
              line's ``@archs`` rows).
 24. train — LM training (``repro_torch.train``), fp32, data from
              ``SyntheticTokens(vocab, B, S, seed=0)``: (a) SmolLM-135M at
-             full size (134.5 M parameters), batch 8 x seq 1024 (the
+             full width and ``TRAIN_LAYERS`` (15) of its 30 layers (since
+             PR 29; 30 and 134.5 M parameters before), batch 8 x seq 1024 (the
              reference's ``examples/train_lm.py`` "100m" preset), AdamW
              lr 1e-3, warmup 20, 40 steps, weight decay 0.01, under
              ``train_loop`` (checkpoints every 10, keep 3) with a
@@ -368,8 +378,8 @@ Phases, each printing its own line with the seconds it took:
              first 5; the replayed steps' max |Δloss| and the gradient
              leaves that differ between two runs of one step; median ms
              a step and tok/s, steps with a checkpoint, the background
-             writes' seconds, peak memory, launches a step (rmsnorm 61,
-             flash_attention 30, as many as a forward: none in the
+             writes' seconds, peak memory, launches a step (rmsnorm
+             2L + 1, flash_attention L, as many as a forward: none in the
              backward), busy share over 3 steps; one loss and its
              gradients on 1 x 256 tokens against the CPU port (1e-5
              relative; 1e-4 of each leaf's max |g|); (b) phase 8's
@@ -460,6 +470,42 @@ Phases, each printing its own line with the seconds it took:
              fails on a spill, and counts its ``HGMMA`` (wgmma) and
              ``UTMALDG`` (TMA) instructions with ``cuobjdump``, failing
              where either is 0.
+29. mesh  — sharded serving on a ('data', 'model') mesh
+             (:func:`mesh_phase`; phases 27-28 redesigned kernels and
+             added none), on the artifacts of phases 4, 11, 22 and 8:
+             (a) four ``gloo`` ranks sharing the card
+             (``repro_torch.testing.world.run_world``), mesh data 2 ×
+             model 2 under ``make_unit_rules``, each loading its blocks
+             with ``runtime.load(path, rules=)``: MobileNetV2 (fp32 and
+             w8a8) and the UNet at batch 8 through ``GraphExecutor.apply``,
+             the gathered outputs within ``NET_RTOL`` of max |y| of the
+             single-device card forward in this process, every rank's w8a8
+             activation codes bitwise the single device's block
+             (``ActCodes``); SmolLM-135M at full width in fp32 (8 prompts
+             of 16 tokens, ``random_prompts(0, ...)``, 32 new tokens
+             through ``serve_loop_pertoken(rules=)``): its prefill and its
+             logits teacher-forced at every step within ``NET_RTOL`` of
+             max |y| of the single device (recorded in the loop's timed
+             run where the rank's tokens are the single device's, which
+             then fed every position the same token; computed on the
+             single device's tokens otherwise), a differing greedy token
+             failing only where its top-two margin exceeds that; every
+             rank must launch merged_conv, depthwise_conv, merged_ffn,
+             rmsnorm and flash_attention; the line prints each rank's
+             launches, its collectives of one decode step with their
+             bytes, its prefill and decode ms a step and its seconds by
+             stage.  (b) one
+             ``nccl`` rank (``make_host_mesh()``) serves phase 9's prompts
+             through the captured ``serve_loop(rules=)``: one graph replay
+             a token, the step's collectives issued inside the capture
+             (the torch.profiler trace of the captured decode reports the
+             NCCL kernels and device copies it shows: on one rank NCCL
+             sums in place with no kernel), tokens and logits held as in
+             (a) against phase 9's unsharded loop.  The two worlds run at once, beside
+             this process's references (``mesh.json``).  Phase 3 also holds
+             merged_ffn and merged_ffn_q with ``residual=False`` (the
+             switch the tensor-parallel lowrank units use) against their
+             plain versions at its shapes, each twice, bitwise.
 
 Each phase's seconds (its last log line's) end in a ``[phases]`` line
 and ``phases.json``.
@@ -472,7 +518,7 @@ in ``rg.json``, the serving numbers of phases 9, 13, 16, 18 and 19 in
 ``serve.json``, phase 20's in ``importance.json``, phase 21's in
 ``tables.json``, phase 22's in ``unet.json``, phase 23's in
 ``archs.json``, phase 24's in ``train.json``, phase 25's in
-``dist.json``, phase 26's in ``bf16.json``.  It exits non-zero
+``dist.json``, phase 26's in ``bf16.json``, phase 29's in ``mesh.json``.  It exits non-zero
 without a result where ``torch.cuda.is_available()`` is false or the repo's
 ``src/`` is missing.  The last lines are the ``kernels`` JSON line, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -549,6 +595,14 @@ QWEN2VL_LAYERS = 4
 #: Phase 16: teacher-forced steps held against the CPU port (the prompt's
 #: 16 positions and the first 8 decode steps).
 RG_CPU_STEPS = 24
+#: Layers of phases 15-16's fp32 RecurrentGemma-2B: 13 of its 26, the
+#: block pattern kept (cut to make room for phase 29; phase 26 serves all
+#: 26 at bf16).
+RG_LAYERS = 13
+#: Phase 20 (c): SmolLM-135M's Eq. 4 build runs the first this many of
+#: phase 8's 30 layers (at full width), cut in PR 29 to keep the script
+#: inside its time limit: its fine-tunes (one a layer) took 48-75 s at 30.
+EQ4_LM_LAYERS = 15
 #: Suffix of the ``kernels`` line's rows of phase 24 (d): the kernels at
 #: the training shapes, their launches over phase 24 (a)-(c).
 TRAIN_ROW = "@train"
@@ -556,6 +610,9 @@ TRAIN_ROW = "@train"
 #: preset) and its kernel shapes: rmsnorm's rows, flash_attention's (B,
 #: S, H, KVH, D).
 TRAIN_BATCH = (8, 1024)
+#: Phase 24 (a) trains SmolLM-135M at full width and this many of its 30
+#: layers (cut in PR 29 to keep the script inside its time limit).
+TRAIN_LAYERS = 15
 TRAIN_NORM = (8 * 1024, 576)
 TRAIN_ATTENTION = (8, 1024, 9, 3, 64)
 #: Each kernel's source and the TPU kernel (``pl.pallas_call``) it ports.
@@ -641,19 +698,54 @@ def l2_evict():
     return _L2_EVICT[0].sum()
 
 
-def kernel_time(fn) -> float:
-    """Device milliseconds per call of ``fn`` with a cold L2: 50 calls,
-    each after :func:`l2_evict`, captured in a CUDA graph and replayed 10
-    times (the wall-clock oracle's protocol, so that host dispatch does
-    not hide a kernel's own time), less the same for the evicting reads
-    alone.  Each call then reads its inputs from HBM, as the byte bound
+def _replay_graph(fn, calls: int):
+    """``calls`` calls of ``fn`` captured in one CUDA graph (after three
+    eager calls on a side stream, as the wall-clock oracle warms up),
+    replayed once."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    return graph
+
+
+def kernel_time(fn, calls: int = 50, pairs: int = 10) -> float:
+    """Device milliseconds per call of ``fn`` with a cold L2: ``calls``
+    calls, each after :func:`l2_evict`, captured in a CUDA graph, and the
+    evicting reads alone in another; the two replayed in turn ``pairs``
+    times, and the median over the pairs of their difference per call.
+    Each call then reads its inputs from HBM, as the byte bound
     (``H100_HBM_BW``) prices them; replaying warm inputs would let L2
-    serve inputs under 50 MB and beat that bound."""
-    from repro_torch.core import WallClockOracle
-    oracle = WallClockOracle(warmup=3, iters=500, groups=10)
-    both = oracle.time_callable(lambda: (l2_evict(), fn()))
-    alone = oracle.time_callable(l2_evict)
-    return (both - alone) * 1e3
+    serve inputs under 50 MB and beat that bound.  Graph replays keep
+    host dispatch from hiding a kernel's own time; timing the two graphs
+    in adjacent pairs keeps a drift of the card's clocks between them
+    out of the difference (timed one after the other, a 3 µs kernel
+    once came out at -4 µs)."""
+    import statistics
+
+    import torch
+    both = _replay_graph(lambda: (l2_evict(), fn()), calls)
+    alone = _replay_graph(l2_evict, calls)
+    events = []
+    for _ in range(pairs):
+        for graph in (both, alone):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            events.append((start, end))
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) / calls for s, e in events]
+    return statistics.median(ms[2 * i] - ms[2 * i + 1] for i in range(pairs))
 
 
 def check_bound(name: str, ms: float, bound_ms: float) -> None:
@@ -1467,29 +1559,39 @@ def time_main_path_kernels(graph, dev, batch: int, plain: bool = True,
     return tot
 
 
+def traced_kernels(prof) -> dict:
+    """{name: (device µs, launches)} of the device activity in a finished
+    torch.profiler trace, read from its raw events: building the
+    profiler's ``FunctionEvent`` tree (``prof.events()``) costs seconds a
+    trace, and the script takes dozens of traces."""
+    from torch.autograd import DeviceType
+    by_name: dict = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        us, n = by_name.get(ev.name(), (0.0, 0))
+        by_name[ev.name()] = (us + ev.duration_ns() / 1e3, n + 1)
+    return by_name
+
+
 def device_kernels(fn, reps: int = 5):
     """(device µs per call, [(µs per call, launches per call, name)]) of
     the kernels ``fn`` runs, from a torch.profiler trace of ``reps``
-    calls; (0.0, []) where the profiler sees no device activity."""
+    calls; (0.0, []) where the profiler sees no device activity.  The
+    trace records device activity only: host ops add nothing to these
+    numbers and would take the profiler seconds to collect."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    by_name: dict = {}
-    for ev in prof.events():
-        if getattr(ev, "device_type", None) != DeviceType.CUDA:
-            continue
-        us, n = by_name.get(ev.name, (0.0, 0))
-        by_name[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
     rows = sorted(((us / reps, n // reps, name)
-                   for name, (us, n) in by_name.items()), reverse=True)
+                   for name, (us, n) in traced_kernels(prof).items()),
+                  reverse=True)
     return sum(r[0] for r in rows), rows
 
 
@@ -1583,7 +1685,7 @@ def host_split(x, u, v) -> dict:
         x.device).multi_processor_count)
     y, p = kernels.merged_ffn_op(x, u, v), x.new_empty(plan.workspace)
     args = (x.data_ptr(), u.data_ptr(), v.data_ptr(), y.data_ptr(),
-            p.data_ptr(), m, d, r, *plan.args())
+            p.data_ptr(), m, d, r, *plan.args(), 1)      # with the residual
     fn = cuda_build.kernel("merged_ffn")
     stream = torch.cuda.current_stream().cuda_stream
     return {"op": host_us(lambda: kernels.merged_ffn_op(x, u, v)),
@@ -1612,6 +1714,57 @@ def ffn_slots() -> tuple[dict, bool]:
             or all(tuple(out[n]) == mf_mod.H100_SLOTS[t] for n, t in
                    (("small", mf_mod.SMALL), ("large", mf_mod.LARGE))))
     return out, same
+
+
+def ffn_partial_sweep(dev) -> dict:
+    """merged_ffn and its quantized variant with ``residual=False`` (a
+    rank's partial of a split over the rank, phase 29) at phase 3's
+    shapes: ``ffn_sweep``'s and ``qffn_sweep``'s, each against its plain
+    version's ``(x̂·U)·V`` within RTOL of ``(|x̂|·|U|)·|V|``, and each
+    twice on the same inputs, bitwise."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import quant, ref
+    g = torch.Generator().manual_seed(29)
+    fp = [(None, None, m, d, r) for m in (1, 8, 37, 1024)
+          for d in (32, 96, 576) for r in (1, 24, 576, 1152, 1536)]
+    fp += [(None, None, m, 2560, r) for m in (8, 1024)
+           for r in (24, 2560, 7680)]
+    fp += [(None, None, m, 2561, r) for m in (1, 8, 63, 64, 65, 129, 1024)
+           for r in (24, 2560)]
+    qc = [(wmode, aq, m, d, r) for wmode, aq in QMODES.values()
+          for m in (1, 8, 37, 1024) for d in (96, 576) for r in (24, 576)]
+    qc += [(wmode, aq, m, 2560, r) for wmode, aq in QPAIRS.values()
+           for m in (8, 1024) for r in (24, 2560)]
+    worst = {"merged_ffn": [0.0, 0.0, 0], "merged_ffn_q": [0.0, 0.0, 0]}
+    for wmode, aq, m, d, r in fp + qc:
+        x = torch.randn(m, d, generator=g).to(dev)
+        u = (torch.randn(d, r, generator=g) / d ** 0.5).to(dev)
+        v = (torch.randn(r, d, generator=g) / r ** 0.5).to(dev)
+        if wmode is None:
+            key, kw = "merged_ffn", {}
+            yr = ref.merged_ffn_ref(x, u, v, residual=False)
+            scale = ref.merged_ffn_ref(x.abs(), u.abs(), v.abs(),
+                                       residual=False)
+        else:
+            key = "merged_ffn_q"
+            u, us = quant.quantize_weight(u, wmode, axis=1)
+            v, vs = quant.quantize_weight(v, wmode, axis=1)
+            kw = dict(u_scale=us, v_scale=vs, act_quant=aq)
+            yr = ref.merged_ffn_qref(x, u, v, us, vs, act_quant=aq,
+                                     residual=False)
+            scale = (dequantized_input(x, aq).abs()
+                     @ quant.dequantize(u, us, axis=1).abs()
+                     ) @ quant.dequantize(v, vs, axis=1).abs()
+        y = kernels.merged_ffn_op(x, u, v, residual=False, **kw)
+        y2 = kernels.merged_ffn_op(x, u, v, residual=False, **kw)
+        case = f"residual=False x={(m, d)} r={r} {wmode or 'fp32'} {aq or ''}"
+        err, rel = held(key, y, yr, scale, case)
+        check(torch.equal(y, y2), f"{key} {case}: two calls on the same "
+              "inputs differ bitwise")
+        w = worst[key]
+        worst[key] = [max(w[0], err), max(w[1], rel), w[2] + 1]
+    return {f"{k} residual=False": v for k, v in worst.items()}
 
 
 def ffn_determinism(dev) -> int:
@@ -1847,8 +2000,8 @@ class ActCodes:
         from repro_torch.kernels import quant
         self._orig = orig = quant.quantize_int8
 
-        def quantize_int8(x, axis=None):
-            q, s = orig(x, axis)
+        def quantize_int8(x, axis=None, **kw):
+            q, s = orig(x, axis, **kw)
             if axis is not None:                     # a weight's channels
                 return q, s
             if not self.replay:
@@ -2488,10 +2641,12 @@ def time_rg_kernels(dev, cfg, art, host) -> list:
     return rows
 
 
-def card_lm_host(arch: str, dev, batch: int, seq: int):
-    """(host, source) of a transformer config at full size in fp32, its
-    weights drawn on the card from seed 0 (``build_host`` draws them on the
-    host, minutes for billions of parameters)."""
+def card_lm_host(arch: str, dev, batch: int, seq: int,
+                 layers: int | None = None):
+    """(host, source) of a transformer config at full width in fp32 (all
+    its layers, or the first ``layers`` of its block pattern), its weights
+    drawn on the card from seed 0 (``build_host`` draws them on the host,
+    minutes for billions of parameters)."""
     import dataclasses
 
     import torch
@@ -2500,19 +2655,24 @@ def card_lm_host(arch: str, dev, batch: int, seq: int):
     from repro_torch.models.transformer_host import CostEnv, TransformerHost
 
     cfg = dataclasses.replace(get_config(arch), dtype="float32", remat=False)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     params, _ = T.init_model(cfg, torch.Generator(dev).manual_seed(0),
                              device=dev)
     host = TransformerHost(cfg, params, env=CostEnv(batch=batch, seq=seq),
                            device=dev)
     return host, {"arch": arch, "seed": 0, "family": "transformer",
-                  "reduced": False, "generator": "cuda"}
+                  "reduced": False, "layers": cfg.num_layers,
+                  "generator": "cuda"}
 
 
 def rg_phases(dev):
-    """Phases 15-17: RecurrentGemma-2B at full size in fp32 compressed on
+    """Phases 15-17: RecurrentGemma-2B at full width in fp32 (``RG_LAYERS``
+    of its layers) compressed on
     card-timed tables, its artifact served and held against the CPU port
     and ``replaced_apply``, and the path's kernels at its shapes.
     Returns (rows of :func:`time_rg_kernels`, launches over 15-16)."""
+    import dataclasses
     import shutil
 
     import torch
@@ -2525,11 +2685,12 @@ def rg_phases(dev):
     # 15. RecurrentGemma-2B compress --------------------------------------------
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    # 26 layers (rglru, rglru, attn_local; window 2048), d 2560, 10 heads
-    # over 1 kv head of 256, GeGLU 7680, vocab 256000, tied embeddings:
-    # full size, fp32, weights drawn on the card from seed 0; costed and
-    # probed at batch 8 x seq 128 (probes at M = 1024)
-    host, source = card_lm_host("recurrentgemma-2b", dev, batch=8, seq=128)
+    # RG_LAYERS of 26 layers (rglru, rglru, attn_local; window 2048), d
+    # 2560, 10 heads over 1 kv head of 256, GeGLU 7680, vocab 256000, tied
+    # embeddings: full width, fp32, weights drawn on the card from seed 0;
+    # costed and probed at batch 8 x seq 128 (probes at M = 1024)
+    host, source = card_lm_host("recurrentgemma-2b", dev, batch=8, seq=128,
+                                layers=RG_LAYERS)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     cfg = host.cfg
@@ -2559,7 +2720,8 @@ def rg_phases(dev):
     t_save = time.perf_counter() - t_save
     build_launches = kernels.launch_counts()
     st = res.tables.stats
-    log("rg compress", t0, f"recurrentgemma-2b fp32 full size, "
+    log("rg compress", t0, f"recurrentgemma-2b fp32 full width, "
+        f"{cfg.num_layers} of 26 layers, "
         f"{n_params / 1e9:.3f} B parameters (init {t_init:.2f}s, tables and "
         f"DP {t_tables:.2f}s); depth budgets {'; '.join(ladder)}; served: "
         f"{served}, {len(res.plan.segments)} segments, "
@@ -2612,9 +2774,11 @@ def rg_phases(dev):
     per_prefill = {k: n for k, n in kernels.launch_counts().items() if n}
     # the CPU port on CPU_ROWS rows and the first RG_CPU_STEPS steps
     # (decode is row-wise; the host's time goes to streaming the weights,
-    # one pass a step)
+    # one pass a step), on the artifact's tensors copied to the host: the
+    # file's bytes, as a second load from disk would give them
     t_cpu = time.perf_counter()
-    cpu = runtime.load(rg_path, device="cpu")
+    cpu = dataclasses.replace(art, graph=cpu_copy(art.graph),
+                              device=torch.device("cpu"))
     lg_cpu = forced_logits(lambda c, t: cpu.decode(c, t),
                            cpu.init_cache(CPU_ROWS, P + N),
                            fed[:CPU_ROWS, :RG_CPU_STEPS].cpu())
@@ -2993,7 +3157,6 @@ def eq4_report(label, tables, imps, steps, peak_bytes, one_finetune) -> dict:
     import statistics
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     st = tables.stats
     tunes = len(imps)
@@ -3007,12 +3170,8 @@ def eq4_report(label, tables, imps, steps, peak_bytes, one_finetune) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         one_finetune()
         torch.cuda.synchronize()
-    by_name: dict = {}
-    for ev in prof.events():
-        if getattr(ev, "device_type", None) == DeviceType.CUDA:
-            us, n = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
-    rows = sorted(((us, n, name) for name, (us, n) in by_name.items()),
+    rows = sorted(((us, n, name)
+                   for name, (us, n) in traced_kernels(prof).items()),
                   reverse=True)
     busy_us = sum(r[0] for r in rows)
     row = {"probes": st.num_importance_probes, "finetunes": tunes,
@@ -3082,14 +3241,16 @@ def quickstart_host(dev):
 
 
 def importance_phase(dev, cnn_h, cnn_oracle, mag_plan, dev_orig_ms,
-                     lm_host, lm_oracle, lm_budget, lm_mag, o_dec, prompt,
+                     lm_host, lm_oracle, lm_budget, prompt,
                      new_tokens) -> dict:
     """Phase 20: (a) MobileNetV2 Eq. 4 tables (distill), DP, merge,
     artifact, 16 fine-tunes repeated bitwise under deterministic cuDNN;
     (b) the reference quickstart's protocol on tiny_resnet, the batched
-    engine against the sequential one; (c) SmolLM-135M Eq. 4 tables
-    (distill) through ``replaced_apply`` and the kernels, its plan served
-    as phase 9 serves."""
+    engine against the sequential one; (c) SmolLM-135M (the first
+    ``EQ4_LM_LAYERS`` layers of phase 8's) Eq. 4 tables (distill) through
+    ``replaced_apply`` and the kernels beside its magnitude plan, at the
+    first budget from ``lm_budget`` on that merges an FFN, its plan and
+    the original served as phase 9 serves."""
     import torch
     from repro_torch import kernels, runtime
     from repro_torch.core import (ImportanceSpec, WallClockOracle,
@@ -3104,6 +3265,8 @@ def importance_phase(dev, cnn_h, cnn_oracle, mag_plan, dev_orig_ms,
     from repro_torch.device import deterministic_cudnn
     from repro_torch.models import cnn
     from repro_torch.models import transformer as T
+    from repro_torch.models.transformer_host import TransformerHost
+    from repro_torch.tree import tree_map
 
     out: dict = {}
 
@@ -3260,9 +3423,24 @@ def importance_phase(dev, cnn_h, cnn_oracle, mag_plan, dev_orig_ms,
           f"(max rel {worst:.3g}; limit rtol 1e-6, atol 1e-7)")
     del art, res, host
 
-    # (c) SmolLM-135M at full size ------------------------------------------
+    # (c) SmolLM-135M at full width, EQ4_LM_LAYERS layers --------------------
     t0 = time.perf_counter()
-    cfg, lparams = lm_host.cfg, lm_host.params
+    cfg, lparams = cut_layers(lm_host.cfg, lm_host.params, EQ4_LM_LAYERS)
+    lparams = tree_map(lambda t: t.clone(), lparams)
+    lm_host = TransformerHost(cfg, lparams, env=lm_host.env, device=dev)
+    # its magnitude plan, on the timings phase 8's oracle holds (the
+    # signatures are phase 8's), at the first budget from phase 8's on
+    # that merges an FFN
+    lm_mag = None
+    for lm_budget in [b for b in LM_BUDGETS if b >= lm_budget]:
+        r = compress(lm_host, budget_ratio=lm_budget, method="depth",
+                     latency_oracle=lm_oracle, probe_config=strict_probes())
+        if r is not None and runtime.count_units(r.lower()).get("lowrank",
+                                                                0):
+            lm_mag = r
+            break
+    check(lm_mag is not None, f"smollm-135m at {EQ4_LM_LAYERS} layers: no "
+          f"budget in {LM_BUDGETS} merges an FFN")
     g = torch.Generator().manual_seed(21)
     shape = (lm_host.env.batch, lm_host.env.seq)
     btr, bev = ({"tokens": torch.randint(0, cfg.vocab_size, shape,
@@ -3297,6 +3475,11 @@ def importance_phase(dev, cnn_h, cnn_oracle, mag_plan, dev_orig_ms,
     art = runtime.load(c_path, device=dev)
     t4 = time.perf_counter()
     B, N = prompt.shape[0], new_tokens
+    _, o_dec, _, _, _ = serve_both(
+        f"smollm-135m original, {EQ4_LM_LAYERS} layers",
+        lambda c, t: T.decode_step(cfg, lparams, c, {"tokens": t}),
+        lambda: T.init_cache(cfg, B, prompt.shape[1] + N, device=dev),
+        prompt, N)
     _, dec, _, _, served = serve_both(
         "smollm-135m Eq. 4 plan", lambda c, t: art.decode(c, t),
         lambda: art.init_cache(B, prompt.shape[1] + N), prompt, N)
@@ -3307,12 +3490,13 @@ def importance_phase(dev, cnn_h, cnn_oracle, mag_plan, dev_orig_ms,
     row.update(plan=plan_line(res.plan), units=unit_census(res.lower()),
                magnitude_plan=plan_line(lm_mag.plan), plans_differ_at=diff,
                same_as_magnitude=res.plan.segments == lm_mag.plan.segments,
-               budget=lm_budget, launches=launches,
+               budget=lm_budget, layers=EQ4_LM_LAYERS, launches=launches,
                decode_tok_s=served["tok_s"], decode_speedup=o_dec / dec,
                predicted=res.speedup)
     out["smollm-135m"] = row
-    log("importance smollm-135m", t0, f"depth {lm_budget}: Eq. 4 plan "
-        f"{row['plan']}, units {row['units']} (phase 8's magnitude plan: "
+    log("importance smollm-135m", t0, f"{EQ4_LM_LAYERS} of 30 layers, "
+        f"depth {lm_budget}: Eq. 4 plan "
+        f"{row['plan']}, units {row['units']} (the magnitude plan: "
         f"{row['magnitude_plan']}; same {row['same_as_magnitude']}; the "
         f"two tables plan differently at budgets {diff} of "
         f"{list(PLAN_RATIOS)}); captured decode {served['tok_s']:.1f} tok/s, "
@@ -4442,10 +4626,10 @@ def arch_phase(dev, build_host) -> tuple[dict, dict, dict]:
     out = {}
     # (a) granite-moe-1b-a400m: 24 layers, d 1024, 16/8 heads of 64, 32
     # experts top-8 of moe_dff 512, vocab 49155, tied; costed and probed
-    # at batch 8 x seq 128
+    # at batch 8 x seq 128; its weights drawn on the card (the host draw
+    # took 12-17 s)
     t = time.perf_counter()
-    host, _ = build_host("granite-moe-1b-a400m", seed=0, batch=8, seq=128,
-                         full=True, device="cuda")
+    host, _ = card_lm_host("granite-moe-1b-a400m", dev, batch=8, seq=128)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     out["granite"], la = lm_family(dev, "granite", host, 0.6, moe=True)
@@ -4644,7 +4828,7 @@ def smollm_train(dev) -> dict:
 
     t0 = time.perf_counter()
     cfg = dataclasses.replace(get_config("smollm-135m"), dtype="float32",
-                              remat=False)
+                              remat=False, num_layers=TRAIN_LAYERS)
     p_cpu, _ = T.init_model(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
     params = tree_map(lambda t: t.to(dev), p_cpu)
@@ -4729,9 +4913,12 @@ def smollm_train(dev) -> dict:
           f"smollm train: a step launched {out['launches_per_step']}, a "
           f"forward {out['launches_per_forward']}")
     lp = out["launches_per_forward"]
-    check((lp["rmsnorm"], lp["flash_attention"]) == (61, 30), f"smollm "
-          f"train: a forward launched {lp}")
-    log("train smollm", t0, f"{n_params / 1e6:.2f}M params, {B}x{S}, 40 "
+    L = cfg.num_layers
+    check((lp["rmsnorm"], lp["flash_attention"]) == (2 * L + 1, L),
+          f"smollm train: a forward of {L} layers launched {lp}")
+    out["layers"] = L
+    log("train smollm", t0, f"{L} of 30 layers, "
+        f"{n_params / 1e6:.2f}M params, {B}x{S}, 40 "
         f"steps + {len(losses) - 40} replayed, restarts {res.restarts}; "
         f"step {step_ms:.2f} ms median ({out['tok_s']:.0f} tok/s), steps "
         f"with a checkpoint {[round(x, 1) for x in out['ckpt_step_ms']]} "
@@ -5656,8 +5843,10 @@ def bf16_train(dev, fp32_step=None) -> dict:
     fp32 = "not run"
     if fp32_step is not None:
         out.update(fp32_step_ms=fp32_step["step_ms"],
+                   fp32_layers=fp32_step["layers"],
                    fp32_peak_bytes=fp32_step["peak_bytes"])
-        fp32 = (f"{fp32_step['step_ms']:.2f} ms a step, peak "
+        fp32 = (f"{fp32_step['step_ms']:.2f} ms a step at "
+                f"{fp32_step['layers']} layers, peak "
                 f"{fp32_step['peak_bytes'] / 2**30:.2f} GiB")
     log("bf16 train", t0, f"smollm-135m bf16 through launch.train, {B}x{S}, "
         f"{BF16_TRAIN_STEPS} steps: loss first 5 {first5:.4f} -> last 5 "
@@ -5690,8 +5879,9 @@ def bf16_phase(dev, serve_rows=None, trn=None) -> tuple[dict, dict, dict]:
     out = {"serve": {}}
     kernels.reset_launch_counts()
     serve_rows = serve_rows or {}
-    fp32 = {"smollm-135m": serve_rows.get("smollm-135m original"),
-            "recurrentgemma-2b": serve_rows.get("recurrentgemma-2b original")}
+    # phase 16 serves RecurrentGemma-2B at RG_LAYERS layers, this phase at
+    # 26: only SmolLM-135M's fp32 step is the same model's
+    fp32 = {"smollm-135m": serve_rows.get("smollm-135m original")}
     for arch, layers in BF16_SERVE:
         out["serve"][arch] = bf16_serve_one(dev, arch, layers,
                                             fp32.get(arch))
@@ -5739,6 +5929,424 @@ def bf16_phase(dev, serve_rows=None, trn=None) -> tuple[dict, dict, dict]:
     log("bf16", t0, f"phase 26 in {out['seconds']:.2f}s; launches (b)-(c) "
         f"{launches}")
     return out, launches, tot
+
+
+# ---------------------------------------------------------------------------
+# Phase 29: sharded serving on a ('data', 'model') mesh
+# ---------------------------------------------------------------------------
+
+#: Phase 29's SmolLM-135M serve (batch, prompt, new tokens).
+MESH_LM = (8, 16, 32)
+#: Phase 29 (a)'s networks: the label, the artifact an earlier phase
+#: wrote under ``WORK``, and the input's shape (seeded by ``mesh_input``).
+MESH_CNN = (("mobilenetv2", "mobilenetv2.npz", (8, 224, 224, 3)),
+            ("mobilenetv2 w8a8", "mobilenetv2_w8a8.npz", (8, 224, 224, 3)),
+            ("ddpm_unet", "ddpm_unet.npz", (8, 32, 32, 4)))
+#: The kernels every rank of phase 29 (a) must launch.
+MESH_KERNELS = ("merged_conv", "depthwise_conv", "merged_ffn", "rmsnorm",
+                "flash_attention")
+
+
+def mesh_input(shape, seed: int = 29):
+    """The seeded CPU input phase 29's parent and ranks both draw."""
+    import torch
+    return torch.randn(shape, generator=torch.Generator().manual_seed(seed))
+
+
+def code_flips(whole, local, mesh) -> tuple[int, int]:
+    """(codes of a rank's blocks that differ from the single device's,
+    codes compared), over the ``ActCodes`` records of one forward each:
+    a rank's code tensor is the block of the whole one at its data index
+    (rows, where it holds fewer) and model index (channels)."""
+    check(len(whole) == len(local), f"{len(local)} activation quantizations "
+          f"on the rank, {len(whole)} on the single device")
+    flips = total = 0
+    for (w, ws), (q, qs) in zip(whole, local):
+        check(bool((ws == qs).all()), f"activation scale {float(qs):.9g} on "
+              f"the rank, {float(ws):.9g} on the single device")
+        blk = w
+        if q.shape[0] < w.shape[0]:
+            n, i = q.shape[0], mesh.index("data")
+            blk = blk[i * n:(i + 1) * n]
+        if q.shape[-1] < w.shape[-1]:
+            c, i = q.shape[-1], mesh.index("model")
+            blk = blk[..., i * c:(i + 1) * c]
+        check(blk.shape == q.shape, f"activation codes {tuple(q.shape)} are "
+              f"no block of {tuple(w.shape)}")
+        flips += int((blk != q).sum())
+        total += q.numel()
+    return flips, total
+
+
+def _sha(a) -> str:
+    import hashlib
+    return hashlib.sha256(a.tobytes()).hexdigest()
+
+
+def mesh_rank(rank, spec):
+    """Phase 29 (a) in one of four ``gloo`` ranks sharing the card, mesh
+    data 2 × model 2 under ``make_unit_rules``: each network loaded as
+    the rank's blocks (``load(path, rules=)``) and run by
+    ``GraphExecutor.apply``; SmolLM-135M's prefill, its
+    ``serve_loop_pertoken(rules=)`` and its logits teacher-forced on the
+    parent's tokens (those of the loop's timed run where its tokens are
+    the parent's).  The w8a8 network's activation codes are recorded
+    on the sharded run and on the single device's, on this card.
+    Returns the outputs (rank 0 the large logits, every rank their
+    hash), timings, launches and the collectives of one decode step."""
+    import torch
+    from repro_torch import kernels, runtime
+    from repro_torch.device import resolve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import serving
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import make_unit_rules
+
+    t_wall = time.time()
+    t_start = time.perf_counter()
+    dev = resolve("cuda")
+    mesh = make_host_mesh(model=2)
+    rules = make_unit_rules(mesh)
+    out = {"rank": rank, "coords": dict(mesh.coords), "cnn": {}}
+    whole_codes = {}
+    for label, path, shape in spec["cnn"]:       # the single device's codes
+        if "w8a8" in label:
+            with ActCodes() as rec:
+                runtime.load(path, device=dev).apply(mesh_input(shape).to(dev))
+            whole_codes[label] = rec.codes
+    stages = {"start": t_wall - spec["spawned"],
+              "codes": time.perf_counter() - t_start}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for label, path, shape in spec["cnn"]:
+        ex = runtime.load(path, rules=rules, device=dev).executor(rules)
+        with ActCodes() as rec:
+            y = ex.apply(mesh_input(shape).to(dev))
+        row = {"y": y.cpu().numpy()}
+        if label in whole_codes:
+            row["flips"], row["codes"] = code_flips(whole_codes[label],
+                                                    rec.codes, mesh)
+            row["quantized"] = len(rec.codes)
+        out["cnn"][label] = row
+    out["cnn_s"] = time.perf_counter() - t0
+    B, P, N = MESH_LM
+    t0 = time.perf_counter()
+    ex = runtime.load(spec["lm"], rules=rules, device=dev).executor(rules)
+    prompt = spec["prompt"].to(dev)
+    stages["lm_load"] = time.perf_counter() - t0
+    pre = ex.apply({"tokens": prompt}).cpu().numpy()
+    stages["lm_prefill"] = time.perf_counter() - t0 - stages["lm_load"]
+    steps, run_logits = P + N - 1, []
+
+    def step(cache, tok):
+        # the loop runs twice, unmeasured then timed: the timed run's last
+        # call is the decode step whose collectives are counted
+        if len(run_logits) == 2 * steps - 1:
+            C.reset_collective_counts()
+        logits, cache = ex.decode(cache, tok)
+        run_logits.append(logits[:, -1])
+        return logits, cache
+    t0 = time.perf_counter()
+    pre_s, dec_s, _, seqs = serving.serve_loop_pertoken(
+        step, lambda: ex.init_cache(B, P + N), prompt, N, rules=rules)
+    step_collectives = C.collective_counts()
+    stages["lm_pertoken"] = time.perf_counter() - t0
+    # Where this rank's greedy tokens are the single device's, the timed
+    # run fed every position the token teacher forcing feeds, from a fresh
+    # cache through the same decode: its logits are the teacher-forced
+    # ones.  Otherwise they are computed on the single device's tokens.
+    t0 = time.perf_counter()
+    fed = spec["fed"].to(dev)
+    own = torch.equal(torch.cat([prompt, seqs[:, :-1]], dim=1), fed)
+    forced = torch.stack(run_logits[steps:], dim=1) if own else \
+        forced_logits(ex.decode, ex.init_cache(B, P + N), fed)
+    forced = forced.cpu().numpy()
+    stages["lm_forced"] = time.perf_counter() - t0
+    out["stages"] = stages
+    out["lm"] = {"prefill": pre if rank == 0 else None,
+                 "prefill_sha": _sha(pre), "seqs": seqs.cpu().numpy(),
+                 "forced": forced if rank == 0 else None,
+                 "forced_sha": _sha(forced),
+                 "forced_from": "timed run" if own else "forced run",
+                 "prefill_ms": pre_s * 1e3 / P,
+                 "decode_ms": dec_s * 1e3 / (N - 1),
+                 "collectives_per_step": step_collectives}
+    out["launches"] = {k: v for k, v in kernels.launch_counts().items() if v}
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def mesh_nccl_rank(rank, spec):
+    """Phase 29 (b) in one ``nccl`` rank (``make_host_mesh()``): phase 9's
+    SmolLM-135M prompts through the captured ``serve_loop(rules=)`` (its
+    graph replays counted), a torch.profiler trace of the captured decode
+    replays (the NCCL kernels inside the graph), and the logits
+    teacher-forced on phase 9's tokens."""
+    import torch
+    from repro_torch import kernels, runtime
+    from repro_torch.device import resolve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import serving
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import make_unit_rules
+
+    t_start = time.perf_counter()
+    dev = resolve("cuda")
+    rules = make_unit_rules(make_host_mesh())
+    ex = runtime.load(spec["lm"], rules=rules, device=dev).executor(rules)
+    B, P, N = MESH_LM
+    prompt = spec["prompt"].to(dev)
+    kernels.reset_launch_counts()
+    C.reset_collective_counts()
+    with CountCalls(torch.cuda.CUDAGraph, "replay") as rp:
+        pre_s, dec_s, last, seqs = serving.serve_loop(
+            ex.decode, lambda: ex.init_cache(B, P + N), prompt, N,
+            rules=rules)
+    steps = P + N - 1
+    run = serving._StepGraph(ex.decode, ex.init_cache(B, P + N), B, steps)
+    lengths = torch.full((B,), P)
+    C.reset_collective_counts()
+    run.prepare(prompt, lengths, rules)     # one eager step, one captured
+    captured = {k: {"calls": v["calls"] // 2, "bytes": v["bytes"] // 2}
+                for k, v in C.collective_counts().items()}
+    run.reset(prompt, lengths)
+    run.advance(P + 1)
+    busy_us, rows = device_kernels(lambda: run.advance(1), reps=N - 3)
+    forced = forced_logits(ex.decode, ex.init_cache(B, P + N),
+                           spec["fed"].to(dev))
+    return {"replays_per_token": rp.n / (2 * steps),
+            "seqs": seqs.cpu().numpy(), "last": last.cpu().numpy(),
+            "forced": forced.cpu().numpy(),
+            "nccl": [r for r in rows if "nccl" in r[2].lower()],
+            "copies": [r for r in rows if "memcpy" in r[2].lower()],
+            "collectives_per_step": captured,
+            "kernels": rows[:8], "busy_us": busy_us,
+            "prefill_ms": pre_s * 1e3 / P, "decode_ms": dec_s * 1e3 / (N - 1),
+            "capture_s": run.capture_s, "launches_per_step": run.launches,
+            "launches": {k: v for k, v in kernels.launch_counts().items()
+                         if v},
+            "seconds": time.perf_counter() - t_start}
+
+
+def held_steps(label, forced, ref) -> float:
+    """The teacher-forced logits of each step within ``NET_RTOL`` of the
+    reference's largest |y| at that step; returns the worst ratio."""
+    import numpy as np
+    err = np.abs(forced - ref).max(axis=(0, 2))
+    scale = np.abs(ref).max(axis=(0, 2))
+    worst = float((err / scale).max())
+    check(forced.shape == ref.shape and bool(np.isfinite(forced).all()),
+          f"{label}: teacher-forced logits {forced.shape} vs {ref.shape}")
+    check(worst <= NET_RTOL, f"{label}: teacher-forced logits differ from "
+          f"the single device by {worst:.3g} of max |y| (limit {NET_RTOL})")
+    return worst
+
+
+def token_flips(label, seqs, seqs_ref, ref, P) -> list:
+    """Greedy tokens of ``seqs`` (B, N) that differ from ``seqs_ref``: at
+    each row's first difference the single device's top-two margin there
+    (its logits ``ref`` teacher-forced on its own tokens) must lie within
+    ``NET_RTOL`` of its max |y|, or the phase fails; the row's later
+    tokens follow another prefix and are not compared."""
+    import numpy as np
+    flips = []
+    for b in range(seqs.shape[0]):
+        diff = np.nonzero(seqs[b] != seqs_ref[b])[0]
+        if not len(diff):
+            continue
+        t = int(diff[0])
+        lg = ref[b, P - 1 + t]
+        top = np.sort(lg)[-2:]
+        margin = float(top[1] - top[0])
+        tol = NET_RTOL * float(np.abs(ref[:, P - 1 + t]).max())
+        flips.append({"row": b, "step": t, "margin": margin, "limit": tol})
+        check(margin <= tol, f"{label}: row {b} token {t} differs from the "
+              f"single device where its top-two margin {margin:.3g} exceeds "
+              f"{tol:.3g}")
+    return flips
+
+
+def mesh_phase(dev, ref9) -> tuple[dict, dict]:
+    """Phase 29 ("mesh"): sharded serving of earlier phases' artifacts.
+
+    (a) four ``gloo`` ranks sharing the card (``run_world``), mesh data 2
+    × model 2: MobileNetV2 (fp32 and w8a8) and the UNet at batch 8, their
+    gathered outputs within ``NET_RTOL`` of the single-device card forward
+    here, the w8a8 ranks' activation codes bitwise the single device's;
+    SmolLM-135M at full width (``random_prompts(0, 8, 16, vocab)``, 32 new
+    tokens through ``serve_loop_pertoken(rules=)``), its prefill and its
+    logits teacher-forced at every step on this process's tokens within
+    ``NET_RTOL`` of max |y|, a differing greedy token failing only where
+    its top-two margin exceeds that (:func:`token_flips`).  (b) one
+    ``nccl`` rank runs phase 9's prompts through the captured
+    ``serve_loop(rules=)``: one replay per token, the step's collectives
+    issued inside the capture (the NCCL kernels and device copies of the
+    graph's trace reported), tokens and logits held as in (a) against
+    phase 9's unsharded loop (``ref9``: its prompt, tokens and last logits).  Both
+    worlds run at once, beside this process's single-device references.
+    Returns (the phase's numbers, the ranks' launches summed)."""
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch import runtime
+    from repro_torch.runtime import serving
+    from repro_torch.testing.world import run_world
+
+    t0 = time.perf_counter()
+    B, P, N = MESH_LM
+    lm_path = os.path.join(WORK, "smollm135m_depth.npz")
+    cnns = [(label, os.path.join(WORK, f), shape)
+            for label, f, shape in MESH_CNN]
+    single = runtime.load(lm_path, device=dev)
+    vocab = single.graph.meta["config"].vocab_size
+    prompt = serving.random_prompts(0, B, P, vocab, device="cpu")
+    _, _, _, seqs_ref = serving.serve_loop_pertoken(
+        single.decode, lambda: single.init_cache(B, P + N), prompt.to(dev), N)
+    seqs_ref = seqs_ref.cpu()
+    fed = torch.cat([prompt, seqs_ref[:, :-1]], dim=1)
+    fed9 = torch.cat([ref9["prompt"].cpu(), ref9["seqs"].cpu()[:, :-1]], 1)
+    worlds: dict = {}
+
+    def start(key, *args, **kw):
+        def run():
+            try:
+                worlds[key] = run_world(*args, **kw)
+            except BaseException as e:          # re-raised below
+                worlds[key] = e
+        th = threading.Thread(target=run)
+        th.start()
+        return th
+
+    threads = [
+        start("a", mesh_rank, 4, backend="gloo", device="cuda", timeout=300,
+              args=({"cnn": cnns, "lm": lm_path, "prompt": prompt,
+                     "fed": fed, "spawned": time.time()},)),
+        start("b", mesh_nccl_rank, 1, backend="nccl", device="cuda",
+              timeout=300, args=({"lm": lm_path,
+                                  "prompt": ref9["prompt"].cpu(),
+                                  "fed": fed9},))]
+    # the single-device references, on the card, while the worlds run
+    ref_cnn = {label: runtime.load(path, device=dev).apply(
+        mesh_input(shape).to(dev)).cpu().numpy()
+        for label, path, shape in cnns}
+    ref_pre = single.apply({"tokens": prompt.to(dev)}).cpu().numpy()
+    ref_forced = forced_logits(single.decode, single.init_cache(B, P + N),
+                               fed.to(dev)).cpu().numpy()
+    ref_forced9 = forced_logits(single.decode, single.init_cache(B, P + N),
+                                fed9.to(dev)).cpu().numpy()
+    t_ref = time.perf_counter() - t0
+    for th in threads:
+        th.join()
+    for key in ("a", "b"):
+        if isinstance(worlds[key], BaseException):
+            raise worlds[key]
+    ranks, (nccl,) = worlds["a"], worlds["b"]
+    out: dict = {"ref_s": t_ref, "ranks": [], "nccl": {}}
+    launches: dict = {}
+    for r in ranks:
+        row = {"rank": r["rank"], "coords": r["coords"],
+               "seconds": r["seconds"], "cnn_s": r["cnn_s"],
+               "launches": r["launches"], "stages": r["stages"], "cnn": {}}
+        for label, _, _ in cnns:
+            c = r["cnn"][label]
+            rel = rel_np(c["y"], ref_cnn[label])
+            print(f"  mesh rank {r['rank']} {label}: vs single device "
+                  f"{rel:.3g}" + (f", activation codes {c['codes']}, flips "
+                                  f"{c['flips']}" if "codes" in c else ""),
+                  flush=True)
+            check(rel <= NET_RTOL, f"mesh {label} rank {r['rank']}: output "
+                  f"differs from the single device by {rel:.3g} of max |y|")
+            row["cnn"][label] = {"rel": rel, **{
+                k: c[k] for k in ("flips", "codes", "quantized") if k in c}}
+            if "w8a8" in label:
+                check(c["codes"] > 0 and c["flips"] == 0,
+                      f"mesh {label} rank {r['rank']}: {c['flips']} of "
+                      f"{c['codes']} activation codes differ from the "
+                      "single device's")
+        lm = r["lm"]
+        check(lm["prefill_sha"] == ranks[0]["lm"]["prefill_sha"]
+              and lm["forced_sha"] == ranks[0]["lm"]["forced_sha"],
+              f"mesh rank {r['rank']}: gathered logits differ from rank 0's")
+        row["lm"] = {k: lm[k] for k in ("prefill_ms", "decode_ms",
+                                        "collectives_per_step",
+                                        "forced_from")}
+        row["lm"]["token_flips"] = token_flips(
+            f"mesh smollm rank {r['rank']}", lm["seqs"],
+            seqs_ref.numpy(), ref_forced, P)
+        for k in MESH_KERNELS:
+            check(r["launches"].get(k, 0) > 0, f"mesh rank {r['rank']}: "
+                  f"{k} never launched")
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        out["ranks"].append(row)
+    lm0 = ranks[0]["lm"]
+    out["prefill_rel"] = rel_np(lm0["prefill"], ref_pre)
+    check(out["prefill_rel"] <= NET_RTOL, f"mesh smollm prefill differs "
+          f"from the single device by {out['prefill_rel']:.3g}")
+    out["forced_rel"] = held_steps("mesh smollm", lm0["forced"], ref_forced)
+    # (b) the captured loop over nccl
+    check(nccl["replays_per_token"] == 1.0, f"mesh nccl: "
+          f"{nccl['replays_per_token']} graph replays a token")
+    # The step's collectives go to NCCL inside the capture.  On one rank
+    # NCCL launches no kernel for them (a sum or max is complete in place;
+    # an all-gather is one device copy), so the trace shows NCCL kernels
+    # only where they exist; their count is reported, not required.
+    check(sum(v["calls"] for v in nccl["collectives_per_step"].values())
+          > 0, "mesh nccl: the captured step issued no collective")
+    out["nccl"] = {k: nccl[k] for k in (
+        "replays_per_token", "prefill_ms", "decode_ms", "capture_s",
+        "busy_us", "launches_per_step", "launches", "seconds", "nccl",
+        "copies", "collectives_per_step")}
+    out["nccl"]["forced_rel"] = held_steps("mesh nccl", nccl["forced"],
+                                           ref_forced9)
+    out["nccl"]["last_rel"] = rel_np(nccl["last"],
+                                     ref9["logits"].cpu().numpy())
+    out["nccl"]["token_flips"] = token_flips(
+        "mesh nccl", nccl["seqs"], ref9["seqs"].cpu().numpy(), ref_forced9,
+        P)
+    out["seconds"] = time.perf_counter() - t0
+    log("mesh", t0, "(a) 4 gloo ranks, data 2 x model 2: " + "; ".join(
+        f"rank {r['rank']} {r['coords']} in {r['seconds']:.2f}s: outputs vs "
+        f"single device " + ", ".join(
+            f"{k} {v['rel']:.3g}" + (f" (codes {v['codes']}, flips "
+                                     f"{v['flips']})" if "codes" in v else "")
+            for k, v in r["cnn"].items())
+        + f"; smollm prefill {r['lm']['prefill_ms']:.3f} ms a position, "
+        f"decode {r['lm']['decode_ms']:.3f} ms a step, token flips "
+        f"{len(r['lm']['token_flips'])}, teacher-forced logits from the "
+        f"{r['lm']['forced_from']}; seconds by stage "
+        f"{json.dumps({k: round(v, 2) for k, v in r['stages'].items()})}; "
+        f"launches {json.dumps(r['launches'])}"
+        f"; collectives a decode step "
+        f"{json.dumps(r['lm']['collectives_per_step'])}"
+        for r in out["ranks"]) + f"; smollm prefill vs single device "
+        f"{out['prefill_rel']:.3g}, teacher-forced worst step "
+        f"{out['forced_rel']:.3g} (limit {NET_RTOL}); (b) 1 nccl rank: "
+        f"captured serve_loop replays a token "
+        f"{nccl['replays_per_token']}, prefill {nccl['prefill_ms']:.3f} ms "
+        f"a position, decode {nccl['decode_ms']:.3f} ms a step, capture "
+        f"{nccl['capture_s']:.3f}s, launches a step "
+        f"{json.dumps(nccl['launches_per_step'])}, collectives captured "
+        f"a step {json.dumps(nccl['collectives_per_step'])}, device busy "
+        f"{nccl['busy_us']:.1f} us a step, NCCL kernels in the graph's "
+        f"trace {len(nccl['nccl'])}: "
+        + ("; ".join(f"{n[:50]} {us:.1f}us x{k}" for us, k, n in
+                     nccl["nccl"]) or "none")
+        + ", device copies: " + ("; ".join(
+            f"{n[:40]} {us:.1f}us x{k}" for us, k, n in nccl["copies"])
+            or "none")
+        + f"; teacher-forced worst step {out['nccl']['forced_rel']:.3g}, "
+        f"last logits vs phase 9 {out['nccl']['last_rel']:.3g}, token flips "
+        f"{len(out['nccl']['token_flips'])}; references here "
+        f"{t_ref:.2f}s")
+    return out, launches
+
+
+def rel_np(a, b) -> float:
+    """max |a − b| / max |b| of numpy arrays."""
+    import numpy as np
+    return float(np.abs(a - b).max() / np.abs(b).max())
 
 
 def hopper_resources(build) -> dict:
@@ -5845,6 +6453,7 @@ def main(argv) -> int:
         sweep[k] = [max(sweep[k][0], v[0]), max(sweep[k][1], v[1]),
                     sweep[k][2] + v[2]]
     sweep["merged_ffn_q"] = qffn_sweep(dev)
+    sweep.update(ffn_partial_sweep(dev))
     sweep.update(norm_scan_attention_sweep(dev))
     sweep.update(bf16_sweep(dev))
     n_q = quantize_matches_cpu(dev)
@@ -6191,7 +6800,7 @@ def main(argv) -> int:
         launches[k] = rg_launch[k]
     # 20. Eq. 4 importance ------------------------------------------------------
     eq4 = importance_phase(dev, cnn_h, cnn_oracle, art.plan, dev_orig, host,
-                           oracle, budget, res, o_dec, prompt, N)
+                           oracle, budget, prompt, N)
     with open(os.path.join(WORK, "importance.json"), "w") as f:
         json.dump(eq4, f, indent=1, default=str)
     # 21. the crash-safe table build --------------------------------------------
@@ -6241,6 +6850,16 @@ def main(argv) -> int:
     bf16, bf16_launch, bf16_tot = bf16_phase(dev, serve_rows, trn)
     with open(os.path.join(WORK, "bf16.json"), "w") as f:
         json.dump(bf16, f, indent=1, default=str)
+    # 29. sharded serving on a ('data', 'model') mesh ---------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh, mesh_launch = mesh_phase(dev, {"prompt": prompt, "seqs": seqs,
+                                         "logits": c_logits})
+    with open(os.path.join(WORK, "mesh.json"), "w") as f:
+        json.dump(mesh, f, indent=1, default=str)
+    for k, v in mesh_launch.items():
+        if k in launches:
+            launches[k] += v
     sweep_err = {k: v[0] for k, v in sweep.items()}
     for k, v in bf16_tot.items():
         tot[k] = v

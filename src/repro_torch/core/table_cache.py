@@ -103,7 +103,8 @@ def pytree_digest(tree) -> str:
         h.update(path.encode())
         h.update(str(arr.dtype).encode())
         h.update(str(arr.shape).encode())
-        h.update(np.ascontiguousarray(arr).tobytes())
+        # the bytes of ``tobytes()``, hashed in place (no copy)
+        h.update(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
     return h.hexdigest()
 
 

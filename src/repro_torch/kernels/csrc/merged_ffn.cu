@@ -1,6 +1,7 @@
 // Merged rank-r residual layer for Hopper (sm_90a), fp32 result:
 //   y = x + ((xq @ U) · u_scale) @ V · v_scale
-// (fp32 entry: xq = x, no scales).
+// (fp32 entry: xq = x, no scales; with the residual switch off, y without
+// the x term: one rank's partial of a tensor-parallel split).
 //
 // Replaces the TPU kernel in src/repro/kernels/merged_ffn.py (`merged_ffn`,
 // body `_kernel`, and its `quant=True` body): x (M, D), U (D, R), V (R, D),
@@ -436,18 +437,28 @@ int phase(const Plan& pl, const void* a, const void* b, const float* scale,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Phase A into the workspace p (skipped at R = 0), then phase B into y.
+// Phase A into the workspace p (skipped at R = 0), then phase B into y,
+// with the residual x in its epilogue or (residual == 0) without it.
+// Without it, phase B is the instance phase A already has for an fp32
+// panel: the switch adds no kernel instance.  A rank of a tensor-parallel
+// split (U's columns and V's rows on the 'model' axis) computes a partial
+// (P_r @ V_r); only one rank of the split may add x before the sum.
 template <typename XQ, typename WT, bool QUANT>
 int run(const float* x, const void* xq, const void* u, const void* v,
         const float* u_scale, const float* v_scale, float* y, float* p,
-        int m, int d, int r, const Plan& pa, const Plan& pb, void* stream) {
+        int m, int d, int r, const Plan& pa, const Plan& pb, int residual,
+        void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (r > 0) {
     const int e = phase<XQ, WT, QUANT, false>(pa, xq, u, u_scale, nullptr, p,
                                              m, r, d, st);
     if (e != 0) return e;
   }
-  return phase<float, WT, QUANT, true>(pb, p, v, v_scale, x, y, m, d, r, st);
+  if (residual)
+    return phase<float, WT, QUANT, true>(pb, p, v, v_scale, x, y, m, d, r,
+                                         st);
+  return phase<float, WT, QUANT, false>(pb, p, v, v_scale, nullptr, y, m, d,
+                                        r, st);
 }
 
 }  // namespace
@@ -456,42 +467,48 @@ int run(const float* x, const void* xq, const void* u, const void* v,
 // contiguous, on the device of `stream`.  The plan of each phase (A:
 // P = x@U, B: y = x + P@V): tile rows and columns (16 x 64 or 128 x 128),
 // splits of the reduction (1-16, a cluster) and the k-chunk of a split (a
-// multiple of 32).  Returns the launches' cudaError_t (0 on success), or
+// multiple of 32); residual 1 adds x (y = x + P@V), 0 leaves it out
+// (y = P@V).  Returns the launches' cudaError_t (0 on success), or
 // cudaErrorInvalidValue for a plan that does not cover the product.
 extern "C" int merged_ffn_f32(const float* x, const float* u, const float* v,
                               float* y, float* p, int m, int d, int r,
                               int bm_a, int bn_a, int splits_a, int kc_a,
                               int bm_b, int bn_b, int splits_b, int kc_b,
-                              void* stream) {
+                              int residual, void* stream) {
   return run<float, float, false>(x, x, u, v, nullptr, nullptr, y, p, m, d,
                                   r, Plan{bm_a, bn_a, splits_a, kc_a},
-                                  Plan{bm_b, bn_b, splits_b, kc_b}, stream);
+                                  Plan{bm_b, bn_b, splits_b, kc_b}, residual,
+                                  stream);
 }
 
 // The quantized variant: x (M,D) fp32 (the residual); xq (M,D) the panel
 // feeding P, fp32 (xq_type 0: x itself) or int8 (1, w8a8); u (D,R) and
 // v (R,D) int8 (w_type 1) or fp8-e4m3 (2); u_scale (R) and v_scale (D)
-// fp32; the plan as above.  Returns the launches' cudaError_t, or
-// cudaErrorInvalidValue for a type pair or plan it does not take.
+// fp32; the plan and the residual switch as above.  Returns the launches'
+// cudaError_t, or cudaErrorInvalidValue for a type pair or plan it does
+// not take.
 extern "C" int merged_ffn_q(const float* x, const void* xq, const void* u,
                             const void* v, const float* u_scale,
                             const float* v_scale, float* y, float* p, int m,
                             int d, int r, int xq_type, int w_type, int bm_a,
                             int bn_a, int splits_a, int kc_a, int bm_b,
-                            int bn_b, int splits_b, int kc_b, void* stream) {
+                            int bn_b, int splits_b, int kc_b, int residual,
+                            void* stream) {
   const Plan pa{bm_a, bn_a, splits_a, kc_a}, pb{bm_b, bn_b, splits_b, kc_b};
   if (xq_type == 0 && w_type == 1)
     return run<float, int8_t, true>(x, xq, u, v, u_scale, v_scale, y, p, m,
-                                    d, r, pa, pb, stream);
+                                    d, r, pa, pb, residual, stream);
   if (xq_type == 1 && w_type == 1)
     return run<int8_t, int8_t, true>(x, xq, u, v, u_scale, v_scale, y, p, m,
-                                     d, r, pa, pb, stream);
+                                     d, r, pa, pb, residual, stream);
   if (xq_type == 0 && w_type == 2)
     return run<float, __nv_fp8_e4m3, true>(x, xq, u, v, u_scale, v_scale, y,
-                                           p, m, d, r, pa, pb, stream);
+                                           p, m, d, r, pa, pb, residual,
+                                           stream);
   if (xq_type == 1 && w_type == 2)
     return run<int8_t, __nv_fp8_e4m3, true>(x, xq, u, v, u_scale, v_scale, y,
-                                            p, m, d, r, pa, pb, stream);
+                                            p, m, d, r, pa, pb, residual,
+                                            stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

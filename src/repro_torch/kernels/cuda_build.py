@@ -58,13 +58,13 @@ SIGNATURES = {
     "depthwise_conv_q": ("depthwise_conv", "depthwise_conv_q",
                          [_P, _P, _P, _P, _P] + [_I] * 19 + [_P]),
     # x, u, v, y, p, m, d, r, then the plan of each phase (bm, bn,
-    # splits, k_chunk: A, then B), stream
+    # splits, k_chunk: A, then B), residual (0 or 1), stream
     "merged_ffn": ("merged_ffn", "merged_ffn_f32",
-                   [_P] * 5 + [_I] * 11 + [_P]),
+                   [_P] * 5 + [_I] * 12 + [_P]),
     # x, xq, u, v, u_scale, v_scale, y, p, m, d, r, xq_type, w_type, the
-    # plan as above, stream
+    # plan as above, residual, stream
     "merged_ffn_q": ("merged_ffn", "merged_ffn_q",
-                     [_P] * 8 + [_I] * 13 + [_P]),
+                     [_P] * 8 + [_I] * 14 + [_P]),
     # bm, bn, splits: resident blocks in clusters of splits (no stream)
     "merged_ffn_slots": ("merged_ffn", "merged_ffn_slots", [_I] * 3),
     # x, g, y, m, d, eps, then the plan (path, wr, nc), stream

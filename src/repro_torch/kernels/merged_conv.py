@@ -145,6 +145,23 @@ class LaunchPlan:
 _ITEMSIZE = {0: 4, 1: 1, 2: 1}
 
 
+def plan_as_block(whole: tuple[int, int], n: int, h: int, w: int, cin: int,
+                  kh: int, kw: int, cout: int, stride: int, x_type: int = 0,
+                  w_type: int = 0, aligned: bool = True,
+                  sms: int = 132) -> LaunchPlan:
+    """The launch plan of a block (``n`` rows, ``cout`` channels) of the
+    product of batch ``whole[0]`` and ``whole[1]`` channels: the whole
+    product's tile, splits and k-chunk — which fix the order each output
+    sums its reduction in — over the block's rows and columns, with the
+    block's weight copy width."""
+    plan = launch_plan(whole[0], h, w, cin, kh, kw, whole[1], stride, x_type,
+                       w_type, aligned, sms)
+    ho, wo = (h - kh) // stride + 1, (w - kw) // stride + 1
+    return dataclasses.replace(
+        plan, m=n * ho * wo, cout=cout,
+        b_vec=copy_width(cout, _ITEMSIZE[w_type], aligned))
+
+
 def plan_for_tile(tile, n: int, h: int, w: int, cin: int, kh: int, kw: int,
                   cout: int, stride: int, x_type: int = 0, w_type: int = 0,
                   aligned: bool = True, sms: int = 132) -> LaunchPlan:
@@ -300,7 +317,8 @@ def input_traffic_model(h: int, w: int, cin: int, kh: int, kw: int,
 
 def merged_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
                 *, stride: int = 1, activation: str | None = None,
-                w_scale: torch.Tensor | None = None) -> torch.Tensor:
+                w_scale: torch.Tensor | None = None,
+                plan_as: tuple[int, int] | None = None) -> torch.Tensor:
     """Launch the CUDA kernel: x (N,H,W,Cin), w (kh,kw,Cin,Cout) → (N,Ho,Wo,Cout).
 
     Contiguous tensors on one CUDA device; ``b`` (Cout,) fp32 or None.
@@ -310,6 +328,12 @@ def merged_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     bias.  The output (fp32) is allocated here; the launch is
     asynchronous on the current stream and raises if the launch is
     refused.
+
+    ``plan_as`` ``(n, cout)``: x and w are a block (a rank's rows and
+    output channels under a mesh) of a product of batch ``n`` and ``cout``
+    channels; the launch takes that product's tile, splits and k-chunk
+    (:func:`plan_as_block`), so every output sums its k-slices in the
+    order the whole product's launch does: bitwise the single device's.
     """
     global launches, launches_q
     n, h, wd, cin = x.shape
@@ -341,8 +365,13 @@ def merged_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     x_type = 0 if w_scale is None else cuda_build.X_TYPES[x.dtype]
     w_type = 0 if w_scale is None else cuda_build.W_TYPES[w.dtype]
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    plan = launch_plan(n, h, wd, cin, kh, kw, cout, stride, x_type, w_type,
-                       aligned, cuda_build.sm_count(x.device))
+    if plan_as is None:
+        plan = launch_plan(n, h, wd, cin, kh, kw, cout, stride, x_type,
+                           w_type, aligned, cuda_build.sm_count(x.device))
+    else:
+        plan = plan_as_block(plan_as, n, h, wd, cin, kh, kw, cout, stride,
+                             x_type, w_type, aligned,
+                             cuda_build.sm_count(x.device))
     if plan.grid[1] > 65535:
         raise ValueError(f"merged_conv: Cout = {cout} exceeds the kernel's "
                          "grid (65535 column tiles)")

@@ -4,7 +4,9 @@ wrapper and its launch plan.
 The kernel (``csrc/merged_ffn.cu``) replaces the JAX package's Pallas
 ``merged_ffn``.  It runs as two launches of one tensor-core tile core:
 phase A writes ``P = x @ U`` once into an (M, R) fp32 workspace, phase B
-computes ``y = x + P @ V`` with the residual in its epilogue.  The TPU
+computes ``y = x + P @ V`` with the residual in its epilogue (or, with
+the ``residual`` switch off, ``y = P @ V``: a rank's partial under a
+tensor-parallel split of the rank, :mod:`repro_torch.runtime.executor`).  The TPU
 kernel carried the P panel across its sequential j sweeps; here P makes
 one trip through L2 instead.  fp32 operands are multiplied as 3xTF32
 (hi/lo splits, fp32 sums), so the result keeps fp32 accuracy (see the
@@ -141,7 +143,8 @@ def launch_plan(m: int, d: int, r: int, sms: int = 132) -> LaunchPlan:
 def merged_ffn(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
                u_scale: torch.Tensor | None = None,
                v_scale: torch.Tensor | None = None,
-               xq: torch.Tensor | None = None) -> torch.Tensor:
+               xq: torch.Tensor | None = None,
+               residual: bool = True) -> torch.Tensor:
     """Launch the CUDA kernel: x (M, D), u (D, R), v (R, D) → (M, D).
 
     Contiguous tensors on one CUDA device.  Without scales every operand
@@ -151,7 +154,9 @@ def merged_ffn(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
     from ``x`` when ``xq`` is None, ``y = x + ((xq @ u)·u_scale) @ v ·
     v_scale``.  The output (fp32) and the (M, R) fp32 workspace of P are
     allocated here; the two launches are asynchronous on the current
-    stream and raise if either is refused.
+    stream and raise if either is refused.  ``residual=False`` leaves the
+    ``x`` term out of phase B's epilogue (``y = P @ V``): one rank's
+    partial of a split over the rank, whose sum adds ``x`` once.
     """
     global launches, launches_q
     if x.ndim != 2 or u.ndim != 2 or v.ndim != 2:
@@ -196,7 +201,7 @@ def merged_ffn(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
     if not quant:
         cuda_build.launch("merged_ffn", x.device, x.data_ptr(), u.data_ptr(),
                           v.data_ptr(), y.data_ptr(), p.data_ptr(), m, d, r,
-                          *plan.args())
+                          *plan.args(), int(bool(residual)))
         launches += 1
         return y
     panel = x if xq is None else xq
@@ -204,6 +209,7 @@ def merged_ffn(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
                       panel.data_ptr(), u.data_ptr(), v.data_ptr(),
                       u_scale.data_ptr(), v_scale.data_ptr(), y.data_ptr(),
                       p.data_ptr(), m, d, r, cuda_build.X_TYPES[panel.dtype],
-                      cuda_build.W_TYPES[u.dtype], *plan.args())
+                      cuda_build.W_TYPES[u.dtype], *plan.args(),
+                      int(bool(residual)))
     launches_q += 1
     return y

@@ -79,13 +79,15 @@ def channel_tile(cout: int, requested: int | None) -> int:
     return -(-max(cout, 8) // 8) * 8
 
 
-def _quantized_activation(x, scale, act_quant: str):
+def _quantized_activation(x, scale, act_quant: str, reduce_amax=None):
     """``(x, scale)`` as the quantized kernels take them: under w8a8 the
     int8 activation and the channel scale times its per-tensor scale (both
-    computed on x's device), else ``x`` and the channel scale in fp32."""
+    computed on x's device; ``reduce_amax``, where x is a shard, makes the
+    per-tensor scale the whole tensor's), else ``x`` and the channel scale
+    in fp32."""
     scale = scale.float()
     if act_quant == "w8a8":
-        x, x_scale = quant.quantize_int8(x)
+        x, x_scale = quant.quantize_int8(x, reduce_amax=reduce_amax)
         scale = scale * x_scale
     return x, scale.contiguous()
 
@@ -125,14 +127,20 @@ def _launch(kernel, plain, *inputs):
 
 def merged_conv_op(x, w, b=None, *, stride: int = 1,
                    activation: str | None = None, w_scale=None,
-                   act_quant: str = "none"):
+                   act_quant: str = "none", reduce_amax=None, plan_as=None):
     """Merged-segment conv (VALID, stride ``s``) with fused bias + boundary
     activation.  ``w_scale`` (per-output-channel) marks ``w`` as narrow;
-    ``act_quant="w8a8"`` also quantizes the activation per tensor."""
+    ``act_quant="w8a8"`` also quantizes the activation per tensor (over
+    the whole tensor where ``x`` is a shard: ``reduce_amax``, see
+    :func:`.quant.quantize_int8`).  ``plan_as`` ``(n, cout)``: x and w are
+    a rank's block of a batch-``n``, ``cout``-channel product, launched
+    with that product's plan (the kernel's
+    :func:`.merged_conv.plan_as_block`; the plain version ignores it)."""
     def plain(x, w, b, w_scale):
         if w_scale is not None:
             y = ref.merged_conv_qref(x, w, b, w_scale, stride=stride,
-                                     act_quant=act_quant)
+                                     act_quant=act_quant,
+                                     reduce_amax=reduce_amax)
         else:
             y = ref.merged_conv_ref(x, w, b, stride=stride)
         return ref.apply_activation(y, activation)
@@ -140,11 +148,11 @@ def merged_conv_op(x, w, b=None, *, stride: int = 1,
     def kernel(x, w, b, w_scale):
         ws = None
         if w_scale is not None:
-            x, ws = _quantized_activation(x, w_scale, act_quant)
+            x, ws = _quantized_activation(x, w_scale, act_quant, reduce_amax)
         return _mc.merged_conv(x.contiguous(), w.contiguous(),
                                None if b is None else b.contiguous(),
                                stride=stride, activation=activation,
-                               w_scale=ws)
+                               w_scale=ws, plan_as=plan_as)
     if not _on_cuda(x, "merged_conv_op"):
         return plain(x, w, b, w_scale)
     return _launch(kernel, plain, x, w, b, w_scale)
@@ -153,17 +161,19 @@ def merged_conv_op(x, w, b=None, *, stride: int = 1,
 def depthwise_conv_op(x, w, b=None, *, stride: int = 1,
                       groups: int | None = None,
                       activation: str | None = None, w_scale=None,
-                      act_quant: str = "none"):
+                      act_quant: str = "none", reduce_amax=None):
     """Grouped/depthwise merged-segment conv (VALID, stride ``s``) with
     fused bias + boundary activation.  ``groups`` defaults to the
-    depthwise reading ``Cin // Cin_g`` of the HWIO weight."""
+    depthwise reading ``Cin // Cin_g`` of the HWIO weight;
+    ``reduce_amax`` as for :func:`merged_conv_op`."""
     if groups is None:
         groups = x.shape[-1] // w.shape[2]
 
     def plain(x, w, b, w_scale):
         if w_scale is not None:
             y = ref.depthwise_conv_qref(x, w, b, w_scale, stride=stride,
-                                        groups=groups, act_quant=act_quant)
+                                        groups=groups, act_quant=act_quant,
+                                        reduce_amax=reduce_amax)
         else:
             y = ref.depthwise_conv_ref(x, w, b, stride=stride, groups=groups)
         return ref.apply_activation(y, activation)
@@ -171,7 +181,7 @@ def depthwise_conv_op(x, w, b=None, *, stride: int = 1,
     def kernel(x, w, b, w_scale):
         ws = None
         if w_scale is not None:
-            x, ws = _quantized_activation(x, w_scale, act_quant)
+            x, ws = _quantized_activation(x, w_scale, act_quant, reduce_amax)
         return _dw.depthwise_conv(x.contiguous(), w.contiguous(),
                                   None if b is None else b.contiguous(),
                                   stride=stride, groups=groups,
@@ -182,30 +192,35 @@ def depthwise_conv_op(x, w, b=None, *, stride: int = 1,
 
 
 def merged_ffn_op(x, u, v, *, u_scale=None, v_scale=None,
-                  act_quant: str = "none"):
+                  act_quant: str = "none", residual: bool = True,
+                  reduce_amax=None):
     """``(..., D)`` rank-r residual ``x + (x@U)@V``.  ``u_scale``
     (per-rank-column) and ``v_scale`` (per-output-column) mark ``u``/``v``
     as narrow; ``act_quant="w8a8"`` also quantizes the activation feeding
-    the two products (the residual stays the fp32 ``x``).  On the card
-    the fp32 kernel takes fp32 only: another dtype raises, it is never
-    upcast silently."""
+    the two products (the residual stays the fp32 ``x``; ``reduce_amax``
+    as for :func:`merged_conv_op`).  ``residual=False`` leaves ``x`` out:
+    ``(x@U)@V``, a rank's partial when U's columns and V's rows are split.
+    On the card the fp32 kernel takes fp32 only: another dtype raises, it
+    is never upcast silently."""
     def plain(x, u, v, u_scale, v_scale):
         if u_scale is not None:
             return ref.merged_ffn_qref(x, u, v, u_scale, v_scale,
-                                       act_quant=act_quant)
-        return ref.merged_ffn_ref(x, u, v)
+                                       act_quant=act_quant,
+                                       residual=residual,
+                                       reduce_amax=reduce_amax)
+        return ref.merged_ffn_ref(x, u, v, residual)
 
     def kernel(x, u, v, u_scale, v_scale):
         shape = x.shape
         x2 = x.reshape(-1, shape[-1]).contiguous()
         if u_scale is None:
-            return _mf.merged_ffn(x2, u.contiguous(),
-                                  v.contiguous()).reshape(shape)
-        xq, us = _quantized_activation(x2, u_scale, act_quant)
+            return _mf.merged_ffn(x2, u.contiguous(), v.contiguous(),
+                                  residual=residual).reshape(shape)
+        xq, us = _quantized_activation(x2, u_scale, act_quant, reduce_amax)
         return _mf.merged_ffn(x2, u.contiguous(), v.contiguous(), u_scale=us,
                               v_scale=v_scale.float().contiguous(),
-                              xq=None if xq is x2 else xq.contiguous()
-                              ).reshape(shape)
+                              xq=None if xq is x2 else xq.contiguous(),
+                              residual=residual).reshape(shape)
     if not _on_cuda(x, "merged_ffn_op"):
         return plain(x, u, v, u_scale, v_scale)
     return _launch(kernel, plain, x, u, v, u_scale, v_scale)

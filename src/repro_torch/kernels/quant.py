@@ -53,14 +53,25 @@ def _divisor(scale: torch.Tensor, ndim: int, axis):
     return scale.reshape(shape)
 
 
-def _scale(x: torch.Tensor, axis, qmax: float) -> torch.Tensor:
-    amax = torch.clamp(_amax(x, axis), min=1e-30)
+def _scale(x: torch.Tensor, axis, qmax: float,
+           reduce_amax=None) -> torch.Tensor:
+    amax = _amax(x, axis)
+    if reduce_amax is not None:
+        amax = reduce_amax(amax)
+    amax = torch.clamp(amax, min=1e-30)
     return amax / torch.full_like(amax, qmax)
 
 
-def quantize_int8(x: torch.Tensor, axis: int | None = None):
-    """Symmetric int8: returns ``(q, scale)`` (see module docstring)."""
-    scale = _scale(x, axis, INT8_QMAX)
+def quantize_int8(x: torch.Tensor, axis: int | None = None, *,
+                  reduce_amax=None):
+    """Symmetric int8: returns ``(q, scale)`` (see module docstring).
+
+    ``reduce_amax`` (a function of the local ``amax``) makes the scale
+    a shard's of a tensor split across ranks: the sharded executor passes
+    an ``all_reduce(MAX)`` over the axes the activation is split on, so
+    every rank divides by the whole tensor's ``amax`` and its codes are
+    bitwise the single device's block."""
+    scale = _scale(x, axis, INT8_QMAX, reduce_amax)
     q = torch.clamp(torch.round(x.float() / _divisor(scale, x.ndim, axis)),
                     -INT8_QMAX, INT8_QMAX)
     return q.to(torch.int8), scale

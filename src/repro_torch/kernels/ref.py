@@ -109,55 +109,58 @@ def rglru_scan_bwd_ref(a, h, g):
     return da, db
 
 
-def merged_ffn_ref(x, u, v):
+def merged_ffn_ref(x, u, v, residual: bool = True):
     """LayerMerge rank-r residual ``x + (x@U)@V``: fp32 products and fp32
-    residual add, cast to ``x.dtype`` at the end."""
+    residual add, cast to ``x.dtype`` at the end.  ``residual=False``
+    gives ``(x@U)@V`` alone (the kernel's switch)."""
     h = torch.matmul(x.float(), u.float())
     y = torch.matmul(h, v.float())
-    return (x.float() + y).to(x.dtype)
+    return ((x.float() + y) if residual else y).to(x.dtype)
 
 
-def merged_ffn_qref(x, uq, vq, u_scale, v_scale, *, act_quant="none"):
+def merged_ffn_qref(x, uq, vq, u_scale, v_scale, *, act_quant="none",
+                    residual: bool = True, reduce_amax=None):
     """Dequantizing version of the quantized ``merged_ffn`` path.
 
     ``uq``/``vq`` are narrow (int8/fp8) with per-channel scales over the
     rank / output-embed axes.  w8a8 fake-quantizes the activation for the
-    two products only — the residual adds the exact ``x``.
+    two products only — the residual adds the exact ``x`` (none with
+    ``residual=False``).  ``reduce_amax``: :func:`.quant.quantize_int8`'s.
     """
     from . import quant
     u = quant.dequantize(uq, u_scale, axis=1)
     v = quant.dequantize(vq, v_scale, axis=1)
-    xd = _w8a8(x) if act_quant == "w8a8" else x
+    xd = _w8a8(x, reduce_amax) if act_quant == "w8a8" else x
     h = torch.matmul(xd.float(), u)
     y = torch.matmul(h, v)
-    return (x.float() + y).to(x.dtype)
+    return ((x.float() + y) if residual else y).to(x.dtype)
 
 
-def _w8a8(x):
+def _w8a8(x, reduce_amax=None):
     from . import quant
-    xq, xs = quant.quantize_int8(x)
+    xq, xs = quant.quantize_int8(x, reduce_amax=reduce_amax)
     return quant.dequantize(xq, xs)
 
 
 def merged_conv_qref(x, wq, b, w_scale, *, stride: int = 1,
-                     act_quant: str = "none"):
+                     act_quant: str = "none", reduce_amax=None):
     """Dequantizing version of the quantized ``merged_conv`` path
     (``wq`` narrow HWIO, ``w_scale`` per-output-channel, axis 3)."""
     from . import quant
     w = quant.dequantize(wq, w_scale, axis=3)
     if act_quant == "w8a8":
-        x = _w8a8(x)
+        x = _w8a8(x, reduce_amax)
     return merged_conv_ref(x, w, b, stride=stride)
 
 
 def depthwise_conv_qref(x, wq, b, w_scale, *, stride: int = 1,
                         groups: int | None = None,
-                        act_quant: str = "none"):
+                        act_quant: str = "none", reduce_amax=None):
     """Dequantizing version of the quantized grouped/depthwise path."""
     from . import quant
     w = quant.dequantize(wq, w_scale, axis=3)
     if act_quant == "w8a8":
-        x = _w8a8(x)
+        x = _w8a8(x, reduce_amax)
     return depthwise_conv_ref(x, w, b, stride=stride, groups=groups)
 
 

@@ -50,8 +50,9 @@ start-up seconds.  The serving counterpart (a worker lost mid-decode:
 drain, re-form, replay) is
 :func:`repro_torch.runtime.serving.serve_with_failover`.
 
-The mesh half of the JAX module (``survivor_mesh``) is not ported: it
-raises, naming ROADMAP.md queue 1 item 5.
+:func:`survivor_mesh` re-forms a 1-D mesh
+(:class:`repro_torch.launch.mesh.HostMesh`) over the ranks that survive
+a loss.
 
     # one worker (normally spawned by the coordinator)
     PYTHONPATH=src python -m repro_torch.launch.distributed --worker \\
@@ -77,14 +78,17 @@ ENV_NUM_PROCESSES = "REPRO_NUM_PROCESSES"
 
 def init_runtime(coordinator_address: str | None = None,
                  num_processes: int | None = None,
-                 process_id: int | None = None, *, device="cuda") -> int:
+                 process_id: int | None = None, *, device="cuda",
+                 backend: str | None = None) -> int:
     """Initialize process identity; returns this process's index.
 
     With ``coordinator_address`` (``tcp://host:port``, or ``host:port``)
     this joins a ``torch.distributed`` process group of
-    ``num_processes`` as rank ``process_id`` — ``nccl`` when ``device``
-    is the card (the caller picks its card first, ``torch.cuda.set_device``),
-    ``gloo`` on the CPU — and identity is the group's.  The JAX
+    ``num_processes`` as rank ``process_id`` over ``backend`` — by
+    default ``nccl`` when ``device`` is the card (the caller picks its
+    card first, ``torch.cuda.set_device``) and ``gloo`` on the CPU;
+    ``gloo`` on the card lets ranks share one card — and identity is the
+    group's.  A failed join raises.  The JAX
     package's ``local_device_ids`` has no counterpart.  Without it,
     identity comes from the arguments or the ``REPRO_PROCESS_ID`` /
     ``REPRO_NUM_PROCESSES`` environment (subprocess-worker mode),
@@ -97,9 +101,10 @@ def init_runtime(coordinator_address: str | None = None,
         cuda = torch.device(device).type == "cuda"
         addr = coordinator_address if "://" in coordinator_address \
             else f"tcp://{coordinator_address}"
-        dist.init_process_group("nccl" if cuda else "gloo",
-                                init_method=addr, world_size=num_processes,
-                                rank=process_id)
+        if backend is None:
+            backend = "nccl" if cuda else "gloo"
+        dist.init_process_group(backend, init_method=addr,
+                                world_size=num_processes, rank=process_id)
         _STATE["process_id"] = dist.get_rank()
         _STATE["num_processes"] = dist.get_world_size()
         return _STATE["process_id"]
@@ -168,11 +173,27 @@ def worker_env(worker_id: int, num_workers: int, *, device="cuda",
 
 
 def survivor_mesh(exclude=(), axes: tuple[str, ...] = ("data",)):
-    """Not ported: the mesh re-formed over the devices that survive a
-    worker loss belongs to the port's mesh slice."""
-    raise NotImplementedError(
-        "survivor_mesh: meshes are not ported (ROADMAP.md queue 1 item 5, "
-        "the mesh half)")
+    """Re-form a mesh over the ranks that survive a worker loss.
+
+    ``exclude``: the ranks to drop (the lost workers').  The result is a
+    :class:`~repro_torch.launch.mesh.HostMesh` over the remaining ranks
+    of the default process group (or this one process), all on the first
+    axis name (the data/slot axis serving shards over), every other axis
+    of size 1.  Every rank of the group calls it (the groups are formed
+    together); on a dropped rank the mesh holds no coordinates.  Raises
+    when nothing survives."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import build_mesh
+
+    excluded = set(int(r) for r in exclude)
+    n = dist.get_world_size() if (dist.is_available()
+                                  and dist.is_initialized()) else 1
+    ranks = [r for r in range(n) if r not in excluded]
+    if not ranks:
+        raise RuntimeError("no surviving devices to re-form a mesh on")
+    shape = {axes[0]: len(ranks), **{a: 1 for a in axes[1:]}}
+    return build_mesh(shape, ranks)
 
 
 # ---------------------------------------------------------------------------

@@ -17,8 +17,28 @@ kernels' function, fp32 inside and one rounding at the end).  A local-window pre
 window keeps the plain masked softmax (:func:`_sdpa`), and one-token
 decode against the KV cache stays plain.  The FFN, the embedding and the
 rotary embeddings (RoPE, and Qwen2-VL's three-stream M-RoPE,
-:func:`apply_mrope`) are plain PyTorch.  The sharded flash-decoding path
-is not ported (ROADMAP.md queue 1 item 5).
+:func:`apply_mrope`) are plain PyTorch.
+
+Under a mesh (:func:`repro_torch.sharding.rules.use_rules`) the blocks
+take this rank's shards of their weights, as the rules split them
+('heads', 'kv' and 'ffn' on 'model') and return this rank's PARTIAL of
+the output projection where its contraction is split
+(:func:`attention_partial`, :func:`ffn_partial`): the unit sums the
+partials (:mod:`repro_torch.runtime.executor`,
+:func:`repro_torch.models.transformer.decode_step`).  A dimension the
+mesh does not divide (SmolLM's 9 heads on a 'model' axis of 2) stays
+whole and its block computes whole, with no collective.  The embedding
+(:func:`embed`) and unembedding (:func:`unembed_logits`) take a vocab
+slice.  Decode caches follow ``CACHE_AXES``: 'kv_seq' on 'model' (so
+'kv' stays whole in the cache), the batch on the data axes.  A cache
+split along its sequence carries ``"kv_seq": (start, size)``; decode
+writes the new token's key and value only on the rank whose slice holds
+its slot — a masked in-place write driven by the device tensor ``pos``,
+nothing decided on the host, so a captured step replays it — and
+combines the slices by flash-decoding
+(:func:`repro_torch.sharding.collectives.flash_decode_attention`): the
+query whole over 'model' (its heads gathered where they are split), a
+slice with no valid entry weighted zero.
 
 Decode caches are updated in place (the JAX package returns new arrays):
 ``attention_decode`` writes the new key and value into the cache tensors
@@ -36,6 +56,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention_op, rmsnorm_op
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.rules import active_rules, local_shape
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -168,6 +190,38 @@ def _sdpa(q, k, v, mask):
     return out.reshape(b, sq, h, d)
 
 
+def _model_index() -> int:
+    return active_rules().mesh.index("model")
+
+
+def _kv_for_heads(q, k, v, cfg):
+    """k and v (B, S, ·, D) for the query heads ``q`` holds (B, S, H_l,
+    D): under a mesh that splits the heads, the kv heads the local query
+    heads read (query head h reads kv head h // (H / KVH)), a slice where
+    they form whole groups, else one kv head per query head; k and v as
+    they are where q holds every head."""
+    hl, kl = q.shape[2], k.shape[2]
+    H, KVH = cfg.num_heads, cfg.num_kv_heads
+    if hl == H and kl == KVH:
+        return k, v
+    idx_m = _model_index()
+    h0 = idx_m * hl if hl < H else 0
+    k0 = idx_m * kl if kl < KVH else 0
+    g = H // KVH
+    idx = [(h0 + i) // g - k0 for i in range(hl)]
+    lo, n = idx[0], idx[-1] + 1 - idx[0]
+    if hl % n == 0 and idx == [lo + i // (hl // n) for i in range(hl)]:
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    sel = torch.tensor(idx, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
+
+
+def attention_partial(p, cfg) -> bool:
+    """Whether :func:`attention` / :func:`attention_decode` on these
+    weights return a partial over 'model' (the heads split)."""
+    return p["wo"].shape[0] < cfg.num_heads
+
+
 def causal_mask(sq, skv, offset=0, window: int = 0, device=None):
     """(1, 1, sq, skv) bool; ``offset`` = absolute position of q[0]."""
     qpos = torch.arange(sq, device=device)[:, None] + offset
@@ -190,6 +244,7 @@ def attention(p, x, cfg, positions, *, window: int = 0,
     plain masked softmax.  Neither is a fallback for the other.
     ``mrope_positions`` (3, B, S): M-RoPE's position streams."""
     q, k, v = _qkv(p, x, cfg, positions, mrope_positions)
+    k, v = _kv_for_heads(q, k, v, cfg)
     s = x.shape[1]
     if window == 0 or s <= window:
         out = flash_attention_op(q.contiguous(), k.contiguous(),
@@ -221,17 +276,37 @@ def attention_decode(p, x, cfg, cache, *, window: int = 0,
     and their outputs are discarded.  ``mrope_positions`` (3, B, 1):
     M-RoPE's position streams of the new token (its rotary positions;
     the cache slot and the mask still follow ``pos``).
+
+    A cache split along its sequence over 'model' (``"kv_seq": (start,
+    size)``, :func:`init_cache` under a mesh) holds entries ``start ..
+    start + S_l`` of ``size``: the slot is computed over ``size``, the
+    rank whose slice holds it writes (the others write back the entry
+    they hold), and the slices combine by flash-decoding.
     """
     pos = cache["pos"]
     rows = pos.expand(x.shape[0])[:, None]                  # (B, 1)
     q, k, v = _qkv(p, x, cfg, rows, mrope_positions)
-    size = cache["k"].shape[1]
+    ck, cv = cache["k"], cache["v"]
+    local = ck.shape[1]
+    start, size = cache.get("kv_seq", (0, local))
+    if k.shape[2] < ck.shape[2]:          # kv heads split, the cache's whole
+        mesh = active_rules().mesh
+        k = C.all_gather(k, mesh, "model", dim=2)
+        v = C.all_gather(v, mesh, "model", dim=2)
     slot = (torch.remainder(rows, size) if window > 0
             else torch.clamp(rows, max=size - 1))
-    at = (torch.arange(x.shape[0], device=x.device), slot[:, 0].long())
-    cache["k"].index_put_(at, k[:, 0])
-    cache["v"].index_put_(at, v[:, 0])
-    kpos = torch.arange(size, device=x.device)[None, :]     # (1, S)
+    b = torch.arange(x.shape[0], device=x.device)
+    if "kv_seq" in cache:
+        li = slot - start
+        inside = ((li >= 0) & (li < local))[:, :, None]      # (B, 1, 1)
+        at = (b, torch.clamp(li, 0, local - 1)[:, 0].long())
+        ck.index_put_(at, torch.where(inside, k[:, 0], ck[at]))
+        cv.index_put_(at, torch.where(inside, v[:, 0], cv[at]))
+    else:
+        at = (b, slot[:, 0].long())
+        ck.index_put_(at, k[:, 0])
+        cv.index_put_(at, v[:, 0])
+    kpos = torch.arange(start, start + local, device=x.device)[None, :]
     if window > 0:
         # ring buffer: entry i holds absolute position derived from slot
         abs_pos = torch.where(kpos <= slot, rows - slot + kpos,
@@ -239,7 +314,19 @@ def attention_decode(p, x, cfg, cache, *, window: int = 0,
         valid = (abs_pos >= 0) & (abs_pos <= rows) & (abs_pos > rows - size)
     else:
         valid = kpos <= rows
-    out = _sdpa(q, cache["k"], cache["v"], valid[:, None, None, :])
+    if "kv_seq" in cache:
+        mesh = active_rules().mesh
+        hl = q.shape[2]
+        qw = q if hl == cfg.num_heads else \
+            C.all_gather(q, mesh, "model", dim=2)
+        out = C.flash_decode_attention(qw[:, 0], ck, cv, valid,
+                                       mesh=mesh)[:, None]
+        if p["wo"].shape[0] < cfg.num_heads:
+            h0 = mesh.index("model") * p["wo"].shape[0]
+            out = out[:, :, h0:h0 + p["wo"].shape[0]]
+    else:
+        kk, vv = _kv_for_heads(q, ck, cv, cfg)
+        out = _sdpa(q, kk, vv, valid[:, None, None, :])
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     pos.add_(1)
     return y, cache
@@ -249,13 +336,22 @@ def init_cache(cfg, batch, seq_len, dtype, window: int = 0, device=None):
     """A zeroed KV cache of ``seq_len`` entries, or for windowed attention
     a ring buffer of ``min(seq_len, window)``.  ``"ring"`` (a Python bool)
     marks a ring buffer of the whole window: it serves any number of
-    positions; any other cache serves ``seq_len``."""
+    positions; any other cache serves ``seq_len``.
+
+    Under a mesh the cache is this rank's block of ``CACHE_AXES``: its
+    rows of the batch, and its slice of the sequence (``"kv_seq":
+    (start, size)``) or of the kv heads, where the mesh divides them."""
     size = min(seq_len, window) if window > 0 else seq_len
     shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.zeros((), dtype=torch.int32, device=device),
-            "ring": window > 0 and size == window}
+    lshape, spec = local_shape(CACHE_AXES["k"], shape)
+    out = {"k": torch.zeros(lshape, dtype=dtype, device=device),
+           "v": torch.zeros(lshape, dtype=dtype, device=device),
+           "pos": torch.zeros((), dtype=torch.int32, device=device),
+           "ring": window > 0 and size == window}
+    if len(spec) > 1 and spec[1] is not None:
+        out["kv_seq"] = (C.block(size, active_rules().mesh, spec[1])[0],
+                         size)
+    return out
 
 
 CACHE_AXES = {"k": ("batch", "kv_seq", "kv", "head"),
@@ -283,8 +379,15 @@ def init_ffn(d, dff, kind, gen: torch.Generator, dtype):
     return p, ffn_axes(kind)
 
 
+def ffn_partial(p, cfg) -> bool:
+    """Whether :func:`ffn` on these weights returns a partial over
+    'model' (the hidden width split)."""
+    return p["w_down"].shape[0] < cfg.d_ff
+
+
 def ffn(p, x, kind):
-    """``jax.nn.gelu``'s default is the tanh approximation: so is this."""
+    """``jax.nn.gelu``'s default is the tanh approximation: so is this.
+    On a rank's 'ffn' shards it returns the rank's partial."""
     up = x @ p["w_up"]
     if kind == "geglu":
         h = F.gelu(x @ p["w_gate"], approximate="tanh") * up
@@ -293,6 +396,31 @@ def ffn(p, x, kind):
     else:
         h = F.gelu(up, approximate="tanh")
     return h @ p["w_down"]
+
+
+def embed(table, tokens, vocab: int):
+    """Rows of ``table`` for ``tokens``.  A vocab slice of the table
+    (this rank's block on 'model') gathers the ids it holds, zeros the
+    others, and the sum over 'model' completes every row (one rank
+    holds each id, so the sum is exact)."""
+    if table.shape[0] == vocab:
+        return table[tokens.long()]
+    mesh = active_rules().mesh
+    start = mesh.index("model") * table.shape[0]
+    loc = tokens.long() - start
+    inside = (loc >= 0) & (loc < table.shape[0])
+    rows = table[torch.clamp(loc, 0, table.shape[0] - 1)]
+    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    return C.all_reduce(rows, mesh, "model")
+
+
+def unembed_logits(x, w, vocab: int):
+    """``x @ w`` (w (D, V)), the vocab slices gathered over 'model' where
+    ``w`` is this rank's block of the vocab."""
+    y = x @ w
+    if w.shape[1] == vocab:
+        return y
+    return C.all_gather(y, active_rules().mesh, "model", dim=-1)
 
 
 def init_embedding(vocab, d, gen: torch.Generator, dtype):

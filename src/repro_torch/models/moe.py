@@ -18,8 +18,11 @@ nothing reads the host: a decode step through this block can be captured
 in a CUDA graph.  The expert products are plain batched products
 (``torch.einsum``); they are no Pallas kernel in the JAX package either.
 
-The sharded path (``moe_ffn_sharded``, the mesh branch of
-:func:`moe_dispatch`) is not ported: ROADMAP.md queue 1 item 5.
+Under a data-only mesh each rank routes its own rows of the batch, one
+group a rank: the JAX package's grouped dispatch (a group per data
+shard).  The expert-parallel path (``moe_ffn_sharded``, the branch of
+:func:`moe_dispatch` under a 'model' axis larger than 1) is not ported:
+ROADMAP.md queue 1 item 5b, step 2.
 
 LayerMerge: routing is input-dependent and discontinuous, so an MoE
 sublayer is prunable and never linearized.
@@ -31,8 +34,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-_SHARDED = ("the sharded MoE (rules= / a mesh) is not ported: "
-            "ROADMAP.md queue 1 item 5")
+_SHARDED = ("the expert-parallel MoE (moe_ffn_sharded, a 'model' mesh "
+            "axis larger than 1) is not ported: ROADMAP.md queue 1 item 5b, "
+            "step 2")
 
 
 def moe_axes():
@@ -149,12 +153,21 @@ def moe_ffn(p, x, cfg, *, capacity_factor: float = 1.25):
 
 
 def moe_dispatch(p, x, cfg, *, capacity_factor: float = 1.25, rules=None):
-    """The model's entry point: :func:`moe_ffn`.  A ``rules``
-    (mesh) request raises: the sharded path waits in ROADMAP.md queue 1
-    item 5."""
-    if rules is not None:
+    """The model's entry point: :func:`moe_ffn` on this rank's tokens.
+    ``rules`` (default: the ambient rules) with a 'model' axis larger than
+    1 raises: the expert-parallel path waits in ROADMAP.md queue 1 item
+    5b, step 2."""
+    from repro_torch.sharding.rules import active_rules
+    rules = rules if rules is not None else active_rules()
+    if rules is not None and model_axis_size(rules) > 1:
         raise NotImplementedError(_SHARDED)
     return moe_ffn(p, x, cfg, capacity_factor=capacity_factor)
+
+
+def model_axis_size(rules) -> int:
+    """The size of a rules object's 'model' mesh axis (1 without one)."""
+    mesh = getattr(rules, "mesh", None)
+    return 1 if mesh is None else mesh.shape.get("model", 1)
 
 
 def aux_load_balance_loss(p, x, cfg):

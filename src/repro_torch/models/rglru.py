@@ -22,6 +22,15 @@ in the JAX package either.
 ``jax.nn.gelu`` defaults to the tanh approximation and ``jax.nn.softplus``
 is ``logaddexp(x, 0)``: so are these.  LayerMerge: the gates depend on the
 input, so the block is prunable and not linearizable.
+
+Under a mesh the recurrence width ('ffn') is split over 'model': each rank
+holds its columns of ``w_in``, the conv, ``lam`` and its rows of ``w_a``,
+``w_x`` and ``w_out``, and runs the conv, the scan and the state on its
+channels.  The gates' inputs contract the split width, so their two
+products are summed over 'model' (one all-reduce) before each rank takes
+its columns; the output projection returns the rank's partial
+(:func:`rglru_partial`), which the unit sums.  The state follows
+``RGLRU_STATE_AXES``.
 """
 from __future__ import annotations
 
@@ -31,6 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import rglru_scan_op
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.rules import active_rules, local_shape
 
 C_DECAY = 8.0
 
@@ -71,9 +82,33 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+def rglru_partial(p, cfg) -> bool:
+    """Whether the block's output on these weights is a partial over
+    'model' (the recurrence width split)."""
+    return p["w_out"].shape[0] < (cfg.rnn_width or cfg.d_model)
+
+
+def _gate_inputs(p, u):
+    """``u @ W_a`` and ``u @ W_x`` on this rank's channels: where ``u``
+    holds a block of the width, the two products are partials of the
+    whole width, summed over 'model' (one all-reduce), then cut to the
+    rank's columns."""
+    ra, ix = u @ p["w_a"], u @ p["w_x"]
+    local = p["w_a"].shape[0]
+    if local == p["w_a"].shape[1]:
+        return ra, ix
+    mesh = active_rules().mesh
+    both = C.all_reduce(torch.cat([ra, ix], dim=-1), mesh, "model")
+    c0 = mesh.index("model") * local
+    width = ra.shape[-1]
+    return (both[..., c0:c0 + local],
+            both[..., width + c0:width + c0 + local])
+
+
 def _gates(p, u):
-    r = torch.sigmoid(u @ p["w_a"])
-    i = torch.sigmoid(u @ p["w_x"])
+    ra, ix = _gate_inputs(p, u)
+    r = torch.sigmoid(ra)
+    i = torch.sigmoid(ix)
     log_a = -C_DECAY * _softplus(p["lam"].float()) * r.float()
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
@@ -132,9 +167,13 @@ def rglru_decode(p, x, cfg, state):
 
 
 def init_rglru_state(cfg, batch, dtype, device=None):
+    """The zeroed state; under a mesh this rank's block of
+    ``RGLRU_STATE_AXES`` (its batch rows and channels)."""
     dr = cfg.rnn_width or cfg.d_model
-    return {"h": torch.zeros((batch, dr), dtype=torch.float32, device=device),
-            "conv": torch.zeros((batch, 3, dr), dtype=dtype, device=device)}
+    h_shape, _ = local_shape(RGLRU_STATE_AXES["h"], (batch, dr))
+    conv_shape, _ = local_shape(RGLRU_STATE_AXES["conv"], (batch, 3, dr))
+    return {"h": torch.zeros(h_shape, dtype=torch.float32, device=device),
+            "conv": torch.zeros(conv_shape, dtype=dtype, device=device)}
 
 
 RGLRU_STATE_AXES = {"h": ("batch", "ffn"), "conv": ("batch", None, "ffn")}

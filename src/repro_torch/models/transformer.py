@@ -21,6 +21,16 @@ tensor keeps its storage from step to step and the step can be captured
 in a CUDA graph and replayed.  A fresh state is not all zeros: the
 xLSTM stabilizers start at ``-1e30``.
 
+Under a mesh (:func:`repro_torch.sharding.rules.use_rules`) the same
+functions run on this rank's shards: :func:`forward` and
+:func:`decode_step` take the batch's rows of the rank's data block
+(:func:`local_batch`), each layer sums the partial its blocks return over
+'model' (:func:`reduce_partial`), and the logits are gathered back to the
+whole batch and vocab (:func:`gather_rows`), so the caller sees the
+single-device shapes.  A decode step follows its cache: a cache built
+with every row (the continuous engine's widened batch-1 state) is served
+whole on every rank.
+
 Training: :func:`lm_loss` is the causal LM cross-entropy (fp32
 log-softmax, an optional ``loss_mask``) over :func:`upcast_for_loss`'s
 fp32 view of the logits, whose cotangent keeps the logits' dtype
@@ -34,6 +44,8 @@ import math
 import torch
 
 from ..device import resolve
+from ..sharding import collectives as C
+from ..sharding.rules import active_rules
 from ..tree import tree_map
 from . import layers as L
 from . import moe as MOE
@@ -222,17 +234,71 @@ def init_model(cfg, gen: torch.Generator | None = None, device="cuda"):
 # ---------------------------------------------------------------------------
 
 def temporal_apply(cfg, kind, lp, h, positions, mrope_positions=None):
+    """One temporal block's prefill output (a partial over 'model' where
+    :func:`block_partial` says so)."""
     if kind == "rglru":
         return RG.rglru_block(lp, h, cfg)
     if kind == "mlstm":
+        XL.check_mesh()
         return XL.mlstm_block(lp, h, cfg)
     if kind == "slstm":
+        XL.check_mesh()
         return XL.slstm_block(lp, h, cfg)
     if kind not in ATTN_KINDS:
         raise ValueError(f"unknown layer kind {kind!r}")
     window = cfg.local_window if kind == "attn_local" else 0
     return L.attention(lp, h, cfg, positions, window=window,
                        mrope_positions=mrope_positions)
+
+
+def block_partial(cfg, kind, p) -> bool:
+    """Whether block ``kind`` on these (local) weights returns a partial
+    sum over 'model': its output projection contracts a split dimension
+    (the heads, the FFN or recurrence width)."""
+    if kind in ATTN_KINDS:
+        return L.attention_partial(p, cfg)
+    if kind == "rglru":
+        return RG.rglru_partial(p, cfg)
+    if kind == "ffn":
+        return L.ffn_partial(p, cfg)
+    return False
+
+
+def reduce_partial(cfg, kind, p, t):
+    """``t`` summed over 'model' where it is a partial, else ``t``."""
+    if block_partial(cfg, kind, p):
+        return C.all_reduce(t, active_rules().mesh, "model")
+    return t
+
+
+def local_batch(batch, rows: int | None = None):
+    """``(batch, axes)``: this rank's rows of ``batch`` and the data axes
+    they are a block of, or ``(batch, None)`` where the batch stays whole
+    (no mesh, or axes that do not divide it, or ``rows`` — the rows of
+    the decode cache — equal to the whole batch)."""
+    r = active_rules()
+    if r is None:
+        return batch, None
+    key = "tokens" if "tokens" in batch else "embeds"
+    n = len(batch[key])
+    part = r.spec(("batch",), (n,))[0]
+    if part is None or rows == n:
+        return batch, None
+    start, size = C.block(n, r.mesh, part)
+    out = dict(batch)
+    for k in ("tokens", "embeds", "positions"):
+        if k in out and len(out[k]) == n:
+            out[k] = out[k][start:start + size]
+    if out.get("mrope_positions") is not None:
+        out["mrope_positions"] = out["mrope_positions"][:, start:start + size]
+    return out, part
+
+
+def gather_rows(t, part):
+    """The whole batch of ``t`` (dim 0) from its blocks over ``part``."""
+    if part is None:
+        return t
+    return C.all_gather(t, active_rules().mesh, part, dim=0)
 
 
 def ffn_apply(cfg, p, h):
@@ -267,40 +333,50 @@ def temporal_decode(cfg, kind, lp, h, state, mrope_positions=None):
     if kind == "rglru":
         return RG.rglru_decode(lp, h, cfg, state)
     if kind == "mlstm":
+        XL.check_mesh()
         return XL.mlstm_decode(lp, h, cfg, state)
     if kind == "slstm":
+        XL.check_mesh()
         return XL.slstm_decode(lp, h, cfg, state)
     window = cfg.local_window if kind == "attn_local" else 0
     return L.attention_decode(lp, h, cfg, state, window=window,
                               mrope_positions=mrope_positions)
 
 
+def _ffn_kind(cfg) -> str:
+    return "moe" if cfg.is_moe else "ffn"
+
+
 def _layer_fn(cfg, kind, positions, mrope, lp, x):
     h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
-    x = x + temporal_apply(cfg, kind, lp["temporal"], h, positions, mrope)
+    x = x + reduce_partial(cfg, kind, lp["temporal"], temporal_apply(
+        cfg, kind, lp["temporal"], h, positions, mrope))
     if cfg.has_ffn:
         h = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = x + ffn_apply(cfg, lp["ffn"], h)
+        x = x + reduce_partial(cfg, _ffn_kind(cfg), lp["ffn"],
+                               ffn_apply(cfg, lp["ffn"], h))
     return x
 
 
 def embed_in(cfg, params, batch):
-    """``batch["tokens"]`` (B, S) through the embedding, or
+    """``batch["tokens"]`` (B, S) through the embedding (a vocab slice of
+    it under a mesh, :func:`repro_torch.models.layers.embed`), or
     ``batch["embeds"]`` (B, S, D) as they are, on the params' device.
     Token ids already on the table's device are read where they lie, not
     copied first."""
     if cfg.frontend == "tokens":
         table = params["embed"]
         tokens = torch.as_tensor(batch["tokens"], device=table.device)
-        return table[tokens.long()]
+        return L.embed(table, tokens, cfg.vocab_size)
     return torch.as_tensor(batch["embeds"],
                            device=params["final_norm"].device).to(_dtype(cfg))
 
 
 def unembed(cfg, params, x):
+    """Logits of the whole vocab (its slices gathered under a mesh)."""
     if cfg.tie_embeddings and cfg.frontend == "tokens":
-        return x @ params["embed"].T
-    return x @ params["unembed"]
+        return L.unembed_logits(x, params["embed"].T, cfg.vocab_size)
+    return L.unembed_logits(x, params["unembed"], cfg.vocab_size)
 
 
 def default_positions(x):
@@ -317,6 +393,7 @@ def forward(cfg, params, batch):
     """Logits for prefill.  batch: ``tokens`` | ``embeds``[,
     ``positions``][, ``mrope_positions`` (3, B, S)]."""
     check_config(cfg)
+    batch, part = local_batch(batch)
     x = embed_in(cfg, params, batch)
     positions = batch.get("positions")
     if positions is None:
@@ -326,7 +403,7 @@ def forward(cfg, params, batch):
         for i in range(g.count):
             x = _layer_fn(cfg, g.kind, positions, mrope, _layer(gp, i), x)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(cfg, params, x)
+    return gather_rows(unembed(cfg, params, x), part)
 
 
 class _UpcastForLoss(torch.autograd.Function):
@@ -389,6 +466,7 @@ def decode_step(cfg, params, cache, batch):
     every state tensor of the cache list is updated in place.  A KV
     cache's ``pos`` is 0-d or one position per row (the continuous
     engine's :func:`repro_torch.runtime.serving.stack_cache`)."""
+    batch, part = local_batch(batch, cache_rows(cache))
     x = embed_in(cfg, params, batch)
     mrope = mrope_of(batch, x)
     li = 0
@@ -398,13 +476,24 @@ def decode_step(cfg, params, cache, batch):
             h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
             t, cache[li] = temporal_decode(cfg, g.kind, lp["temporal"], h,
                                            cache[li], mrope)
-            x = x + t
+            x = x + reduce_partial(cfg, g.kind, lp["temporal"], t)
             if cfg.has_ffn:
                 h = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
-                x = x + ffn_apply(cfg, lp["ffn"], h)
+                x = x + reduce_partial(cfg, _ffn_kind(cfg), lp["ffn"],
+                                       ffn_apply(cfg, lp["ffn"], h))
             li += 1
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(cfg, params, x), cache
+    return gather_rows(unembed(cfg, params, x), part), cache
+
+
+def cache_rows(cache) -> int | None:
+    """The batch rows a decode state holds (the first state tensor with a
+    batch axis), or None for a state with no tensor."""
+    for st in cache:
+        for v in st.values():
+            if isinstance(v, torch.Tensor) and v.ndim >= 1:
+                return v.shape[0]
+    return None
 
 
 # ---------------------------------------------------------------------------

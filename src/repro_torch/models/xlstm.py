@@ -20,6 +20,11 @@ copy a fresh state, not zero one (:mod:`repro_torch.runtime.serving`).
 Everything is plain PyTorch: the recurrences are plain ``jnp`` in the JAX
 package, no Pallas kernel.  LayerMerge: both blocks have input-dependent
 gates, so they are prunable and never linearized.
+
+Under a data-only mesh a state holds this rank's rows of the batch.  The
+'heads' split of the blocks and their states (a 'model' axis larger than
+1) is not ported: :func:`check_mesh` raises, naming ROADMAP.md queue 1
+item 5b, step 3.
 """
 from __future__ import annotations
 
@@ -30,6 +35,22 @@ import torch.nn.functional as F
 
 #: The stabilizer of a fresh state (the JAX package's constant).
 M_INIT = -1e30
+
+
+def check_mesh() -> None:
+    """Raise under ambient rules whose 'model' axis is larger than 1."""
+    from repro_torch.sharding.rules import active_rules
+    r = active_rules()
+    if r is not None and r.mesh.shape.get("model", 1) > 1:
+        raise NotImplementedError(
+            "xLSTM's 'heads' sharding (a 'model' mesh axis larger than 1) "
+            "is not ported: ROADMAP.md queue 1 item 5b, step 3")
+
+
+def _state_shape(names, shape):
+    from repro_torch.sharding.rules import local_shape
+    check_mesh()
+    return local_shape(names, shape)[0]
 
 
 def mlstm_axes():
@@ -165,12 +186,14 @@ def mlstm_decode(p, x, cfg, state):
 def init_mlstm_state(cfg, batch, device=None):
     h = cfg.num_heads
     hd = cfg.d_model // h
-    return {"C": torch.zeros((batch, h, hd, hd), dtype=torch.float32,
-                             device=device),
-            "n": torch.zeros((batch, h, hd), dtype=torch.float32,
-                             device=device),
-            "m": torch.full((batch, h), M_INIT, dtype=torch.float32,
-                            device=device)}
+    return {"C": torch.zeros(
+                _state_shape(MLSTM_STATE_AXES["C"], (batch, h, hd, hd)),
+                dtype=torch.float32, device=device),
+            "n": torch.zeros(
+                _state_shape(MLSTM_STATE_AXES["n"], (batch, h, hd)),
+                dtype=torch.float32, device=device),
+            "m": torch.full(_state_shape(MLSTM_STATE_AXES["m"], (batch, h)),
+                            M_INIT, dtype=torch.float32, device=device)}
 
 
 MLSTM_STATE_AXES = {"C": ("batch", "heads", None, None),
@@ -256,7 +279,8 @@ def slstm_decode(p, x, cfg, state):
 def init_slstm_state(cfg, batch, device=None):
     h = cfg.num_heads
     hd = cfg.d_model // h
-    z = torch.zeros((batch, h, hd), dtype=torch.float32, device=device)
+    z = torch.zeros(_state_shape(SLSTM_STATE_AXES["c"], (batch, h, hd)),
+                    dtype=torch.float32, device=device)
     return {"c": z, "n": z.clone(), "m": torch.full_like(z, M_INIT)}
 
 

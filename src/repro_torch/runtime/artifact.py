@@ -17,7 +17,10 @@ One ``.npz`` file holds everything needed to run a compressed network:
 
 Tensors go to host numpy arrays before hashing, so an artifact written by
 the JAX package loads here with its fingerprint verified, and one written
-here loads in the JAX package.  Publish is atomic (write ``path + '.tmp'``,
+here loads in the JAX package.  Every unit record and the graph carry
+``axes`` (logical names per array key): :func:`load` with ``rules`` keeps
+on each rank only its block of every array whose names resolve to a
+split placement (a v1 artifact, with no axes, loads whole).  Publish is atomic (write ``path + '.tmp'``,
 fsync, rename); :func:`load` re-verifies the fingerprint and raises
 :class:`ArtifactError` on a missing, torn, corrupt or unknown-format file,
 after renaming a torn or corrupt one to ``<path>.corrupt``.
@@ -98,7 +101,8 @@ def _digest(spec: dict, arrays: dict[str, np.ndarray]) -> str:
         h.update(key.encode())
         h.update(str(arr.dtype).encode())
         h.update(str(arr.shape).encode())
-        h.update(np.ascontiguousarray(arr).tobytes())
+        # the bytes of ``tobytes()``, hashed in place (no copy)
+        h.update(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
     return h.hexdigest()
 
 
@@ -129,6 +133,18 @@ class CompressedArtifact:
         """Fresh per-unit decode state (transformer family)."""
         from . import executor
         return executor.init_cache(self.graph, batch_size, seq_len)
+
+    def make_serve_step(self):
+        """``(step(params, cache, batch), params)`` (transformer family;
+        :func:`~repro_torch.runtime.executor.make_serve_step`)."""
+        from . import executor
+        return executor.make_serve_step(self.graph)
+
+    def executor(self, rules=None):
+        """A :class:`~repro_torch.runtime.executor.GraphExecutor` over the
+        graph; pass the ``rules`` the artifact was loaded with."""
+        from . import executor
+        return executor.GraphExecutor(self.graph, rules)
 
     def decode(self, cache, tokens):
         """One decode step: ``tokens`` (B, 1) → ``(logits, cache)``, the
@@ -176,14 +192,29 @@ def _corrupt(path: str, msg: str) -> ArtifactError:
         "CompressResult.save(...)")
 
 
-def load(path: str, device="cuda") -> CompressedArtifact:
+def _key_axes(spec: dict, key: str):
+    """Recorded logical names of one array key ('u<i>/…' or 'g/…')."""
+    if key.startswith("g/"):
+        return spec.get("global_axes", {}).get(key[2:])
+    idx, sub = key.split("/", 1)
+    return spec["units"][int(idx[1:])].get("axes", {}).get(sub)
+
+
+def load(path: str, rules=None, device="cuda") -> CompressedArtifact:
     """Load and verify an artifact, placing its tensors on ``device``
     (which defaults to the card and raises where there is none).
 
     A torn, corrupt or tampered file is renamed to ``<path>.corrupt``
     before the error is raised, so it cannot wedge every later load or
     block a re-publish; a file of an unsupported format version is left
-    in place (another version of the code may read it)."""
+    in place (another version of the code may read it).
+
+    With ``rules`` (a :class:`~repro_torch.sharding.rules.ShardingRules`
+    over a mesh) each array's recorded logical axes resolve, with the
+    divisibility fallback, to a placement: only this rank's block is
+    copied to ``device``, carrying the placement as its ``sharding``
+    (:meth:`CompressedArtifact.executor` then runs it).  v1 artifacts
+    carry no annotations and load whole."""
     from repro_torch.device import resolve
 
     dev = resolve(device)
@@ -210,10 +241,20 @@ def load(path: str, device="cuda") -> CompressedArtifact:
     if spec["family"] not in ("cnn", "transformer"):
         raise ArtifactError(f"artifact {path} has unknown family "
                             f"{spec['family']!r}")
+    sharded = rules is not None and rules.mesh is not None
     unit_arrays: list[dict] = [{} for _ in spec["units"]]
     global_arrays: dict = {}
     for key, arr in data.items():
-        val = torch.from_numpy(np.array(arr, copy=True)).to(dev)
+        if sharded:
+            from repro_torch.sharding.rules import with_sharding
+            place = rules.named(tuple(_key_axes(spec, key) or ()),
+                                arr.shape)
+            block = arr[place.slices(arr.shape)] if place.split_dims() \
+                else arr
+            val = with_sharding(
+                torch.from_numpy(np.array(block, copy=True)).to(dev), place)
+        else:
+            val = torch.from_numpy(np.array(arr, copy=True)).to(dev)
         if key.startswith("g/"):
             global_arrays[key[2:]] = val
         else:

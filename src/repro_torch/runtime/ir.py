@@ -187,8 +187,35 @@ def count_units(graph: UnitGraph) -> dict[str, int]:
 
 
 # Logical-axis annotations: flat {param keypath → [logical names]} records,
-# the JAX package's artifact sharding contract (the port does not shard
-# yet, but writes the same records so artifacts stay identical).
+# the JAX package's artifact sharding contract.  The keypath joins keys
+# with '/' as the artifact's array layout does; a name of None (JSON null)
+# means "never split".  Keypaths absent from a record resolve to whole, so
+# partial annotations (and the empty record of a v1 artifact) are valid.
+
+def axes_tree(params, flat_axes, prefix: str = ""):
+    """Axes tree aligned leaf for leaf with ``params``: each tensor leaf
+    becomes the tuple of logical names recorded for its '/'-joined
+    keypath, or None (whole) — the tree that
+    :func:`repro_torch.sharding.rules.param_shardings_with_shapes` takes."""
+    if isinstance(params, dict):
+        return {k: axes_tree(v, flat_axes, f"{prefix}{k}/")
+                for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [axes_tree(v, flat_axes, f"{prefix}{i}/")
+                for i, v in enumerate(params)]
+    names = flat_axes.get(prefix[:-1])
+    return tuple(names) if names else None
+
+
+def unit_axes(unit):
+    """Logical-axes tree matching ``unit.params``."""
+    return axes_tree(unit.params, unit.axes)
+
+
+def graph_axes(graph: UnitGraph) -> dict:
+    """Logical-axes tree matching :func:`graph_params`."""
+    return {"units": [unit_axes(u) for u in graph.units],
+            "globals": axes_tree(graph.params, graph.axes)}
 _CONV_W = [None, None, "conv_in", "conv_out"]
 _CONV_W_DW = [None, None, None, "conv_out"]        # (K,K,1,C) depthwise
 

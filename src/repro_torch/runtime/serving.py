@@ -50,8 +50,21 @@ first step: a prompt plus tokens longer than a KV cache raises
 (:func:`check_room`).  The engine's idle and finished slots run past
 their cache by design; a plain cache clamps their writes to its last
 entry, as the reference does
-(:func:`repro_torch.models.layers.attention_decode`).  Sharding
-(``rules=``) is not ported (ROADMAP.md queue 5).
+(:func:`repro_torch.models.layers.attention_decode`).
+
+Every entry point takes ``rules=`` (a
+:class:`~repro_torch.sharding.rules.ShardingRules`) and runs its steps,
+and builds its caches, under :func:`~repro_torch.sharding.rules.use_rules`:
+a sharded step (:meth:`~repro_torch.runtime.executor.GraphExecutor.decode`,
+or a stack's ``decode_step`` on local shards) takes the whole batch of
+tokens and returns the whole batch of logits on every rank, its cache
+holding the rank's blocks, so every rank runs the same loop.  The
+captured loops (:func:`serve_loop`, :class:`ContinuousEngine` and its
+wrappers) need collectives a CUDA graph can hold: NCCL can be captured,
+``gloo`` cannot, so under rules whose process group is ``gloo`` they
+raise (there is no silent switch to an eager loop); the eager
+:func:`serve_loop_pertoken`, and :func:`serve_requests` on the CPU, run
+under ``gloo``.
 """
 from __future__ import annotations
 
@@ -63,6 +76,7 @@ import torch
 
 from repro_torch.device import resolve
 from repro_torch.kernels import launch_counts
+from repro_torch.sharding.rules import use_rules
 from repro_torch.testing import faults as _faults
 
 
@@ -143,13 +157,29 @@ def check_room(cache, positions: int) -> None:
     """Raise unless every KV cache of ``cache`` (a list of per-layer
     states) takes ``positions`` tokens.  A ring buffer of a whole local
     window (``"ring"``) takes any number; the RG-LRU state has no length.
-    """
+    A cache split along its sequence counts its whole length."""
     for st in cache:
-        if "k" in st and not st.get("ring", False) \
-                and st["k"].shape[1] < positions:
+        if "k" not in st or st.get("ring", False):
+            continue
+        size = st.get("kv_seq", (0, st["k"].shape[1]))[1]
+        if size < positions:
             raise ValueError(f"a prompt plus tokens of {positions} "
-                             f"positions exceeds a KV cache of "
-                             f"{st['k'].shape[1]}")
+                             f"positions exceeds a KV cache of {size}")
+
+
+def _require_capturable(rules, what: str) -> None:
+    """Raise where ``rules``' collectives run over ``gloo``, which a CUDA
+    graph cannot capture (NCCL can)."""
+    mesh = getattr(rules, "mesh", None)
+    if mesh is None:
+        return
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_backend() == "gloo":
+        raise RuntimeError(
+            f"{what} captures its step in a CUDA graph, and gloo "
+            "collectives cannot be captured: serve these rules over NCCL, "
+            "or through serve_loop_pertoken (or serve_requests on the CPU)")
 
 
 class _Timer:
@@ -273,12 +303,14 @@ class _StepGraph:
         self.ok.fill_(True)
         self.done = 0
 
-    def prepare(self, feed, lengths) -> None:
+    def prepare(self, feed, lengths, rules=None) -> None:
         """On the card: run the body once eagerly on a side stream at the
         capture's shapes, reset, and capture one step (:func:`_capture`).
-        On the CPU there is nothing to prepare."""
+        On the CPU there is nothing to prepare.  ``rules``: those the
+        step runs under (a ``gloo`` group raises, :func:`_require_capturable`)."""
         if self.device.type != "cuda":
             return
+        _require_capturable(rules, "the captured serving step")
         t0 = time.perf_counter()
         self.reset(feed, lengths)
         self.graph, self.launches = _capture(
@@ -312,7 +344,8 @@ def _check_lengths(lengths, P: int) -> None:
 # Single-batch serve loops
 # ---------------------------------------------------------------------------
 
-def serve_loop(step, new_cache, prompt, tokens: int, *, warm: bool = True):
+def serve_loop(step, new_cache, prompt, tokens: int, *, warm: bool = True,
+               rules=None):
     """Prefill ``prompt`` (B, P) and decode ``tokens`` greedy tokens.
 
     ``new_cache()`` returns a fresh cache; one is built per call.  On
@@ -322,7 +355,16 @@ def serve_loop(step, new_cache, prompt, tokens: int, *, warm: bool = True):
     once unmeasured first, so the times are steady-state serving.
     Returns ``(prefill_s, decode_s, last_logits (B, V), seqs (B,
     tokens))`` where ``seqs[:, 0]`` is the prefill's greedy token.
+    Under ``rules`` (run with :func:`use_rules`, the cache built under
+    them) whose collectives are ``gloo`` it raises: this is the captured
+    loop.
     """
+    _require_capturable(rules, "serve_loop")
+    with use_rules(rules):
+        return _serve_loop(step, new_cache, prompt, tokens, warm, rules)
+
+
+def _serve_loop(step, new_cache, prompt, tokens, warm, rules):
     B, P = prompt.shape
     if P < 1 or tokens < 1:
         raise ValueError(f"serve_loop needs a prompt and a token, got P={P},"
@@ -331,7 +373,7 @@ def serve_loop(step, new_cache, prompt, tokens: int, *, warm: bool = True):
     check_room(cache, P + tokens)
     run = _StepGraph(step, cache, B, P + tokens - 1)
     lengths = torch.full((B,), P, dtype=torch.long)
-    run.prepare(prompt, lengths)
+    run.prepare(prompt, lengths, rules)
     timer = _Timer(run.device)
     for _ in range(2 if warm else 1):
         run.reset(prompt, lengths)
@@ -366,12 +408,19 @@ def _decode(step, cache, tok, n: int):
     return torch.stack(out, dim=1)
 
 
-def serve_loop_pertoken(step, new_cache, prompt, tokens: int):
+def serve_loop_pertoken(step, new_cache, prompt, tokens: int, *,
+                        rules=None):
     """:func:`serve_loop` as an eager Python loop: a host round trip and
     every kernel launch of the step per prompt position and per token.
     Kept, as the reference keeps it, as the dispatch-bound yardstick the
     captured loop is measured against.  The whole loop runs once
-    unmeasured first; the return is :func:`serve_loop`'s."""
+    unmeasured first; the return is :func:`serve_loop`'s.  Runs under
+    ``rules`` (any backend)."""
+    with use_rules(rules):
+        return _serve_loop_pertoken(step, new_cache, prompt, tokens)
+
+
+def _serve_loop_pertoken(step, new_cache, prompt, tokens):
     cache = new_cache()
     check_room(cache, prompt.shape[1] + tokens)
     logits, cache = _prefill(step, cache, prompt)
@@ -560,7 +609,7 @@ def serve_requests(step, make_cache, prompts, lengths=None, *, tokens: int,
                    slots: int | None = None, warm: bool = True,
                    token_budget: int | None = None,
                    time_budget_s: float | None = None, logit_hook=None,
-                   deadline_chunk: int = 8, clock=None):
+                   deadline_chunk: int = 8, clock=None, rules=None):
     """Serve many prompts through fixed-size slot batching.
 
     ``prompts``: ``(R, P)`` padded ids with ``lengths``, or a list of 1-D
@@ -585,8 +634,20 @@ def serve_requests(step, make_cache, prompts, lengths=None, *, tokens: int,
     non-finite is ``aborted`` at that token (see :func:`generate_fused`)
     and the other slots of its round are untouched.  ``logit_hook`` runs
     inside the step; ``clock`` (default ``time.perf_counter``) injects a
-    virtual clock for deterministic deadline tests.
+    virtual clock for deterministic deadline tests.  ``rules``: the steps
+    and the cache run under them; the slot batch is then split over the
+    data axes where they divide it (the step's cache holds the rank's
+    rows).  On the card the step is captured, which ``gloo`` rules refuse.
     """
+    with use_rules(rules):
+        return _serve_requests(step, make_cache, prompts, lengths, tokens,
+                               slots, warm, token_budget, time_budget_s,
+                               logit_hook, deadline_chunk, clock, rules)
+
+
+def _serve_requests(step, make_cache, prompts, lengths, tokens, slots, warm,
+                    token_budget, time_budget_s, logit_hook, deadline_chunk,
+                    clock, rules):
     prompts, lengths = _normalize_requests(prompts, lengths)
     R, P = prompts.shape
     eff_tokens = tokens if token_budget is None \
@@ -620,7 +681,7 @@ def serve_requests(step, make_cache, prompts, lengths=None, *, tokens: int,
         return prompts[idx.to(prompts.device)], lengths[idx.to(
             lengths.device)]
 
-    run.prepare(*round_batch(0))
+    run.prepare(*round_batch(0), rules)
     if warm:
         run.reset(*round_batch(0))
         run.advance(seg)
@@ -867,7 +928,9 @@ class ContinuousEngine:
     def __init__(self, step, make_cache, *, slots: int, max_seq: int,
                  chunk: int = 8, eos_id=None, logit_hook=None, clock=None,
                  max_queue: int | None = None, slot_nan_limit: int = 2,
-                 warm: bool = True, health_check=None):
+                 warm: bool = True, health_check=None, rules=None):
+        _require_capturable(rules, "ContinuousEngine")
+        self.rules = rules
         if slots < 1:
             raise ValueError(f"need at least one slot, got {slots}")
         if chunk < 1:
@@ -881,7 +944,8 @@ class ContinuousEngine:
         self._max_queue = max_queue
         self._nan_limit = slot_nan_limit
         self._health_check = health_check
-        fresh = make_cache(1, max_seq)
+        with use_rules(rules):
+            fresh = make_cache(1, max_seq)
         self._graph = _ChunkGraph(step, stack_cache(fresh, slots),
                                   fresh_rows(fresh), slots, chunk,
                                   logit_hook)
@@ -897,7 +961,8 @@ class ContinuousEngine:
         self._total_tokens = 0
         self.report = ServeReport(engine="continuous")
         if warm:
-            self._graph.prepare()
+            with use_rules(rules):
+                self._graph.prepare()
 
     @property
     def state(self):
@@ -1086,8 +1151,9 @@ class ContinuousEngine:
     def _run_chunk(self):
         self._check_workers()
         _faults.hit("serve.chunk")
-        self._graph.prepare()
-        toks, oks = self._graph.run(self._build_feed())
+        with use_rules(self.rules):
+            self._graph.prepare()
+            toks, oks = self._graph.run(self._build_feed())
         self._t_global += self.chunk
         before = self._now
         self._now = self._clock()
@@ -1175,7 +1241,7 @@ def serve_continuous(step, make_cache, prompts, lengths=None, *,
                      time_budget_s: float | None = None, eos_id=None,
                      logit_hook=None, arrivals=None, deadlines=None,
                      max_queue: int | None = None, slot_nan_limit: int = 2,
-                     clock=None, max_seq: int | None = None):
+                     clock=None, max_seq: int | None = None, rules=None):
     """Serve many prompts through the continuous-batching engine.
 
     The counterpart of :func:`serve_requests` (same request encoding,
@@ -1189,7 +1255,8 @@ def serve_continuous(step, make_cache, prompts, lengths=None, *,
     (per-request early retirement), ``max_queue`` / ``slot_nan_limit`` /
     ``clock`` (see :class:`ContinuousEngine`), and ``chunk`` (steps per
     engine iteration, the deadline and admission granularity).
-    ``max_seq`` pins the engine window (default ``P + T``).
+    ``max_seq`` pins the engine window (default ``P + T``); ``rules``
+    pass to the engine.
     """
     prompts, lengths = _normalize_requests(prompts, lengths)
     R, P = prompts.shape
@@ -1204,7 +1271,8 @@ def serve_continuous(step, make_cache, prompts, lengths=None, *,
     eng = ContinuousEngine(step, make_cache, slots=n_slots, max_seq=window,
                            chunk=chunk, eos_id=eos_id, logit_hook=logit_hook,
                            clock=clock, max_queue=max_queue,
-                           slot_nan_limit=slot_nan_limit, warm=warm)
+                           slot_nan_limit=slot_nan_limit, warm=warm,
+                           rules=rules)
     pn, ln = prompts.cpu().numpy(), lengths.cpu().numpy()
     for r in range(R):
         eng.submit(pn[r, :int(ln[r])], tokens=eff,
@@ -1231,7 +1299,7 @@ def serve_with_failover(step, make_cache, prompts, lengths=None, *,
                         max_queue: int | None = None,
                         slot_nan_limit: int = 2, clock=None,
                         max_seq: int | None = None, max_failovers: int = 2,
-                        health_check=None, engine_factory=None):
+                        health_check=None, engine_factory=None, rules=None):
     """:func:`serve_continuous` with failover.
 
     Runs the continuous engine; when a worker loss surfaces
@@ -1289,7 +1357,8 @@ def serve_with_failover(step, make_cache, prompts, lengths=None, *,
             max_queue=kw.pop("max_queue", max_queue),
             slot_nan_limit=kw.pop("slot_nan_limit", slot_nan_limit),
             warm=kw.pop("warm", warm),
-            health_check=kw.pop("health_check", health_check), **kw)
+            health_check=kw.pop("health_check", health_check),
+            rules=kw.pop("rules", rules), **kw)
         replaying = attempt > 0
         for r in outstanding:
             eng.submit(pn[r, :int(ln[r])], tokens=eff,

@@ -266,6 +266,43 @@ def test_quantized_merged_ffn_wide_matches_plain_version(pair, m, d, r):
                   tk.quant.dequantize(vq, vs, axis=1))
 
 
+#: The residual switch (a rank's partial of a split over the rank): the
+#: shapes of both tiles, split and unsplit reductions, a ragged width.
+PARTIAL = [(1, 576, 24), (8, 576, 288), (8, 2560, 1280), (65, 2561, 24),
+           (1024, 576, 288)]
+
+
+@pytest.mark.parametrize("pair", [None, *QPAIRS])
+@pytest.mark.parametrize("m,d,r", PARTIAL)
+def test_merged_ffn_without_residual_matches_plain_version(pair, m, d, r):
+    """``residual=False``: ``(x̂·U)·V`` alone, within the residual tests'
+    scale, and bitwise the same on a second call."""
+    dev = _card()
+    x, u, v = _ffn_factors(m, d, r, dev)
+    kw, name, xd, ud, vd = {}, "merged_ffn", x, u, v
+    if pair is not None:
+        wmode, aq = QPAIRS[pair]
+        u, us = tk.quant.quantize_weight(u, wmode, axis=1)
+        v, vs = tk.quant.quantize_weight(v, wmode, axis=1)
+        kw = dict(u_scale=us, v_scale=vs, act_quant=aq)
+        name = "merged_ffn_q"
+        xd = tk.quant.dequantize(*tk.quant.quantize_int8(x)) \
+            if aq == "w8a8" else x
+        ud = tk.quant.dequantize(u, us, axis=1)
+        vd = tk.quant.dequantize(v, vs, axis=1)
+    before = tk.launch_counts()[name]
+    y = tk.merged_ffn_op(x, u, v, residual=False, **kw)
+    y2 = tk.merged_ffn_op(x, u, v, residual=False, **kw)
+    assert tk.launch_counts()[name] == before + 2
+    assert torch.equal(y, y2)
+    plain = (tk.merged_ffn_qref(x, u, v, us, vs, act_quant=aq,
+                                residual=False) if pair is not None
+             else tk.merged_ffn_ref(x, u, v, residual=False))
+    _within_scale(y, plain, torch.zeros_like(x), xd, ud, vd)
+    full = tk.merged_ffn_op(x, u, v, **kw)
+    _within_scale(full - x, y, torch.zeros_like(x), xd, ud, vd)
+
+
 @pytest.mark.parametrize("m,d,r", [(8, 2560, 2560), (1024, 2560, 2560),
                                    (65, 2561, 7680)])
 def test_merged_ffn_is_bitwise_run_to_run(m, d, r):

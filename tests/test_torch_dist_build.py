@@ -548,8 +548,14 @@ def test_init_runtime_joins_a_gloo_group():
 
 
 def test_survivor_mesh_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        dist.survivor_mesh(exclude=(1,))
+    """survivor_mesh is ported (ROADMAP.md queue 1 item 5a): in one
+    process with no process group it re-forms the one-rank mesh, and it
+    raises when every rank is excluded (the four-rank case is in
+    ``tests/test_torch_mesh.py``)."""
+    mesh = dist.survivor_mesh(exclude=(1,))
+    assert mesh.shape == {"data": 1} and mesh.coords == {"data": 0}
+    with pytest.raises(RuntimeError, match="no surviving devices"):
+        dist.survivor_mesh(exclude=(0,))
 
 
 @pytest.mark.parametrize("flag,ok", [("--smoke", "DIST_SMOKE_OK"),

@@ -103,10 +103,12 @@ def test_c_entry_points_take_the_bound_arguments(entry):
     for p, t in zip(params, argtypes):
         assert (t is cuda_build.ctypes.c_int) == p.startswith("int "), p
     if entry != "merged_ffn_slots":
-        # the wrapper's arguments before the stream
+        # the wrapper's arguments before the stream: the pointers and
+        # types, m, d, r, the plan and the residual switch
         fixed = 5 if entry == "merged_ffn" else 10
         assert len(argtypes) - 1 == fixed + 3 + len(
-            mf.launch_plan(8, 32, 8).args())
+            mf.launch_plan(8, 32, 8).args()) + 1
+        assert params[-2] == "int residual"
 
 
 # -- the precision design -----------------------------------------------------

@@ -68,7 +68,10 @@ def test_every_module_imports_with_jax_and_repro_blocked():
               "repro_torch.train.step", "repro_torch.train.loop",
               "repro_torch.launch.train", "repro_torch.core.dist_build",
               "repro_torch.launch.distributed", "repro_torch.testing.hosts",
-              "repro_torch.testing.subproc"):
+              "repro_torch.testing.subproc", "repro_torch.launch.mesh",
+              "repro_torch.sharding.rules",
+              "repro_torch.sharding.collectives",
+              "repro_torch.testing.world"):
         assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -170,6 +173,23 @@ def test_distributed_entry_points_default_to_the_card():
                   dist.serve_failover_smoke):
         with pytest.raises(RuntimeError, match="cuda"):
             smoke()
+
+
+def test_serving_entry_points_take_rules():
+    """Every serving entry point, ``runtime.load`` and the executor take
+    ``rules=``, as the JAX package's do (the sharded serving path,
+    ``tests/test_torch_mesh.py``); the default is None: no mesh."""
+    import inspect
+
+    from repro_torch import runtime
+    from repro_torch.runtime import serving
+    for fn in (serving.serve_loop, serving.serve_loop_pertoken,
+               serving.serve_requests, serving.ContinuousEngine,
+               serving.serve_continuous, serving.serve_with_failover,
+               runtime.load, runtime.GraphExecutor,
+               runtime.CompressedArtifact.executor):
+        param = inspect.signature(fn).parameters.get("rules")
+        assert param is not None and param.default is None, fn
 
 
 def test_wallclock_oracle_refuses_the_cpu():

@@ -35,7 +35,7 @@ from repro_torch.kernels import rmsnorm as _rn
 
 
 def _conv_kernel(x, w, b=None, *, stride=1, activation=None, w_scale=None,
-                 groups=1):
+                 groups=1, plan_as=None):
     y = ref._conv_nhwc(x.float(), w.float(), stride, groups)
     if w_scale is not None:
         y = y * w_scale
@@ -44,12 +44,14 @@ def _conv_kernel(x, w, b=None, *, stride=1, activation=None, w_scale=None,
     return ref.apply_activation(y, activation)
 
 
-def _ffn_kernel(x, u, v, *, u_scale=None, v_scale=None, xq=None):
+def _ffn_kernel(x, u, v, *, u_scale=None, v_scale=None, xq=None,
+                residual=True):
     if u_scale is None:
-        return ref.merged_ffn_ref(x, u, v)
+        return ref.merged_ffn_ref(x, u, v, residual)
     xin = x if xq is None else xq
     h = (xin.float() @ u.float()) * u_scale
-    return x + (h @ v.float()) * v_scale
+    y = (h @ v.float()) * v_scale
+    return x + y if residual else y
 
 
 STAND_INS = {

@@ -304,16 +304,22 @@ def test_default_device_raises_without_a_card(tmp_path):
 
 def test_what_is_not_ported_raises():
     """What the port still refuses, now that MoE, xLSTM, M-RoPE and every
-    config id run: the sharded MoE (a ``rules=`` / mesh request, ROADMAP.md
-    queue 1 item 5) and a bf16 config in the host (queue 3)."""
+    config id run: the expert-parallel MoE (rules whose mesh has a 'model'
+    axis larger than 1, ROADMAP.md queue 1 item 5b) and a bf16 config in
+    the host (queue 3).  A data-only mesh's MoE runs
+    (``tests/test_torch_mesh.py``)."""
+    import types
+
     from repro_torch.models import moe as tM
     cfg = t_get_config("granite-moe-1b-a400m").reduced()
     params, _ = tT.init_model(cfg, device="cpu")
     p = params["groups"][0]["ffn"]
     x = torch.zeros(1, 3, cfg.d_model)
+    tensor_parallel = types.SimpleNamespace(
+        mesh=types.SimpleNamespace(shape={"data": 1, "model": 2}))
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         tM.moe_dispatch({k: v[0] for k, v in p.items()}, x, cfg,
-                        rules=object())
+                        rules=tensor_parallel)
     with pytest.raises(ValueError, match="fp32"):
         thost.TransformerHost(dataclasses.replace(cfg, dtype="bfloat16"),
                               params, device="cpu")
