@@ -324,9 +324,9 @@ Phases, each printing its own line with the seconds it took:
 23. archs — the reference's other transformer families, fp32, weights
              from seed 0, direct table builds with ``strict_probes()``
              (0 retries, 0 quarantines): (a) granite-moe-1b-a400m at full
-             size (24 layers, d 1024, 16/8 heads of 64, 32 experts top-8,
-             ``moe_dff`` 512, vocab 49155, tied; about 1.33 B parameters,
-             drawn on the card since PR 29) compressed at budget 0.6 under ``CostEnv(batch=8, seq=128)``
+             width (``ARCH_GRANITE_LAYERS`` = 12 of its 24 layers, d 1024,
+             16/8 heads of 64, 32 experts top-8, ``moe_dff`` 512, vocab
+             49155, tied; drawn on the card) compressed at budget 0.6 under ``CostEnv(batch=8, seq=128)``
              with ``method="layermerge"`` (MoE and attention sublayers
              are prune-or-keep; the depth baseline keeps every layer of
              a chain with no FFN and meets no budget under 1), lowered in
@@ -506,6 +506,38 @@ Phases, each printing its own line with the seconds it took:
              merged_ffn and merged_ffn_q with ``residual=False`` (the
              switch the tensor-parallel lowrank units use) against their
              plain versions at its shapes, each twice, bitwise.
+30. mesh train — sharded training on a ('data', 'model') mesh
+             (:func:`mesh_train_phase`): one ``run_world`` of four
+             ``gloo`` ranks sharing the card, data 2 × model 2, batch 8 ×
+             256 (4 rows a rank): (a) SmolLM-135M whole (fp32, 4 steps),
+             (b) granite-moe-1b-a400m at 2 of 24 layers (16 experts and 8
+             query heads a rank, capacity factor E/k so nothing drops; 2
+             steps), (c) xlstm-125m at 6 of 12 layers (heads on 'model';
+             2 steps),
+             each under ``make_rules(fsdp=True)`` with the optimizer-state
+             placements as ``grad_shardings`` (ZeRO) and under
+             ``fsdp=False`` without; every loss and grad norm, and every
+             parameter after the last step, within ``MESH_TRAIN_TOL``
+             (2e-4, the reference's) of the single-device steps this
+             process takes on the card from the same seed; xLSTM's steps
+             held teacher-forced (``MESH_TEACHER``: from the single
+             device's state, its params within the tolerance or
+             ``MESH_SPREAD`` times the single device's own spread between
+             two summation orders).  xLSTM's 16-token greedy decode under
+             the mesh gives the single device's tokens (or differs where
+             the top-two margin is within ``NET_RTOL``).  (d)
+             ``compressed_allreduce``'s codes and result bitwise the
+             CPU's plain arithmetic; the SmolLM-135M checkpoint the 2 × 2
+             run saved (blocks gathered, the main process writing) is
+             each rank's blocks bitwise, and restores on a 1 × 2 mesh
+             (``restore(shardings=)``) and on one process bitwise.  (e)
+             ``python -m repro_torch.launch.train --arch smollm-135m
+             --distributed --steps 5`` as one NCCL rank (``restarts=0``),
+             then ``--resume --steps 7`` (resumed at step 5).  Prints each
+             rank's step ms, collectives a step (calls and bytes each
+             way) and launches of rmsnorm and flash_attention a step; the
+             ``kernels`` line gains their ``@mesh-train`` rows (a rank's
+             SmolLM-135M shapes, launches over the phase's training).
 
 Each phase's seconds (its last log line's) end in a ``[phases]`` line
 and ``phases.json``.
@@ -518,7 +550,8 @@ in ``rg.json``, the serving numbers of phases 9, 13, 16, 18 and 19 in
 ``serve.json``, phase 20's in ``importance.json``, phase 21's in
 ``tables.json``, phase 22's in ``unet.json``, phase 23's in
 ``archs.json``, phase 24's in ``train.json``, phase 25's in
-``dist.json``, phase 26's in ``bf16.json``, phase 29's in ``mesh.json``.  It exits non-zero
+``dist.json``, phase 26's in ``bf16.json``, phase 29's in ``mesh.json``,
+phase 30's in ``mesh_train.json``.  It exits non-zero
 without a result where ``torch.cuda.is_available()`` is false or the repo's
 ``src/`` is missing.  The last lines are the ``kernels`` JSON line, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -582,6 +615,9 @@ ARCH_ROW = "@archs"
 #: prompts' 16.
 ARCH_ATTENTION = ((8, 128, 16, 8, 64), (8, 16, 16, 8, 64),
                   (8, 128, 28, 4, 128), (8, 16, 28, 4, 128))
+#: Phase 23 (a): granite-moe-1b-a400m's layers (of 24) at full width,
+#: cut from 24 to make room for phase 30.
+ARCH_GRANITE_LAYERS = 12
 #: rmsnorm widths of phase 23's paths (granite, xLSTM, qwen2-vl).
 ARCH_NORM_D = (1024, 768, 3584)
 #: MoE capacity factor at which nothing drops (the reference pins it so
@@ -4565,7 +4601,8 @@ def time_kernel_rows(dev, norms, attentions, ffn_unit, ffn_ms,
                                                    is_causal=True),
             attention_bound(b, s, h, kvh, d), err,
             tc_rate_label(("fp32", "fp32"))))
-    u, v = ffn_unit.params["u"], ffn_unit.params["v"]
+    u, v = (ffn_unit.params["u"], ffn_unit.params["v"]) if ffn_ms \
+        else (None, None)
     for m in ffn_ms:
         r = time_ffn(rnd(m, u.shape[0]), u, v)
         rows.append(dict(r, kernel="merged_ffn", shape=[m, *u.shape]))
@@ -4591,6 +4628,8 @@ def rows_by_kernel(rows) -> dict:
     tot = {}
     for k in ("rmsnorm", "flash_attention", "merged_ffn"):
         rs = [r for r in rows if r["kernel"] == k]
+        if not rs:
+            continue
         tot[k] = {f: sum(r[f] for r in rs) for f in
                   ("ms", "plain_ms", "library_ms", "flops_ms", "bytes_ms",
                    "bound_ms")}
@@ -4610,8 +4649,9 @@ def time_arch_kernels(dev, lowrank) -> list:
 
 
 def arch_phase(dev, build_host) -> tuple[dict, dict, dict]:
-    """Phase 23: granite-moe-1b-a400m and xlstm-125m at full size and
-    qwen2-vl-7b at full width (4 of 28 layers), fp32, weights from seed
+    """Phase 23: granite-moe-1b-a400m at full width (``ARCH_GRANITE_LAYERS``
+    of 24 layers), xlstm-125m at full size and qwen2-vl-7b at full width
+    (4 of 28 layers), fp32, weights from seed
     0, each compressed on card-timed tables, served and held against the
     CPU port; then (d), the kernels at the new shapes.  Returns (the
     numbers, launches over (a)-(c) counted from zero, the ``kernels``
@@ -4624,12 +4664,13 @@ def arch_phase(dev, build_host) -> tuple[dict, dict, dict]:
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     out = {}
-    # (a) granite-moe-1b-a400m: 24 layers, d 1024, 16/8 heads of 64, 32
-    # experts top-8 of moe_dff 512, vocab 49155, tied; costed and probed
-    # at batch 8 x seq 128; its weights drawn on the card (the host draw
-    # took 12-17 s)
+    # (a) granite-moe-1b-a400m: ARCH_GRANITE_LAYERS of its 24 layers, d
+    # 1024, 16/8 heads of 64, 32 experts top-8 of moe_dff 512, vocab
+    # 49155, tied; costed and probed at batch 8 x seq 128; its weights
+    # drawn on the card (the host draw took 12-17 s)
     t = time.perf_counter()
-    host, _ = card_lm_host("granite-moe-1b-a400m", dev, batch=8, seq=128)
+    host, _ = card_lm_host("granite-moe-1b-a400m", dev, batch=8, seq=128,
+                           layers=ARCH_GRANITE_LAYERS)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     out["granite"], la = lm_family(dev, "granite", host, 0.6, moe=True)
@@ -6343,6 +6384,704 @@ def mesh_phase(dev, ref9) -> tuple[dict, dict]:
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# 30. sharded training on a ('data', 'model') mesh
+# ---------------------------------------------------------------------------
+
+#: Phase 30's global batch (rows, tokens) and steps of each model.
+MESH_TRAIN_BATCH = (8, 256)
+MESH_TRAIN_STEPS = {"smollm-135m": 4, "granite-moe-1b-a400m": 2,
+                    "xlstm-125m": 2}
+#: Phase 30 (b) and (c): granite-moe-1b-a400m's layers (of 24) and
+#: xlstm-125m's (of 12, the block pattern kept: one sLSTM) at full width,
+#: cut to keep the script inside its time (4 and 12 in the first runs).
+MESH_GRANITE_LAYERS = 2
+MESH_XLSTM_LAYERS = 6
+#: Phase 30 (c): xLSTM decode, prompt positions and new tokens.
+MESH_XLSTM_DECODE = (16, 16)
+#: The presets each model trains under: FSDP params with the
+#: optimizer-state placements as ``grad_shardings`` (ZeRO), and params
+#: whole over 'data' with no ``grad_shardings``.
+MESH_PRESETS = ("fsdp+zero", "tp+dp")
+#: Sharded vs single-device train steps: the reference's tolerance for
+#: its SPMD check (tests/test_distributed.py), on losses, grad norms and
+#: every parameter after the last step.
+MESH_TRAIN_TOL = 2e-4
+#: Models whose steps are held teacher-forced, each step from the single
+#: device's state, and against the single device's own spread:
+#: xlstm-125m's gradient is not a continuous function of its params (the
+#: max of its stabilizers and the clamps of its normalizers switch
+#: branch), so two summation orders of the same step part.  On an H100
+#: 80GB HBM3 (700 W) the single device against itself, its batch in 2
+#: microbatches instead of 1, had params 4.0e-4 apart after one step (7
+#: elements past 2e-4) and 1.6e-3 after two (40,669 in the embedding
+#: alone); SmolLM-135M's 6e-6 and 8e-6.  Each xLSTM step's losses and
+#: grad norms are held to ``MESH_TRAIN_TOL``; its params to that
+#: tolerance or, where the single device's two orders part by more, to
+#: ``MESH_SPREAD`` times their spread at that step, measured in the same
+#: rank.
+MESH_TEACHER = ("xlstm-125m",)
+MESH_SPREAD = 2.0
+#: Suffix of the ``kernels`` line's rows of phase 30: the kernels at a
+#: rank's SmolLM-135M shapes, their launches over phase 30's training.
+MESH_TRAIN_ROW = "@mesh-train"
+MESH_TRAIN_NORM = (4 * 256, 576)
+MESH_TRAIN_ATTENTION = (4, 256, 9, 3, 64)
+
+
+def mesh_train_opt():
+    """AdamW for phase 30: eps 1e-6, so a gradient within eps of 0 cannot
+    turn the last-bit noise of two summation orders into an O(lr) update
+    (Adam divides by sqrt(v) + eps), which no tolerance on the params
+    would then hold."""
+    from repro_torch.optim.adamw import AdamWConfig
+    return AdamWConfig(lr=1e-3, eps=1e-6, warmup_steps=1, total_steps=10)
+
+
+def mesh_train_cfg(arch):
+    """Phase 30's configs, fp32: SmolLM-135M whole, xlstm-125m at
+    ``MESH_XLSTM_LAYERS`` layers, granite-moe at ``MESH_GRANITE_LAYERS``
+    layers with the capacity factor at which nothing drops (E/k): a drop
+    depends on the tokens routed together, and the sharded step routes
+    each data block as a group (the reference's grouping), the single
+    device the batch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", remat=False)
+    if cfg.is_moe:
+        cfg = dataclasses.replace(
+            cfg, num_layers=MESH_GRANITE_LAYERS,
+            capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    if arch == "xlstm-125m":
+        cfg = dataclasses.replace(cfg, num_layers=MESH_XLSTM_LAYERS)
+    return cfg
+
+
+def mesh_train_init(cfg, dev):
+    """The seeded weights, drawn on the card (every rank draws the same)."""
+    import torch
+    from repro_torch.models import transformer as T
+    return T.init_model(cfg, torch.Generator(dev).manual_seed(30),
+                        device=dev)
+
+
+def mesh_train_data(cfg):
+    from repro_torch.data.pipeline import SyntheticTokens
+    B, S = MESH_TRAIN_BATCH
+    return SyntheticTokens(cfg.vocab_size, B, S, seed=30)
+
+
+def mesh_train_single(dev, arch, path) -> dict:
+    """The single-device steps on this card: losses, grad norms, step
+    ms, and the final params written to ``path`` (CPU tensors), with a
+    ``.done`` marker the ranks wait for."""
+    import torch
+    from repro_torch.data.pipeline import GlobalBatcher
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import flatten_tree
+
+    cfg = mesh_train_cfg(arch)
+    params, _ = mesh_train_init(cfg, dev)
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, mesh_train_opt())
+    gb = GlobalBatcher(mesh_train_data(cfg), device=dev)
+    losses, norms, ms = [], [], []
+    for i in range(MESH_TRAIN_STEPS[arch]):
+        batch = gb(i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t) * 1e3)
+        norms.append(float(m["grad_norm"]))
+    torch.save({"losses": losses, "norms": norms,
+                "params": {k: v.cpu() for k, v in
+                           flatten_tree(params).items()}}, path)
+    open(path + ".done", "w").close()
+    return {"losses": losses, "norms": norms, "step_ms": ms}
+
+
+def mesh_xlstm_decode(cfg, params, dev, rules=None):
+    """Greedy decode of ``MESH_XLSTM_DECODE`` from seeded prompts: the
+    tokens (B, N) and the logits of every step (B, P + N - 1, V), on the
+    card (under ``rules`` where given)."""
+    import contextlib
+
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import serving
+    from repro_torch.sharding.rules import use_rules
+    P, N = MESH_XLSTM_DECODE
+    B = MESH_TRAIN_BATCH[0]
+    prompt = serving.random_prompts(30, B, P, cfg.vocab_size, device=dev)
+    ctx = use_rules(rules) if rules is not None else contextlib.nullcontext()
+    with ctx, torch.no_grad():
+        cache = T.init_cache(cfg, B, P + N, device=dev)
+        logits, toks = [], []
+        for t in range(P + N - 1):
+            tok = prompt[:, t:t + 1] if t < P else toks[-1]
+            lg, cache = T.decode_step(cfg, params, cache, {"tokens": tok})
+            logits.append(lg[:, -1])
+            if t >= P - 1:
+                toks.append(torch.argmax(lg[:, -1], dim=-1)[:, None]
+                            .to(torch.int32))
+    return (torch.cat(toks, 1).cpu().numpy(),
+            torch.stack(logits, 1).cpu().numpy())
+
+
+def _wait_for(path: str, deadline: float) -> None:
+    while not os.path.exists(path + ".done"):
+        if os.path.exists(path + ".failed"):
+            raise RuntimeError(f"the parent's reference {path} failed")
+        if time.time() > deadline:
+            raise RuntimeError(f"no reference {path} in time")
+        time.sleep(0.2)
+
+
+def _block_excess(local, ref_flat) -> dict:
+    """This rank's param blocks against its blocks of the single device's
+    params (``ref_flat``, by key path): the largest excess over
+    ``MESH_TRAIN_TOL`` (|a − b| − tol·(1 + |b|), ≤ 0 where held), its
+    leaf, and the largest |a − b|."""
+    from repro_torch.sharding.rules import sharding_of
+    from repro_torch.tree import flatten_tree
+    worst_excess, worst_abs, worst_key = -1.0, 0.0, None
+    for k, t in flatten_tree(local).items():
+        r = ref_flat[k]
+        place = sharding_of(t)
+        if place is not None and place.split_dims():
+            r = r[place.slices(r.shape)]
+        r = r.to(t.device)
+        check(tuple(r.shape) == tuple(t.shape),
+              f"mesh train: {k} block {tuple(t.shape)} vs {tuple(r.shape)}")
+        diff = (t - r).abs()
+        excess = float((diff - MESH_TRAIN_TOL * (1 + r.abs())).max())
+        if excess > worst_excess:
+            worst_excess, worst_key = excess, k
+        worst_abs = max(worst_abs, float(diff.max()))
+    return {"excess": worst_excess, "max_abs": worst_abs, "key": worst_key}
+
+
+#: The parent's references a rank has read, by path (both presets).
+_REFS: dict = {}
+
+
+def _held_blocks(local, ref_path, deadline) -> dict:
+    """:func:`_block_excess` against the single device's final params,
+    which the parent writes to ``ref_path``, with its losses and norms."""
+    import torch
+    if ref_path not in _REFS:
+        _wait_for(ref_path, deadline)
+        _REFS[ref_path] = torch.load(ref_path, map_location="cpu")
+    ref = _REFS[ref_path]
+    return {**_block_excess(local, ref["params"]), "losses": ref["losses"],
+            "norms": ref["norms"]}
+
+
+#: A rank's single-device trajectory of each teacher-forced model, shared
+#: by its presets (the same init and batches).
+_TRAJECTORIES: dict = {}
+
+
+def _teacher_trajectory(arch, cfg, whole, dev):
+    """``traj(i)``: the single device's state after step ``i`` from
+    ``whole`` (params, moments, loss, grad norm), stepped on demand and
+    kept for every preset, with the spread at that step: the largest
+    |Δparam| between its batch taken whole and in 2 microbatches."""
+    from repro_torch.data.pipeline import GlobalBatcher
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import flatten_tree
+
+    steps = _TRAJECTORIES.setdefault(arch, [])
+    single = make_train_step(cfg, mesh_train_opt())
+    single2 = make_train_step(cfg, mesh_train_opt(), microbatches=2)
+    gw = GlobalBatcher(mesh_train_data(cfg), device=dev)
+    start = {"params": _copy_tree(whole), "opt": init_opt_state(whole)}
+
+    def traj(i):
+        while len(steps) <= i:
+            prev = steps[-1] if steps else start
+            batch = gw(len(steps))
+            other, _, _ = single2(_copy_tree(prev["params"]),
+                                  _copy_tree(prev["opt"]), batch)
+            nxt, opt, m = single(_copy_tree(prev["params"]),
+                                 _copy_tree(prev["opt"]), batch)
+            ref = flatten_tree(nxt)
+            steps.append({"params": nxt, "opt": opt,
+                          "loss": float(m["loss"]),
+                          "norm": float(m["grad_norm"]),
+                          "spread": max(float((a - ref[k]).abs().max())
+                                        for k, a in
+                                        flatten_tree(other).items())})
+        return steps[i]
+    return traj
+
+
+def _copy_tree(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def mesh_train_run(arch, preset, dev, mesh, spec) -> dict:
+    """One model's sharded steps under ``preset`` in this rank: losses,
+    grad norms, step ms, the last step's collectives (each way) and
+    launches, and the blocks held against the single device's.
+
+    SmolLM-135M and granite run free, held after the last step against
+    the parent's single-device run.  xLSTM runs teacher-forced
+    (``MESH_TEACHER``): before each step the rank takes its blocks of the
+    single device's params and moments, which it steps itself on the
+    whole tree alongside, and each step is held on its own."""
+    import statistics
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.checkpoint import ckpt as CK
+    from repro_torch.data.pipeline import GlobalBatcher
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import (make_rules,
+                                            param_shardings_with_shapes, put,
+                                            use_rules)
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import flatten_tree
+
+    cfg = mesh_train_cfg(arch)
+    whole, axes = mesh_train_init(cfg, dev)
+    fsdp = preset == "fsdp+zero"
+    rules = make_rules(mesh, fsdp=fsdp)
+    places = param_shardings_with_shapes(rules, axes, whole)
+    gs = param_shardings_with_shapes(
+        make_rules(mesh, fsdp=True, opt_state=True), axes, whole) \
+        if fsdp else None
+    teacher = arch in MESH_TEACHER
+    params = put(_copy_tree(whole) if teacher else whole, places)
+    opt = init_opt_state(params, shardings=gs)
+    if teacher:
+        traj = _teacher_trajectory(arch, cfg, whole, dev)
+    del whole
+    step = make_train_step(cfg, mesh_train_opt(), grad_shardings=gs)
+    gb = GlobalBatcher(mesh_train_data(cfg), mesh=mesh, device=dev)
+    losses, norms, ms = [], [], []
+    ref_losses, ref_norms, held_steps = [], [], []
+    launches: dict = {}
+    for i in range(MESH_TRAIN_STEPS[arch]):
+        if teacher and i:
+            prev = traj(i - 1)
+            params = put(_copy_tree(prev["params"]), places)
+            opt = {"mu": put(_copy_tree(prev["opt"]["mu"]), gs or places),
+                   "nu": put(_copy_tree(prev["opt"]["nu"]), gs or places),
+                   "step": prev["opt"]["step"].clone()}
+        batch = gb(i)
+        with use_rules(rules):
+            C.reset_collective_counts()
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t) * 1e3)
+            norms.append(float(m["grad_norm"]))
+            last = {k: v for k, v in kernels.launch_counts().items() if v}
+            coll = C.collective_totals()
+            ops = C.collective_counts()
+        for k, v in last.items():
+            launches[k] = launches.get(k, 0) + v
+        if teacher:
+            ref = traj(i)
+            ref_losses.append(ref["loss"])
+            ref_norms.append(ref["norm"])
+            h = _block_excess(params, flatten_tree(ref["params"]))
+            h["spread"] = ref["spread"]
+            if h["excess"] > 0 and h["max_abs"] <= MESH_SPREAD * h["spread"]:
+                h["excess"] = 0.0     # within the single device's spread
+            held_steps.append(h)
+    out_blocks = None
+    if arch == "smollm-135m" and fsdp:           # (d)'s checkpoint
+        CK.save(spec["ckpt"], MESH_TRAIN_STEPS[arch], params)
+        out_blocks = params
+    if teacher:
+        worst = max(held_steps, key=lambda h: h["excess"])
+        held = {**worst, "max_abs": max(h["max_abs"] for h in held_steps),
+                "losses": ref_losses, "norms": ref_norms,
+                "teacher_forced": True,
+                "steps": [{k: h[k] for k in ("max_abs", "spread", "key")}
+                          for h in held_steps]}
+    else:
+        held = _held_blocks(params, spec["refs"][arch], spec["deadline"])
+    return {"losses": losses, "norms": norms, "step_ms": ms,
+            "step_ms_median": statistics.median(ms[1:] or ms),
+            "collectives_per_step": coll, "collective_ops": ops,
+            "launches_last_step": last, "launches": launches,
+            "held": held, "_blocks": out_blocks}
+
+
+def mesh_elastic(spec, mesh, blocks, dev) -> dict:
+    """(d) the 2 × 2 run's checkpoint: this rank's blocks bitwise the
+    saved arrays' blocks, and restored on a data 1 × model 2 mesh of
+    ranks 0 and 1 (``restore(shardings=)``) bitwise the saved arrays'
+    blocks of that mesh's placements."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import ckpt as CK
+    from repro_torch.launch.mesh import build_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.rules import (make_rules,
+                                            param_shardings_with_shapes,
+                                            sharding_of)
+    from repro_torch.tree import flatten_tree, unflatten_tree
+
+    step = MESH_TRAIN_STEPS["smollm-135m"]
+    path = os.path.join(spec["ckpt"], f"step_{step}", "arrays.npz")
+    with np.load(path) as z:
+        saved = {k: z[k] for k in z.files}
+    own = 0
+    for k, t in flatten_tree(blocks).items():
+        place = sharding_of(t)
+        a = saved[k][place.slices(saved[k].shape)] if place is not None \
+            and place.split_dims() else saved[k]
+        check(np.array_equal(t.cpu().numpy(), a),
+              f"mesh elastic: rank block {k} differs from the saved array")
+        own += 1
+    m12 = build_mesh({"data": 1, "model": 2}, (0, 1))   # every rank builds
+    out = {"own_blocks": own, "restored_1x2": 0}
+    if m12.coords is not None:
+        cfg = mesh_train_cfg("smollm-135m")
+        places = flatten_tree(param_shardings_with_shapes(
+            make_rules(m12, fsdp=True), T.model_axes(cfg),
+            unflatten_tree(saved)))
+        got = CK.restore(spec["ckpt"], step,
+                         {k: torch.empty(0, device=dev) for k in saved},
+                         shardings=places)
+        for k, t in got.items():
+            place = places[k]
+            a = saved[k][place.slices(saved[k].shape)] \
+                if place.split_dims() else saved[k]
+            check(np.array_equal(t.cpu().numpy(), a), f"mesh elastic: "
+                  f"block {k} restored on 1 x 2 differs from the saved array")
+            out["restored_1x2"] += 1
+        out["split_1x2"] = sum(1 for p in places.values() if p.split_dims())
+    torch.distributed.barrier()
+    return out
+
+
+def mesh_train_rank(rank, spec):
+    """Phase 30 (a)-(d) in one of four ``gloo`` ranks sharing the card,
+    mesh data 2 × model 2: each model's sharded steps under both presets,
+    xLSTM's decode under the mesh, ``compressed_allreduce`` on seeded
+    blocks, and the elastic restore of the SmolLM-135M checkpoint."""
+    import torch
+    from repro_torch.device import resolve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.compress import compressed_psum
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import (make_rules,
+                                            param_shardings_with_shapes, put)
+
+    t_start = time.perf_counter()
+    dev = resolve("cuda")
+    mesh = make_host_mesh(model=2)
+    out = {"rank": rank, "coords": dict(mesh.coords), "train": {},
+           "start_s": time.time() - spec["spawned"]}
+    blocks = None
+    for arch in MESH_TRAIN_STEPS:
+        for preset in MESH_PRESETS:
+            row = mesh_train_run(arch, preset, dev, mesh, spec)
+            if row["_blocks"] is not None:
+                blocks = row["_blocks"]
+            del row["_blocks"]
+            out["train"][f"{arch} {preset}"] = row
+            torch.cuda.empty_cache()
+        _TRAJECTORIES.pop(arch, None)
+        _REFS.pop(spec["refs"].get(arch), None)
+    # (c) xLSTM decode with its heads split
+    cfg = mesh_train_cfg("xlstm-125m")
+    whole, axes = mesh_train_init(cfg, dev)
+    rules = make_rules(mesh, fsdp=False)
+    local = put(whole, param_shardings_with_shapes(rules, axes, whole))
+    del whole
+    t = time.perf_counter()
+    out["xlstm_seqs"], _ = mesh_xlstm_decode(cfg, local, dev, rules)
+    out["xlstm_decode_s"] = time.perf_counter() - t
+    del local
+    # (d) compressed_allreduce on this rank's seeded block
+    g = torch.randn(MESH_CAR_SHAPE, generator=torch.Generator()
+                    .manual_seed(300 + rank)).to(dev)
+    codes: dict = {}
+    C.reset_collective_counts()
+    res = compressed_psum({"g": g}, mesh, ("data", "model"), codes=codes)
+    out["car"] = {"result": res["g"].cpu().numpy(),
+                  "codes": codes["g"].cpu().numpy(),
+                  "collectives": C.collective_counts()}
+    t = time.perf_counter()
+    out["elastic"] = mesh_elastic(spec, mesh, blocks, dev)
+    out["elastic_s"] = time.perf_counter() - t
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+#: Phase 30 (d): each rank's block of the compressed all-reduce.
+MESH_CAR_SHAPE = (256, 1024)
+
+
+def compressed_sum_plain(blocks):
+    """The reference's ``compressed_psum`` arithmetic on the CPU over the
+    ranks' blocks: (result, summed int32 codes)."""
+    import torch
+    amax = max(b.abs().float().max() for b in blocks)
+    amax = torch.clamp(amax, min=1e-30)
+    scale = amax / torch.full_like(amax, 127.0)
+    codes = sum(torch.clamp(torch.round(b.float() / scale), -127, 127)
+                .to(torch.int32) for b in blocks)
+    return codes.float() * scale, codes
+
+
+def mesh_launcher() -> dict:
+    """(e) ``python -m repro_torch.launch.train --arch smollm-135m
+    --distributed --steps 5`` as one NCCL rank (the environment's process
+    group: ``torchrun``'s variables), then ``--resume --steps 7`` from its
+    checkpoint."""
+    import shutil
+
+    from repro_torch.testing.world import free_port
+    ckpt = os.path.join(WORK, "mesh_launch_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               MASTER_ADDR="127.0.0.1", WORLD_SIZE="1", RANK="0",
+               LOCAL_RANK="0")
+    runs = {}
+    for key, extra in (("first", ["--steps", "5"]),
+                       ("resume", ["--steps", "7", "--resume"])):
+        env["MASTER_PORT"] = str(free_port())
+        t = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "smollm-135m", "--distributed", "--ckpt-dir", ckpt, *extra],
+            capture_output=True, text=True, timeout=300, env=env)
+        runs[key] = {"rc": r.returncode, "seconds": time.perf_counter() - t,
+                     "stdout": r.stdout[-2000:], "stderr": r.stderr[-2000:]}
+    return runs
+
+
+def mesh_train_phase(dev) -> tuple[dict, dict, dict]:
+    """Phase 30 ("mesh train"): sharded training on a ('data', 'model')
+    mesh.  One ``run_world`` of four ``gloo`` ranks sharing the card,
+    data 2 × model 2: (a) SmolLM-135M full size, (b) granite-moe at
+    ``MESH_GRANITE_LAYERS`` layers (16 experts and 8 query heads a rank),
+    (c) xlstm-125m at ``MESH_XLSTM_LAYERS``, each at batch
+    ``MESH_TRAIN_BATCH`` for
+    ``MESH_TRAIN_STEPS`` under both ``MESH_PRESETS``, every step's loss
+    and grad norm and every parameter after the last within
+    ``MESH_TRAIN_TOL`` of the single-device steps this process takes on
+    the card meanwhile; xLSTM's 16-token decode under the mesh gives the
+    single device's tokens (a differing token fails unless its top-two
+    margin is within ``NET_RTOL``, :func:`token_flips`); (d)
+    ``compressed_allreduce``'s codes and result bitwise the CPU's plain
+    arithmetic on the same blocks, and the SmolLM-135M checkpoint the 2 ×
+    2 run saved restored on a 1 × 2 mesh and on one process, every block
+    bitwise the saved arrays'; (e) the launcher's ``--distributed`` as
+    one NCCL rank, meanwhile.  Returns (the numbers, launches summed over
+    the ranks' training, the ``kernels`` line's ``@mesh-train`` rows)."""
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import ckpt as CK
+    from repro_torch.testing.world import run_world
+
+    t0 = time.perf_counter()
+    mdir = os.path.join(WORK, "mesh_train")
+    os.makedirs(mdir, exist_ok=True)
+    refs = {arch: os.path.join(mdir, f"ref_{arch}.pt")
+            for arch in MESH_TRAIN_STEPS if arch not in MESH_TEACHER}
+    for p in refs.values():
+        for suffix in ("", ".done", ".failed"):
+            if os.path.exists(p + suffix):
+                os.remove(p + suffix)
+    ckpt = os.path.join(mdir, "ckpt")
+    import shutil
+    shutil.rmtree(ckpt, ignore_errors=True)
+    spec = {"refs": refs, "ckpt": ckpt, "spawned": time.time(),
+            "deadline": time.time() + 280}
+    result: dict = {}
+
+    def world():
+        try:
+            result["ranks"] = run_world(mesh_train_rank, 4, backend="gloo",
+                                        device="cuda", timeout=300,
+                                        args=(spec,))
+        except BaseException as e:              # re-raised below
+            result["ranks"] = e
+
+    def launcher():
+        try:
+            result["launch"] = mesh_launcher()
+        except BaseException as e:
+            result["launch"] = e
+
+    threads = [threading.Thread(target=world),
+               threading.Thread(target=launcher)]
+    for th in threads:
+        th.start()
+    single = {}
+    try:
+        for arch, path in refs.items():
+            single[arch] = mesh_train_single(dev, arch, path)
+            gc.collect()
+            torch.cuda.empty_cache()
+        cfg = mesh_train_cfg("xlstm-125m")
+        params, _ = mesh_train_init(cfg, dev)
+        x_seqs, x_logits = mesh_xlstm_decode(cfg, params, dev)
+        del params
+    finally:
+        for p in refs.values():
+            if not os.path.exists(p + ".done"):
+                open(p + ".failed", "w").close()
+    t_ref = time.perf_counter() - t0
+    for th in threads:
+        th.join()
+    for key in ("ranks", "launch"):
+        if isinstance(result[key], BaseException):
+            raise result[key]
+    ranks = result["ranks"]
+    out = {"ref_s": t_ref, "single": single, "ranks": [], "launcher": {}}
+    launches: dict = {}
+    fails: list = []
+
+    def soft(ok, msg):
+        """A failed check of the ranks' training, raised once every row
+        is logged."""
+        if not ok:
+            fails.append(msg)
+    for r in ranks:
+        row = {"rank": r["rank"], "coords": r["coords"],
+               "seconds": r["seconds"], "start_s": r["start_s"],
+               "xlstm_decode_s": r["xlstm_decode_s"],
+               "elastic_s": r["elastic_s"], "train": {}}
+        for key, tr in r["train"].items():
+            arch = key.split()[0]
+            h = tr["held"]
+            rel = [abs(a - b) - MESH_TRAIN_TOL * (1 + abs(b))
+                   for a, b in zip(tr["losses"] + tr["norms"],
+                                   h["losses"] + h["norms"])]
+            soft(len(tr["losses"]) == len(h["losses"]) and max(rel) <= 0,
+                  f"mesh train {key} rank {r['rank']}: losses "
+                  f"{tr['losses']} grad norms {tr['norms']} vs the single "
+                  f"device's {h['losses']} {h['norms']} (tol "
+                  f"{MESH_TRAIN_TOL})")
+            soft(h["excess"] <= 0, f"mesh train {key} rank {r['rank']}: "
+                  f"param {h['key']} differs from the single device's by "
+                  f"{h['max_abs']:.3g} beyond {MESH_TRAIN_TOL}")
+            for k in ("rmsnorm",) + (("flash_attention",) if arch !=
+                                     "xlstm-125m" else ()):
+                soft(tr["launches"].get(k, 0) > 0, f"mesh train {key} "
+                      f"rank {r['rank']}: {k} never launched")
+            for k, v in tr["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            row["train"][key] = {
+                "losses": tr["losses"], "norms": tr["norms"],
+                "step_ms": tr["step_ms"],
+                "step_ms_median": tr["step_ms_median"],
+                "param_max_abs": h["max_abs"],
+                "teacher_steps": h.get("steps"),
+                "collectives_per_step": tr["collectives_per_step"],
+                "collective_ops": tr["collective_ops"],
+                "launches_per_step": {
+                    k: tr["launches_last_step"].get(k, 0)
+                    for k in ("rmsnorm", "flash_attention")}}
+        out["ranks"].append(row)
+    out["train_failures"] = fails
+    if fails:
+        with open(os.path.join(WORK, "mesh_train.json"), "w") as f:
+            json.dump(out, f, indent=1, default=str)
+    check(not fails, "; ".join(fails))
+    # (c) decode tokens
+    P = MESH_XLSTM_DECODE[0]
+    out["xlstm_token_flips"] = [token_flips(
+        f"mesh xlstm decode rank {r['rank']}", r["xlstm_seqs"], x_seqs,
+        x_logits, P) for r in ranks]
+    # (d) compressed all-reduce against the CPU's plain arithmetic
+    blocks = [torch.randn(MESH_CAR_SHAPE, generator=torch.Generator()
+                          .manual_seed(300 + i)) for i in range(4)]
+    want, want_codes = compressed_sum_plain(blocks)
+    for r in ranks:
+        check(np.array_equal(r["car"]["codes"], want_codes.numpy())
+              and np.array_equal(r["car"]["result"], want.numpy()),
+              f"mesh compressed_allreduce rank {r['rank']}: codes or result "
+              "differ from the CPU's")
+    exact = sum(blocks)
+    out["car"] = {"rel_to_exact": float((want - exact).abs().max()
+                                        / exact.abs().max()),
+                  "collectives": ranks[0]["car"]["collectives"]}
+    # (d) the one-process restore of the 2 x 2 run's checkpoint
+    step = MESH_TRAIN_STEPS["smollm-135m"]
+    with np.load(os.path.join(ckpt, f"step_{step}", "arrays.npz")) as z:
+        saved = {k: z[k] for k in z.files}
+    got = CK.restore(ckpt, step, {k: torch.empty(0, device=dev)
+                                  for k in saved})
+    for k, v in got.items():
+        check(np.array_equal(v.cpu().numpy(), saved[k]),
+              f"mesh elastic: {k} restored on one process differs")
+    out["elastic"] = {"one_process": len(got),
+                      **{f"rank {r['rank']}": r["elastic"] for r in ranks}}
+    check(ranks[0]["elastic"]["restored_1x2"] == len(saved)
+          and ranks[1]["elastic"]["restored_1x2"] == len(saved),
+          "mesh elastic: the 1 x 2 mesh restored "
+          f"{ranks[0]['elastic']['restored_1x2']} of {len(saved)} leaves")
+    # (e) the launcher
+    la = result["launch"]
+    for key in ("first", "resume"):
+        check(la[key]["rc"] == 0, f"mesh launcher {key}: exit "
+              f"{la[key]['rc']}: {la[key]['stderr'][-800:]}")
+    check("restarts=0" in la["first"]["stdout"] and "final_step=5" in
+          la["first"]["stdout"], "mesh launcher: no restarts=0 at step 5: "
+          + la["first"]["stdout"][-500:])
+    check("resumed from step 5" in la["resume"]["stdout"]
+          and "final_step=7" in la["resume"]["stdout"],
+          "mesh launcher --resume did not resume at step 5: "
+          + la["resume"]["stdout"][-500:])
+    out["launcher"] = {k: {"seconds": v["seconds"],
+                           "tail": v["stdout"].strip().splitlines()[-3:]}
+                       for k, v in la.items()}
+    t = time.perf_counter()
+    rows = time_kernel_rows(dev, [MESH_TRAIN_NORM], [MESH_TRAIN_ATTENTION],
+                            None, (), 30)
+    out["kernels"] = rows
+    log("mesh train kernels", t, kernel_rows_line(rows))
+    out["seconds"] = time.perf_counter() - t0
+    log("mesh train", t0, "4 gloo ranks, data 2 x model 2: " + "; ".join(
+        f"rank {r['rank']} {r['coords']} in {r['seconds']:.2f}s (started "
+        f"{r['start_s']:.2f}s after the spawn): " + ", ".join(
+            f"{k}: step ms {[round(x, 1) for x in v['step_ms']]}, losses "
+            f"{[round(x, 5) for x in v['losses']]}, params max |d| "
+            f"{v['param_max_abs']:.3g}"
+            + (" (teacher-forced; a step's |d| and the single device's "
+               "own spread: " + ", ".join(
+                   f"{t['max_abs']:.3g}/{t['spread']:.3g}"
+                   for t in v["teacher_steps"]) + ")"
+               if v["teacher_steps"] else "") + ", collectives a step "
+            f"{json.dumps(v['collectives_per_step'])}, launches a step "
+            f"{json.dumps(v['launches_per_step'])}"
+            for k, v in r["train"].items())
+        + f"; xLSTM decode {r['xlstm_decode_s']:.2f}s, elastic "
+        f"{r['elastic_s']:.2f}s"
+        for r in out["ranks"]) + "; single device on the card: " + ", ".join(
+        f"{a} losses {[round(x, 5) for x in s['losses']]} step ms "
+        f"{[round(x, 1) for x in s['step_ms']]}" for a, s in single.items())
+        + f" (references {t_ref:.2f}s); xLSTM token flips "
+        f"{[len(f) for f in out['xlstm_token_flips']]}; "
+        f"compressed_allreduce bitwise the CPU's, "
+        f"{out['car']['rel_to_exact']:.3g} "
+        f"of max |exact|; elastic restore bitwise on 1 x 2 and one process "
+        f"({len(saved)} leaves); launcher --distributed (NCCL, one rank) "
+        + "; ".join(f"{k} {v['seconds']:.2f}s {v['tail'][-1]}"
+                    for k, v in out["launcher"].items()))
+    return out, launches, rows_by_kernel(rows)
+
+
 def rel_np(a, b) -> float:
     """max |a − b| / max |b| of numpy arrays."""
     import numpy as np
@@ -6860,6 +7599,12 @@ def main(argv) -> int:
     for k, v in mesh_launch.items():
         if k in launches:
             launches[k] += v
+    # 30. sharded training on a ('data', 'model') mesh -----------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    mtrain, mtrain_launch, mtrain_tot = mesh_train_phase(dev)
+    with open(os.path.join(WORK, "mesh_train.json"), "w") as f:
+        json.dump(mtrain, f, indent=1, default=str)
     sweep_err = {k: v[0] for k, v in sweep.items()}
     for k, v in bf16_tot.items():
         tot[k] = v
@@ -6872,7 +7617,9 @@ def main(argv) -> int:
             sweep_err[k + UNET_ROW] = sweep_err[k]
             srcs[k + UNET_ROW] = srcs[k]   # the same kernel, other shapes
     for row, rows_tot, row_launch in ((ARCH_ROW, arch_tot, arch_launch),
-                                      (TRAIN_ROW, trn_tot, trn_launch)):
+                                      (TRAIN_ROW, trn_tot, trn_launch),
+                                      (MESH_TRAIN_ROW, mtrain_tot,
+                                       mtrain_launch)):
         for k, v in rows_tot.items():
             tot[k + row] = v
             launches[k + row] = row_launch[k]

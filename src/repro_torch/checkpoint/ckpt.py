@@ -18,9 +18,13 @@ contracts:
   checkpoint written by either package restores in the other bitwise.
   numpy has no bfloat16: a bf16 leaf is written widened to fp32 (exact)
   and a JAX-written bf16 leaf (stored as raw 2-byte ``|V2`` records) is
-  read back from its bits; both restore to ``like``'s dtype.  The
-  elastic restore onto a mesh (``shardings=``) belongs to the port's
-  distribution slice (ROADMAP.md queue 1 item 5).
+  read back from its bits; both restore to ``like``'s dtype.  Under a
+  mesh a tree of rank blocks (tensors carrying a
+  :class:`~repro_torch.sharding.rules.Placement`) is gathered whole on
+  every rank and only the main process writes it, in the single-device
+  format; :func:`restore` with ``shardings=`` gives each rank its block
+  of the placements of the mesh it runs on, whatever mesh saved it
+  (elastic restore).
 * **atomic publish** — :func:`atomic_write_text`, :func:`atomic_writer`
   and :func:`atomic_write_bytes` write ``path + '.tmp'``, flush and fsync
   it, then rename it over ``path``: a reader sees the old file or the new
@@ -45,6 +49,7 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch.launch.distributed import is_main
 from repro_torch.testing import faults
 from repro_torch.tree import flatten_tree, tree_map, tree_map_with_path
 
@@ -139,6 +144,25 @@ def _from_host(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr if arr.flags.c_contiguous else arr.copy())
 
 
+def gather_whole(tree):
+    """``tree`` with every tensor that carries a split placement (a rank's
+    block) all-gathered whole over the placement's axes, dimension by
+    dimension; other leaves as they are.  Every rank of the placements'
+    mesh must call it, in the same order."""
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import sharding_of
+
+    def one(t):
+        place = sharding_of(t) if isinstance(t, torch.Tensor) else None
+        if place is None or not place.split_dims():
+            return t
+        t = t.detach()
+        for d in place.split_dims():
+            t = C.all_gather(t, place.mesh, place.spec[d], dim=d)
+        return t
+    return tree_map(one, tree)
+
+
 def flatten_leaves(tree) -> dict:
     """Host arrays keyed by key path (``a/b/0/c``): the on-disk layout of
     checkpoints, shared with the merged-model artifacts."""
@@ -155,8 +179,14 @@ def _write_synced(path: str, write) -> None:
 def save(ckpt_dir: str, step: int, tree, *, metadata: dict | None = None,
          keep: int = 3) -> str:
     """Synchronous atomic save of ``tree`` as ``<ckpt_dir>/step_<step>``;
-    prunes all but the newest ``keep`` complete checkpoints."""
+    prunes all but the newest ``keep`` complete checkpoints.  A tree of
+    rank blocks is gathered whole first (:func:`gather_whole`, on every
+    rank); only the main process writes (the path comes back on every
+    rank)."""
     final = os.path.join(ckpt_dir, f"step_{step}")
+    tree = gather_whole(tree)
+    if not is_main():
+        return final
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
     leaves = flatten_leaves(tree)
@@ -196,7 +226,12 @@ class AsyncCheckpointer:
         self.error: Exception | None = None
 
     def save(self, step: int, tree, metadata=None):
+        """Gathers a tree of rank blocks whole on the caller's thread (a
+        collective: every rank calls it); only the main process writes."""
         self.wait()
+        tree = gather_whole(tree)
+        if not is_main():
+            return
         host_tree = tree_map(_to_host, tree)
 
         def run():
@@ -250,13 +285,17 @@ def latest_step(ckpt_dir: str) -> int | None:
 def restore(ckpt_dir: str, step: int, like, *, shardings=None):
     """The checkpoint of ``step`` in the structure of ``like``, each leaf
     on the device and in the dtype of ``like``'s tensor there (a leaf
-    that is not a tensor gives a CPU tensor of the stored dtype)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...): the elastic restore onto a mesh "
-            "belongs to the port's distribution slice (ROADMAP.md queue 1 "
-            "item 5)")
+    that is not a tensor gives a CPU tensor of the stored dtype).
+
+    ``shardings``: a matching tree of
+    :class:`~repro_torch.sharding.rules.Placement` objects on the mesh
+    this rank runs on (None leaves: whole): each leaf comes back as this
+    rank's block of the saved whole array, carrying its placement
+    (``like``'s tensors may be blocks or whole; only their device and
+    dtype are read).  The checkpoint needs no record of the mesh that
+    wrote it."""
     path = os.path.join(ckpt_dir, f"step_{step}")
+    places = flatten_tree(shardings) if shardings is not None else {}
     with np.load(os.path.join(path, "arrays.npz")) as z:
         data = {k: z[k] for k in z.files}
 
@@ -264,10 +303,21 @@ def restore(ckpt_dir: str, step: int, like, *, shardings=None):
         if key not in data:
             raise KeyError(f"checkpoint missing {key}")
         t = _from_host(data[key])
+        place = places.get(key)
+        if place is not None:
+            t = place.take(t)
         if isinstance(leaf, torch.Tensor):
             t = t.to(device=leaf.device, dtype=leaf.dtype)
+        if place is not None:
+            from repro_torch.sharding.rules import with_sharding
+            t = with_sharding(t, _with_shape(place, data[key].shape))
         return t
     return tree_map_with_path(one, like)
+
+
+def _with_shape(place, shape):
+    """``place`` with the saved array's global ``shape``."""
+    return type(place)(place.mesh, place.spec, tuple(shape))
 
 
 def _gc(ckpt_dir: str, keep: int):

@@ -10,9 +10,9 @@ means something.
   ``(seed, i)``: a restart from the checkpoint at step ``s`` replays the
   exact stream, with no iterator state to save.
 * **Device batches** — :class:`GlobalBatcher` hands each batch back as
-  tensors on the port's device.  The JAX package's mesh-sharded batches
-  belong to the port's distribution slice (ROADMAP.md queue 1 item 5): a
-  ``mesh`` raises.
+  tensors on the port's device; under a mesh, this rank's rows of it,
+  each tensor carrying its placement (the JAX package's
+  ``make_array_from_callback`` onto a batch-sharded ``NamedSharding``).
 * **Prefetch** — :func:`prefetch` keeps a depth-``k`` queue filled from a
   background thread.
 """
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve
+from repro_torch.sharding.rules import Placement, with_sharding
 
 
 class MarkovLM:
@@ -63,14 +64,18 @@ class SyntheticTokens:
 
 class GlobalBatcher:
     """``batcher(i)``: ``source.batch_at(i)`` as int32 tensors on
-    ``device`` (the card by default; raises where there is none)."""
+    ``device`` (the card by default; raises where there is none).
+
+    With a ``mesh`` (a :class:`~repro_torch.launch.mesh.HostMesh`) each
+    tensor is this rank's block of rows over ``batch_axes`` (those the
+    mesh has), carrying its :class:`~repro_torch.sharding.rules.Placement`
+    so the model takes it as a block and does not cut it again
+    (:func:`repro_torch.models.transformer.local_batch`).  A batch the
+    axes do not divide stays whole on every rank, as the rules keep
+    it."""
 
     def __init__(self, source, mesh=None, batch_axes=("data",), *,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "GlobalBatcher(mesh=...): mesh-sharded batches belong to "
-                "the port's distribution slice (ROADMAP.md queue 1 item 5)")
         self.source = source
         self.mesh = mesh
         self.batch_axes = batch_axes
@@ -78,8 +83,27 @@ class GlobalBatcher:
 
     def __call__(self, index: int) -> dict[str, torch.Tensor]:
         host = self.source.batch_at(index)
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in host.items()}
+        place = self._placement(host)
+        out = {}
+        for k, v in host.items():
+            if place is not None:
+                v = v[place.slices(v.shape[:1])]
+            t = torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+            if place is not None:
+                with_sharding(t, Placement(place.mesh, place.spec,
+                                           tuple(host[k].shape)))
+            out[k] = t
+        return out
+
+    def _placement(self, host):
+        """The rows' placement, or None (no mesh, or a whole batch)."""
+        if self.mesh is None:
+            return None
+        axes = tuple(a for a in self.batch_axes if a in self.mesh.shape)
+        n = len(next(iter(host.values())))
+        if not axes or n % self.mesh.axis_size(axes):
+            return None
+        return Placement(self.mesh, (axes if len(axes) > 1 else axes[0],))
 
 
 def prefetch(batch_fn, start: int, depth: int = 2) -> Iterator:

@@ -25,7 +25,12 @@ take this rank's shards of their weights, as the rules split them
 the output projection where its contraction is split
 (:func:`attention_partial`, :func:`ffn_partial`): the unit sums the
 partials (:mod:`repro_torch.runtime.executor`,
-:func:`repro_torch.models.transformer.decode_step`).  A dimension the
+:func:`repro_torch.models.transformer.decode_step`).  A loss
+differentiates through them: the sum's gradient passes through, and the
+replicated input of a split block (:func:`attention`'s, the FFN's
+through :func:`repro_torch.models.transformer.split_input`, the
+unembedding's) sums its partial gradients over 'model'
+(:func:`repro_torch.sharding.collectives.enter_split`).  A dimension the
 mesh does not divide (SmolLM's 9 heads on a 'model' axis of 2) stays
 whole and its block computes whole, with no collective.  The embedding
 (:func:`embed`) and unembedding (:func:`unembed_logits`) take a vocab
@@ -243,6 +248,8 @@ def attention(p, x, cfg, positions, *, window: int = 0,
     of :func:`_sdpa`).  A sequence longer than its local window takes the
     plain masked softmax.  Neither is a fallback for the other.
     ``mrope_positions`` (3, B, S): M-RoPE's position streams."""
+    if attention_partial(p, cfg):
+        x = C.enter_split(x, active_rules().mesh, "model")
     q, k, v = _qkv(p, x, cfg, positions, mrope_positions)
     k, v = _kv_for_heads(q, k, v, cfg)
     s = x.shape[1]
@@ -414,13 +421,40 @@ def embed(table, tokens, vocab: int):
     return C.all_reduce(rows, mesh, "model")
 
 
-def unembed_logits(x, w, vocab: int):
+def unembed_logits(x, w, vocab: int, gather: bool = True):
     """``x @ w`` (w (D, V)), the vocab slices gathered over 'model' where
-    ``w`` is this rank's block of the vocab."""
-    y = x @ w
+    ``w`` is this rank's block of the vocab (``x``, replicated over
+    'model', entering the split product: its gradient is summed over
+    'model'); with ``gather=False`` this rank's slice of the logits."""
     if w.shape[1] == vocab:
-        return y
-    return C.all_gather(y, active_rules().mesh, "model", dim=-1)
+        return x @ w
+    mesh = active_rules().mesh
+    y = C.enter_split(x, mesh, "model") @ w
+    return C.all_gather(y, mesh, "model", dim=-1) if gather else y
+
+
+def vocab_parallel_nll(logits, targets):
+    """(B, S) negative log-likelihood of ``targets`` from this rank's
+    vocab slice of fp32 ``logits`` (B, S, V/model; the slices in 'model'
+    order), without gathering them: the max, the sum of exponentials and
+    the target's logit are reduced over 'model' (Megatron's vocab-parallel
+    cross-entropy).  The max is a constant of the gradient (it cancels);
+    the two sums pass their gradients through, so each rank's slice gets
+    ``softmax - onehot`` of its own vocab."""
+    mesh = active_rules().mesh
+    vl = logits.shape[-1]
+    v0 = mesh.index("model") * vl
+    m = C.all_reduce(logits.detach().amax(dim=-1).clone(), mesh, "model",
+                     "max")
+    se = C.all_reduce(torch.exp(logits - m[..., None]).sum(dim=-1), mesh,
+                      "model")
+    t = targets.long() - v0
+    inside = (t >= 0) & (t < vl)
+    zt = torch.gather(logits, -1, torch.clamp(t, 0, vl - 1)[..., None])
+    zt = C.all_reduce(torch.where(inside, zt[..., 0],
+                                  torch.zeros_like(zt[..., 0])),
+                      mesh, "model")
+    return torch.log(se) + m - zt
 
 
 def init_embedding(vocab, d, gen: torch.Generator, dtype):

@@ -18,11 +18,19 @@ nothing reads the host: a decode step through this block can be captured
 in a CUDA graph.  The expert products are plain batched products
 (``torch.einsum``); they are no Pallas kernel in the JAX package either.
 
-Under a data-only mesh each rank routes its own rows of the batch, one
-group a rank: the JAX package's grouped dispatch (a group per data
-shard).  The expert-parallel path (``moe_ffn_sharded``, the branch of
-:func:`moe_dispatch` under a 'model' axis larger than 1) is not ported:
-ROADMAP.md queue 1 item 5b, step 2.
+Under a mesh each rank routes its own rows of the batch, one group a
+data block: the JAX package's grouped dispatch (a group per data shard).
+Under a 'model' axis that divides the experts, :func:`moe_dispatch` takes
+the expert-parallel path (:func:`moe_ffn_sharded`, the reference's
+``shard_map`` body): each rank routes its tokens against the whole
+router, fills an ``(E/model, C, D)`` buffer of its own experts only (C
+from the tokens of one data block), runs their products and sums the
+token outputs over 'model' (one token-sized all-reduce).  The router is
+gathered over 'model' and its gradient reduce-scattered back; the tokens
+enter the split experts with their gradient summed over 'model'
+(:mod:`repro_torch.sharding.collectives`), so it trains as it serves.
+Where the experts do not divide, or the rules set ``moe_shard_map`` to
+False, the grouped path runs on the whole expert weights.
 
 LayerMerge: routing is input-dependent and discontinuous, so an MoE
 sublayer is prunable and never linearized.
@@ -34,10 +42,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-_SHARDED = ("the expert-parallel MoE (moe_ffn_sharded, a 'model' mesh "
-            "axis larger than 1) is not ported: ROADMAP.md queue 1 item 5b, "
-            "step 2")
-
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.rules import active_rules
 
 def moe_axes():
     return {
@@ -152,15 +158,74 @@ def moe_ffn(p, x, cfg, *, capacity_factor: float = 1.25):
     return out.reshape(b, s, d)
 
 
-def moe_dispatch(p, x, cfg, *, capacity_factor: float = 1.25, rules=None):
-    """The model's entry point: :func:`moe_ffn` on this rank's tokens.
-    ``rules`` (default: the ambient rules) with a 'model' axis larger than
-    1 raises: the expert-parallel path waits in ROADMAP.md queue 1 item
-    5b, step 2."""
-    from repro_torch.sharding.rules import active_rules
+def _whole_over_model(t, dim: int, n: int, mesh):
+    """``t`` gathered along ``dim`` over 'model' where it holds a block of
+    ``n`` (every rank then computes with it alike: the gradient's block
+    comes back)."""
+    if t.shape[dim] == n:
+        return t
+    return C.all_gather(t, mesh, "model", dim=dim)
+
+
+def moe_ffn_sharded(p, x, cfg, *, capacity_factor: float = 1.25, rules=None):
+    """The expert-parallel MoE on this rank's tokens ``x`` (its rows of
+    the batch, replicated over 'model'): ``(B, S, D)`` whole on every
+    rank of 'model'.  The capacity ``C = ceil(N·k/E · capacity_factor)``
+    counts the N tokens of this data block; ranking is over every expert
+    (as the single device's group), and only the (token, slot) pairs of
+    this rank's ``E/model`` experts fill its buffer.  Weights may be the
+    rank's expert blocks or whole (a whole weight is cut to the rank's
+    experts)."""
     rules = rules if rules is not None else active_rules()
-    if rules is not None and model_axis_size(rules) > 1:
-        raise NotImplementedError(_SHARDED)
+    mesh = rules.mesh
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    e_loc = e // mesh.shape["model"]
+    e0 = mesh.index("model") * e_loc
+    n = b * s
+    capacity = max(int(math.ceil(n * k / e * capacity_factor)), 1)
+    router = p["router"]
+    if router.shape[1] < e:
+        router = C.gather_weight(router, mesh, "model", dim=1)
+    w = {}
+    for name in ("w_gate", "w_up", "w_down"):
+        w[name] = p[name] if p[name].shape[0] == e_loc \
+            else p[name][e0:e0 + e_loc]
+    xt = C.enter_split(x, mesh, "model").reshape(n, d)
+    top_g, top_e = route({"router": router}, xt, cfg)
+    pos, keep = capacity_positions(top_e, e, capacity)
+    local_slot = top_e - e0
+    contrib = keep & (local_slot >= 0) & (local_slot < e_loc)
+    safe_slot = torch.where(contrib, local_slot, 0)
+    safe_pos = torch.where(contrib, pos, capacity - 1)
+    cmask = contrib[..., None].to(xt.dtype)
+    buf = torch.zeros((e_loc, capacity, d), dtype=xt.dtype,
+                      device=xt.device).index_put(
+        (safe_slot, safe_pos), xt[:, None, :] * cmask, accumulate=True)
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, w["w_gate"]))
+    h = h * torch.einsum("ecd,edf->ecf", buf, w["w_up"])
+    out_buf = torch.einsum("ecf,efd->ecd", h, w["w_down"])
+    part = out_buf[safe_slot, safe_pos] * (top_g[..., None] * cmask)
+    return C.all_reduce(part.sum(dim=1), mesh, "model").reshape(b, s, d)
+
+
+def moe_dispatch(p, x, cfg, *, capacity_factor: float = 1.25, rules=None):
+    """The model's entry point.  ``rules`` (default: the ambient rules)
+    with a 'model' axis that divides the experts (and ``moe_shard_map``
+    not False) take :func:`moe_ffn_sharded`; otherwise :func:`moe_ffn`
+    runs on this rank's tokens, with the expert weights gathered whole
+    where they are 'model' blocks."""
+    rules = rules if rules is not None else active_rules()
+    n_model = model_axis_size(rules)
+    if n_model > 1 and cfg.num_experts % n_model == 0 \
+            and rules.rules.get("moe_shard_map", True):
+        return moe_ffn_sharded(p, x, cfg, capacity_factor=capacity_factor,
+                               rules=rules)
+    if n_model > 1:
+        e = cfg.num_experts
+        p = {"router": _whole_over_model(p["router"], 1, e, rules.mesh),
+             **{name: _whole_over_model(p[name], 0, e, rules.mesh)
+                for name in ("w_gate", "w_up", "w_down")}}
     return moe_ffn(p, x, cfg, capacity_factor=capacity_factor)
 
 

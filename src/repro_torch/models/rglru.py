@@ -98,7 +98,10 @@ def _gate_inputs(p, u):
     if local == p["w_a"].shape[1]:
         return ra, ix
     mesh = active_rules().mesh
-    both = C.all_reduce(torch.cat([ra, ix], dim=-1), mesh, "model")
+    # the sum is whole on every rank and each keeps its columns: entering
+    # the split channels, its gradient is summed over 'model'
+    both = C.enter_split(C.all_reduce(torch.cat([ra, ix], dim=-1), mesh,
+                                      "model"), mesh, "model")
     c0 = mesh.index("model") * local
     width = ra.shape[-1]
     return (both[..., c0:c0 + local],
@@ -142,6 +145,8 @@ def rglru_scan(a, gated, h0=None):
 
 def rglru_block(p, x, cfg):
     """Full temporal block for prefill: (B, S, D) → (B, S, D)."""
+    if rglru_partial(p, cfg):
+        x = C.enter_split(x, active_rules().mesh, "model")
     u = x @ p["w_in"]
     u, _ = _causal_conv1d(p, u)
     a, gated = _gates(p, u)

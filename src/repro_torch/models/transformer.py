@@ -29,12 +29,17 @@ functions run on this rank's shards: :func:`forward` and
 whole batch and vocab (:func:`gather_rows`), so the caller sees the
 single-device shapes.  A decode step follows its cache: a cache built
 with every row (the continuous engine's widened batch-1 state) is served
-whole on every rank.
+whole on every rank.  Weights that FSDP rules split over the data axes
+('embed', ``make_rules(fsdp=True)``) are gathered whole layer by layer as
+they are used (:func:`_layer`), their gradients reduce-scattered back.
 
 Training: :func:`lm_loss` is the causal LM cross-entropy (fp32
 log-softmax, an optional ``loss_mask``) over :func:`upcast_for_loss`'s
 fp32 view of the logits, whose cotangent keeps the logits' dtype
-(:mod:`repro_torch.train.step` differentiates it).
+(:mod:`repro_torch.train.step` differentiates it).  Under a mesh each
+rank takes the loss of its own rows (:func:`forward_local`, no logits
+gathered) and every collective on the way carries its gradient
+(:mod:`repro_torch.sharding.collectives`).
 """
 from __future__ import annotations
 
@@ -45,8 +50,9 @@ import torch
 
 from ..device import resolve
 from ..sharding import collectives as C
-from ..sharding.rules import active_rules
-from ..tree import tree_map
+from ..sharding.rules import (active_rules, data_axes, gather_data_split,
+                              sharding_of)
+from ..tree import flatten_tree, tree_map, tree_map_with_path
 from . import layers as L
 from . import moe as MOE
 from . import rglru as RG
@@ -54,9 +60,9 @@ from . import xlstm as XL
 from .cnn import params_from_numpy, params_to_numpy
 
 __all__ = ["GroupSpec", "layer_groups", "init_model", "model_axes",
-           "forward", "upcast_for_loss", "lm_loss", "token_nll",
-           "init_cache", "decode_step", "sublayer_kinds", "sublayer_params",
-           "params_from_numpy", "params_to_numpy"]
+           "forward", "forward_local", "upcast_for_loss", "lm_loss",
+           "token_nll", "init_cache", "decode_step", "sublayer_kinds",
+           "sublayer_params", "params_from_numpy", "params_to_numpy"]
 
 ATTN_KINDS = ("attn", "attn_local")
 #: Temporal layer kinds of the stack.
@@ -125,8 +131,26 @@ def _put(stacked, tree, i: int) -> None:
 
 
 def _layer(gp, i):
-    """Layer ``i`` of a stacked group (views, no copies)."""
-    return tree_map(lambda t: t[i], gp)
+    """Layer ``i`` of a stacked group (views, no copies); under FSDP
+    rules the leaves' dimensions split over the data axes are gathered
+    whole, the layer's in one collective
+    (:func:`repro_torch.sharding.rules.gather_data_split`)."""
+    if active_rules() is None:
+        return tree_map(lambda t: t[i], gp)
+    whole = gather_data_split({k: (t[i], sharding_of(t))
+                               for k, t in flatten_tree(gp).items()}, 1)
+    return tree_map_with_path(lambda k, _: whole[k], gp)
+
+
+def _whole_top(params):
+    """``params`` with its leaves outside the layer groups (embedding,
+    unembedding, final norm) gathered whole over the data axes where
+    FSDP split them: one gather, shared by every use."""
+    if active_rules() is None:
+        return params
+    whole = gather_data_split({k: (v, sharding_of(v)) for k, v in
+                               params.items() if k != "groups"})
+    return {k: whole.get(k, v) for k, v in params.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -239,10 +263,8 @@ def temporal_apply(cfg, kind, lp, h, positions, mrope_positions=None):
     if kind == "rglru":
         return RG.rglru_block(lp, h, cfg)
     if kind == "mlstm":
-        XL.check_mesh()
         return XL.mlstm_block(lp, h, cfg)
     if kind == "slstm":
-        XL.check_mesh()
         return XL.slstm_block(lp, h, cfg)
     if kind not in ATTN_KINDS:
         raise ValueError(f"unknown layer kind {kind!r}")
@@ -254,11 +276,14 @@ def temporal_apply(cfg, kind, lp, h, positions, mrope_positions=None):
 def block_partial(cfg, kind, p) -> bool:
     """Whether block ``kind`` on these (local) weights returns a partial
     sum over 'model': its output projection contracts a split dimension
-    (the heads, the FFN or recurrence width)."""
+    (the heads, the FFN or recurrence width).  The mLSTM block sums its
+    own (its skip path is whole) and the MoE block its token outputs."""
     if kind in ATTN_KINDS:
         return L.attention_partial(p, cfg)
     if kind == "rglru":
         return RG.rglru_partial(p, cfg)
+    if kind == "slstm":
+        return XL.xlstm_partial(p, cfg)
     if kind == "ffn":
         return L.ffn_partial(p, cfg)
     return False
@@ -271,23 +296,33 @@ def reduce_partial(cfg, kind, p, t):
     return t
 
 
+#: Batch entries with a leading batch axis, cut to a rank's rows.
+BATCH_KEYS = ("tokens", "embeds", "positions", "targets", "loss_mask")
+
+
 def local_batch(batch, rows: int | None = None):
     """``(batch, axes)``: this rank's rows of ``batch`` and the data axes
     they are a block of, or ``(batch, None)`` where the batch stays whole
     (no mesh, or axes that do not divide it, or ``rows`` — the rows of
-    the decode cache — equal to the whole batch)."""
+    the decode cache — equal to the whole batch).  A batch that is
+    already a block (its ids carry a placement split on the batch axis:
+    :class:`repro_torch.data.pipeline.GlobalBatcher` under a mesh) is
+    returned as it is, with its axes."""
     r = active_rules()
     if r is None:
         return batch, None
     key = "tokens" if "tokens" in batch else "embeds"
+    place = sharding_of(batch[key])
+    if place is not None and place.is_split(0):
+        return batch, place.spec[0]
     n = len(batch[key])
     part = r.spec(("batch",), (n,))[0]
     if part is None or rows == n:
         return batch, None
     start, size = C.block(n, r.mesh, part)
     out = dict(batch)
-    for k in ("tokens", "embeds", "positions"):
-        if k in out and len(out[k]) == n:
+    for k in BATCH_KEYS:
+        if out.get(k) is not None and len(out[k]) == n:
             out[k] = out[k][start:start + size]
     if out.get("mrope_positions") is not None:
         out["mrope_positions"] = out["mrope_positions"][:, start:start + size]
@@ -303,11 +338,23 @@ def gather_rows(t, part):
 
 def ffn_apply(cfg, p, h):
     """One FFN sublayer's block: the dense FFN, or the MoE FFN at the
-    config's capacity factor."""
+    config's capacity factor.  A dense FFN split over 'model' takes its
+    input through :func:`split_input`."""
     if cfg.is_moe:
         return MOE.moe_dispatch(p, h, cfg,
                                 capacity_factor=cfg.capacity_factor)
-    return L.ffn(p, h, cfg.ffn_kind)
+    return L.ffn(p, split_input(cfg, "ffn", p, h), cfg.ffn_kind)
+
+
+def split_input(cfg, kind, p, h):
+    """``h``, replicated over 'model', entering block ``kind`` whose
+    weights are split there (:func:`block_partial`): its gradient is the
+    sum of the ranks' partials
+    (:func:`repro_torch.sharding.collectives.enter_split`); ``h`` as it
+    is where the block is whole."""
+    if not block_partial(cfg, kind, p):
+        return h
+    return C.enter_split(h, active_rules().mesh, "model")
 
 
 def init_state(cfg, kind, batch_size, seq_len, device):
@@ -333,10 +380,8 @@ def temporal_decode(cfg, kind, lp, h, state, mrope_positions=None):
     if kind == "rglru":
         return RG.rglru_decode(lp, h, cfg, state)
     if kind == "mlstm":
-        XL.check_mesh()
         return XL.mlstm_decode(lp, h, cfg, state)
     if kind == "slstm":
-        XL.check_mesh()
         return XL.slstm_decode(lp, h, cfg, state)
     window = cfg.local_window if kind == "attn_local" else 0
     return L.attention_decode(lp, h, cfg, state, window=window,
@@ -349,6 +394,8 @@ def _ffn_kind(cfg) -> str:
 
 def _layer_fn(cfg, kind, positions, mrope, lp, x):
     h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
+    # attention, RG-LRU and the xLSTM blocks take their split input
+    # themselves (the mLSTM's skip path uses it whole)
     x = x + reduce_partial(cfg, kind, lp["temporal"], temporal_apply(
         cfg, kind, lp["temporal"], h, positions, mrope))
     if cfg.has_ffn:
@@ -372,11 +419,12 @@ def embed_in(cfg, params, batch):
                            device=params["final_norm"].device).to(_dtype(cfg))
 
 
-def unembed(cfg, params, x):
-    """Logits of the whole vocab (its slices gathered under a mesh)."""
-    if cfg.tie_embeddings and cfg.frontend == "tokens":
-        return L.unembed_logits(x, params["embed"].T, cfg.vocab_size)
-    return L.unembed_logits(x, params["unembed"], cfg.vocab_size)
+def unembed(cfg, params, x, gather: bool = True):
+    """Logits of the whole vocab (its slices gathered under a mesh; this
+    rank's slice with ``gather=False``)."""
+    w = params["embed"].T if cfg.tie_embeddings and cfg.frontend == "tokens" \
+        else params["unembed"]
+    return L.unembed_logits(x, w, cfg.vocab_size, gather)
 
 
 def default_positions(x):
@@ -392,8 +440,18 @@ def mrope_of(batch, x):
 def forward(cfg, params, batch):
     """Logits for prefill.  batch: ``tokens`` | ``embeds``[,
     ``positions``][, ``mrope_positions`` (3, B, S)]."""
+    logits, _, part = forward_local(cfg, params, batch)
+    return gather_rows(logits, part)
+
+
+def forward_local(cfg, params, batch, gather_vocab: bool = True):
+    """``(logits of this rank's rows, its rows of the batch, the data
+    axes they are a block of or None)``: :func:`forward` before the rows
+    are gathered (and with ``gather_vocab=False`` before the vocab slices
+    are: this rank's slice)."""
     check_config(cfg)
     batch, part = local_batch(batch)
+    params = _whole_top(params)
     x = embed_in(cfg, params, batch)
     positions = batch.get("positions")
     if positions is None:
@@ -403,7 +461,7 @@ def forward(cfg, params, batch):
         for i in range(g.count):
             x = _layer_fn(cfg, g.kind, positions, mrope, _layer(gp, i), x)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return gather_rows(unembed(cfg, params, x), part)
+    return unembed(cfg, params, x, gather_vocab), batch, part
 
 
 class _UpcastForLoss(torch.autograd.Function):
@@ -437,14 +495,47 @@ def token_nll(logits, targets):
 def lm_loss(cfg, params, batch):
     """Causal LM cross-entropy: the mean over tokens of the fp32
     log-softmax NLL of ``batch["targets"]`` (B, S), or its mean over the
-    tokens where ``batch["loss_mask"]`` is set."""
-    logits = upcast_for_loss(forward(cfg, params, batch))
-    nll = token_nll(logits, batch["targets"])
+    tokens where ``batch["loss_mask"]`` is set.
+
+    Under a mesh the NLL of a vocab split over 'model' comes from each
+    rank's slice (:func:`repro_torch.models.layers.vocab_parallel_nll`),
+    and under rules whose data axes are larger than 1 each rank takes the
+    NLL of its own rows only (no logits are gathered): its share of the
+    global loss, the sum of its tokens' NLL over the global count (the
+    batch's tokens, or the mask's, summed over the data axes), or the
+    global loss over the data size where the batch stays whole.  The
+    shares are summed over the data axes (an all-reduce whose gradient
+    passes through), so every rank returns the global loss and each
+    rank's gradients are its share's: the train step sums them over the
+    data axes (:mod:`repro_torch.train.step`)."""
+    logits, batch, part = forward_local(cfg, params, batch,
+                                        gather_vocab=False)
+    logits = upcast_for_loss(logits)
+    if logits.shape[-1] < cfg.vocab_size:           # this rank's slice
+        nll = L.vocab_parallel_nll(logits, torch.as_tensor(
+            batch["targets"], device=logits.device))
+    else:
+        nll = token_nll(logits, batch["targets"])
     mask = batch.get("loss_mask")
     if mask is not None:
         mask = torch.as_tensor(mask, device=nll.device).to(torch.float32)
-        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    return torch.mean(nll)
+    r = active_rules()
+    daxes = data_axes(r) if r is not None else ()
+    if not daxes or part is None:
+        if mask is not None:
+            loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask),
+                                                       min=1.0)
+        else:
+            loss = torch.mean(nll)
+        if not daxes:
+            return loss
+        loss = loss / r.mesh.axis_size(daxes)
+    elif mask is not None:
+        count = C.all_reduce(torch.sum(mask).detach().clone(), r.mesh, part)
+        loss = torch.sum(nll * mask) / torch.clamp(count, min=1.0)
+    else:
+        loss = torch.sum(nll) / float(nll.numel() * r.mesh.axis_size(part))
+    return C.all_reduce(loss, r.mesh, daxes)
 
 
 # ---------------------------------------------------------------------------
@@ -467,6 +558,7 @@ def decode_step(cfg, params, cache, batch):
     cache's ``pos`` is 0-d or one position per row (the continuous
     engine's :func:`repro_torch.runtime.serving.stack_cache`)."""
     batch, part = local_batch(batch, cache_rows(cache))
+    params = _whole_top(params)
     x = embed_in(cfg, params, batch)
     mrope = mrope_of(batch, x)
     li = 0

@@ -21,10 +21,15 @@ Everything is plain PyTorch: the recurrences are plain ``jnp`` in the JAX
 package, no Pallas kernel.  LayerMerge: both blocks have input-dependent
 gates, so they are prunable and never linearized.
 
-Under a data-only mesh a state holds this rank's rows of the batch.  The
-'heads' split of the blocks and their states (a 'model' axis larger than
-1) is not ported: :func:`check_mesh` raises, naming ROADMAP.md queue 1
-item 5b, step 3.
+Under a mesh the heads are split over 'model' (the JAX package's
+'heads' axes): each rank holds its heads' projections, gates and state
+(``(batch, heads, …)``, its rows of the batch and its heads), and ``wo``
+is row-parallel: a block's output on its heads is a partial
+(:func:`xlstm_partial`).  The sLSTM block returns it and the layer sums
+it; the mLSTM block sums it itself, before it adds the skip path, which
+every rank computes whole.  The replicated input enters the split heads
+through :func:`repro_torch.sharding.collectives.enter_split`, so a loss
+differentiates through either block.
 """
 from __future__ import annotations
 
@@ -33,24 +38,36 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.rules import active_rules, local_shape
+
 #: The stabilizer of a fresh state (the JAX package's constant).
 M_INIT = -1e30
 
 
-def check_mesh() -> None:
-    """Raise under ambient rules whose 'model' axis is larger than 1."""
-    from repro_torch.sharding.rules import active_rules
-    r = active_rules()
-    if r is not None and r.mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            "xLSTM's 'heads' sharding (a 'model' mesh axis larger than 1) "
-            "is not ported: ROADMAP.md queue 1 item 5b, step 3")
-
-
 def _state_shape(names, shape):
-    from repro_torch.sharding.rules import local_shape
-    check_mesh()
     return local_shape(names, shape)[0]
+
+
+def xlstm_partial(p, cfg) -> bool:
+    """Whether these (local) weights hold a block of the heads: the
+    output projection then gives a partial over 'model'."""
+    return p["wo"].shape[0] < cfg.num_heads
+
+
+def _split_in(p, x, cfg):
+    """``x`` entering the split heads (its gradient summed over 'model'),
+    and the mesh, or ``(x, None)`` where the block holds every head."""
+    if not xlstm_partial(p, cfg):
+        return x, None
+    mesh = active_rules().mesh
+    return C.enter_split(x, mesh, "model"), mesh
+
+
+def _sum_heads(y, mesh):
+    if mesh is None:
+        return y
+    return C.all_reduce(y, mesh, "model")
 
 
 def mlstm_axes():
@@ -148,23 +165,25 @@ def mlstm_block(p, x, cfg, chunk: int = 64):
     """Full temporal block for prefill: (B, S, D) → (B, S, D); chunks of
     ``min(chunk, S)`` positions, which must divide S."""
     s = x.shape[1]
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
-    log_i, log_f = _mlstm_gates(p, x)
+    xs, mesh = _split_in(p, x, cfg)
+    q = torch.einsum("bsd,dhk->bshk", xs, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", xs, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", xs, p["wv"])
+    log_i, log_f = _mlstm_gates(p, xs)
     out = _mlstm_chunk_scan(q, k, v, log_i, log_f, min(chunk, s))
     y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
-    return y + F.silu(x @ p["skip"])
+    return _sum_heads(y, mesh) + F.silu(x @ p["skip"])
 
 
 def mlstm_decode(p, x, cfg, state):
     """One-step decode: x (B, 1, D); state ``{"C": (B, H, D, D), "n": (B,
     H, D), "m": (B, H)}`` fp32 → ``(y, state)``, the state written in
     place."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])[:, 0].float()
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])[:, 0].float()
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])[:, 0].float()
-    log_i, log_f = (t[:, 0] for t in _mlstm_gates(p, x))
+    xs, mesh = _split_in(p, x, cfg)
+    q = torch.einsum("bsd,dhk->bshk", xs, p["wq"])[:, 0].float()
+    k = torch.einsum("bsd,dhk->bshk", xs, p["wk"])[:, 0].float()
+    v = torch.einsum("bsd,dhk->bshk", xs, p["wv"])[:, 0].float()
+    log_i, log_f = (t[:, 0] for t in _mlstm_gates(p, xs))
     m = state["m"]
     m_new = torch.maximum(m + log_f, log_i)
     decay = torch.exp(m + log_f - m_new)
@@ -176,7 +195,7 @@ def mlstm_decode(p, x, cfg, state):
     num = torch.einsum("bhde,bhe->bhd", C, q) / math.sqrt(hd)
     den = torch.abs(torch.einsum("bhd,bhd->bh", n, q)) / math.sqrt(hd)
     out = (num / torch.clamp(den, min=1.0)[..., None]).to(x.dtype)
-    y = torch.einsum("bhk,hkd->bd", out, p["wo"])[:, None]
+    y = _sum_heads(torch.einsum("bhk,hkd->bd", out, p["wo"])[:, None], mesh)
     state["C"].copy_(C)
     state["n"].copy_(n)
     m.copy_(m_new)
@@ -249,9 +268,10 @@ def _slstm_gates(p, x):
 
 def slstm_block(p, x, cfg):
     """Full temporal block for prefill: (B, S, D) → (B, S, D), one step
-    of the recurrence per position."""
+    of the recurrence per position (a partial over 'model' where the
+    heads are split: :func:`xlstm_partial`)."""
     b = x.shape[0]
-    gates = _slstm_gates(p, x)
+    gates = _slstm_gates(p, _split_in(p, x, cfg)[0])
     z = gates[0]
     zeros = torch.zeros((b,) + tuple(z.shape[2:]), dtype=torch.float32,
                         device=x.device)
@@ -266,7 +286,8 @@ def slstm_block(p, x, cfg):
 
 def slstm_decode(p, x, cfg, state):
     """One-step decode: x (B, 1, D); state ``{"c", "n", "m"}`` each (B, H,
-    D) fp32 → ``(y, state)``, the state written in place."""
+    D) fp32 → ``(y, state)``, the state written in place (``y`` a
+    partial over 'model' where the heads are split)."""
     gates = tuple(g[:, 0] for g in _slstm_gates(p, x))
     (c, n, m), h = _slstm_step((state["c"], state["n"], state["m"]), gates)
     y = torch.einsum("bhk,hkd->bd", h.to(x.dtype), p["wo"])[:, None]

@@ -53,14 +53,34 @@ def cosine_lr(cfg: AdamWConfig, step):
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def init_opt_state(params):
-    """Zero fp32 moments ``mu``, ``nu`` beside each param, and ``step`` 0."""
+def init_opt_state(params, shardings=None):
+    """Zero fp32 moments ``mu``, ``nu`` beside each param, and ``step`` 0.
+
+    Under a mesh a param is this rank's block and its moments are the
+    same block, carrying its placement; with ``shardings`` (the
+    ``grad_shardings`` of :func:`repro_torch.train.step.make_train_step`,
+    a tree of placements like the params') each moment is this rank's
+    block of that placement instead (ZeRO)."""
+    from repro_torch.sharding.rules import sharding_of, with_sharding
+
     leaves = tree_leaves(params)
     dev = leaves[0].device if leaves else torch.device("cpu")
+    if isinstance(shardings, dict) and set(shardings) == {"mu", "nu",
+                                                          "step"}:
+        shardings = shardings["mu"]
+    places = flatten_tree(shardings) if shardings is not None else {}
 
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
+    def zeros(key, p):
+        place = places.get(key, sharding_of(p))
+        shape = p.shape
+        if key in places:
+            own = sharding_of(p)
+            whole = own.shape if own is not None and own.shape else p.shape
+            shape = place.local_shape(whole)
+        return with_sharding(torch.zeros(shape, dtype=torch.float32,
+                                         device=p.device), place)
+    return {"mu": tree_map_with_path(zeros, params),
+            "nu": tree_map_with_path(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
@@ -82,6 +102,28 @@ def _clip_scale(norm, max_norm: float):
     return torch.clamp(num / torch.clamp(norm, min=1e-12), max=1.0)
 
 
+def sharded_global_norm(grads: dict, split_axes: dict, mesh):
+    """The global norm of gradient blocks: each leaf's fp32 sum of
+    squares summed over the mesh axes its block is split on
+    (``split_axes[key]``; a leaf whole over an axis counts once), then
+    over the leaves."""
+    from repro_torch.sharding.collectives import all_reduce
+
+    groups: dict = {}
+    for k, g in grads.items():
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        key = split_axes[k]
+        groups[key] = sq if key not in groups else groups[key] + sq
+    total = None
+    for axes, sq in groups.items():
+        if axes:
+            sq = all_reduce(sq.reshape(1).clone(), mesh,
+                            tuple(a for a in mesh.axis_names if a in axes)
+                            ).reshape(())
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
 def clip_by_global_norm(grads, max_norm):
     """``(grads scaled to at most max_norm in global norm, in fp32, the
     norm before clipping)``."""
@@ -91,12 +133,15 @@ def clip_by_global_norm(grads, max_norm):
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads, state, params):
+def adamw_update(cfg: AdamWConfig, grads, state, params, *, gnorm=None):
     """One AdamW step, in place: returns ``(params, state, metrics)``, the
     params and moments being the tensors passed in, overwritten.  Each
     leaf's clipped fp32 gradient is made (and freed) in turn, the same
-    arithmetic as :func:`clip_by_global_norm`."""
-    gnorm = global_norm(grads)
+    arithmetic as :func:`clip_by_global_norm`.  ``gnorm`` (optional) is
+    the norm to clip by, where the grads are blocks of a sharded tree
+    (:func:`sharded_global_norm`)."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.grad_clip)
     step = state["step"] + 1
     lr = cosine_lr(cfg, step)

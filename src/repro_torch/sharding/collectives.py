@@ -1,18 +1,36 @@
-"""Explicit collectives of the mesh path, and flash-decoding.
+"""Explicit collectives of the mesh path, their gradients, and
+flash-decoding.
 
 The port's copy of the JAX package's ``sharding/collectives.py``.  Under
-JAX a ``shard_map`` body names its collectives and GSPMD places the rest;
-PyTorch has no such pass over hand-written kernels, so every unit of the
-port's sharded loops calls the collective its arithmetic needs, over the
-process group of a :class:`~repro_torch.launch.mesh.HostMesh` axis:
+JAX a ``shard_map`` body names its collectives and GSPMD places the rest
+(and transposes them for the backward pass); PyTorch has no such pass
+over hand-written kernels, so every unit of the port's sharded loops
+calls the collective its arithmetic needs, over the process group of a
+:class:`~repro_torch.launch.mesh.HostMesh` axis, and each collective that
+a loss is differentiated through is a ``torch.autograd.Function`` with
+its conjugate as the backward (Megatron's pairs):
 
 * :func:`all_reduce` — the sum after a row-parallel contraction (a
-  split 'ffn', 'heads', 'rank' or 'vocab'), the max of a split
-  activation's ``amax`` (w8a8), and the (m, l, o) combine of
-  flash-decoding;
+  split 'ffn', 'heads', 'rank' or 'vocab'); backward the identity.  Also
+  the max of a split activation's ``amax`` (w8a8) and the (m, l, o)
+  combine of flash-decoding, which no loss differentiates;
+* :func:`enter_split` — a replicated activation entering a block whose
+  weights are split (a column-parallel input: the attention and FFN
+  inputs after the norm, the unembedding's input, the MoE's tokens):
+  forward the identity, backward the sum of the ranks' partial
+  gradients;
 * :func:`all_gather` — where the next op needs a whole dimension (a
   dense conv's input channels, a vocab slice before the argmax, the
-  batch blocks of an output).
+  batch blocks of an output); backward this rank's block of the
+  (replicated) gradient;
+* :func:`gather_weight` — a weight split over an axis whose ranks use
+  it whole on different data (FSDP's 'embed' over 'data', the MoE
+  router over 'model'): forward all-gather, backward
+  :func:`reduce_scatter` (the sum of the ranks' gradients, this rank's
+  block of it); :func:`gather_weights` does it for a layer's weights in
+  one collective each way (FSDP's flat buffer);
+* :func:`compressed_allreduce` — the int8 all-reduce of data-parallel
+  gradients (:func:`repro_torch.optim.compress.compressed_psum`).
 
 Nothing here copies a tensor to the host: each call hands the tensor,
 where it lies, to ``torch.distributed`` (NCCL on the card; ``gloo``,
@@ -22,8 +40,10 @@ process, no ``init_process_group``) there is nothing to exchange and
 each call returns its input.
 
 Every call adds to :func:`collective_counts` (calls and bytes per
-operation, this rank's payload), so a run can report what a decode step
-exchanged.
+operation, this rank's payload); a collective issued by a backward pass
+counts under its operation's name with ``:bwd`` appended, so a run can
+report what a decode step or a train step exchanged each way
+(:func:`collective_totals`).
 
 * :func:`flash_decode_attention` — decode attention with the KV cache
   split along its *sequence* over 'model': each rank computes the
@@ -33,8 +53,8 @@ exchanged.
   (B·S·KVH·D) cache.  :func:`flash_decode_reference` is the plain
   version.
 
-``gpipe_forward`` and ``compressed_allreduce`` belong to the training
-and dry-run slice (ROADMAP.md queue 1 item 5b, steps 1 and 4).
+``gpipe_forward`` belongs to the dry-run slice (ROADMAP.md queue 1 item
+5b, step 4).
 """
 from __future__ import annotations
 
@@ -47,16 +67,28 @@ _COUNTS: dict[str, list[int]] = {}
 
 def collective_counts() -> dict[str, dict[str, int]]:
     """Collectives issued in this process since the last reset: per
-    operation, calls and bytes (the payload this rank handed in)."""
+    operation, calls and bytes (the payload this rank handed in).  A
+    backward pass's collectives are keyed ``<op>:bwd``."""
     return {k: {"calls": v[0], "bytes": v[1]} for k, v in _COUNTS.items()}
+
+
+def collective_totals() -> dict[str, dict[str, int]]:
+    """:func:`collective_counts` summed by direction: ``{"fwd": {calls,
+    bytes}, "bwd": {calls, bytes}}``."""
+    out = {"fwd": {"calls": 0, "bytes": 0}, "bwd": {"calls": 0, "bytes": 0}}
+    for k, (calls, nbytes) in _COUNTS.items():
+        d = out["bwd" if k.endswith(":bwd") else "fwd"]
+        d["calls"] += calls
+        d["bytes"] += nbytes
+    return out
 
 
 def reset_collective_counts() -> None:
     _COUNTS.clear()
 
 
-def _count(op: str, t: torch.Tensor) -> None:
-    c = _COUNTS.setdefault(op, [0, 0])
+def _count(op: str, t: torch.Tensor, bwd: bool = False) -> None:
+    c = _COUNTS.setdefault(op + (":bwd" if bwd else ""), [0, 0])
     c[0] += 1
     c[1] += t.numel() * t.element_size()
 
@@ -76,33 +108,205 @@ def _group(mesh, axes):
 _OPS = {"sum": "SUM", "max": "MAX"}
 
 
-def all_reduce(t: torch.Tensor, mesh, axes, op: str = "sum"):
-    """``t`` reduced (``op``: 'sum' or 'max') over the ranks of ``axes``,
-    in place where ``t`` is contiguous; returns the result."""
+def _reduce(t, mesh, axes, op: str, bwd: bool = False):
+    """``t`` (contiguous, written in place) reduced over ``axes``."""
     import torch.distributed as dist
 
     group, _ = _group(mesh, axes)
     if group is None:
         return t
-    t = t.contiguous()
-    _count(f"all_reduce_{op}", t)
+    _count(f"all_reduce_{op}", t, bwd)
     dist.all_reduce(t, op=getattr(dist.ReduceOp, _OPS[op]), group=group)
     return t
 
 
-def all_gather(t: torch.Tensor, mesh, axes, dim: int = 0):
-    """The blocks of ``t`` over the ranks of ``axes`` concatenated along
-    ``dim``, in the axes' row-major order (the :class:`Placement` order)."""
+def _gather(t, mesh, axes, dim: int, bwd: bool = False):
     import torch.distributed as dist
 
     group, size = _group(mesh, axes)
     if group is None:
         return t
     t = t.contiguous()
-    _count("all_gather", t)
+    _count("all_gather", t, bwd)
     parts = [torch.empty_like(t) for _ in range(size)]
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
+
+
+def _narrow_block(t, mesh, axes, dim: int):
+    start, size = block(t.shape[dim], mesh, axes)
+    return t.narrow(dim, start, size)
+
+
+def reduce_scatter(t: torch.Tensor, mesh, axes, dim: int = 0, *,
+                   bwd: bool = False):
+    """The sum of ``t`` over the ranks of ``axes``, cut along ``dim`` into
+    their blocks (the :class:`Placement` order): this rank's block."""
+    import torch.distributed as dist
+
+    group, size = _group(mesh, axes)
+    if group is None:
+        return t
+    src = t.movedim(dim, 0).contiguous()
+    _count("reduce_scatter", src, bwd)
+    out = torch.empty((src.shape[0] // size, *src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    try:
+        dist.reduce_scatter_tensor(out, src, group=group)
+    except (RuntimeError, NotImplementedError):
+        # a backend without reduce-scatter refuses before it exchanges
+        dist.all_reduce(src, group=group)
+        out = _narrow_block(src, mesh, axes, 0).contiguous()
+    return out.movedim(0, dim)
+
+
+def _grad_path(t) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Forward the sum over ``axes``; backward the identity."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        return _reduce(t.contiguous().clone(), mesh, axes, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _EnterSplit(torch.autograd.Function):
+    """Forward the identity; backward the sum over ``axes``."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_reduce(g.contiguous().clone(), ctx.mesh, ctx.axes, "sum",
+                        bwd=True), None, None)
+
+
+class _AllGather(torch.autograd.Function):
+    """Forward the blocks concatenated along ``dim``; backward this
+    rank's block of the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _gather(t, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_narrow_block(g, ctx.mesh, ctx.axes, ctx.dim).contiguous(),
+                None, None, None)
+
+
+def _gather_flat(blocks, dims, mesh, axes) -> tuple:
+    """The blocks flattened into one buffer, all-gathered, and each
+    leaf's rank blocks concatenated along its ``dims`` entry."""
+    flat = torch.cat([b.reshape(-1) for b in blocks])
+    parts = _gather(flat, mesh, axes, 0).chunk(_group(mesh, axes)[1])
+    outs, o = [], 0
+    for b, d in zip(blocks, dims):
+        n = b.numel()
+        outs.append(torch.cat([p[o:o + n].view(b.shape) for p in parts],
+                              dim=d))
+        o += n
+    return tuple(outs)
+
+
+class _GatherWeights(torch.autograd.Function):
+    """Forward :func:`_gather_flat`: the blocks whole, in one collective;
+    backward each gradient cut into its rank blocks, laid out rank by
+    rank and reduce-scattered in one call."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, dims, *blocks):
+        ctx.mesh, ctx.axes, ctx.dims = mesh, axes, dims
+        ctx.shapes = [b.shape for b in blocks]
+        return _gather_flat(blocks, dims, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        size = _group(ctx.mesh, ctx.axes)[1]
+        buf = torch.cat([g.narrow(d, r * s[d], s[d]).reshape(-1)
+                         for r in range(size)
+                         for g, d, s in zip(grads, ctx.dims, ctx.shapes)])
+        mine = reduce_scatter(buf, ctx.mesh, ctx.axes, 0, bwd=True)
+        out, o = [], 0
+        for s in ctx.shapes:
+            n = math.prod(s)
+            out.append(mine[o:o + n].view(s))
+            o += n
+        return (None, None, None, *out)
+
+
+def gather_weights(blocks, dims, mesh, axes) -> list:
+    """:func:`gather_weight` of each block along its ``dims`` entry (one
+    dtype), in one all-gather forward and one reduce-scatter backward:
+    FSDP's flat buffer of a layer."""
+    if _group(mesh, axes)[0] is None:
+        return list(blocks)
+    if any(_grad_path(b) for b in blocks):
+        return list(_GatherWeights.apply(mesh, _axes(axes), tuple(dims),
+                                         *blocks))
+    return list(_gather_flat(blocks, dims, mesh, axes))
+
+
+def all_reduce(t: torch.Tensor, mesh, axes, op: str = "sum"):
+    """``t`` reduced (``op``: 'sum' or 'max') over the ranks of ``axes``;
+    returns the result.  Outside autograd it is written in place where
+    ``t`` is contiguous; a sum that a loss is differentiated through
+    takes a copy, and its gradient passes through unchanged (every rank
+    holds the same sum, so each seeds the same cotangent)."""
+    if _group(mesh, axes)[0] is None:
+        return t
+    if op == "sum" and _grad_path(t):
+        return _AllReduceSum.apply(t, mesh, _axes(axes))
+    return _reduce(t.contiguous(), mesh, axes, op)
+
+
+def enter_split(t: torch.Tensor, mesh, axes="model"):
+    """``t``, replicated over ``axes``, entering a block whose ranks each
+    use it for their own shards: the identity forward (no collective), and
+    its gradient summed over ``axes`` backward (each rank holds the
+    partial its shards give)."""
+    if _group(mesh, axes)[0] is None or not _grad_path(t):
+        return t
+    return _EnterSplit.apply(t, mesh, _axes(axes))
+
+
+def all_gather(t: torch.Tensor, mesh, axes, dim: int = 0):
+    """The blocks of ``t`` over the ranks of ``axes`` concatenated along
+    ``dim``, in the axes' row-major order (the :class:`Placement` order).
+    Backward: this rank's block of the gradient (the gathered tensor
+    feeds the same computation on every rank)."""
+    if _group(mesh, axes)[0] is None:
+        return t
+    if _grad_path(t):
+        return _AllGather.apply(t, mesh, _axes(axes), dim)
+    return _gather(t, mesh, axes, dim)
+
+
+def gather_weight(t: torch.Tensor, mesh, axes, dim: int = 0):
+    """A weight's blocks over ``axes`` gathered along ``dim`` for ranks
+    that use it whole on different data: backward the gradient
+    reduce-scattered back onto the blocks (FSDP, and the MoE router that
+    each 'model' rank uses for its own experts)."""
+    return gather_weights([t], [dim], mesh, axes)[0]
+
+
+def compressed_allreduce(grads, *, mesh, axis: str = "data"):
+    """int8 all-reduce of data-parallel gradients over ``axis``: each
+    rank's tensors summed through
+    :func:`repro_torch.optim.compress.compressed_psum`, the sum on every
+    rank (the reference's ``shard_map`` over the blocks of ``axis``)."""
+    from repro_torch.optim.compress import compressed_psum
+    return compressed_psum(grads, mesh, axis)
 
 
 def block(n: int, mesh, axes) -> tuple[int, int]:

@@ -195,6 +195,53 @@ def local_shape(names, shape) -> tuple[tuple, tuple]:
     return place.local_shape(shape), place.spec
 
 
+def data_axes(rules: ShardingRules) -> tuple:
+    """The mesh axes the 'batch' rule maps to (the data axes), in mesh
+    order, of size larger than 1."""
+    names = set(_axes_of(rules.rules.get("batch")))
+    return tuple(a for a in rules.mesh.axis_names
+                 if a in names and rules.mesh.shape[a] > 1)
+
+
+def gather_data_split(leaves: dict, lead: int = 0) -> dict:
+    """FSDP: ``leaves`` (key → ``(t, placement)``: this rank's block of a
+    weight and its placement, past ``lead`` leading dimensions — a layer
+    of a stacked leaf) with every dimension a placement splits over the
+    data axes gathered whole, one bucket per (axes, dtype) in one
+    collective each way
+    (:func:`repro_torch.sharding.collectives.gather_weights`, whose
+    backward reduce-scatters the gradients onto the blocks).  Dimensions
+    split over 'model' stay blocks: the blocks compute on them.  Returns
+    key → tensor; each ``t`` as it is outside the ambient rules or
+    without a placement."""
+    out = {k: t for k, (t, _) in leaves.items()}
+    r = active_rules()
+    if r is None:
+        return out
+    from . import collectives as C
+
+    daxes = set(data_axes(r))
+    buckets: dict = {}
+    for k, (t, place) in leaves.items():
+        if place is None:
+            continue
+        split = [(i, _axes_of(part)) for i, part in
+                 enumerate(place.spec[lead:])
+                 if any(a in daxes for a in _axes_of(part))]
+        if not split:
+            continue
+        if len(split) > 1 or not set(split[0][1]) <= daxes:
+            raise ValueError(f"{k}: FSDP gathers one dimension split over "
+                             f"data axes only, not {place.spec}")
+        dim, axes = split[0]
+        buckets.setdefault((axes, t.dtype, place.mesh), []).append((k, dim))
+    for (axes, _, mesh), items in buckets.items():
+        whole = C.gather_weights([out[k] for k, _ in items],
+                                 [d for _, d in items], mesh, axes)
+        out.update(zip((k for k, _ in items), whole))
+    return out
+
+
 def logical_constraint(x, names, *, current=()):
     """Re-lay out the local tensor ``x`` from the spec ``current`` (whole
     by default) to the spec its logical ``names`` resolve to under the

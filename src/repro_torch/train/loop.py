@@ -22,6 +22,16 @@ watchdog for stragglers:
 
 The step updates params and moments in place, so the loop trains a copy
 of the caller's params and leaves them as they were.
+
+Under a mesh (the step's ambient rules, params that are this rank's
+blocks) every rank runs the loop: checkpoints gather the blocks whole
+and the main process writes them (:mod:`repro_torch.checkpoint.ckpt`),
+every rank waits for that write before it reads the newest checkpoint,
+and a resume or restart restores each rank's blocks of the params'
+placements (an elastic restore).  A restart needs every rank's failure
+at the same step (a failure hook that fires on every rank, as a device
+loss stops the whole job); the watchdog reads the slowest rank's step
+time, so every rank takes the same decision.
 """
 from __future__ import annotations
 
@@ -34,8 +44,41 @@ from typing import Any, Callable
 
 from repro_torch.checkpoint import ckpt as C
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+from repro_torch.sharding.rules import sharding_of, with_sharding
 from repro_torch.train.step import make_train_step
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def _world() -> bool:
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized() \
+        and dist.get_world_size() > 1
+
+
+def _barrier() -> None:
+    """Every rank waits here (the main process's write has landed)."""
+    if _world():
+        import torch.distributed as dist
+        dist.barrier()
+
+
+def _slowest(dt: float, like) -> float:
+    """The largest of the ranks' step times (``dt`` alone without a
+    process group); ``like`` gives the device of the exchange."""
+    if not _world():
+        return dt
+    import torch
+    import torch.distributed as dist
+    t = torch.tensor([dt], dtype=torch.float64, device=like.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t.item())
+
+
+def _restore(ckpt_dir: str, step: int, like):
+    """``like``'s tree from the checkpoint of ``step``: each leaf that
+    carries a placement as this rank's block of it."""
+    places = tree_map(sharding_of, like)
+    return C.restore(ckpt_dir, step, like, shardings=places)
 
 
 def _default_ckpt_dir() -> str:
@@ -79,7 +122,9 @@ def train_loop(cfg, opt_cfg: AdamWConfig, loop: LoopConfig, params, batch_fn,
     step's again."""
     step_fn = make_train_step(cfg, opt_cfg, microbatches=loop.microbatches)
     saver = C.AsyncCheckpointer(loop.ckpt_dir, keep=loop.keep)
-    params = tree_map(lambda t: t.detach().clone(), params)
+    params = tree_map(lambda t: with_sharding(t.detach().clone(),
+                                              sharding_of(t)), params)
+    anchor = tree_leaves(params)[0]
     opt_state = init_opt_state(params)
     losses: list[float] = []
     restarts = 0
@@ -88,8 +133,8 @@ def train_loop(cfg, opt_cfg: AdamWConfig, loop: LoopConfig, params, batch_fn,
 
     start = C.latest_step(loop.ckpt_dir)
     if start is not None:
-        state = C.restore(loop.ckpt_dir, start,
-                          {"params": params, "opt": opt_state})
+        state = _restore(loop.ckpt_dir, start,
+                         {"params": params, "opt": opt_state})
         params, opt_state = state["params"], state["opt"]
         logger(f"[loop] resumed from step {start}")
     step = start or 0
@@ -102,7 +147,7 @@ def train_loop(cfg, opt_cfg: AdamWConfig, loop: LoopConfig, params, batch_fn,
             batch = batch_fn(step)
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             loss = float(metrics["loss"])     # waits for the step
-            dt = time.perf_counter() - t0
+            dt = _slowest(time.perf_counter() - t0, anchor)
             # --- straggler watchdog -------------------------------------
             if len(step_times) >= 5:
                 med = statistics.median(step_times[-20:])
@@ -129,19 +174,21 @@ def train_loop(cfg, opt_cfg: AdamWConfig, loop: LoopConfig, params, batch_fn,
             if restarts > loop.max_restarts:
                 raise
             saver.wait()
+            _barrier()
             last = C.latest_step(loop.ckpt_dir)
             if last is None:
                 # no checkpoint yet: restart from scratch
                 opt_state = init_opt_state(params)
                 step = 0
             else:
-                state = C.restore(loop.ckpt_dir, last,
-                                  {"params": params, "opt": opt_state})
+                state = _restore(loop.ckpt_dir, last,
+                                 {"params": params, "opt": opt_state})
                 params, opt_state = state["params"], state["opt"]
                 step = last
             stragglers = 0
 
     saver.wait()
+    _barrier()
     return LoopResult(losses=losses, restarts=restarts,
                       straggler_events=stragglers, final_step=step,
                       params=params, opt_state=opt_state,

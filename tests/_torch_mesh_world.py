@@ -23,6 +23,7 @@ from repro_torch.models import transformer as T
 from repro_torch.runtime import serving
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.rules import (logical_constraint, make_unit_rules,
+                                        param_shardings_with_shapes, put,
                                         sharding_of, use_rules)
 from repro_torch.train.step import make_serve_step
 from repro_torch.tree import flatten_tree
@@ -155,10 +156,28 @@ def _model_forward(arch, batch):
     return cfg, params, T.forward(cfg, params, batch)
 
 
+def _split_forward(arch, toks, rules, mesh):
+    """The reduced ``arch`` forward on this rank's blocks of its params
+    (experts or heads split over 'model'), and the single device's on
+    each data block's rows (an MoE routes each block as its own group),
+    concatenated; the split weight's local shape."""
+    cfg, params, _ = _model_forward(arch, {"tokens": toks})
+    axes = T.model_axes(cfg)
+    local = put(params, param_shardings_with_shapes(rules, axes, params))
+    with use_rules(rules):
+        y = T.forward(cfg, local, {"tokens": toks})
+    half = toks.shape[0] // mesh.shape["data"]
+    rows = torch.cat([T.forward(cfg, params, {"tokens": toks[i:i + half]})
+                      for i in range(0, toks.shape[0], half)])
+    leaf = local["groups"][0]["ffn" if cfg.is_moe else "temporal"]
+    return y.numpy(), rows.numpy(), tuple(leaf["w_gate" if cfg.is_moe
+                                               else "wo"].shape)
+
+
 def world_2x2(rank, spec_path):
     """The ('data' 2, 'model' 2) world: host meshes, flash-decoding, the
     sharded CNN executor, the sharded SmolLM and RecurrentGemma
-    artifacts, the errors under 'model' 2, and survivor_mesh."""
+    artifacts, MoE and xLSTM split over 'model', and survivor_mesh."""
     torch.set_num_threads(1)
     spec = json.load(open(spec_path))
     arrays = dict(np.load(spec["arrays"]))
@@ -180,12 +199,9 @@ def world_2x2(rank, spec_path):
     prompt = torch.from_numpy(arrays["lm_prompt"])
     out["lm"] = {name: _lm(path, prompt, rules, spec["new_tokens"])
                  for name, path in spec["lm"].items()}
-    toks = {"tokens": torch.from_numpy(arrays["lm_prompt"][:, :4] % 64)}
-    with use_rules(rules):
-        out["moe_raises"] = _raises(
-            lambda: _model_forward("granite-moe-1b-a400m", toks))
-        out["xlstm_raises"] = _raises(
-            lambda: _model_forward("xlstm-125m", toks))
+    toks = torch.from_numpy(arrays["lm_prompt"][:, :4] % 64)
+    out["model_split"] = {arch: _split_forward(arch, toks, rules, mesh)
+                          for arch in ("granite-moe-1b-a400m", "xlstm-125m")}
     x = torch.arange(24.0).reshape(4, 6)
     with use_rules(rules):
         blk = logical_constraint(x, ("batch", "ffn"))

@@ -19,13 +19,14 @@ three distinct M-RoPE streams), fp32, with the same numpy params
 * a compressed artifact written by the JAX package fine-tunes in the
   port: its first step's loss and gradients against the JAX package's
   as above, and the loss drops over five steps;
-* the fault-tolerant loop, mirroring ``tests/test_ft.py`` (elastic
-  resharding waits for the distribution slice): it trains and
+* the fault-tolerant loop, mirroring ``tests/test_ft.py`` (its elastic
+  reshard is ``tests/test_torch_mesh_train.py``'s): it trains and
   checkpoints, a failure restarts from the last checkpoint and replays
   its steps bitwise, a killed run resumes, stragglers trip the
   watchdog, the caller's params are left as they were;
 * ``python -m repro_torch.launch.train --reduced --device cpu`` trains,
-  serves, and refuses ``--distributed``.
+  serves, and refuses ``--distributed`` where the environment names no
+  process group.
 """
 import dataclasses
 import os
@@ -280,9 +281,42 @@ def test_split_batch_cuts_the_batch_axis():
 
 
 def test_grad_shardings_are_refused():
+    """``grad_shardings`` needs the ambient rules; under them, on the one
+    process's mesh (every collective a no-op), the ZeRO step is the plain
+    step bitwise.  The four-rank step is ``tests/test_torch_mesh_train.py``."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import rules as R
     _, tcfg = _configs("smollm-135m")
-    with pytest.raises(NotImplementedError, match="distribution"):
-        TS.make_train_step(tcfg, TA.AdamWConfig(), grad_shardings={})
+    with pytest.raises(ValueError, match="use_rules"):
+        TS.make_train_step(tcfg, TA.AdamWConfig(), grad_shardings={})(
+            *_one_step_inputs(tcfg))
+    mesh = make_host_mesh()
+    rules = R.make_rules(mesh, fsdp=True)
+    params, opt, batch = _one_step_inputs(tcfg)
+    axes = tT.model_axes(tcfg)
+    gs = R.param_shardings_with_shapes(
+        R.make_rules(mesh, fsdp=True, opt_state=True), axes, params)
+    p1, o1, m1 = TS.make_train_step(tcfg, TA.AdamWConfig(lr=1e-2))(
+        params, opt, batch)
+    params, _, batch = _one_step_inputs(tcfg)
+    params = R.put(params, R.param_shardings_with_shapes(rules, axes,
+                                                         params))
+    opt = TA.init_opt_state(params, shardings=gs)
+    with R.use_rules(rules):
+        p2, o2, m2 = TS.make_train_step(tcfg, TA.AdamWConfig(lr=1e-2),
+                                        grad_shardings=gs)(params, opt, batch)
+    assert torch.equal(m1["loss"], m2["loss"])
+    for k, v in flatten_tree(p1).items():
+        torch.testing.assert_close(flatten_tree(p2)[k], v, rtol=1e-6,
+                                   atol=1e-7)
+
+
+def _one_step_inputs(tcfg):
+    params, _ = tT.init_model(tcfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    nb = _np_batch(tcfg, b=2, s=8, seed=3)
+    return params, TA.init_opt_state(params), {
+        k: torch.from_numpy(v) for k, v in nb.items()}
 
 
 @pytest.fixture(scope="module")
@@ -480,6 +514,10 @@ def test_launcher_trains_and_serves_on_the_cpu(tmp_path):
                "--tokens", "3", "--device", "cpu", tmp_path=tmp_path)
     assert out.returncode == 0, out.stderr
     assert "decoded 3 tokens/seq" in out.stdout
+    # --distributed joins the environment's process group; without one
+    # it raises, and never runs as one process (the two-rank run is
+    # tests/test_torch_mesh_train.py)
     out = _cli("--arch", "smollm-135m", "--reduced", "--distributed",
                "--device", "cpu", tmp_path=tmp_path)
-    assert out.returncode != 0 and "distribution slice" in out.stderr
+    assert out.returncode != 0 and "process group" in out.stderr
+    assert "final loss" not in out.stdout

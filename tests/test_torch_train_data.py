@@ -6,8 +6,9 @@ package's, on the CPU.
 * a checkpoint written by either package restores in the other bitwise
   (fp32, int32, nested dicts and lists, a 0-d step; bf16 both ways);
 * the port's own contracts, mirroring ``tests/test_substrates.py``:
-  determinism, prefetch order, device batches, round trip, ``keep`` and
-  the ``.tmp`` crash contract, the asynchronous writer.
+  determinism, prefetch order, device batches (and a mesh's rows),
+  round trip (and a restore onto a mesh's placements), ``keep`` and the
+  ``.tmp`` crash contract, the asynchronous writer.
 """
 import json
 import os
@@ -63,8 +64,19 @@ def test_global_batcher_gives_device_tensors():
     for k, v in host.items():
         assert out[k].dtype == torch.int32 and out[k].device.type == "cpu"
         np.testing.assert_array_equal(out[k].numpy(), v)
-    with pytest.raises(NotImplementedError, match="distribution"):
-        TP.GlobalBatcher(src, mesh=object(), device="cpu")
+    # on a mesh: this rank's rows, carrying their placement (the one
+    # process's mesh holds every row); a batch the axes do not divide
+    # stays whole and unmarked
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh()
+    rows = TP.GlobalBatcher(src, mesh=mesh, device="cpu")(4)
+    for k, v in host.items():
+        np.testing.assert_array_equal(rows[k].numpy(), v)
+        assert rows[k].sharding.spec == ("data",)
+        assert rows[k].sharding.shape == v.shape
+    odd = TP.GlobalBatcher(src, mesh=mesh, batch_axes=("pod",),
+                           device="cpu")(4)
+    assert getattr(odd["tokens"], "sharding", None) is None
 
 
 def _np_state():
@@ -148,8 +160,18 @@ def test_checkpoint_roundtrip(tmp_path):
         assert torch.equal(flatten_tree(out)[k], v)
     with pytest.raises(KeyError, match="missing"):
         TC.restore(str(tmp_path), 10, {"zz": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match="distribution"):
-        TC.restore(str(tmp_path), 10, tree, shardings=object())
+    # elastic restore onto a mesh: each leaf this rank's block of its
+    # placement (the one process's mesh: the whole leaf), carrying it
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.rules import Placement
+    mesh = make_host_mesh()
+    places = {"a": Placement(mesh, ("data", "model")),
+              "nest": {"b": None}, "lst": [Placement(mesh, ()), None]}
+    out = TC.restore(str(tmp_path), 10, tree, shardings=places)
+    assert out["a"].sharding.spec == ("data", "model")
+    assert out["a"].sharding.shape == (2, 3)
+    for k, v in flatten_tree(tree).items():
+        assert torch.equal(flatten_tree(out)[k], v)
 
 
 def test_checkpoint_gc_and_atomicity(tmp_path):

@@ -304,22 +304,28 @@ def test_default_device_raises_without_a_card(tmp_path):
 
 def test_what_is_not_ported_raises():
     """What the port still refuses, now that MoE, xLSTM, M-RoPE and every
-    config id run: the expert-parallel MoE (rules whose mesh has a 'model'
-    axis larger than 1, ROADMAP.md queue 1 item 5b) and a bf16 config in
-    the host (queue 3).  A data-only mesh's MoE runs
-    (``tests/test_torch_mesh.py``)."""
+    config id run: a bf16 config in the host (queue 3).  The MoE under a
+    'model' axis larger than 1 runs: the expert-parallel path where the
+    axis divides the experts (four ranks in ``tests/test_torch_mesh.py``
+    and ``tests/test_torch_mesh_train.py``), the grouped path on whole
+    expert weights where it does not or the rules set ``moe_shard_map``
+    False — here the single device's function, bitwise."""
     import types
 
     from repro_torch.models import moe as tM
     cfg = t_get_config("granite-moe-1b-a400m").reduced()
     params, _ = tT.init_model(cfg, device="cpu")
-    p = params["groups"][0]["ffn"]
-    x = torch.zeros(1, 3, cfg.d_model)
-    tensor_parallel = types.SimpleNamespace(
-        mesh=types.SimpleNamespace(shape={"data": 1, "model": 2}))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tM.moe_dispatch({k: v[0] for k, v in p.items()}, x, cfg,
-                        rules=tensor_parallel)
+    p = {k: v[0] for k, v in params["groups"][0]["ffn"].items()}
+    x = torch.randn(2, 3, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    want = tM.moe_ffn(p, x, cfg, capacity_factor=cfg.capacity_factor)
+    for model, flag in ((3, True), (2, False)):
+        rules = types.SimpleNamespace(
+            mesh=types.SimpleNamespace(shape={"data": 1, "model": model}),
+            rules={"moe_shard_map": flag})
+        got = tM.moe_dispatch(p, x, cfg, rules=rules,
+                              capacity_factor=cfg.capacity_factor)
+        assert torch.equal(got, want), (model, flag)
     with pytest.raises(ValueError, match="fp32"):
         thost.TransformerHost(dataclasses.replace(cfg, dtype="bfloat16"),
                               params, device="cpu")
