@@ -511,9 +511,10 @@ Phases, each printing its own line with the seconds it took:
              ``gloo`` ranks sharing the card, data 2 × model 2, batch 8 ×
              256 (4 rows a rank): (a) SmolLM-135M whole (fp32, 4 steps),
              (b) granite-moe-1b-a400m at 2 of 24 layers (16 experts and 8
-             query heads a rank, capacity factor E/k so nothing drops; 2
-             steps), (c) xlstm-125m at 6 of 12 layers (heads on 'model';
-             2 steps),
+             query heads a rank, at its own capacity factor 1.25: the
+             single device routes in the mesh's 2 data groups,
+             ``moe.grouped_routing``; 2 steps), (c) xlstm-125m at 6 of 12
+             layers (heads on 'model'; 2 steps),
              each under ``make_rules(fsdp=True)`` with the optimizer-state
              placements as ``grad_shardings`` (ZeRO) and under
              ``fsdp=False`` without; every loss and grad norm, and every
@@ -538,6 +539,29 @@ Phases, each printing its own line with the seconds it took:
              way) and launches of rmsnorm and flash_attention a step; the
              ``kernels`` line gains their ``@mesh-train`` rows (a rank's
              SmolLM-135M shapes, launches over the phase's training).
+31. compressed — the compressed network at production scale, in phase
+             30's world and this process meanwhile (:func:`comp_rank`,
+             :func:`comp_checks`), on phase 8's SmolLM-135M artifact (not
+             compressed again): (a) its graph's units as the legacy tuples
+             through ``forward_compressed`` against ``execute`` on the
+             card, 8 × 256, within ``NET_RTOL`` · max |y|; (b) trained
+             sharded on data 2 × model 2 for ``COMP_STEPS`` steps, under
+             FSDP with ``grad_shardings`` through
+             ``forward_compressed_spec`` and under ``fsdp=False`` through
+             ``make_compressed_forward``: losses, grad norms and every
+             parameter within ``MESH_TRAIN_TOL`` of this process's
+             single-device ``make_compressed_forward`` steps; (c)
+             ``gpipe_forward`` of SmolLM-135M's 30 layers as 2 stages of
+             15 on pod 2 × data 2 over the same ranks, 4 microbatches of
+             4 × 256 (``GPIPE_MICRO``), within ``NET_RTOL`` · max |y| of
+             the layers in sequence, each stage but the last sending
+             once a tick; (d) ``python -m repro_torch.launch.dryrun
+             --spec`` of (b)'s FSDP step on a fake world of 4 (a
+             subprocess, no card): its collectives (calls and bytes each
+             way) and argument bytes equal to rank 0's in (b), exactly.
+             The ``kernels`` line gains ``@compressed`` rows (a rank's
+             shapes in (b); launches of rmsnorm, flash_attention and
+             merged_ffn over (a)-(c)); numbers in ``compressed.json``.
 
 Each phase's seconds (its last log line's) end in a ``[phases]`` line
 and ``phases.json``.
@@ -551,7 +575,8 @@ in ``rg.json``, the serving numbers of phases 9, 13, 16, 18 and 19 in
 ``tables.json``, phase 22's in ``unet.json``, phase 23's in
 ``archs.json``, phase 24's in ``train.json``, phase 25's in
 ``dist.json``, phase 26's in ``bf16.json``, phase 29's in ``mesh.json``,
-phase 30's in ``mesh_train.json``.  It exits non-zero
+phase 30's in ``mesh_train.json``, phase 31's in ``compressed.json``.
+It exits non-zero
 without a result where ``torch.cuda.is_available()`` is false or the repo's
 ``src/`` is missing.  The last lines are the ``kernels`` JSON line, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -6441,18 +6466,15 @@ def mesh_train_opt():
 def mesh_train_cfg(arch):
     """Phase 30's configs, fp32: SmolLM-135M whole, xlstm-125m at
     ``MESH_XLSTM_LAYERS`` layers, granite-moe at ``MESH_GRANITE_LAYERS``
-    layers with the capacity factor at which nothing drops (E/k): a drop
-    depends on the tokens routed together, and the sharded step routes
-    each data block as a group (the reference's grouping), the single
-    device the batch."""
+    layers at its own capacity factor (1.25): the sharded step routes
+    each data block as a group (the reference's grouping), and the
+    single device routes in as many groups (:func:`mesh_train_single`)."""
     import dataclasses
 
     from repro_torch.configs import get_config
     cfg = dataclasses.replace(get_config(arch), dtype="float32", remat=False)
     if cfg.is_moe:
-        cfg = dataclasses.replace(
-            cfg, num_layers=MESH_GRANITE_LAYERS,
-            capacity_factor=cfg.num_experts / cfg.experts_per_token)
+        cfg = dataclasses.replace(cfg, num_layers=MESH_GRANITE_LAYERS)
     if arch == "xlstm-125m":
         cfg = dataclasses.replace(cfg, num_layers=MESH_XLSTM_LAYERS)
     return cfg
@@ -6482,20 +6504,24 @@ def mesh_train_single(dev, arch, path) -> dict:
     from repro_torch.train.step import make_train_step
     from repro_torch.tree import flatten_tree
 
+    from repro_torch.models import moe as MOE
+
     cfg = mesh_train_cfg(arch)
     params, _ = mesh_train_init(cfg, dev)
     opt = init_opt_state(params)
     step = make_train_step(cfg, mesh_train_opt())
     gb = GlobalBatcher(mesh_train_data(cfg), device=dev)
     losses, norms, ms = [], [], []
-    for i in range(MESH_TRAIN_STEPS[arch]):
-        batch = gb(i)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        params, opt, m = step(params, opt, batch)
-        losses.append(float(m["loss"]))
-        ms.append((time.perf_counter() - t) * 1e3)
-        norms.append(float(m["grad_norm"]))
+    # the MoE routes each of the mesh's 2 data blocks as a group
+    with MOE.grouped_routing(2):
+        for i in range(MESH_TRAIN_STEPS[arch]):
+            batch = gb(i)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t) * 1e3)
+            norms.append(float(m["grad_norm"]))
     torch.save({"losses": losses, "norms": norms,
                 "params": {k: v.cpu() for k, v in
                            flatten_tree(params).items()}}, path)
@@ -6819,6 +6845,11 @@ def mesh_train_rank(rank, spec):
     t = time.perf_counter()
     out["elastic"] = mesh_elastic(spec, mesh, blocks, dev)
     out["elastic_s"] = time.perf_counter() - t
+    del blocks
+    _REFS.clear()
+    torch.cuda.empty_cache()
+    # phase 31 (b)-(c) in the same world
+    out["comp"] = comp_rank(spec, mesh, dev)
     out["seconds"] = time.perf_counter() - t_start
     return out
 
@@ -6866,7 +6897,7 @@ def mesh_launcher() -> dict:
     return runs
 
 
-def mesh_train_phase(dev) -> tuple[dict, dict, dict]:
+def mesh_train_phase(dev, lm_path) -> tuple:
     """Phase 30 ("mesh train"): sharded training on a ('data', 'model')
     mesh.  One ``run_world`` of four ``gloo`` ranks sharing the card,
     data 2 × model 2: (a) SmolLM-135M full size, (b) granite-moe at
@@ -6883,8 +6914,13 @@ def mesh_train_phase(dev) -> tuple[dict, dict, dict]:
     arithmetic on the same blocks, and the SmolLM-135M checkpoint the 2 ×
     2 run saved restored on a 1 × 2 mesh and on one process, every block
     bitwise the saved arrays'; (e) the launcher's ``--distributed`` as
-    one NCCL rank, meanwhile.  Returns (the numbers, launches summed over
-    the ranks' training, the ``kernels`` line's ``@mesh-train`` rows)."""
+    one NCCL rank, meanwhile.  Phase 31 runs in the same world and this
+    process meanwhile (:func:`comp_rank`, :func:`comp_checks`): the
+    compressed artifact at ``lm_path`` through ``forward_compressed``
+    (a), trained sharded (b), GPipe (c) and the dry run of (b)'s step on
+    a fake world (d, a subprocess started first).  Returns (the numbers,
+    launches summed over the ranks' training, the ``kernels`` line's
+    ``@mesh-train`` rows) of phase 30, then the same of phase 31."""
     import threading
 
     import numpy as np
@@ -6897,21 +6933,33 @@ def mesh_train_phase(dev) -> tuple[dict, dict, dict]:
     os.makedirs(mdir, exist_ok=True)
     refs = {arch: os.path.join(mdir, f"ref_{arch}.pt")
             for arch in MESH_TRAIN_STEPS if arch not in MESH_TEACHER}
-    for p in refs.values():
+    comp_ref = os.path.join(mdir, "ref_compressed.pt")
+    for p in list(refs.values()) + [comp_ref]:
         for suffix in ("", ".done", ".failed"):
             if os.path.exists(p + suffix):
                 os.remove(p + suffix)
     ckpt = os.path.join(mdir, "ckpt")
     import shutil
     shutil.rmtree(ckpt, ignore_errors=True)
+    from repro_torch import runtime
+    art = runtime.load(lm_path, device=dev)
+    comp_cfg, comp_spec, _ = comp_units(art)
     spec = {"refs": refs, "ckpt": ckpt, "spawned": time.time(),
-            "deadline": time.time() + 280}
+            "deadline": time.time() + 400, "lm_path": lm_path,
+            "comp_ref": comp_ref}
     result: dict = {}
+
+    def dryrun():
+        try:
+            result["dryrun"] = comp_dryrun(comp_dryrun_cell(comp_cfg,
+                                                            comp_spec))
+        except BaseException as e:
+            result["dryrun"] = e
 
     def world():
         try:
             result["ranks"] = run_world(mesh_train_rank, 4, backend="gloo",
-                                        device="cuda", timeout=300,
+                                        device="cuda", timeout=420,
                                         args=(spec,))
         except BaseException as e:              # re-raised below
             result["ranks"] = e
@@ -6923,7 +6971,8 @@ def mesh_train_phase(dev) -> tuple[dict, dict, dict]:
             result["launch"] = e
 
     threads = [threading.Thread(target=world),
-               threading.Thread(target=launcher)]
+               threading.Thread(target=launcher),
+               threading.Thread(target=dryrun)]
     for th in threads:
         th.start()
     single = {}
@@ -6936,14 +6985,22 @@ def mesh_train_phase(dev) -> tuple[dict, dict, dict]:
         params, _ = mesh_train_init(cfg, dev)
         x_seqs, x_logits = mesh_xlstm_decode(cfg, params, dev)
         del params
+        t_ref = time.perf_counter() - t0
+        # phase 31 (a), and the yardsticks of (b) and (c)
+        t31 = time.perf_counter()
+        comp_fwd = comp_forward_check(dev, art)
+        comp_one = comp_single(dev, art, comp_ref)
+        gc.collect()
+        torch.cuda.empty_cache()
+        seq_ref = gpipe_reference(dev)
+        t31 = time.perf_counter() - t31
     finally:
-        for p in refs.values():
+        for p in list(refs.values()) + [comp_ref]:
             if not os.path.exists(p + ".done"):
                 open(p + ".failed", "w").close()
-    t_ref = time.perf_counter() - t0
     for th in threads:
         th.join()
-    for key in ("ranks", "launch"):
+    for key in ("ranks", "launch", "dryrun"):
         if isinstance(result[key], BaseException):
             raise result[key]
     ranks = result["ranks"]
@@ -7079,6 +7136,418 @@ def mesh_train_phase(dev) -> tuple[dict, dict, dict]:
         f"({len(saved)} leaves); launcher --distributed (NCCL, one rank) "
         + "; ".join(f"{k} {v['seconds']:.2f}s {v['tail'][-1]}"
                     for k, v in out["launcher"].items()))
+    ffn_unit = next(u for u in art.graph.units if u.kind == "lowrank")
+    comp = comp_checks(dev, ranks, comp_one, comp_fwd, seq_ref,
+                       result["dryrun"], ffn_unit, t31)
+    return (out, launches, rows_by_kernel(rows)) + comp
+
+
+# ---------------------------------------------------------------------------
+# 31. the compressed network at production scale: forward_compressed,
+#     sharded training of a compressed net, GPipe, the dry run
+# ---------------------------------------------------------------------------
+
+#: Phase 31 (b): the compressed SmolLM-135M's batch (rows, positions) and
+#: steps, trained under both ``COMP_PRESETS`` in phase 30's world (3 steps
+#: in the first runs; cut to 2 when the script's total passed its 887.59 s
+#: before phase 31, on a slower machine, PERF.md §4).
+COMP_BATCH = (8, 256)
+COMP_STEPS = 2
+#: fsdp+zero: FSDP params with the optimizer-state placements as
+#: ``grad_shardings``, through ``forward_compressed_spec`` (the dry run's
+#: forward); tp+dp: params whole over 'data', no ``grad_shardings``,
+#: through ``make_compressed_forward`` (the executor's unit loops).
+COMP_PRESETS = ("fsdp+zero", "tp+dp")
+#: Phase 31 (c): SmolLM-135M's 30 layers as stages of 15 on pod 2 × data
+#: 2, and its microbatches (count, rows, positions; 8 rows in the first
+#: runs, cut with ``COMP_STEPS``).
+GPIPE_STAGES = 2
+GPIPE_MICRO = (4, 4, 256)
+#: Suffix of the ``kernels`` line's rows of phase 31: the kernels at a
+#: rank's shapes in (b), their launches over (a)-(c).
+COMP_ROW = "@compressed"
+
+
+def comp_units(art):
+    """``(cfg, units_spec, spec params)`` of a compressed artifact: the
+    spec from its plan (``plan_units_spec``), held unit by unit to the
+    graph's kinds and ranks, and the graph's tensors in the spec's tree."""
+    from repro_torch.models import transformer_host as TH
+    graph = art.graph
+    cfg = graph.meta["config"]
+    spec = TH.plan_units_spec(cfg, art.plan)
+    got = [("merged", u.params["u"].shape[1]) if u.kind == "lowrank"
+           else ("orig", u.sub_kind) for u in graph.units]
+    want = [(s[0], s[1]) if s[0] == "merged" else ("orig", s[2])
+            for s in spec]
+    check(got == want, f"compressed spec {want} differs from the "
+          f"artifact's units {got}")
+    params = {"units": [u.params for u in graph.units], **graph.params}
+    return cfg, spec, params
+
+
+def comp_batches(cfg, dev) -> list:
+    """``COMP_STEPS`` seeded batches as the dry run's specs lay one out:
+    int32 ``positions``, ``tokens``, ``targets`` (the next token)."""
+    import torch
+    B, S = COMP_BATCH
+    g = torch.Generator().manual_seed(31)
+    out = []
+    for _ in range(COMP_STEPS):
+        ids = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                            dtype=torch.int32)
+        out.append({"positions": torch.arange(S, dtype=torch.int32)
+                    .expand(B, S).contiguous().to(dev),
+                    "tokens": ids[:, :-1].contiguous().to(dev),
+                    "targets": ids[:, 1:].contiguous().to(dev)})
+    return out
+
+
+def _graph_as_spec(gp):
+    """``graph_params``' tree in the spec's: ``{"units", **globals}``."""
+    return {"units": gp["units"], **gp["globals"]}
+
+
+def comp_single(dev, art, path) -> dict:
+    """(b)'s yardstick on this card: ``make_compressed_forward``'s
+    single-device steps, the final params (the spec's tree) written to
+    ``path`` with a ``.done`` marker the ranks wait for."""
+    import torch
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.runtime import ir
+    from repro_torch.train.step import make_compressed_forward, \
+        make_train_step
+    from repro_torch.tree import flatten_tree
+
+    cfg = art.graph.meta["config"]
+    params = _copy_tree(ir.graph_params(art.graph))
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, mesh_train_opt(),
+                           forward_fn=make_compressed_forward(
+                               art.graph, device=dev))
+    losses, norms, ms = [], [], []
+    for batch in comp_batches(cfg, dev):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t) * 1e3)
+        norms.append(float(m["grad_norm"]))
+    torch.save({"losses": losses, "norms": norms,
+                "params": {k: v.cpu() for k, v in flatten_tree(
+                    _graph_as_spec(params)).items()}}, path)
+    open(path + ".done", "w").close()
+    return {"losses": losses, "norms": norms, "step_ms": ms}
+
+
+def comp_forward_check(dev, art) -> dict:
+    """(a) the artifact's graph as the legacy tuple units through
+    ``forward_compressed`` against ``execute``, on the card, at
+    ``COMP_BATCH``: max |Δ| ≤ ``NET_RTOL`` · max |y|; the kernels each
+    launched."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import executor
+
+    graph = art.graph
+    cfg = graph.meta["config"]
+    batch = comp_batches(cfg, dev)[0]
+    units = [("merged", (u.params["u"], u.params["v"]))
+             if u.kind == "lowrank" else
+             ("orig", {"norm": u.params["norm"], "p": u.params["p"],
+                       "kind": u.sub_kind}) for u in graph.units]
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        y = T.forward_compressed(cfg, graph.params, units, batch)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        ref = executor.execute(graph, batch, device=dev)
+    check(bool(torch.isfinite(y).all()) and tuple(y.shape) == (
+        *COMP_BATCH, cfg.vocab_size), f"forward_compressed: shape "
+        f"{tuple(y.shape)} or non-finite logits")
+    rel = float((y - ref).abs().max() / ref.abs().max())
+    check(rel <= NET_RTOL, f"forward_compressed vs execute: max |d| / max "
+          f"|y| = {rel:.3g} beyond {NET_RTOL}")
+    for k in ("rmsnorm", "flash_attention", "merged_ffn"):
+        check(launches.get(k, 0) > 0, f"forward_compressed: {k} never "
+              f"launched ({launches})")
+    return {"rel": rel, "launches": launches}
+
+
+def gpipe_stage_params(whole):
+    """SmolLM-135M's one stacked layer group cut into ``GPIPE_STAGES``
+    stages: every leaf (L, ...) as (stages, L / stages, ...)."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.reshape(GPIPE_STAGES,
+                                        t.shape[0] // GPIPE_STAGES,
+                                        *t.shape[1:]),
+                    whole["groups"][0])
+
+
+def gpipe_stage_fn(cfg):
+    """One stage: its layers in order on a microbatch of hidden states."""
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    def stage(p, x):
+        pos = T.default_positions(x)
+        for i in range(p["norm1"].shape[0]):
+            x = T._layer_fn(cfg, "attn", pos, None,
+                            tree_map(lambda t: t[i], p), x)
+        return x
+    return stage
+
+
+def gpipe_reference(dev):
+    """(c)'s yardstick: SmolLM-135M's 30 layers in sequence on the whole
+    pipeline input, on this card (numpy)."""
+    import torch
+    cfg = mesh_train_cfg("smollm-135m")
+    whole, _ = mesh_train_init(cfg, dev)
+    x = gpipe_input(cfg, whole, dev)
+    stage = gpipe_stage_fn(cfg)
+    with torch.no_grad():
+        y = stage(whole["groups"][0], x)
+    return y.cpu().numpy()
+
+
+def gpipe_input(cfg, whole, dev):
+    """The pipeline's input: the embeddings of seeded tokens, the
+    microbatches end to end (count × rows, positions, D)."""
+    import torch
+    from repro_torch.models import transformer as T
+    n, b, s = GPIPE_MICRO
+    tok = torch.randint(0, cfg.vocab_size, (n * b, s), generator=torch
+                        .Generator().manual_seed(310)).to(dev)
+    with torch.no_grad():
+        return T.embed_in(cfg, whole, {"tokens": tok})
+
+
+def comp_rank(spec, mesh, dev) -> dict:
+    """Phase 31 (b) and (c) in one rank of phase 30's world: the compressed
+    artifact's sharded steps under ``COMP_PRESETS`` (losses, norms, step
+    ms, the last step's collectives and argument bytes, the blocks held
+    against the single device's), and ``gpipe_forward`` of SmolLM-135M on
+    pod 2 × data 2 (its output and sends)."""
+    import torch
+    from repro_torch import kernels, runtime
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.launch.mesh import build_mesh
+    from repro_torch.models import transformer_host as TH
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.runtime import ir
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import (make_rules,
+                                            param_shardings_with_shapes, put,
+                                            use_rules)
+    from repro_torch.train.step import make_compressed_forward, \
+        make_train_step
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    art = runtime.load(spec["lm_path"], device=dev)
+    cfg, units_spec, sparams = comp_units(art)
+    batches = comp_batches(cfg, dev)
+    out = {"train": {}, "launches": {}}
+    for preset in COMP_PRESETS:
+        fsdp = preset == "fsdp+zero"
+        rules = make_rules(mesh, fsdp=fsdp)
+        if fsdp:
+            whole = sparams
+            axes = TH.compressed_model_axes(cfg, units_spec)
+            forward_fn = TH.spec_forward(cfg, units_spec)
+        else:
+            whole = ir.graph_params(art.graph)
+            axes = ir.graph_axes(art.graph)
+            forward_fn = make_compressed_forward(art.graph, device=dev)
+        params = put(_copy_tree(whole),
+                     param_shardings_with_shapes(rules, axes, whole))
+        gs = param_shardings_with_shapes(
+            make_rules(mesh, fsdp=True, opt_state=True), axes, whole) \
+            if fsdp else None
+        opt = init_opt_state(params, shardings=gs)
+        step = make_train_step(cfg, mesh_train_opt(), forward_fn=forward_fn,
+                               grad_shardings=gs)
+        losses, norms, ms = [], [], []
+        for b in batches:
+            batch = put(b, {k: rules.named(("batch", "seq"), tuple(v.shape))
+                            for k, v in b.items()})
+            with use_rules(rules):
+                arg_bytes = tree_bytes((params, opt, batch))
+                C.reset_collective_counts()
+                kernels.reset_launch_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                params, opt, m = step(params, opt, batch)
+                losses.append(float(m["loss"]))
+                ms.append((time.perf_counter() - t) * 1e3)
+                norms.append(float(m["grad_norm"]))
+                coll = C.collective_counts()
+            for k, v in kernels.launch_counts().items():
+                if v:
+                    out["launches"][k] = out["launches"].get(k, 0) + v
+        final = params if fsdp else _graph_as_spec(params)
+        out["train"][preset] = {
+            "losses": losses, "norms": norms, "step_ms": ms,
+            "collective_ops": coll, "arg_bytes": arg_bytes,
+            "held": _held_blocks(final, spec["comp_ref"],
+                                 spec["deadline"])}
+        del params, opt, final
+        torch.cuda.empty_cache()
+    del art, sparams
+    # (c) GPipe: SmolLM-135M (phase 30's weights) as 2 stages of 15
+    cfg30 = mesh_train_cfg("smollm-135m")
+    whole, _ = mesh_train_init(cfg30, dev)
+    pmesh = build_mesh({"pod": GPIPE_STAGES, "data": 2}, range(4))
+    x = gpipe_input(cfg30, whole, dev)
+    stages = gpipe_stage_params(whole)
+    idx = pmesh.index("pod")
+    block = tree_map(lambda t: t[idx:idx + 1], stages)
+    del whole
+    C.reset_collective_counts()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    y = C.gpipe_forward(gpipe_stage_fn(cfg30), block, x, mesh=pmesh,
+                        axis="pod", num_micro=GPIPE_MICRO[0])
+    torch.cuda.synchronize()
+    out["gpipe"] = {"y": y.cpu().numpy(), "s": time.perf_counter() - t,
+                    "collective_ops": C.collective_counts(),
+                    "coords": dict(pmesh.coords)}
+    for k, v in kernels.launch_counts().items():
+        if v:
+            out["launches"][k] = out["launches"].get(k, 0) + v
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def comp_dryrun_cell(cfg, units_spec) -> dict:
+    """(d)'s ``--spec``: (b)'s fsdp+zero step, the compressed SmolLM-135M
+    at ``COMP_BATCH`` on data 2 × model 2."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    base = get_config("smollm-135m")
+    return {"arch": "smollm-135m",
+            "overrides": {f.name: getattr(cfg, f.name) for f in
+                          dataclasses.fields(cfg)
+                          if getattr(cfg, f.name) != getattr(base, f.name)},
+            "shape": {"seq_len": COMP_BATCH[1],
+                      "global_batch": COMP_BATCH[0], "mode": "train"},
+            "mesh": {"data": 2, "model": 2}, "options": {"fsdp": True},
+            "units_spec": [list(u) for u in units_spec]}
+
+
+def comp_dryrun(cell: dict) -> dict:
+    """(d) ``python -m repro_torch.launch.dryrun --spec`` on ``cell``: a
+    fake world of 4, every tensor on ``meta`` (no card)."""
+    path = os.path.join(WORK, "dryrun_cell.json")
+    with open(path, "w") as f:
+        json.dump(cell, f)
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        "--spec", path], capture_output=True, text=True,
+                       timeout=300, cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=os.path.join(ROOT,
+                                                                    "src")))
+    return {"rc": r.returncode, "seconds": time.perf_counter() - t,
+            "stdout": r.stdout, "stderr": r.stderr[-3000:]}
+
+
+def comp_checks(dev, ranks, single, fwd, seq_ref, dry, ffn_unit, t_parent):
+    """Phase 31's checks after phase 30's world: (b) every rank's losses,
+    norms and blocks within ``MESH_TRAIN_TOL`` of ``single``; (c) every
+    rank's pipeline output within ``NET_RTOL`` · max |y| of ``seq_ref``,
+    the stages' sends counted; (d) the dry run's collectives (each way)
+    and argument bytes equal to rank 0's fsdp+zero step's.  Returns (the
+    numbers, launches summed over (a)-(c), the ``kernels`` line's
+    rows)."""
+    import numpy as np
+    t0 = time.perf_counter()
+    out = {"forward": fwd, "single": single, "ranks": [],
+           "parent_s": t_parent}
+    launches = dict(fwd["launches"])
+    for r in ranks:
+        c = r["comp"]
+        row = {"rank": r["rank"], "seconds": c["seconds"], "train": {}}
+        for preset, tr in c["train"].items():
+            h = tr["held"]
+            rel = [abs(a - b) - MESH_TRAIN_TOL * (1 + abs(b))
+                   for a, b in zip(tr["losses"] + tr["norms"],
+                                   h["losses"] + h["norms"])]
+            check(max(rel) <= 0, f"compressed train {preset} rank "
+                  f"{r['rank']}: losses {tr['losses']} norms {tr['norms']} "
+                  f"vs the single device's {h['losses']} {h['norms']}")
+            check(h["excess"] <= 0, f"compressed train {preset} rank "
+                  f"{r['rank']}: {h['key']} differs by {h['max_abs']:.3g}")
+            row["train"][preset] = {
+                "losses": tr["losses"], "norms": tr["norms"],
+                "step_ms": tr["step_ms"], "param_max_abs": h["max_abs"],
+                "collective_ops": tr["collective_ops"],
+                "arg_bytes": tr["arg_bytes"]}
+        g = c["gpipe"]
+        rel = float(np.abs(g["y"] - seq_ref).max() / np.abs(seq_ref).max())
+        check(rel <= NET_RTOL, f"gpipe rank {r['rank']}: max |d| / max |y| "
+              f"= {rel:.3g} beyond {NET_RTOL}")
+        sends = g["collective_ops"].get("collective_permute",
+                                        {"calls": 0})["calls"]
+        want = GPIPE_MICRO[0] + GPIPE_STAGES - 1 \
+            if g["coords"]["pod"] < GPIPE_STAGES - 1 else 0
+        check(sends == want, f"gpipe rank {r['rank']}: {sends} sends, not "
+              f"{want}")
+        row["gpipe"] = {"rel": rel, "s": g["s"], "sends": sends,
+                        "collective_ops": g["collective_ops"]}
+        for k, v in c["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        out["ranks"].append(row)
+    for k in ("rmsnorm", "flash_attention", "merged_ffn"):
+        check(launches.get(k, 0) > 0, f"phase 31: {k} never launched")
+    # (d) the dry run of (b)'s fsdp+zero step against rank 0's
+    check(dry["rc"] == 0, f"dry run --spec: exit {dry['rc']}: "
+          f"{dry['stderr'][-800:]}")
+    rec = json.loads(dry["stdout"].strip().splitlines()[-1])
+    mine = ranks[0]["comp"]["train"]["fsdp+zero"]
+    check(rec["collective_ops"] == mine["collective_ops"],
+          f"dry run collectives {rec['collective_ops']} differ from rank "
+          f"0's {mine['collective_ops']}")
+    check(rec["memory"]["argument_size_in_bytes"] == mine["arg_bytes"],
+          f"dry run argument bytes {rec['memory']} vs rank 0's "
+          f"{mine['arg_bytes']}")
+    out["dryrun"] = {k: rec[k] for k in ("memory", "cost", "collectives",
+                                         "lower_s", "compression")}
+    out["dryrun"]["seconds"] = dry["seconds"]
+    from types import SimpleNamespace
+    half = ffn_unit.params["u"].shape[1] // 2
+    unit = SimpleNamespace(params={
+        "u": ffn_unit.params["u"][:, :half].contiguous(),
+        "v": ffn_unit.params["v"][:half].contiguous()})
+    rows = time_kernel_rows(dev, [MESH_TRAIN_NORM], [MESH_TRAIN_ATTENTION],
+                            unit, (COMP_BATCH[0] // 2 * COMP_BATCH[1],), 31)
+    out["kernels"] = rows
+    out["checks_s"] = time.perf_counter() - t0
+    path_launches = {k: launches.get(k, 0) for k in
+                     ("rmsnorm", "flash_attention", "merged_ffn")}
+    log("compressed", t0, "phase 31: (a) forward_compressed vs execute "
+        f"{fwd['rel']:.3g} of max |y|, launches {fwd['launches']}; (b) "
+        + "; ".join(
+            f"rank {r['rank']} in {r['seconds']:.2f}s: " + ", ".join(
+                f"{p} step ms {[round(x, 1) for x in v['step_ms']]} "
+                f"losses {[round(x, 5) for x in v['losses']]} params max "
+                f"|d| {v['param_max_abs']:.3g}" for p, v in
+                r["train"].items())
+            + f", gpipe {r['gpipe']['rel']:.3g} of max |y| in "
+            f"{r['gpipe']['s']:.2f}s ({r['gpipe']['sends']} sends)"
+            for r in out["ranks"])
+        + f"; single device losses "
+        f"{[round(x, 5) for x in single['losses']]} step ms "
+        f"{[round(x, 1) for x in single['step_ms']]} (parent's share "
+        f"{t_parent:.2f}s); (d) dry run in {dry['seconds']:.2f}s: "
+        f"collectives and argument bytes "
+        f"({mine['arg_bytes']}) equal rank 0's, flops "
+        f"{rec['cost']['flops']:.4g}; rank 0's fsdp+zero collectives a "
+        f"step {json.dumps(mine['collective_ops'])}; launches over (a)-(c) "
+        f"{path_launches}; "
+        + kernel_rows_line(rows))
     return out, launches, rows_by_kernel(rows)
 
 
@@ -7602,9 +8071,14 @@ def main(argv) -> int:
     # 30. sharded training on a ('data', 'model') mesh -----------------------
     gc.collect()
     torch.cuda.empty_cache()
-    mtrain, mtrain_launch, mtrain_tot = mesh_train_phase(dev)
+    # 31. the compressed network: forward_compressed, sharded training,
+    # GPipe, the dry run (in phase 30's world) -----------------------------
+    (mtrain, mtrain_launch, mtrain_tot, comp, comp_launch,
+     comp_tot) = mesh_train_phase(dev, lm_path)
     with open(os.path.join(WORK, "mesh_train.json"), "w") as f:
         json.dump(mtrain, f, indent=1, default=str)
+    with open(os.path.join(WORK, "compressed.json"), "w") as f:
+        json.dump(comp, f, indent=1, default=str)
     sweep_err = {k: v[0] for k, v in sweep.items()}
     for k, v in bf16_tot.items():
         tot[k] = v
@@ -7619,7 +8093,8 @@ def main(argv) -> int:
     for row, rows_tot, row_launch in ((ARCH_ROW, arch_tot, arch_launch),
                                       (TRAIN_ROW, trn_tot, trn_launch),
                                       (MESH_TRAIN_ROW, mtrain_tot,
-                                       mtrain_launch)):
+                                       mtrain_launch),
+                                      (COMP_ROW, comp_tot, comp_launch)):
         for k, v in rows_tot.items():
             tot[k + row] = v
             launches[k + row] = row_launch[k]

@@ -11,8 +11,11 @@ the card, as they do on the CPU.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
+
+_DRAW = threading.local()
 
 
 def resolve(device="cuda") -> torch.device:
@@ -51,3 +54,23 @@ def deterministic_cudnn():
         yield
     finally:
         cd.deterministic, cd.benchmark = saved
+
+
+@contextlib.contextmanager
+def drawing_on(device):
+    """Inside the block the models' init functions draw their random
+    weights on ``device``, whatever their generator's device: on
+    ``"meta"`` they build shapes and dtypes only, with no memory and no
+    values (the dry run's parameters)."""
+    prev = getattr(_DRAW, "device", None)
+    _DRAW.device = torch.device(device)
+    try:
+        yield
+    finally:
+        _DRAW.device = prev
+
+
+def draw_device(gen: torch.Generator) -> torch.device:
+    """Where an init function draws with ``gen``: its device, or the
+    :func:`drawing_on` device inside that block."""
+    return getattr(_DRAW, "device", None) or gen.device

@@ -6,7 +6,9 @@ the rank-r residual; ``(..., D)`` rows for the norm, ``(B, S, H, D)``
 attention, ``(B, S, C)`` scans) and dispatches on where its input lies:
 
 * a CPU tensor runs the op's plain PyTorch version (:mod:`.ref`) — this is
-  how the CPU tests hold the port against the JAX package;
+  how the CPU tests hold the port against the JAX package; so does a
+  ``meta`` tensor, which computes shapes only (the dry run,
+  :mod:`repro_torch.launch.dryrun`, counts the step's operations there);
 * a CUDA tensor launches the hand-written kernel, or raises.  There is no
   fallback: a kernel that fails to build or launch is an error.
 
@@ -62,7 +64,7 @@ from . import rmsnorm as _rn
 
 
 def _on_cuda(x: torch.Tensor, name: str) -> bool:
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return False
     if x.device.type == "cuda":
         return True

@@ -90,6 +90,14 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor, axis: int | None = None):
     return q.float() * _divisor(scale.float(), q.ndim, axis)
 
 
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
+                    axis: int | None = None):
+    """Dequantize int8 codes: ``q.float() * scale`` (one scale, or one per
+    slice along ``axis``), the inverse of :func:`quantize_int8`;
+    :mod:`repro_torch.optim.compress` re-exports this object."""
+    return q.float() * _divisor(scale.float(), q.ndim, axis)
+
+
 def quantize_weight(w: torch.Tensor, mode: str, axis: int):
     """Quantize a weight tensor per-channel along ``axis`` for ``mode``.
 

@@ -1,7 +1,7 @@
 """Host meshes: the ranks of a ``torch.distributed`` job as a named grid.
 
 The port's copy of the JAX package's ``launch/mesh.py``
-(``make_host_mesh``, ``mesh_info``).  Where JAX lays devices out in a
+(``make_production_mesh``, ``make_host_mesh``, ``mesh_info``).  Where JAX lays devices out in a
 ``jax.sharding.Mesh`` and XLA places every collective, here a rank is one
 process (one card, or the CPU) and a :class:`HostMesh` is a row-major
 grid of the default process group's ranks with named axes, one process
@@ -15,8 +15,10 @@ returns its input.  A job with a group issues every collective, whatever
 the size of the group, so a one-rank NCCL mesh runs (and a CUDA graph
 captures) the same code as a wide one.
 
-``make_production_mesh`` (256 and 512 devices) belongs to the dry-run
-slice (ROADMAP.md queue 1 item 5b, step 5).
+:func:`make_production_mesh` is the dry run's: the reference's 16 × 16
+('data', 'model') grid of one pod, or 2 × 16 × 16 with 'pod', over a
+process group of that many ranks (a fake one,
+:mod:`repro_torch.launch.dryrun`).
 """
 from __future__ import annotations
 
@@ -119,6 +121,24 @@ def build_mesh(shape: dict, ranks) -> HostMesh:
                     members.append(r)
             groups[(key, tuple(coset))] = dist.new_group(members)
     return HostMesh(shape, ranks, dist.get_rank(), groups)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> HostMesh:
+    """The production mesh: ``{'data': 16, 'model': 16}`` over 256 ranks,
+    or ``{'pod': 2, 'data': 16, 'model': 16}`` over 512 (``multi_pod``),
+    rank ``r`` at the row-major position ``r``.  The default process
+    group must have exactly that many ranks."""
+    import torch.distributed as dist
+
+    shape = {"pod": 2, "data": 16, "model": 16} if multi_pod \
+        else {"data": 16, "model": 16}
+    n = math.prod(shape.values())
+    world = dist.get_world_size() if (dist.is_available()
+                                      and dist.is_initialized()) else 1
+    if world != n:
+        raise ValueError(f"the production mesh {shape} needs a process "
+                         f"group of {n} ranks, not {world}")
+    return build_mesh(shape, range(n))
 
 
 def make_host_mesh(*, model: int = 1) -> HostMesh:

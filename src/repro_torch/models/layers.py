@@ -60,6 +60,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import draw_device
 from repro_torch.kernels import flash_attention_op, rmsnorm_op
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.rules import active_rules, local_shape
@@ -140,7 +141,7 @@ def attention_axes(cfg):
 
 
 def _normal(gen, shape, dtype, scale):
-    return (torch.randn(shape, generator=gen, device=gen.device)
+    return (torch.randn(shape, generator=gen, device=draw_device(gen))
             * scale).to(dtype)
 
 
@@ -403,6 +404,13 @@ def ffn(p, x, kind):
     else:
         h = F.gelu(up, approximate="tanh")
     return h @ p["w_down"]
+
+
+def merged_ffn(u, v, x):
+    """LayerMerge's rank-r residual map ``x + (x·U)·V`` in plain PyTorch:
+    the oracle of the ``merged_ffn`` kernel, which the compressed forward
+    runs (:func:`repro_torch.models.transformer.merged_residual`)."""
+    return x + (x @ u) @ v
 
 
 def embed(table, tokens, vocab: int):

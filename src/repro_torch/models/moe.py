@@ -18,8 +18,12 @@ nothing reads the host: a decode step through this block can be captured
 in a CUDA graph.  The expert products are plain batched products
 (``torch.einsum``); they are no Pallas kernel in the JAX package either.
 
-Under a mesh each rank routes its own rows of the batch, one group a
-data block: the JAX package's grouped dispatch (a group per data shard).
+:func:`moe_ffn` is the JAX package's grouped dispatch: the tokens in
+``num_groups`` contiguous groups, each routed with the capacity of its
+own tokens.  Under a mesh each rank routes its own rows of the batch,
+one group a data block (a group per data shard); a single device routes
+in as many groups inside :func:`grouped_routing`, so its drops are the
+sharded step's.
 Under a 'model' axis that divides the experts, :func:`moe_dispatch` takes
 the expert-parallel path (:func:`moe_ffn_sharded`, the reference's
 ``shard_map`` body): each rank routes its tokens against the whole
@@ -37,13 +41,17 @@ sublayer is prunable and never linearized.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import draw_device
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.rules import active_rules
+
 
 def moe_axes():
     return {
@@ -55,7 +63,7 @@ def moe_axes():
 
 
 def _normal(gen, shape, dtype, scale):
-    return (torch.randn(shape, generator=gen, device=gen.device)
+    return (torch.randn(shape, generator=gen, device=draw_device(gen))
             * scale).to(dtype)
 
 
@@ -140,22 +148,63 @@ def _moe_group(p, xt, cfg, capacity):
     return expert_in, (top_e, safe_pos, gate_kept)
 
 
-def moe_ffn(p, x, cfg, *, capacity_factor: float = 1.25):
-    """x: (B, S, D) → (B, S, D).  Top-k routing, capacity-dropped
-    dispatch of the B·S tokens as one group (the JAX package's
-    single-device case: capacity ``ceil(N·k/E · capacity_factor)``), the
-    SwiGLU experts, and the gate-weighted combine."""
-    b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.experts_per_token
-    n = b * s
-    capacity = max(int(math.ceil(n * k / e * capacity_factor)), 1)
-    expert_in, (top_e, safe_pos, gate_kept) = _moe_group(
-        p, x.reshape(n, d), cfg, capacity)
+_GROUPS = threading.local()
+
+
+@contextlib.contextmanager
+def grouped_routing(num_groups: int):
+    """Within the block, :func:`moe_ffn` calls given no ``num_groups`` and
+    run outside a mesh route in ``num_groups`` groups: a single device's
+    stand-in for the data groups of a mesh (so a one-device step routes,
+    and drops, as the sharded step that routes each data block alone)."""
+    prev = getattr(_GROUPS, "n", None)
+    _GROUPS.n = int(num_groups)
+    try:
+        yield
+    finally:
+        _GROUPS.n = prev
+
+
+def default_groups() -> int:
+    """The group count ``moe_ffn(num_groups=None)`` takes: the product of
+    the ambient rules' 'pod' and 'data' sizes under a mesh, else the
+    :func:`grouped_routing` count, else 1."""
+    r = active_rules()
+    if r is not None:
+        return math.prod(r.mesh.shape[a] for a in ("pod", "data")
+                         if a in r.mesh.shape)
+    return getattr(_GROUPS, "n", None) or 1
+
+
+def _moe_tokens(p, xt, cfg, capacity):
+    """Route, dispatch, run the experts and combine the tokens ``xt``
+    (N, D) as one group of ``capacity`` slots an expert."""
+    expert_in, (top_e, safe_pos, gate_kept) = _moe_group(p, xt, cfg,
+                                                         capacity)
     h = F.silu(torch.einsum("ecd,edf->ecf", expert_in, p["w_gate"]))
     h = h * torch.einsum("ecd,edf->ecf", expert_in, p["w_up"])
     expert_out = torch.einsum("ecf,efd->ecd", h, p["w_down"])
-    out = (expert_out[top_e, safe_pos] * gate_kept[..., None]).sum(dim=1)
-    return out.reshape(b, s, d)
+    return (expert_out[top_e, safe_pos] * gate_kept[..., None]).sum(dim=1)
+
+
+def moe_ffn(p, x, cfg, *, capacity_factor: float = 1.25,
+            num_groups: int | None = None):
+    """x: (B, S, D) → (B, S, D).  Top-k routing, capacity-dropped
+    dispatch, the SwiGLU experts and the gate-weighted combine, in the
+    JAX package's grouped dispatch: the B·S tokens in ``g = gcd(
+    num_groups, B·S)`` contiguous groups, each routed alone with capacity
+    ``ceil((B·S/g)·k/E · capacity_factor)``.  ``num_groups=None`` is
+    :func:`default_groups`."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    n = b * s
+    if num_groups is None:
+        num_groups = default_groups()
+    g = max(1, math.gcd(int(num_groups), n))
+    capacity = max(int(math.ceil(n / g * k / e * capacity_factor)), 1)
+    xt = x.reshape(g, n // g, d)
+    out = [_moe_tokens(p, xt[i], cfg, capacity) for i in range(g)]
+    return (out[0] if g == 1 else torch.cat(out)).reshape(b, s, d)
 
 
 def _whole_over_model(t, dim: int, n: int, mesh):
@@ -226,7 +275,10 @@ def moe_dispatch(p, x, cfg, *, capacity_factor: float = 1.25, rules=None):
         p = {"router": _whole_over_model(p["router"], 1, e, rules.mesh),
              **{name: _whole_over_model(p[name], 0, e, rules.mesh)
                 for name in ("w_gate", "w_up", "w_down")}}
-    return moe_ffn(p, x, cfg, capacity_factor=capacity_factor)
+    # under a mesh ``x`` is this rank's data block: one group
+    return moe_ffn(p, x, cfg, capacity_factor=capacity_factor,
+                   num_groups=1 if getattr(rules, "mesh", None) is not None
+                   else None)
 
 
 def model_axis_size(rules) -> int:

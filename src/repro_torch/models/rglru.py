@@ -39,6 +39,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import draw_device
 from repro_torch.kernels import rglru_scan_op
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.rules import active_rules, local_shape
@@ -54,7 +55,7 @@ def rglru_axes():
 
 
 def _normal(gen, shape, dtype, scale):
-    return (torch.randn(shape, generator=gen, device=gen.device)
+    return (torch.randn(shape, generator=gen, device=draw_device(gen))
             * scale).to(dtype)
 
 
@@ -64,7 +65,7 @@ def init_rglru(cfg, gen: torch.Generator, dtype):
     ``-log`` of a uniform draw in (0.9^C, 0.999^C)."""
     d = cfg.d_model
     dr = cfg.rnn_width or d
-    u = torch.empty((dr,), device=gen.device).uniform_(
+    u = torch.empty((dr,), device=draw_device(gen)).uniform_(
         0.9 ** C_DECAY, 0.999 ** C_DECAY, generator=gen)
     p = {
         "w_in": _normal(gen, (d, dr), dtype, 1.0 / math.sqrt(d)),

@@ -33,6 +33,13 @@ whole on every rank.  Weights that FSDP rules split over the data axes
 ('embed', ``make_rules(fsdp=True)``) are gathered whole layer by layer as
 they are used (:func:`_layer`), their gradients reduce-scattered back.
 
+The LayerMerge-compressed forward (:func:`forward_compressed`, the JAX
+package's legacy tuple units) runs a plan's chain: kept sublayers
+(:func:`sublayer_apply`) and merged rank-r residual maps through the
+``merged_ffn`` kernel (:func:`merged_residual`), under a mesh with the
+conjugate collectives of the unit graph's executor.  :func:`cache_axes`
+gives the JAX package's stacked cache axes for the dry run.
+
 Training: :func:`lm_loss` is the causal LM cross-entropy (fp32
 log-softmax, an optional ``loss_mask``) over :func:`upcast_for_loss`'s
 fp32 view of the logits, whose cotangent keeps the logits' dtype
@@ -48,7 +55,8 @@ import math
 
 import torch
 
-from ..device import resolve
+from .. import kernels
+from ..device import draw_device, drawing_on, resolve
 from ..sharding import collectives as C
 from ..sharding.rules import (active_rules, data_axes, gather_data_split,
                               sharding_of)
@@ -61,8 +69,10 @@ from .cnn import params_from_numpy, params_to_numpy
 
 __all__ = ["GroupSpec", "layer_groups", "init_model", "model_axes",
            "forward", "forward_local", "upcast_for_loss", "lm_loss",
-           "token_nll", "init_cache", "decode_step", "sublayer_kinds",
-           "sublayer_params", "params_from_numpy", "params_to_numpy"]
+           "local_loss", "token_nll", "init_cache", "cache_axes",
+           "decode_step", "sublayer_kinds", "sublayer_params",
+           "forward_compressed", "forward_compressed_local",
+           "params_from_numpy", "params_to_numpy"]
 
 ATTN_KINDS = ("attn", "attn_local")
 #: Temporal layer kinds of the stack.
@@ -148,9 +158,19 @@ def _whole_top(params):
     FSDP split them: one gather, shared by every use."""
     if active_rules() is None:
         return params
-    whole = gather_data_split({k: (v, sharding_of(v)) for k, v in
-                               params.items() if k != "groups"})
-    return {k: whole.get(k, v) for k, v in params.items()}
+    return {**params, **whole_over_data({
+        k: v for k, v in params.items() if k not in ("groups", "units")})}
+
+
+def whole_over_data(tree):
+    """``tree`` (a unit's params) with every dimension FSDP split over
+    the data axes gathered whole, one collective a bucket each way;
+    ``tree`` itself outside a mesh or where nothing is split there."""
+    if active_rules() is None:
+        return tree
+    whole = gather_data_split({k: (t, sharding_of(t)) for k, t in
+                               flatten_tree(tree).items()})
+    return tree_map_with_path(lambda k, _: whole[k], tree)
 
 
 # ---------------------------------------------------------------------------
@@ -224,10 +244,19 @@ def init_model(cfg, gen: torch.Generator | None = None, device="cuda"):
     one): no device holds two copies of the weights.  A generator on the
     card draws there, in seconds for a 7B config where the CPU takes
     minutes; it gives other values than a CPU generator of the same
-    seed.  A CPU generator's draws do not depend on ``device``."""
+    seed.  A CPU generator's draws do not depend on ``device``.  On
+    ``"meta"`` nothing is drawn or allocated: the tree of shapes and
+    dtypes (the dry run's parameters)."""
     check_config(cfg)
     device = resolve(device)
     gen = gen if gen is not None else torch.Generator().manual_seed(0)
+    if device.type == "meta":
+        with drawing_on(device):
+            return _init_model(cfg, gen, device)
+    return _init_model(cfg, gen, device)
+
+
+def _init_model(cfg, gen, device):
     dtype = _dtype(cfg)
     gparams = []
     for g in layer_groups(cfg):
@@ -246,7 +275,8 @@ def init_model(cfg, gen: torch.Generator | None = None, device="cuda"):
                                               gen, dtype)
     if not cfg.tie_embeddings or cfg.frontend != "tokens":
         params["unembed"] = (torch.randn((cfg.d_model, cfg.vocab_size),
-                                         generator=gen, device=gen.device)
+                                         generator=gen,
+                                         device=draw_device(gen))
                              / math.sqrt(cfg.d_model)).to(dtype)
     # the tree in sorted key order (as tree_map builds it), the stacked
     # leaves as they are
@@ -336,14 +366,44 @@ def gather_rows(t, part):
     return C.all_gather(t, active_rules().mesh, part, dim=0)
 
 
-def ffn_apply(cfg, p, h):
-    """One FFN sublayer's block: the dense FFN, or the MoE FFN at the
-    config's capacity factor.  A dense FFN split over 'model' takes its
-    input through :func:`split_input`."""
-    if cfg.is_moe:
-        return MOE.moe_dispatch(p, h, cfg,
-                                capacity_factor=cfg.capacity_factor)
-    return L.ffn(p, split_input(cfg, "ffn", p, h), cfg.ffn_kind)
+def sublayer_apply(cfg, kind, p, h, positions=None, mrope_positions=None):
+    """One kept sublayer's block (``kind`` of :func:`sublayer_kinds`) on
+    its normed input ``h``: a temporal block, the dense FFN or the MoE
+    FFN at the config's capacity factor, summed over 'model' where it
+    returns a partial (:func:`reduce_partial`)."""
+    if kind == "moe":
+        t = MOE.moe_dispatch(p, h, cfg, capacity_factor=cfg.capacity_factor)
+    elif kind == "ffn":
+        t = L.ffn(p, split_input(cfg, "ffn", p, h), cfg.ffn_kind)
+    else:
+        t = temporal_apply(cfg, kind, p, h, positions, mrope_positions)
+    return reduce_partial(cfg, kind, p, t)
+
+
+def merged_residual(p, x, **kw):
+    """A merged unit's rank-r residual map ``x + (x·U)·V`` through the
+    ``merged_ffn`` kernel (:func:`repro_torch.kernels.merged_ffn_op`, its
+    plain version off the card): ``p`` holds ``u`` and ``v`` (and the
+    ``u_scale`` / ``v_scale`` of narrow factors; ``kw`` the op's
+    ``act_quant`` and ``reduce_amax``).  Under a mesh that splits 'rank'
+    over 'model' each rank holds ``U[:, r]`` and ``V[r, :]``: ``x``,
+    replicated, enters the split product (its gradient summed over
+    'model'), 'model' rank 0 alone adds the residual (forward, and
+    through the kernel's gradient backward) and the outputs are summed,
+    their gradient passed through.  FSDP's data blocks of the factors
+    are gathered first (their gradients reduce-scattered back)."""
+    place = sharding_of(p["u"])
+    split = active_rules() is not None and place is not None \
+        and place.is_split(1)
+    w = whole_over_data(p)
+    args = (w["u"], w["v"])
+    kw = dict(kw, u_scale=w.get("u_scale"), v_scale=w.get("v_scale"))
+    if not split:
+        return kernels.merged_ffn_op(x, *args, **kw)
+    mesh = active_rules().mesh
+    y = kernels.merged_ffn_op(C.enter_split(x, mesh, "model"), *args,
+                              residual=mesh.index("model") == 0, **kw)
+    return C.all_reduce(y, mesh, "model")
 
 
 def split_input(cfg, kind, p, h):
@@ -396,12 +456,10 @@ def _layer_fn(cfg, kind, positions, mrope, lp, x):
     h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
     # attention, RG-LRU and the xLSTM blocks take their split input
     # themselves (the mLSTM's skip path uses it whole)
-    x = x + reduce_partial(cfg, kind, lp["temporal"], temporal_apply(
-        cfg, kind, lp["temporal"], h, positions, mrope))
+    x = x + sublayer_apply(cfg, kind, lp["temporal"], h, positions, mrope)
     if cfg.has_ffn:
         h = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = x + reduce_partial(cfg, _ffn_kind(cfg), lp["ffn"],
-                               ffn_apply(cfg, lp["ffn"], h))
+        x = x + sublayer_apply(cfg, _ffn_kind(cfg), lp["ffn"], h)
     return x
 
 
@@ -508,15 +566,23 @@ def lm_loss(cfg, params, batch):
     passes through), so every rank returns the global loss and each
     rank's gradients are its share's: the train step sums them over the
     data axes (:mod:`repro_torch.train.step`)."""
-    logits, batch, part = forward_local(cfg, params, batch,
-                                        gather_vocab=False)
+    return local_loss(cfg, *forward_local(cfg, params, batch,
+                                          gather_vocab=False))
+
+
+def local_loss(cfg, logits, batch, part, use_mask: bool = True):
+    """:func:`lm_loss` from this rank's logits (its rows; its vocab slice
+    under a mesh that splits the vocab), its rows of the batch and the
+    data axes they are a block of (:func:`forward_local`'s triple).
+    ``use_mask=False`` ignores ``batch["loss_mask"]`` (the mean over every
+    token, as the reference's loss of a compressed forward takes it)."""
     logits = upcast_for_loss(logits)
     if logits.shape[-1] < cfg.vocab_size:           # this rank's slice
         nll = L.vocab_parallel_nll(logits, torch.as_tensor(
             batch["targets"], device=logits.device))
     else:
         nll = token_nll(logits, batch["targets"])
-    mask = batch.get("loss_mask")
+    mask = batch.get("loss_mask") if use_mask else None
     if mask is not None:
         mask = torch.as_tensor(mask, device=nll.device).to(torch.float32)
     r = active_rules()
@@ -571,8 +637,7 @@ def decode_step(cfg, params, cache, batch):
             x = x + reduce_partial(cfg, g.kind, lp["temporal"], t)
             if cfg.has_ffn:
                 h = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
-                x = x + reduce_partial(cfg, _ffn_kind(cfg), lp["ffn"],
-                                       ffn_apply(cfg, lp["ffn"], h))
+                x = x + sublayer_apply(cfg, _ffn_kind(cfg), lp["ffn"], h)
             li += 1
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return gather_rows(unembed(cfg, params, x), part), cache
@@ -615,3 +680,75 @@ def sublayer_params(cfg, params):
                 out.append({"norm": lp["norm2"], "p": lp["ffn"],
                             "kind": "moe" if cfg.is_moe else "ffn"})
     return out
+
+
+def cache_axes(cfg):
+    """Logical axes of the JAX package's decode cache, one dict per layer
+    group with the stacked ``layers`` axis first (its ``cache_axes``,
+    for the dry run's shardings).  The port's cache is one state per
+    layer (:func:`init_cache`): layer ``i`` of a group takes the group's
+    axes without their first entry."""
+    out = []
+    for g in layer_groups(cfg):
+        if g.kind in ATTN_KINDS:
+            ax = dict(L.CACHE_AXES)
+        elif g.kind == "rglru":
+            ax = dict(RG.RGLRU_STATE_AXES)
+        elif g.kind == "mlstm":
+            ax = dict(XL.MLSTM_STATE_AXES)
+        elif g.kind == "slstm":
+            ax = dict(XL.SLSTM_STATE_AXES)
+        else:
+            ax = {}
+        out.append({k: ("layers",) + tuple(a) for k, a in ax.items()})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The LayerMerge-compressed forward (plan-aware)
+# ---------------------------------------------------------------------------
+
+def _apply_compressed_unit(cfg, unit, x, positions, mrope_positions=None):
+    """One unit of :func:`forward_compressed`'s list on the stream ``x``."""
+    if unit[0] == "skip":
+        return x
+    if unit[0] == "merged":
+        u, v = unit[1]
+        return merged_residual({"u": u, "v": v}, x)
+    sub = unit[1]
+    p = whole_over_data({"norm": sub["norm"], "p": sub["p"]})
+    h = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    return x + sublayer_apply(cfg, sub["kind"], p["p"], h, positions,
+                              mrope_positions)
+
+
+def forward_compressed_local(cfg, params, units, batch,
+                             gather_vocab: bool = True):
+    """:func:`forward_compressed` before the rows (and, with
+    ``gather_vocab=False``, the vocab slices) are gathered: ``(logits of
+    this rank's rows, its rows of the batch, the data axes they are a
+    block of or None)``, as :func:`forward_local`."""
+    check_config(cfg)
+    batch, part = local_batch(batch)
+    params = _whole_top(params)
+    x = embed_in(cfg, params, batch)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = default_positions(x)
+    mrope = mrope_of(batch, x)
+    for unit in units:
+        x = _apply_compressed_unit(cfg, unit, x, positions, mrope)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(cfg, params, x, gather_vocab), batch, part
+
+
+def forward_compressed(cfg, params, units, batch):
+    """Logits of a LayerMerge-compressed stack: ``params`` holds the
+    embedding, final norm (and unembedding), ``units`` the chain built
+    from a plan (the JAX package's legacy tuple form): ``('orig', sub)``
+    with ``sub = {"norm", "p", "kind"}`` a kept sublayer, ``('merged',
+    (u, v))`` a rank-r residual map through the ``merged_ffn`` kernel,
+    ``('skip',)`` nothing.  Under a mesh it runs on this rank's shards
+    and returns the single-device shapes, as :func:`forward`."""
+    logits, _, part = forward_compressed_local(cfg, params, units, batch)
+    return gather_rows(logits, part)

@@ -23,11 +23,21 @@ merged factors go through an SVD, which has no bf16 kernel in either
 package) and its artifacts would not reload with their fingerprint
 (ROADMAP.md queue 3).  With fp32 throughout, the probes' fp32 input and
 the weights never meet in mixed dtypes.
+
+The abstract-plan helpers at the end (:func:`abstract_plan`,
+:func:`plan_units_spec`, :func:`init_compressed_model`,
+:func:`compressed_model_axes`, :func:`forward_compressed_spec`) plan and
+build a compressed network at production scale without weights, at any
+dtype: the dry run's path (:mod:`repro_torch.launch.dryrun`).
+:func:`spec_forward` trains it (sharded too) and :func:`spec_graph` gives
+its unit graph.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
+import math
 
 import torch
 
@@ -41,9 +51,13 @@ from repro_torch.core.segments import SegmentEnumerator
 from repro_torch.device import resolve
 from repro_torch.kernels import quant as Q
 from repro_torch.runtime import executor, ir
+from repro_torch.tree import tree_map
 
 from . import transformer as T
 
+#: Sublayer kinds a merged segment may linearize (the rank-r residual
+#: maps); every other kind is prunable only.
+LINEARIZABLE = ("ffn",)
 HEAD_KIND = "head"
 
 
@@ -63,6 +77,10 @@ class CostEnv:
     dtype_bytes: int = 2
     w_bytes: int | None = None
     act_bytes: int | None = None
+    #: Devices the batch is split over: the analytic table prices each
+    #: one's ``batch · seq / chips`` tokens (the dry run's production
+    #: mesh); the probes run the whole batch on one card.
+    chips: int = 1
 
 
 @dataclasses.dataclass
@@ -124,7 +142,7 @@ class TransformerHost:
 
     # -- latency ------------------------------------------------------------
     def _tokens(self) -> float:
-        return self.env.batch * self.env.seq / 1
+        return self.env.batch * self.env.seq / max(self.env.chips, 1)
 
     def _block_cost(self, kind) -> CostBreakdown:
         cfg, env = self.cfg, self.env
@@ -314,3 +332,181 @@ class TransformerHost:
             return executor.execute(self.lower_plan(plan, p, merged=True),
                                     batch, device=self.device)
         return apply_fn, params
+
+
+# ---------------------------------------------------------------------------
+# Abstract plans: a compressed network at production scale, no weights
+# ---------------------------------------------------------------------------
+
+def abstract_plan(cfg, *, budget_ratio: float, env: CostEnv, P: int = 500,
+                  method: str = "layermerge", latency_oracle=None):
+    """A compression plan computed without materializing parameters:
+    growth-proportional ℓ1 proxies (each sublayer's value its growth, or
+    ``d_model`` where it has none) and the analytic oracle (the port's
+    H100 roofline by default; ``latency_oracle`` overrides it).  This is
+    how the dry run lowers a LayerMerge-compressed network at full
+    production scale.  ``None`` when no plan fits the budget."""
+    from repro_torch.core.compress import compress as _compress
+
+    kinds = T.sublayer_kinds(cfg) + (HEAD_KIND,)
+    d = cfg.d_model
+    descs = []
+    for i, kind in enumerate(kinds):
+        idx = i + 1
+        if kind == HEAD_KIND:
+            descs.append(LayerDesc(idx, kind, 0, 0.0, False, False))
+        elif kind in LINEARIZABLE:
+            descs.append(LayerDesc(idx, kind, min(cfg.d_ff, d),
+                                   float(min(cfg.d_ff, d)), True, True))
+        else:
+            descs.append(LayerDesc(idx, kind, 0, float(d), True, False))
+    host = TransformerHost.__new__(TransformerHost)
+    host.cfg, host.env, host.kinds = cfg, env, kinds
+    host.params, host.max_span = None, None
+    host.device = torch.device("cpu")
+    host._descs = descs
+    return _compress(host, budget_ratio=budget_ratio, P=P, method=method,
+                     importance="magnitude", latency_oracle=latency_oracle)
+
+
+def plan_units_spec(cfg, plan) -> list:
+    """Static unit descriptors of a plan: ``('merged', rank)`` |
+    ``('orig', sublayer_index, kind)``, instantiable without weights."""
+    kinds = T.sublayer_kinds(cfg) + (HEAD_KIND,)
+    out = []
+    for seg in plan.segments:
+        kept = set(seg.kept)
+        boundary = None if kinds[seg.j - 1] == HEAD_KIND else seg.j
+        if seg.original:
+            if boundary is not None:
+                out.append(("orig", seg.j, kinds[seg.j - 1]))
+            continue
+        rank = 0
+        for l in seg.layers:
+            if l != boundary and kinds[l - 1] in LINEARIZABLE and l in kept:
+                rank += min(cfg.d_ff, cfg.d_model)
+        rank = min(rank, cfg.d_model)
+        if rank > 0:
+            out.append(("merged", rank))
+        if boundary is not None and boundary in kept:
+            out.append(("orig", boundary, kinds[boundary - 1]))
+    return out
+
+
+def init_compressed_model(cfg, units_spec, gen: torch.Generator | None = None,
+                          device="cuda"):
+    """Parameters of a compressed unit chain: ``{"units": [...],
+    "final_norm", "embed"[, "unembed"]}``, a merged unit's ``u`` (D, r)
+    and ``v`` (r, D) drawn at scale 0.02, a kept sublayer's ``{"norm",
+    "p"}`` as the stack's init draws them, from ``gen`` (a CPU generator
+    at seed 0 by default) on ``device``; on ``"meta"`` shapes and dtypes
+    only, nothing drawn or allocated (the dry run's)."""
+    from repro_torch.device import drawing_on, resolve
+
+    from . import layers as L
+    device = resolve(device)
+    gen = gen if gen is not None else torch.Generator().manual_seed(0)
+    dtype = T._dtype(cfg)
+    ctx = drawing_on(device) if device.type == "meta" \
+        else contextlib.nullcontext()
+    with ctx:
+        d = cfg.d_model
+        unit_params = []
+        for spec in units_spec:
+            if spec[0] == "merged":
+                r = spec[1]
+                unit_params.append({"u": L._normal(gen, (d, r), dtype, 0.02),
+                                    "v": L._normal(gen, (r, d), dtype, 0.02)})
+                continue
+            kind = spec[2]
+            p, _ = T._init_layer(cfg, kind if kind not in ("ffn", "moe")
+                                 else cfg.layer_kinds()[0], gen, dtype)
+            if kind in ("ffn", "moe"):
+                unit_params.append({"norm": p["norm2"], "p": p["ffn"]})
+            else:
+                unit_params.append({"norm": p["norm1"], "p": p["temporal"]})
+        params = {"units": unit_params}
+        params["final_norm"], _ = L.init_rmsnorm(d, dtype)
+        if cfg.frontend == "tokens":
+            params["embed"], _ = L.init_embedding(cfg.vocab_size, d, gen,
+                                                  dtype)
+        if not cfg.tie_embeddings or cfg.frontend != "tokens":
+            params["unembed"] = L._normal(gen, (d, cfg.vocab_size), dtype,
+                                          1.0 / math.sqrt(d))
+    return tree_map(lambda t: t.to(device), params)
+
+
+def compressed_model_axes(cfg, units_spec):
+    """Logical-axes tree mirroring :func:`init_compressed_model`."""
+    from . import layers as L
+    from . import moe as MOE
+    ax_units = []
+    for spec in units_spec:
+        if spec[0] == "merged":
+            ax_units.append({"u": ("embed", "rank"), "v": ("rank", "embed")})
+            continue
+        kind = spec[2]
+        if kind == "moe":
+            a = MOE.moe_axes()
+        elif kind == "ffn":
+            a = L.ffn_axes(cfg.ffn_kind)
+        else:
+            a = T.temporal_axes(cfg, kind)
+        ax_units.append({"norm": ("embed",), "p": a})
+    axes = {"units": ax_units, "final_norm": ("embed",)}
+    if cfg.frontend == "tokens":
+        axes["embed"] = ("vocab", "embed")
+    if not cfg.tie_embeddings or cfg.frontend != "tokens":
+        axes["unembed"] = ("embed", "vocab")
+    return axes
+
+
+def _spec_units(units_spec, params) -> list:
+    units = []
+    for spec, p in zip(units_spec, params["units"]):
+        if spec[0] == "merged":
+            units.append(("merged", (p["u"], p["v"])))
+        else:
+            units.append(("orig", {"norm": p["norm"], "p": p["p"],
+                                   "kind": spec[2]}))
+    return units
+
+
+def forward_compressed_spec(cfg, units_spec, params, batch):
+    """Plan-aware forward from a spec and its params (the dry run's and
+    production's path): :func:`repro_torch.models.transformer.
+    forward_compressed` of the spec's units."""
+    return T.forward_compressed(cfg, params, _spec_units(units_spec, params),
+                                batch)
+
+
+def spec_forward(cfg, units_spec):
+    """``forward_fn(params, batch)`` of :func:`forward_compressed_spec`
+    for :func:`repro_torch.train.step.make_train_step`, with the
+    ``local`` form each rank's share of the sharded loss reads."""
+    def forward_fn(params, batch):
+        return forward_compressed_spec(cfg, units_spec, params, batch)
+
+    def local(params, batch):
+        return T.forward_compressed_local(
+            cfg, params, _spec_units(units_spec, params), batch,
+            gather_vocab=False)
+    forward_fn.local = local
+    return forward_fn
+
+
+def spec_graph(cfg, units_spec, params) -> ir.UnitGraph:
+    """The unit graph of a spec and its params (the executor's and the
+    artifacts' form of the same network): a ``LowRankUnit`` per merged
+    unit, a ``SublayerUnit`` per kept sublayer, the same tensors."""
+    units = []
+    for spec, p in zip(units_spec, params["units"]):
+        if spec[0] == "merged":
+            units.append(ir.LowRankUnit(params={"u": p["u"], "v": p["v"]}))
+        else:
+            units.append(ir.SublayerUnit(sub_kind=spec[2], params={
+                "norm": p["norm"], "p": p["p"]}))
+    return ir.annotate_axes(ir.UnitGraph(
+        family="transformer", units=tuple(units),
+        params={k: v for k, v in params.items() if k != "units"},
+        meta={"config": cfg}))

@@ -38,6 +38,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import draw_device
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.rules import active_rules, local_shape
 
@@ -78,7 +79,7 @@ def mlstm_axes():
 
 
 def _normal(gen, shape, dtype, scale):
-    return (torch.randn(shape, generator=gen, device=gen.device)
+    return (torch.randn(shape, generator=gen, device=draw_device(gen))
             * scale).to(dtype)
 
 

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.quant import dequantize as dequantize_int8
+from repro_torch.kernels.quant import dequantize_int8
 from repro_torch.kernels.quant import quantize_int8
 from repro_torch.tree import flatten_tree, tree_map, tree_map_with_path
 

@@ -12,6 +12,8 @@ one), concat, group norm, and the boundary activation.
   batch ``{"tokens": (B, S)}`` (transformer prefill).
 * :func:`run_units` — a bare transformer unit chain, no embed/unembed
   (the segment probes).
+* :func:`execute_local` — a transformer prefill as a rank takes its loss:
+  its rows' logits, its vocab slice.
 * :func:`init_cache` / :func:`decode_step` — one-token decode through a
   compressed transformer: a KV cache per attention sublayer, the
   recurrent state per RG-LRU, mLSTM or sLSTM sublayer; lowrank, FFN and
@@ -64,7 +66,14 @@ single-device shapes.  What each family does, and where it is delicate:
   with 'rank' on 'model' each rank holds ``U[:, r]`` and ``V[r, :]``: the
   sum of the ranks' outputs would add ``x`` once a rank.  Rank 0 of
   'model' keeps the residual, the others run the kernel with
-  ``residual=False``, and the outputs are all-reduced.
+  ``residual=False``, and the outputs are all-reduced.  For training,
+  ``x`` enters the split product through ``enter_split`` (its gradient
+  summed over 'model', the residual's identity from rank 0 alone) and
+  the all-reduce passes its gradient through; weights FSDP split over
+  the data axes are gathered whole per unit (``gather_weights``, their
+  gradients reduce-scattered back), so
+  :func:`repro_torch.train.step.make_compressed_forward` trains sharded
+  (:func:`execute_local` gives each rank's share of the loss).
 * Sublayers: each block returns its rank's partial where its output
   projection contracts a split dimension; the unit all-reduces it
   (:func:`repro_torch.models.transformer.reduce_partial`) before the
@@ -86,7 +95,6 @@ from repro_torch import kernels
 from repro_torch.device import resolve
 from repro_torch.models import cnn as _cnn
 from repro_torch.models import layers as L
-from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import transformer as T
 from repro_torch.models import xlstm as XL
@@ -316,36 +324,26 @@ def _batch_on(batch, dev) -> dict:
 def _apply_unit(cfg, u, x, positions, mrope=None, batch_axes=None):
     """One prefill/probe unit: lowrank residual or kept sublayer (an MoE
     sublayer at the config's capacity factor).  Under a mesh: a lowrank
-    unit split on 'rank' keeps its residual on 'model' rank 0 and sums
-    the ranks' outputs; a sublayer sums its block's partial; a w8a8
-    activation split over ``batch_axes`` takes the whole batch's scale."""
+    unit split on 'rank' takes ``x`` through ``enter_split`` (its gradient
+    summed over 'model'), keeps its residual on 'model' rank 0 and sums
+    the ranks' outputs (:func:`repro_torch.models.transformer.
+    merged_residual`); a sublayer sums its block's partial
+    (:func:`repro_torch.models.transformer.sublayer_apply`); weights FSDP
+    split over the data axes are gathered whole (their gradients
+    reduce-scattered back); a w8a8 activation split over ``batch_axes``
+    takes the whole batch's scale."""
     if u.kind == "lowrank":
-        us, vs = u.params.get("u_scale"), u.params.get("v_scale")
-        aq = u.quant if (us is not None and u.quant == "w8a8") else "none"
+        aq = u.quant if ("u_scale" in u.params and u.quant == "w8a8") \
+            else "none"
         ra = _amax_reduce(() if batch_axes is None else batch_axes) \
             if aq == "w8a8" else None
-        if not _split(u.params["u"], 1):
-            return kernels.merged_ffn_op(x, u.params["u"], u.params["v"],
-                                         u_scale=us, v_scale=vs,
-                                         act_quant=aq, reduce_amax=ra)
-        mesh = active_rules().mesh
-        y = kernels.merged_ffn_op(x, u.params["u"], u.params["v"],
-                                  u_scale=us, v_scale=vs, act_quant=aq,
-                                  residual=mesh.index("model") == 0,
-                                  reduce_amax=ra)
-        return C.all_reduce(y, mesh, "model")
+        return T.merged_residual(u.params, x, act_quant=aq, reduce_amax=ra)
     if u.kind != "sublayer":
         raise ValueError(f"unit kind {u.kind!r} in transformer graph")
-    sub = u.params
+    sub = T.whole_over_data(u.params)
     h = L.rms_norm(x, sub["norm"], cfg.norm_eps)
-    if u.sub_kind == "moe":
-        t = MOE.moe_dispatch(sub["p"], h, cfg,
-                             capacity_factor=cfg.capacity_factor)
-    elif u.sub_kind == "ffn":
-        t = L.ffn(sub["p"], h, cfg.ffn_kind)
-    else:
-        t = T.temporal_apply(cfg, u.sub_kind, sub["p"], h, positions, mrope)
-    return x + T.reduce_partial(cfg, u.sub_kind, sub["p"], t)
+    return x + T.sublayer_apply(cfg, u.sub_kind, sub["p"], h, positions,
+                                mrope)
 
 
 def run_units(cfg, units, x, positions=None):
@@ -358,8 +356,17 @@ def run_units(cfg, units, x, positions=None):
 
 
 def _execute_transformer(graph: ir.UnitGraph, batch):
+    logits, _, part = _transformer_local(graph, batch)
+    return T.gather_rows(logits, part)
+
+
+def _transformer_local(graph: ir.UnitGraph, batch,
+                       gather_vocab: bool = True):
+    """``(logits of this rank's rows, its rows of the batch, their data
+    axes or None)``: the prefill before the rows (and with
+    ``gather_vocab=False`` the vocab slices) are gathered."""
     cfg = graph.meta["config"]
-    gp = graph.params
+    gp = T.whole_over_data(graph.params)
     batch, part = T.local_batch(batch)
     x = T.embed_in(cfg, gp, batch)
     positions = batch.get("positions")
@@ -369,7 +376,20 @@ def _execute_transformer(graph: ir.UnitGraph, batch):
     for u in graph.units:
         x = _apply_unit(cfg, u, x, positions, mrope, part)
     x = L.rms_norm(x, gp["final_norm"], cfg.norm_eps)
-    return T.gather_rows(T.unembed(cfg, gp, x), part)
+    return T.unembed(cfg, gp, x, gather_vocab), batch, part
+
+
+def execute_local(graph: ir.UnitGraph, batch, params=None, *,
+                  device="cuda"):
+    """A transformer graph's prefill as each rank takes its loss:
+    ``(logits of this rank's rows and vocab slice, its rows of the batch,
+    their data axes or None)`` (:func:`repro_torch.models.transformer.
+    local_loss`'s arguments); outside a mesh the whole logits."""
+    dev = resolve(device)
+    if params is not None:
+        graph = ir.bind_params(graph, params)
+    return _transformer_local(graph, _batch_on(batch, dev),
+                              gather_vocab=False)
 
 
 def _is_temporal(u) -> bool:

@@ -53,8 +53,10 @@ report what a decode step or a train step exchanged each way
   (B·S·KVH·D) cache.  :func:`flash_decode_reference` is the plain
   version.
 
-``gpipe_forward`` belongs to the dry-run slice (ROADMAP.md queue 1 item
-5b, step 4).
+* :func:`gpipe_forward` — GPipe's pipelined forward over a mesh axis
+  (the stages), its activations passed stage to stage by point-to-point
+  sends (counted as ``collective_permute``, the reference's
+  ``ppermute``).
 """
 from __future__ import annotations
 
@@ -370,3 +372,89 @@ def flash_decode_reference(q, k, v, valid):
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", w, v.float())
     return out.reshape(b, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GPipe forward over an axis
+# ---------------------------------------------------------------------------
+
+def _rank_at(mesh, axis: str, index: int) -> int:
+    """The global rank at this process's coordinates with ``axis`` at
+    ``index``."""
+    coords = dict(mesh.coords, **{axis: index})
+    pos = 0
+    for name in mesh.axis_names:
+        pos = pos * mesh.shape[name] + coords[name]
+    return mesh.ranks[pos]
+
+
+def _shift(y: torch.Tensor, mesh, axis: str, idx: int, n: int):
+    """``y`` sent to the next stage on ``axis`` (``idx + 1``) and the
+    previous stage's tensor received (zeros on stage 0): one
+    point-to-point pair a tick.  A ``gloo`` group moves a CUDA tensor
+    through the host."""
+    import torch.distributed as dist
+
+    group = mesh.group(axis)
+    staged = dist.get_backend(group) == "gloo" and y.is_cuda
+    y = y.contiguous()
+    send = y.cpu() if staged else y
+    req = None
+    if idx + 1 < n:
+        _count("collective_permute", y)
+        req = dist.isend(send, dst=_rank_at(mesh, axis, idx + 1),
+                         group=group)
+    buf = torch.zeros_like(send)
+    if idx > 0:
+        dist.recv(buf, src=_rank_at(mesh, axis, idx - 1), group=group)
+    if req is not None:
+        req.wait()
+    return buf.to(y.device) if staged else buf
+
+
+def gpipe_forward(stage_fn, stage_params, x, *, mesh, axis: str = "pod",
+                  num_micro: int = 4):
+    """Pipelined forward over ``axis`` (GPipe's schedule, the reference's
+    ``gpipe_forward``): ``x`` (B, ...), replicated, is cut into
+    ``num_micro`` microbatches; in each of ``num_micro + n_stage - 1``
+    ticks stage 0 takes microbatch t (zeros once they are spent), every
+    other stage the previous stage's last output, and each stage sends
+    ``stage_fn(params, x_mb)`` to the next one.  The last stage's outputs
+    of every microbatch are replicated over ``axis`` by a sum of the
+    stages' outputs masked to the last (the reference's ``psum``), and
+    returned in ``x``'s batch layout.
+
+    ``stage_params``: this rank's block of a tree stacked on a leading
+    stage axis (every leaf's leading dimension 1): its stage.  Forward
+    only, as in the reference: nothing is differentiated."""
+    from repro_torch.tree import tree_leaves, tree_map
+
+    n = mesh.shape[axis]
+    if x.shape[0] % num_micro:
+        raise ValueError(f"batch {x.shape[0]} does not split into "
+                         f"{num_micro} microbatches")
+    if any(t.shape[0] != 1 for t in tree_leaves(stage_params)):
+        raise ValueError("stage_params: this rank's block of the stage "
+                         "axis, a leading dimension of 1 on every leaf")
+    idx = mesh.index(axis)
+    params = tree_map(lambda t: t[0], stage_params)
+    mbs = x.reshape(num_micro, x.shape[0] // num_micro, *x.shape[1:])
+    outs, buf = None, torch.zeros_like(mbs[0])
+    with torch.no_grad():
+        for t in range(num_micro + n - 1):
+            if idx == 0:
+                buf_in = mbs[t] if t < num_micro else torch.zeros_like(mbs[0])
+            else:
+                buf_in = buf
+            y = stage_fn(params, buf_in)
+            if outs is None:
+                outs = torch.zeros((num_micro, *y.shape), dtype=y.dtype,
+                                   device=y.device)
+            if 0 <= t - (n - 1) < num_micro:
+                outs[t - (n - 1)] = y
+            if n > 1:
+                buf = _shift(y, mesh, axis, idx, n)
+        if idx != n - 1:
+            outs.zero_()
+        outs = all_reduce(outs, mesh, axis)
+    return outs.reshape(x.shape[0], *outs.shape[2:])

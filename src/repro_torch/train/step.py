@@ -38,9 +38,12 @@ XLA would insert written out:
 :func:`make_compressed_forward` trains a compressed network: its forward
 runs the lowered unit graph of an artifact over a params tree
 (:func:`repro_torch.runtime.ir.graph_params`), so compression runs once
-and fine-tuning continues from the object serving loads.  Its sharded
-training (a compressed forward under rules) is still to port (ROADMAP.md
-queue 1).
+and fine-tuning continues from the object serving loads.  Under a mesh
+it trains sharded as the stack does (the graph's params placed by
+:func:`repro_torch.runtime.executor.graph_shardings`): its unit loops
+carry the same conjugate collectives, and each rank takes the loss of
+its own rows (:func:`make_loss_fn`); so does the plan-aware forward of
+:func:`repro_torch.models.transformer_host.forward_compressed_spec`.
 """
 from __future__ import annotations
 
@@ -58,13 +61,25 @@ from repro_torch.tree import flatten_tree, tree_map, tree_map_with_path
 
 def make_loss_fn(cfg, forward_fn=None):
     """LM loss ``(params, batch) → scalar``; ``forward_fn(params, batch)``
-    replaces the stack's forward (a LayerMerge-compressed network)."""
+    replaces the stack's forward (a LayerMerge-compressed network): the
+    mean NLL over every token, as the reference takes it.  Under a mesh a
+    ``forward_fn`` with a ``local`` attribute (``local(params, batch)`` →
+    :func:`repro_torch.models.transformer.forward_local`'s triple:
+    :func:`make_compressed_forward`, :func:`repro_torch.models.
+    transformer_host.spec_forward`) gives each rank's share of the loss
+    from its own rows and vocab slice, as the stack's loss does; any
+    other ``forward_fn`` returns the gathered logits, whose loss every
+    rank takes whole (its gathers' backward passes each rank the
+    gradient of its own block)."""
     if forward_fn is None:
         def loss_fn(params, batch):
             return T.lm_loss(cfg, params, batch)
         return loss_fn
+    local = getattr(forward_fn, "local", None)
 
     def loss_fn(params, batch):
+        if local is not None and active_rules() is not None:
+            return T.local_loss(cfg, *local(params, batch), use_mask=False)
         logits = T.upcast_for_loss(forward_fn(params, batch))
         return torch.mean(T.token_nll(logits, batch["targets"]))
     return loss_fn
@@ -122,11 +137,6 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, microbatches: int = 1,
 
     def train_step(params, opt_state, batch):
         rules = active_rules()
-        if rules is not None and forward_fn is not None:
-            raise NotImplementedError(
-                "make_train_step(forward_fn=...) under a mesh: the sharded "
-                "training of a compressed artifact is still to port "
-                "(ROADMAP.md queue 1)")
         if rules is None and grad_shardings is not None:
             raise ValueError("make_train_step(grad_shardings=...) runs under "
                              "use_rules(rules) with a mesh")
@@ -272,10 +282,15 @@ def make_compressed_forward(graph, *, device="cuda"):
     state) to continue training a compressed model loaded from an
     artifact; :func:`repro_torch.runtime.ir.bind_params` puts the tuned
     params back into a graph that serves or saves."""
-    from repro_torch.runtime import execute
+    from repro_torch.runtime import executor
 
     def forward_fn(params, batch):
-        return execute(graph, batch, params=params, device=device)
+        return executor.execute(graph, batch, params=params, device=device)
+
+    def local(params, batch):
+        return executor.execute_local(graph, batch, params=params,
+                                      device=device)
+    forward_fn.local = local
     return forward_fn
 
 

@@ -22,16 +22,19 @@ import torch
 from repro_torch.checkpoint import ckpt as CK
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import GlobalBatcher
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import build_mesh, make_host_mesh
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
+from repro_torch.models import transformer_host as TH
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.rules import (Placement, make_rules,
                                         param_shardings_with_shapes, put,
                                         use_rules)
-from repro_torch.train.step import make_serve_step, make_train_step
+from repro_torch.runtime import ir
+from repro_torch.train.step import (make_compressed_forward, make_serve_step,
+                                    make_train_step)
 from repro_torch.tree import flatten_tree
 
 ARCHS = ("smollm-135m", "granite-moe-1b-a400m", "xlstm-125m")
@@ -48,20 +51,19 @@ B, S = 8, 16
 OPT = AdamWConfig(lr=1e-3, eps=1e-6, warmup_steps=1, total_steps=10)
 
 
+#: The world's data axis: the sharded step routes each data block of the
+#: MoE's tokens as its own group (the reference's grouping), so the
+#: single device routes in as many groups (``moe.grouped_routing``).
+DATA = 2
+
+
 def config(arch):
-    """The reduced config.  The MoE's capacity factor is E/k, so no token
-    is ever dropped: a drop depends on the tokens routed with it, and the
-    sharded step routes each data block as its own group (the reference's
-    grouping), the single device the whole batch; without drops the two
-    are the same function.  The grouped drops are held against
-    ``repro``'s ``moe_ffn(num_groups=)`` instead."""
+    """The reduced config, the MoE at its own capacity factor (1.25:
+    tokens drop, by group)."""
     cfg = get_config(arch).reduced()
     if arch == "xlstm-125m":        # one sLSTM and one mLSTM layer
         cfg = dataclasses.replace(cfg, num_layers=2,
                                   temporal_pattern=("slstm", "mlstm"))
-    if cfg.is_moe:
-        cfg = dataclasses.replace(
-            cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
     return cfg
 
 
@@ -90,10 +92,11 @@ def train_single(arch, arrays, microbatches=1):
     opt = init_opt_state(params)
     step = make_train_step(cfg, OPT, microbatches=microbatches)
     losses, norms = [], []
-    for i in range(STEPS):
-        params, opt, m = step(params, opt, _whole_batch(arrays, i))
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
+    with MOE.grouped_routing(DATA):
+        for i in range(STEPS):
+            params, opt, m = step(params, opt, _whole_batch(arrays, i))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
     return losses, norms, {k: v.numpy().copy()
                            for k, v in flatten_tree(params).items()}
 
@@ -127,6 +130,127 @@ def train_sharded(arch, preset, arrays, mesh):
     mu = {k: tuple(v.shape) for k, v in flatten_tree(opt["mu"]).items()}
     return (losses, norms, {k: v.numpy().copy() for k, v in
                             flatten_tree(full).items()}, coll, mu)
+
+
+# ---------------------------------------------------------------------------
+# A LayerMerge-compressed network, trained sharded
+# ---------------------------------------------------------------------------
+
+#: The compressed network: the reduced smollm at 4 layers, its units
+#: (``plan_units_spec``) the test's, in the spec JSON.
+COMPRESSED_CFG = dict(num_layers=4)
+#: name → (fsdp params, grad shardings from make_rules(fsdp=True,
+#: opt_state=True), the forward: ``spec_forward`` over the spec's params
+#: or ``make_compressed_forward`` over its unit graph's)
+COMPRESSED_PRESETS = {"fsdp": (True, True, "spec"),
+                      "tp_dp": (False, False, "graph")}
+
+
+def compressed_config():
+    return dataclasses.replace(config("smollm-135m"), **COMPRESSED_CFG)
+
+
+def compressed_batch(arrays, i):
+    """Batch ``i`` as the dry run's specs lay it out: int32 ``positions``,
+    ``tokens`` and ``targets``."""
+    b = _whole_batch(arrays, i)
+    tok = b["tokens"].to(torch.int32)
+    return {"positions": torch.arange(tok.shape[1], dtype=torch.int32)
+            .expand(tok.shape).contiguous(), "tokens": tok,
+            "targets": b["targets"].to(torch.int32)}
+
+
+def _spec_params(units_spec):
+    return TH.init_compressed_model(compressed_config(), units_spec,
+                                    torch.Generator().manual_seed(4),
+                                    device="cpu")
+
+
+def _graph_as_spec(gp):
+    """:func:`repro_torch.runtime.ir.graph_params` in the spec's tree."""
+    return {"units": gp["units"], **gp["globals"]}
+
+
+def train_compressed_single(arrays, units_spec):
+    """``(losses, grad norms, params)``: the single device's steps through
+    ``make_compressed_forward`` over the spec's unit graph."""
+    cfg = compressed_config()
+    graph = TH.spec_graph(cfg, units_spec, _spec_params(units_spec))
+    params = ir.graph_params(graph)
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, OPT, forward_fn=make_compressed_forward(
+        graph, device="cpu"))
+    losses, norms = [], []
+    for i in range(STEPS):
+        params, opt, m = step(params, opt, compressed_batch(arrays, i))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return losses, norms, {k: v.numpy().copy() for k, v in flatten_tree(
+        _graph_as_spec(params)).items()}
+
+
+def train_compressed_sharded(preset, arrays, units_spec, mesh):
+    """The sharded steps of the compressed network under ``preset``:
+    ``(losses, grad norms, whole params in the spec's tree, collectives
+    of the last step, argument bytes of the last step)``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import batch_axes
+    from repro_torch.configs.base import ShapeConfig
+
+    fsdp, zero, forward = COMPRESSED_PRESETS[preset]
+    cfg = compressed_config()
+    whole = _spec_params(units_spec)
+    rules = make_rules(mesh, fsdp=fsdp)
+    if forward == "spec":
+        axes = TH.compressed_model_axes(cfg, units_spec)
+        params = put(whole, param_shardings_with_shapes(rules, axes, whole))
+        forward_fn = TH.spec_forward(cfg, units_spec)
+    else:
+        graph = TH.spec_graph(cfg, units_spec, whole)
+        axes = ir.graph_axes(graph)
+        whole = ir.graph_params(graph)
+        params = put(whole, param_shardings_with_shapes(rules, axes, whole))
+        forward_fn = make_compressed_forward(
+            ir.bind_params(graph, params), device="cpu")
+    gs = param_shardings_with_shapes(
+        make_rules(mesh, fsdp=True, opt_state=True), axes, whole) \
+        if zero else None
+    opt = init_opt_state(params, shardings=gs)
+    step = make_train_step(cfg, OPT, forward_fn=forward_fn,
+                           grad_shardings=gs)
+    shape = ShapeConfig("w", S, B, "train")
+    bax = batch_axes(cfg, shape, with_targets=True)
+    losses, norms = [], []
+    with use_rules(rules):
+        for i in range(STEPS):
+            b = compressed_batch(arrays, i)
+            batch = put(b, {k: rules.named(bax[k], tuple(v.shape))
+                            for k, v in b.items()})
+            arg_bytes = dryrun.tree_bytes((params, opt, batch))
+            C.reset_collective_counts()
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        coll = C.collective_counts()
+        full = CK.gather_whole(params)
+    if forward == "graph":
+        full = _graph_as_spec(full)
+    return (losses, norms, {k: v.numpy().copy() for k, v in
+                            flatten_tree(full).items()}, coll, arg_bytes)
+
+
+def _gpipe(arrays):
+    """``gpipe_forward`` of the reference test's tanh stages on a pod-4
+    mesh of the world's ranks, each rank handed its block of the stage
+    weights; and the sends it counted."""
+    mesh = build_mesh({"pod": 4}, range(4))
+    idx = mesh.index("pod")
+    wp = torch.from_numpy(arrays["gp_w"])
+    C.reset_collective_counts()
+    y = C.gpipe_forward(lambda w, xm: torch.tanh(xm @ w),
+                        wp[idx:idx + 1], torch.from_numpy(arrays["gp_x"]),
+                        mesh=mesh, axis="pod", num_micro=4)
+    return y.numpy(), C.collective_counts()
 
 
 # ---------------------------------------------------------------------------
@@ -353,6 +477,11 @@ def world_train(rank, spec_path):
     compressed_psum({"w": g[rank * n:(rank + 1) * n]}, mesh,
                     ("data", "model"), codes=codes)
     out["car"] = (res["w"].numpy(), codes["w"].numpy())
+    out["compressed"] = {
+        preset: train_compressed_sharded(preset, arrays,
+                                         spec["units_spec"], mesh)
+        for preset in COMPRESSED_PRESETS}
+    out["gpipe"] = _gpipe(arrays)
     out["moe"] = _moe(arrays, mesh)
     out["xlstm"] = _xlstm_decode(arrays, mesh)
     out["elastic"] = _elastic(spec, mesh)

@@ -72,11 +72,16 @@ def world(tmp_path_factory):
         arrays[f"moe/{k}"] = v[0].numpy()
     arrays["moe_x"] = rng.standard_normal((4, 6, cfg.d_model)) \
         .astype(np.float32)
+    arrays["gp_w"] = (rng.standard_normal((4, 8, 8)) * 0.4) \
+        .astype(np.float32)
+    arrays["gp_x"] = rng.standard_normal((8, 8)).astype(np.float32)
     np.savez(str(d / "arrays.npz"), **arrays)
     tree = {"w": torch.arange(64.0).reshape(8, 8) * 3,
             "b": torch.arange(8.0) - 4, "n": torch.ones(3)}
     CK.save(str(d / "ck1"), 1, tree)
-    spec = {"arrays": str(d / "arrays.npz"), "dir": str(d)}
+    units_spec = _compressed_spec()
+    spec = {"arrays": str(d / "arrays.npz"), "dir": str(d),
+            "units_spec": units_spec}
     spec_path = str(d / "spec.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
@@ -85,7 +90,28 @@ def world(tmp_path_factory):
     single = {(arch, micro): W.train_single(arch, arrays, micro)
               for arch in W.ARCHS for micro in (1, 2)}
     return {"arrays": arrays, "ranks": ranks, "single": single, "dir": d,
-            "saved": {k: v.numpy() for k, v in tree.items()}}
+            "saved": {k: v.numpy() for k, v in tree.items()},
+            "units_spec": units_spec,
+            "compressed": W.train_compressed_single(arrays, units_spec)}
+
+
+def _compressed_spec():
+    """The compressed network's units: the reduced 4-layer smollm's
+    abstract plan at budget 0.6 under the JAX package's oracle constants
+    (the spec ``tests/test_torch_forward_compressed.py`` holds equal to
+    ``repro``'s), with a merged unit."""
+    from repro.core import latency as jlat
+    from repro_torch.core.latency import AnalyticOracle
+    from repro_torch.models import transformer_host as TH
+    cfg = W.compressed_config()
+    res = TH.abstract_plan(cfg, budget_ratio=0.6,
+                           env=TH.CostEnv(batch=2, seq=16),
+                           latency_oracle=AnalyticOracle(
+                               peak_flops=jlat.PEAK_FLOPS_BF16,
+                               hbm_bw=jlat.HBM_BW, op_overhead=1e-6))
+    spec = [list(u) for u in TH.plan_units_spec(cfg, res.plan)]
+    assert any(u[0] == "merged" for u in spec)
+    return spec
 
 
 @pytest.mark.parametrize("preset", list(W.PRESETS))
@@ -110,6 +136,99 @@ def test_sharded_step_matches_single_device(world, arch, preset):
         device="cpu")[0]).items()}
     assert max(float(np.abs(params1[k] - start[k]).max())
                for k in start) > 10 * TOL
+
+
+@pytest.mark.parametrize("preset", list(W.COMPRESSED_PRESETS))
+def test_compressed_sharded_step_matches_single_device(world, preset):
+    """A LayerMerge-compressed network trained sharded: FSDP params with
+    ZeRO gradient shardings through ``forward_compressed_spec``, and
+    FSDP-free params through ``make_compressed_forward`` (the executor's
+    unit loops), against the single device's ``make_compressed_forward``
+    steps, within 2e-4."""
+    losses1, norms1, params1 = world["compressed"]
+    for out in world["ranks"]:
+        losses, norms, params, coll, _ = out["compressed"][preset]
+        np.testing.assert_allclose(losses, losses1, rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(norms, norms1, rtol=TOL, atol=TOL)
+        # the merged unit's input entered its split rank: summed backward
+        assert coll["all_reduce_sum:bwd"]["calls"] > 0, coll
+        assert params.keys() == params1.keys()
+        for k, v in params1.items():
+            np.testing.assert_allclose(params[k], v, rtol=TOL, atol=TOL,
+                                       err_msg=k)
+    # the params moved by far more than the tolerance
+    start = {k: v.numpy() for k, v in flatten_tree(
+        W._spec_params(world["units_spec"])).items()}
+    assert max(float(np.abs(params1[k] - start[k]).max())
+               for k in start) > 10 * TOL
+
+
+def test_gpipe_matches_sequential_and_repro(world):
+    """``gpipe_forward`` over pod 4 (the reference test's tanh stages,
+    4 microbatches) against the stages run in sequence and against
+    ``repro``'s ``gpipe_forward`` on 8 forced host devices, within 1e-5;
+    each stage but the last sends once a tick."""
+    a = world["arrays"]
+    ref = a["gp_x"]
+    for i in range(4):
+        ref = np.tanh(ref @ a["gp_w"][i])
+    code = textwrap.dedent(f"""
+        import jax, jax.numpy as jnp, numpy as np
+        from repro.sharding.collectives import gpipe_forward
+        mesh = jax.make_mesh((4, 2), ("pod", "model"))
+        wp = jnp.asarray(np.array({a["gp_w"].tolist()!r}, np.float32))
+        x = jnp.asarray(np.array({a["gp_x"].tolist()!r}, np.float32))
+        y = gpipe_forward(lambda w, xm: jnp.tanh(xm @ w), wp, x, mesh=mesh,
+                          axis="pod", num_micro=4)
+        np.save({str(world["dir"] / "gpipe.npy")!r}, np.asarray(y))
+        print("GPIPE_OK")
+    """)
+    r = run_code(code, devices=8, timeout=300)
+    assert "GPIPE_OK" in r.stdout, r.stdout + r.stderr
+    jref = np.load(world["dir"] / "gpipe.npy")
+    for rank, out in enumerate(world["ranks"]):
+        y, counts = out["gpipe"]
+        np.testing.assert_allclose(y, ref, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(y, jref, rtol=1e-5, atol=1e-5)
+        sends = counts.get("collective_permute", {"calls": 0})["calls"]
+        assert sends == (7 if rank < 3 else 0)
+
+
+def test_dryrun_fake_world_matches_real_world(world, tmp_path):
+    """The dry run of the compressed FSDP step (``python -m
+    repro_torch.launch.dryrun --spec``: a fake world of 4, data 2 × model
+    2, every tensor on ``meta``) issues exactly the collectives, calls
+    and bytes each way, that rank 0's real step issued, on exactly its
+    argument bytes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = W.compressed_config()
+    base = get_config("smollm-135m")
+    overrides = {f.name: getattr(cfg, f.name) for f in
+                 dataclasses.fields(cfg)
+                 if getattr(cfg, f.name) != getattr(base, f.name)}
+    spec = {"arch": "smollm-135m", "overrides": overrides,
+            "shape": {"seq_len": W.S, "global_batch": W.B,
+                      "mode": "train"},
+            "mesh": {"data": 2, "model": 2}, "options": {"fsdp": True},
+            "units_spec": world["units_spec"]}
+    path = tmp_path / "cell.json"
+    path.write_text(json.dumps(spec))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--spec",
+         str(path)], capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH="src"),
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert r.returncode == 0, r.stdout + r.stderr
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    _, _, _, coll, arg_bytes = world["ranks"][0]["compressed"]["fsdp"]
+    assert rec["status"] == "ok" and rec["mesh"]["devices"] == 4
+    assert rec["collective_ops"] == coll
+    assert rec["memory"]["argument_size_in_bytes"] == arg_bytes
+    assert rec["collectives"]["total_bytes"] == sum(
+        v["bytes"] for v in coll.values())
+    assert rec["cost"]["flops"] > 0
 
 
 def test_single_device_step_matches_repro(world):

@@ -30,7 +30,6 @@ three distinct M-RoPE streams), fp32, with the same numpy params
 """
 import dataclasses
 import os
-import statistics
 import subprocess
 import sys
 
@@ -466,25 +465,28 @@ def test_resume_from_checkpoint(tiny, tmp_path):
     assert res.final_step == 35 and len(res.losses) == 15
 
 
-def test_straggler_watchdog(tiny, tmp_path):
-    """Persistently slow steps trip the watchdog → restart path.  Each
-    injected delay is at least 20 × the median of the ten steps before
-    it, so it exceeds ``deadline_factor`` × the median however loaded the
-    host is (an eager step takes milliseconds alone, far more beside
-    other test workers)."""
-    import time
+def test_straggler_watchdog(tiny, tmp_path, monkeypatch):
+    """Persistently slow steps trip the watchdog → restart path.  The
+    loop reads its step times from a clock the test owns (the loop's
+    ``time`` module replaced by one whose ``perf_counter`` reads it), and
+    the failure hook, which runs inside each timed step, advances it:
+    1 s a step, 20 s for the three slow ones.  So every step time the
+    watchdog reads is fixed, whatever the host's load: on the wall
+    clock a load spike of three eager steps (a neighbour test starting a
+    four-rank world) once tripped it a second time."""
+    import types
     cfg, params, batcher = tiny
+    clock = {"t": 0.0}
+    monkeypatch.setattr(TL, "time", types.SimpleNamespace(
+        perf_counter=lambda: clock["t"]))
     slow = {"n": 0}
-    calls = []
 
     def laggard(step):
         if 25 <= step < 28 and slow["n"] < 3:
-            if not slow["n"]:
-                slow["delay"] = max(1.0, 20 * statistics.median(
-                    b - a for a, b in zip(calls[-11:], calls[-10:])))
             slow["n"] += 1
-            time.sleep(slow["delay"])
-        calls.append(time.perf_counter())
+            clock["t"] += 20.0
+        else:
+            clock["t"] += 1.0
 
     logs = []
     res = TL.train_loop(cfg, TA.AdamWConfig(lr=2e-3, total_steps=32),
