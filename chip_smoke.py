@@ -3301,6 +3301,148 @@ def quickstart_host(dev):
             evals, accuracy_perf(apply0, params, evals))
 
 
+def lane_grads_bitwise(host, segs, ispec) -> dict:
+    """The first span batch of ``segs`` with two lanes or more: one
+    vmapped gradient of its stacked candidates against each lane's own
+    gradient on the same graph (``torch.func.grad`` without ``vmap``),
+    leaf by leaf: the gradient leaves that differ and their largest
+    |Δ|.  The batched engine's convs run one per lane
+    (:class:`repro_torch.models.cnn._LaneConv`), as the lane's own; the
+    head's product (one batched product against each lane's) and the
+    bias gradients' sums still sum in other orders under ``vmap``, and
+    their last bits reach every leaf.  Recorded, not failed: the
+    importances are held to the sequential engine's instead."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    groups: dict = {}
+    for seg in segs:
+        groups.setdefault((seg.i, seg.j), []).append(seg)
+    for span, gs in groups.items():
+        batch = host.importance_batch(gs) if len(gs) > 1 else None
+        if batch is None:
+            continue
+        apply_fn, stacked, _ = batch
+        x = ispec.train_batches[0]
+
+        def loss(p, b):
+            return ispec.loss_fn(apply_fn, p, b)
+        gv = pytree.tree_leaves(torch.func.vmap(
+            torch.func.grad(loss), in_dims=(0, None))(stacked, x))
+        worst, leaves = 0.0, 0
+        for lane in range(len(gs)):
+            g1 = pytree.tree_leaves(torch.func.grad(loss)(
+                pytree.tree_map(lambda t: t[lane], stacked), x))
+            for a, b in zip(gv, g1):
+                if not torch.equal(a[lane], b):
+                    leaves += 1
+                    worst = max(worst, float((a[lane] - b).abs().max()))
+        return {"span": list(span), "lanes": len(gs),
+                "leaves_differing": leaves, "max_abs": worst}
+    return {"span": None}
+
+
+def quickstart_eq4(dev) -> dict:
+    """Phase 20 (b): the reference quickstart's protocol on tiny_resnet
+    (pre-trained, compressed with Eq. 4 at 0.6, fine-tuned, merged,
+    saved), then its probes' importances through the vmapped span
+    batches against the sequential engine, held to rtol 1e-6, atol
+    1e-7.  The pre-training, both engines and the lane check
+    (:func:`lane_grads_bitwise`) run under deterministic cuDNN."""
+    import torch
+    from repro_torch import runtime
+    from repro_torch.core import (ImportanceSpec, WallClockOracle,
+                                  accuracy_perf, compress, enumerate_probes,
+                                  measure_importance, measure_importances,
+                                  one_segment_plan, perf_to_importance,
+                                  xent_loss)
+    from repro_torch.core.importance import _adam_finetune
+    from repro_torch.core.probe_engine import EngineStats
+    from repro_torch.device import deterministic_cudnn
+
+    # (b) the reference quickstart's protocol ------------------------------
+    # the pre-training and both engines' fine-tunes under deterministic
+    # cuDNN: its default weight-gradient algorithms sum with atomics, so
+    # the pre-trained net and the two engines' last bits moved call to call
+    t0 = time.perf_counter()
+    with deterministic_cudnn():
+        host, train, evals, base_acc = quickstart_host(dev)
+    net, params, xev = host.net, host.params, evals[0][0]
+    perfs = []
+    ispec = ImportanceSpec(xent_loss, accuracy_perf, train, evals, steps=5,
+                           lr=1e-3)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    res = compress(host, budget_ratio=0.6, P=200, method="layermerge",
+                   latency_oracle=WallClockOracle(warmup=2, iters=5),
+                   probe_config=strict_probes(), importance=ImportanceSpec(
+                       xent_loss, recording(accuracy_perf, perfs), train,
+                       evals, steps=5, lr=1e-3), base_perf=base_acc)
+    peak = torch.cuda.max_memory_allocated()
+    check(res is not None, "quickstart: no plan fits 0.6")
+    imps = [perf_to_importance(v, base_acc, ispec) for v in perfs]
+    segs = [p[5] for p in enumerate_probes(host) if not p[5].original]
+    fb, pb = host.replaced_apply(one_segment_plan(host, segs[0]))
+    t2 = time.perf_counter()
+    row = eq4_report("quickstart", res.tables, imps, ispec.steps, peak,
+                     lambda: measure_importance(fb, pb, ispec, base_acc))
+    row.update(pretrain_s=t1 - t0, compress_s=t2 - t1,
+               report_s=time.perf_counter() - t2)
+    ra, _ = host.replaced_apply(res.plan)
+    params_ft = _adam_finetune(ra, params, ImportanceSpec(
+        xent_loss, accuracy_perf, train, evals, steps=150, lr=1e-3))
+    acc_ft = accuracy_perf(ra, params_ft, evals)
+    ma, _ = host.merged_apply(res.plan, params_ft)
+    acc_merged = accuracy_perf(ma, params_ft, evals)
+    b_path = os.path.join(WORK, "tiny_resnet_eq4.npz")
+    res.params = params_ft
+    res.save(b_path)
+    art = runtime.load(b_path, device=dev)
+    d_b = float((art.apply(xev) - ma(params_ft, xev)).abs().max())
+    stats = EngineStats()
+    lanes: list = []
+    with deterministic_cudnn():
+        bat = measure_importances(
+            host, segs, ispec, base_acc, stats=stats, force_batching=True,
+            progress=lambda m: lanes.append(m) if "lanes" in m else None)
+        seq = measure_importances(host, segs, ispec, base_acc,
+                                  engine="sequential")
+    worst = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(bat, seq))
+    agree = all(abs(a - b) <= 1e-7 + 1e-6 * abs(b) for a, b in zip(bat, seq))
+    row.update(plan=plan_line(res.plan), base_acc=base_acc,
+               replaced_acc=acc_ft, merged_acc=acc_merged,
+               artifact_max_abs=d_b, batched_lanes=lanes,
+               batched_batches=stats.num_importance_batches,
+               batched_scalar=stats.num_importance_sequential,
+               batched_vs_sequential_max_rel=worst,
+               batched_bitwise=bat == seq, predicted=res.speedup)
+    log("importance quickstart", t0, f"pre-trained accuracy {base_acc:.4f}; "
+        f"plan {row['plan']} (predicted {res.speedup:.4f}x); fine-tuned "
+        f"replaced {acc_ft:.4f}, merged {acc_merged:.4f}; artifact reload "
+        f"max|Δ| {d_b:.3g}; batched engine (forced): "
+        f"{stats.num_importance_batches} batches {lanes}, "
+        f"{stats.num_importance_sequential} scalar; vs sequential max rel "
+        f"{worst:.3g} (bitwise {row['batched_bitwise']}); seconds: "
+        f"pre-train {row['pretrain_s']:.2f}, compress "
+        f"{row['compress_s']:.2f}, report {row['report_s']:.2f}")
+    check(abs(acc_merged - acc_ft) < 1e-6, f"quickstart: merged accuracy "
+          f"{acc_merged} differs from replaced {acc_ft}")
+    check(art.plan == res.plan, "quickstart: artifact plan round-trip")
+    check(d_b < 1e-5, f"quickstart: artifact reload differs by {d_b}")
+    check(stats.num_importance_batches > 0, "quickstart: no vmapped batch")
+    check(agree, f"quickstart: batched vs sequential importances differ "
+          f"(max rel {worst:.3g}; limit rtol 1e-6, atol 1e-7)")
+    del art, res
+    with deterministic_cudnn():
+        row["lane_grads"] = lane_grads_bitwise(host, segs, ispec)
+    log("importance lanes", t0, f"vmapped span batch vs each lane alone "
+        f"(one gradient, {row['lane_grads']}); batched "
+        f"{row['batched_bitwise']}, pre-trained accuracy {base_acc:.4f}")
+    del host
+    return row
+
+
+
 def importance_phase(dev, cnn_h, cnn_oracle, mag_plan, dev_orig_ms,
                      lm_host, lm_oracle, lm_budget, prompt,
                      new_tokens) -> dict:
@@ -3415,74 +3557,7 @@ def importance_phase(dev, cnn_h, cnn_oracle, mag_plan, dev_orig_ms,
     del art, res
 
     # (b) the reference quickstart's protocol ------------------------------
-    t0 = time.perf_counter()
-    host, train, evals, base_acc = quickstart_host(dev)
-    net, params, xev = host.net, host.params, evals[0][0]
-    perfs = []
-    ispec = ImportanceSpec(xent_loss, accuracy_perf, train, evals, steps=5,
-                           lr=1e-3)
-    torch.cuda.reset_peak_memory_stats()
-    t1 = time.perf_counter()
-    res = compress(host, budget_ratio=0.6, P=200, method="layermerge",
-                   latency_oracle=WallClockOracle(warmup=2, iters=5),
-                   probe_config=strict_probes(), importance=ImportanceSpec(
-                       xent_loss, recording(accuracy_perf, perfs), train,
-                       evals, steps=5, lr=1e-3), base_perf=base_acc)
-    peak = torch.cuda.max_memory_allocated()
-    check(res is not None, "quickstart: no plan fits 0.6")
-    imps = [perf_to_importance(v, base_acc, ispec) for v in perfs]
-    segs = [p[5] for p in enumerate_probes(host) if not p[5].original]
-    fb, pb = host.replaced_apply(one_segment_plan(host, segs[0]))
-    t2 = time.perf_counter()
-    row = eq4_report("quickstart", res.tables, imps, ispec.steps, peak,
-                     lambda: measure_importance(fb, pb, ispec, base_acc))
-    row.update(pretrain_s=t1 - t0, compress_s=t2 - t1,
-               report_s=time.perf_counter() - t2)
-    ra, _ = host.replaced_apply(res.plan)
-    params_ft = _adam_finetune(ra, params, ImportanceSpec(
-        xent_loss, accuracy_perf, train, evals, steps=150, lr=1e-3))
-    acc_ft = accuracy_perf(ra, params_ft, evals)
-    ma, _ = host.merged_apply(res.plan, params_ft)
-    acc_merged = accuracy_perf(ma, params_ft, evals)
-    b_path = os.path.join(WORK, "tiny_resnet_eq4.npz")
-    res.params = params_ft
-    res.save(b_path)
-    art = runtime.load(b_path, device=dev)
-    d_b = float((art.apply(xev) - ma(params_ft, xev)).abs().max())
-    stats = EngineStats()
-    lanes: list = []
-    bat = measure_importances(
-        host, segs, ispec, base_acc, stats=stats, force_batching=True,
-        progress=lambda m: lanes.append(m) if "lanes" in m else None)
-    seq = measure_importances(host, segs, ispec, base_acc,
-                              engine="sequential")
-    worst = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(bat, seq))
-    agree = all(abs(a - b) <= 1e-7 + 1e-6 * abs(b) for a, b in zip(bat, seq))
-    row.update(plan=plan_line(res.plan), base_acc=base_acc,
-               replaced_acc=acc_ft, merged_acc=acc_merged,
-               artifact_max_abs=d_b, batched_lanes=lanes,
-               batched_batches=stats.num_importance_batches,
-               batched_scalar=stats.num_importance_sequential,
-               batched_vs_sequential_max_rel=worst,
-               batched_bitwise=bat == seq, predicted=res.speedup)
-    out["quickstart"] = row
-    log("importance quickstart", t0, f"pre-trained accuracy {base_acc:.4f}; "
-        f"plan {row['plan']} (predicted {res.speedup:.4f}x); fine-tuned "
-        f"replaced {acc_ft:.4f}, merged {acc_merged:.4f}; artifact reload "
-        f"max|Δ| {d_b:.3g}; batched engine (forced): "
-        f"{stats.num_importance_batches} batches {lanes}, "
-        f"{stats.num_importance_sequential} scalar; vs sequential max rel "
-        f"{worst:.3g} (bitwise {row['batched_bitwise']}); seconds: "
-        f"pre-train {row['pretrain_s']:.2f}, compress "
-        f"{row['compress_s']:.2f}, report {row['report_s']:.2f}")
-    check(abs(acc_merged - acc_ft) < 1e-6, f"quickstart: merged accuracy "
-          f"{acc_merged} differs from replaced {acc_ft}")
-    check(art.plan == res.plan, "quickstart: artifact plan round-trip")
-    check(d_b < 1e-5, f"quickstart: artifact reload differs by {d_b}")
-    check(stats.num_importance_batches > 0, "quickstart: no vmapped batch")
-    check(agree, f"quickstart: batched vs sequential importances differ "
-          f"(max rel {worst:.3g}; limit rtol 1e-6, atol 1e-7)")
-    del art, res, host
+    out["quickstart"] = quickstart_eq4(dev)
 
     # (c) SmolLM-135M at full width, EQ4_LM_LAYERS layers --------------------
     t0 = time.perf_counter()
@@ -4869,6 +4944,7 @@ def step_busy(fn, step_ms: float, reps: int) -> dict:
             small[kind][1] += us
             small[kind][2] = max(small[kind][2], n)
     return {"busy_us": busy_us, "busy_share": busy_us / (step_ms * 1e3),
+            "launches": sum(n for _, n, _ in rows),
             "top": [(name[:60], round(us, 1), n) for us, n, name in rows[:8]],
             "small_ops": small}
 
@@ -7551,6 +7627,370 @@ def comp_checks(dev, ranks, single, fwd, seq_ref, dry, ffn_unit, t_parent):
     return out, launches, rows_by_kernel(rows)
 
 
+# ---------------------------------------------------------------------------
+# 32. training on its own terms: remat, the captured step, bf16 RG-2B
+# ---------------------------------------------------------------------------
+
+#: Phase 32 (a): RecurrentGemma-2B whole at its own dtype (bf16), its
+#: batch (rows, tokens), steps and seed; the card held against the CPU
+#: port at ``P32_CPU_LAYERS`` layers on ``P32_CPU`` tokens.
+P32_BATCH = (8, 256)
+P32_STEPS = 4
+P32_SEED = 32
+P32_CPU = (1, 64)
+P32_CPU_LAYERS = 3
+#: The four ways (a) runs the step: captured or eager, with or without
+#: remat.
+P32_WAYS = ("eager", "eager+remat", "captured", "captured+remat")
+#: Steps of each way in (b).
+P32_COMP_STEPS = 3
+#: The compressed SmolLM-135M step before it was captured (phase 24 (b),
+#: 8 × 1024, eager; H100 80GB HBM3, 700 W; PERF.md): ms a step and busy
+#: share.
+EAGER_COMPRESSED = (347.85, 0.777)
+#: Phase 24 (a)'s step before it ran captured (15 layers, 8 × 1024, eager;
+#: H100 80GB HBM3, 700 W; PERF.md).
+EAGER_LOOP_STEP_MS = 211.86
+#: Phase 26 (c)'s bf16 SmolLM-135M step through the launcher before it
+#: rematerialized and ran captured (eager; H100 80GB HBM3, 700 W;
+#: PERF.md).
+EAGER_BF16_STEP_MS = (240.84, 280.95)
+
+
+def leaf_spread(a: dict, b: dict) -> dict:
+    """{key: max |Δ|} of the leaves of two flat trees that differ (``b``'s
+    leaves brought to ``a``'s device one at a time)."""
+    import torch
+    out = {}
+    for k, t in a.items():
+        u = b[k].to(t.device)
+        if not torch.equal(t, u):
+            out[k] = float((t.float() - u.float()).abs().max())
+    return out
+
+
+def host_copy(t):
+    """``t`` copied to the host, pinned where there is a card (a fast copy
+    back each way)."""
+    import torch
+    h = torch.empty(t.shape, dtype=t.dtype,
+                    pin_memory=torch.cuda.is_available())
+    return h.copy_(t)
+
+
+def run_way(way, cfg, opt, p0, batches, dev) -> dict:
+    """Phase 32 (a)'s steps one way from ``p0`` and zero moments: their
+    losses, grad norms, final params (flat, the live tensors), ms a step
+    (median of all but the first), peak memory (whole, and the steps' own
+    over the params and moments they start from: other ways' tensors
+    still alive sit in the whole peak), the kernel launches a
+    step (wrapper counts: the capture's for a captured way) and the
+    capture's seconds."""
+    import dataclasses
+    import statistics
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train.step import capture_train_step, make_train_step
+    from repro_torch.tree import flatten_tree, tree_map
+
+    c = dataclasses.replace(cfg, remat=way.endswith("remat"))
+    step = make_train_step(c, opt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = tree_map(lambda t: t.to(dev, copy=True), p0)
+    state = init_opt_state(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    capture_s = None
+    if way.startswith("captured"):
+        # the eager ways ran this step at these shapes first: no warm-up
+        # (and no host copy of the 27 GB state to undo it)
+        run = capture_train_step(step, params, state, batches[0], warmup=0)
+        capture_s, per_step = run.capture_s, run.launches
+    else:
+        def run(b):
+            return step(params, state, b)[2]
+    losses, norms, times = [], [], []
+    for i, b in enumerate(batches):
+        before = kernels.launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = run(b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        times.append(time.perf_counter() - t)
+        if i == 0 and capture_s is None:
+            per_step = {k: v - before[k]
+                        for k, v in kernels.launch_counts().items()
+                        if v != before[k]}
+    return {"way": way, "losses": losses, "grad_norms": norms,
+            "step_ms": statistics.median(times[1:]) * 1e3,
+            "step_ms_all": [x * 1e3 for x in times],
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "step_peak_bytes": torch.cuda.max_memory_allocated() - base,
+            "launches_per_step": per_step, "capture_s": capture_s,
+            "final": flatten_tree(params), "run": run}
+
+
+def rg_bf16_ways(dev) -> dict:
+    """Phase 32 (a): RecurrentGemma-2B whole (26 layers) at bf16, batch
+    ``P32_BATCH``, seed ``P32_SEED``, AdamW lr 1e-3, ``P32_STEPS`` steps
+    each of the four ``P32_WAYS`` from the same initial params and zero
+    moments: losses, grad norms and every final param bitwise equal
+    across them (or, where two eager runs of the step already differ,
+    within that run-to-run spread, its leaves named); ms a step, busy
+    share, peak memory, launches a step and capture seconds each way;
+    then the card against the CPU port at full width and
+    ``P32_CPU_LAYERS`` layers on ``P32_CPU`` tokens, bf16 on both."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import GlobalBatcher, SyntheticTokens
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    cfg = get_config("recurrentgemma-2b")
+    check(cfg.dtype == "bfloat16" and cfg.remat, f"phase 32: the published "
+          f"recurrentgemma-2b is {cfg.dtype}, remat {cfg.remat}")
+    B, S = P32_BATCH
+    # drawn on the card, kept on the host: each way copies it in, and the
+    # first way's final params wait there too (10 GiB off the card, whose
+    # earlier phases may still hold some)
+    p0, _ = T.init_model(cfg, torch.Generator(dev).manual_seed(P32_SEED),
+                         device=dev)
+    p0 = tree_map(host_copy, p0)
+    n_params = sum(t.numel() for t in tree_leaves(p0))
+    batcher = GlobalBatcher(SyntheticTokens(cfg.vocab_size, B, S,
+                                            seed=P32_SEED), device=dev)
+    batches = [batcher(i) for i in range(P32_STEPS)]
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=P32_STEPS,
+                      weight_decay=0.01)
+    rows, ref, spread = [], None, None
+    for way in P32_WAYS:
+        r = run_way(way, cfg, opt, p0, batches, dev)
+        final, run = r.pop("final"), r.pop("run")
+        check(all(math.isfinite(x) for x in r["losses"]),
+              f"rg bf16 {way}: losses {r['losses']}")
+        check(all(t.dtype == torch.bfloat16 for t in final.values()),
+              f"rg bf16 {way}: a param is not bf16")
+        if ref is None:
+            ref = {"losses": r["losses"], "grad_norms": r["grad_norms"],
+                   "final": {k: host_copy(t) for k, t in final.items()}}
+        r["differs"] = leaf_spread(final, ref["final"])
+        r["bitwise"] = not r["differs"] and r["losses"] == ref["losses"] \
+            and r["grad_norms"] == ref["grad_norms"]
+        r["busy"] = step_busy(lambda: run(batches[0]), r["step_ms"], 2)
+        del final, run
+        rows.append(r)
+        if r["bitwise"]:
+            continue
+        if spread is None:
+            # two eager runs of the same step: their own spread
+            gc.collect()
+            e = run_way("eager", cfg, opt, p0, batches, dev)
+            spread = {"leaves": leaf_spread(e.pop("final"), ref["final"]),
+                      "loss": max(abs(a - b) for a, b in
+                                  zip(e["losses"], ref["losses"])),
+                      "grad_norm": max(abs(a - b) for a, b in zip(
+                          e["grad_norms"], ref["grad_norms"]))}
+            del e
+        lw = max(abs(a - b) for a, b in zip(r["losses"], ref["losses"]))
+        nw = max(abs(a - b) for a, b in zip(r["grad_norms"],
+                                            ref["grad_norms"]))
+        over = {k: v for k, v in r["differs"].items()
+                if v > spread["leaves"].get(k, 0.0)}
+        check(bool(spread["leaves"]) and not over and lw <= spread["loss"]
+              and nw <= spread["grad_norm"],
+              f"rg bf16 {way} vs eager: losses {r['losses']} vs "
+              f"{ref['losses']}, leaves beyond two eager runs' spread "
+              f"{dict(list(over.items())[:4])} (spread "
+              f"{dict(list(spread['leaves'].items())[:4])})")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the card against the CPU port: full width, P32_CPU_LAYERS layers
+    cfg3, p3 = cut_layers(cfg, p0, P32_CPU_LAYERS)
+    p3 = tree_map(lambda t: t.cpu(), p3)
+    del p0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_cpu = time.perf_counter()
+    vs = grads_vs_cpu(cfg3, p3, SyntheticTokens(
+        cfg.vocab_size, *P32_CPU, seed=P32_SEED).batch_at(0), dev,
+        loss_rtol=BF16_LOSS_RTOL, grad_rtol=BF16_GRAD_RTOL)
+    vs["seconds"] = time.perf_counter() - t_cpu
+    del p3
+    out = {"params": n_params, "batch": [B, S], "steps": P32_STEPS,
+           "ways": rows, "spread": spread, "vs_cpu": vs,
+           "seconds": time.perf_counter() - t0}
+    for r in rows:
+        ls = r["launches_per_step"]
+        check(ls.get("rglru_scan", 0) > 0 and ls.get("rglru_scan_bwd", 0) > 0
+              and ls.get("rmsnorm_bf16", 0) > 0
+              and ls.get("flash_attention_bf16", 0) > 0,
+              f"rg bf16 {r['way']}: a step launched {ls}")
+    log("train32 rg bf16", t0, f"{n_params / 1e9:.3f} B params, {B}x{S}, "
+        f"{P32_STEPS} steps each way: " + "; ".join(
+            f"{r['way']} {r['step_ms']:.1f} ms (all "
+            f"{[round(x, 1) for x in r['step_ms_all']]}), busy "
+            f"{r['busy']['busy_share']:.3f}, peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB (the steps' own "
+            f"{r['step_peak_bytes'] / 2**30:.2f} GiB over the params and "
+            f"moments), device launches a step "
+            f"{r['busy']['launches']}, wrapper launches "
+            f"{json.dumps(r['launches_per_step'])}, capture "
+            + (f"{r['capture_s']:.2f} s" if r["capture_s"] is not None
+               else "none")
+            + f", bitwise {r['bitwise']}" for r in rows)
+        + f"; losses {[round(x, 5) for x in rows[0]['losses']]}, grad "
+        f"norms {[round(x, 5) for x in rows[0]['grad_norms']]}; eager "
+        f"run-to-run spread {spread}; vs CPU port ({P32_CPU_LAYERS} "
+        f"layers, {P32_CPU[0]}x{P32_CPU[1]}, bf16) loss "
+        f"{vs['loss_rel']:.3g}, gradients {vs['grad_rel']:.3g} "
+        f"({vs['grad_rel_leaf']}) in {vs['seconds']:.2f}s")
+    return out
+
+
+def compressed_captured(dev, lm_path) -> dict:
+    """Phase 32 (b): phase 24 (b)'s artifact (phase 8's SmolLM-135M,
+    loaded, not compressed again) through ``make_compressed_forward``,
+    ``P32_COMP_STEPS`` steps eager and captured from the same params at
+    ``TRAIN_BATCH``: losses and params bitwise; ms a step and busy share
+    beside the eager step's before capture; merged_ffn, rmsnorm and
+    flash_attention launched
+    inside the graph (the capture's counts)."""
+    import statistics
+
+    import torch
+    from repro_torch import runtime
+    from repro_torch.data.pipeline import GlobalBatcher, SyntheticTokens
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.step import (capture_train_step,
+                                        make_compressed_forward,
+                                        make_train_step)
+    from repro_torch.tree import flatten_tree, tree_map
+
+    t0 = time.perf_counter()
+    art = runtime.load(lm_path, device=dev)
+    graph = art.graph
+    cfg = graph.meta["config"]
+    g0 = runtime.graph_params(graph)
+    fwd = make_compressed_forward(graph, device=dev)
+    B, S = TRAIN_BATCH
+    batcher = GlobalBatcher(SyntheticTokens(cfg.vocab_size, B, S, seed=0),
+                            device=dev)
+    batches = [batcher(i) for i in range(P32_COMP_STEPS)]
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                            total_steps=10), forward_fn=fwd)
+    out, finals = {}, {}
+    for way in ("eager", "captured"):
+        gp = tree_map(lambda t: t.clone(), g0)
+        state = init_opt_state(gp)
+        if way == "captured":
+            run = capture_train_step(step, gp, state, batches[0])
+            out["capture_s"], out["launches_at_capture"] = run.capture_s, \
+                run.launches
+        else:
+            def run(b, gp=gp, state=state):
+                return step(gp, state, b)[2]
+        losses, times = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(float(run(b)["loss"]))
+            times.append(time.perf_counter() - t)
+        ms = statistics.median(times[1:]) * 1e3
+        finals[way] = {k: t.clone() for k, t in flatten_tree(gp).items()}
+        busy = step_busy(lambda: run(batches[0]), ms, 3)
+        out[way] = {"losses": losses, "step_ms": ms,
+                    "step_ms_all": [x * 1e3 for x in times],
+                    "busy_share": busy["busy_share"],
+                    "device_launches": busy["launches"],
+                    "top": busy["top"][:4]}
+        del gp, state, run
+    differs = leaf_spread(finals["captured"], finals["eager"])
+    out["bitwise"] = not differs and \
+        out["captured"]["losses"] == out["eager"]["losses"]
+    out["leaves"] = len(finals["eager"])
+    out["seconds"] = time.perf_counter() - t0
+    del finals, art, graph, g0
+    lc = out["launches_at_capture"]
+    log("train32 compressed", t0, f"SmolLM-135M artifact, {B}x{S}, "
+        f"{P32_COMP_STEPS} steps each: eager {out['eager']['step_ms']:.2f} "
+        f"ms busy {out['eager']['busy_share']:.3f}, captured "
+        f"{out['captured']['step_ms']:.2f} ms busy "
+        f"{out['captured']['busy_share']:.3f} (eager before capture: "
+        f"{EAGER_COMPRESSED[0]} ms, busy {EAGER_COMPRESSED[1]}); device "
+        f"launches a step {out['eager']['device_launches']} eager, "
+        f"{out['captured']['device_launches']} captured; capture "
+        f"{out['capture_s']:.2f} s, launches at capture {json.dumps(lc)}; "
+        f"{out['leaves']} leaves; losses "
+        f"{[round(x, 5) for x in out['eager']['losses']]}; bitwise "
+        f"{out['bitwise']} (leaves differing {list(differs)[:4]})")
+    check(out["bitwise"], f"compressed captured vs eager: losses "
+          f"{out['captured']['losses']} vs {out['eager']['losses']}, "
+          f"leaves differing {dict(list(differs.items())[:4])}")
+    for k in ("merged_ffn", "rmsnorm", "flash_attention"):
+        check(lc.get(k, 0) > 0, f"compressed captured: {k} did not launch "
+              f"inside the graph ({lc})")
+    return out
+
+
+def train32_phase(dev, lm_path, loop_row=None, bf16_row=None):
+    """Phase 32: (a) RecurrentGemma-2B at bf16 four ways
+    (:func:`rg_bf16_ways`), (b) the compressed SmolLM-135M step captured
+    against eager (:func:`compressed_captured`); (c) phase 24 (a)'s loop
+    ran captured (``loop_row``, its numbers) beside its eager step
+    before capture, and phase 26 (c)'s launcher run (``bf16_row``) beside
+    its eager step before remat and capture.
+    Returns (the numbers, the kernel launches of (a)-(b) counted from
+    zero)."""
+    import torch
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # what the earlier phases still hold on the card, for the record
+    held = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    kernels.reset_launch_counts()
+    out = {"held_at_start": held, "rg_bf16": rg_bf16_ways(dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["compressed"] = compressed_captured(dev, lm_path)
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    kernels.reset_launch_counts()
+    for k in ("rmsnorm_bf16", "flash_attention_bf16", "rglru_scan",
+              "rglru_scan_bwd", "merged_ffn", "rmsnorm", "flash_attention"):
+        check(launches.get(k, 0) > 0, f"phase 32: {k} never launched")
+    if loop_row is not None:
+        out["loop"] = {"step_ms": loop_row["step_ms"],
+                       "eager_step_ms": EAGER_LOOP_STEP_MS,
+                       "capture_log": [x for x in loop_row["log"]
+                                       if "captured" in x]}
+    if bf16_row is not None:
+        out["bf16_launcher"] = {"step_ms": bf16_row["step_ms"],
+                                "eager_step_ms": EAGER_BF16_STEP_MS}
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    log("train32", t0, f"phase 32 in {out['seconds']:.2f}s; the card held "
+        f"{held[0] / 2**30:.2f} GiB allocated, {held[1] / 2**30:.2f} GiB "
+        f"reserved at its start; (c) phase 24 "
+        f"(a)'s loop captured: "
+        + (f"{loop_row['step_ms']:.2f} ms a step (eager before capture: "
+           f"{EAGER_LOOP_STEP_MS} ms)" if loop_row else "not run")
+        + "; phase 26 (c) through the launcher, remat and captured: "
+        + (f"{bf16_row['step_ms']:.2f} ms a step (eager, no remat: "
+           f"{EAGER_BF16_STEP_MS[0]}-{EAGER_BF16_STEP_MS[1]} ms)"
+           if bf16_row else "not run")
+        + f"; launches (a)-(b) {launches}")
+    return out, launches
+
+
 def rel_np(a, b) -> float:
     """max |a − b| / max |b| of numpy arrays."""
     import numpy as np
@@ -8079,10 +8519,22 @@ def main(argv) -> int:
         json.dump(mtrain, f, indent=1, default=str)
     with open(os.path.join(WORK, "compressed.json"), "w") as f:
         json.dump(comp, f, indent=1, default=str)
+    # 32. training on its own terms: remat, the captured step, bf16
+    # RecurrentGemma-2B ----------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t32, t32_launch = train32_phase(dev, lm_path, trn["smollm"],
+                                    bf16["train"])
+    with open(os.path.join(WORK, "train32.json"), "w") as f:
+        json.dump(t32, f, indent=1, default=str)
     sweep_err = {k: v[0] for k, v in sweep.items()}
     for k, v in bf16_tot.items():
         tot[k] = v
         launches[k] = bf16_launch[k]
+    # phase 32's launches join each kernel's main row (a captured step
+    # counts its launches once, at the capture)
+    for k, v in t32_launch.items():
+        launches[k] = launches.get(k, 0) + v
     srcs = dict(KERNEL_SOURCES)
     for k, v in unet_tot.items():
         if v["units"]:

@@ -44,9 +44,13 @@ Each record has the reference's keys where they mean the same thing
 Keys with no honest counterpart are left out: ``compile_s`` and
 ``hlo_bytes`` (nothing is compiled; the step is eager), and the temp and
 peak memory (``meta`` tensors allocate nothing, so there is no
-allocator to read).  The port keeps no ``--probe``, ``--no-scan`` and
-``--no-remat``: they exist because XLA counts a scanned loop body once,
-and the port neither scans nor rematerializes.  ``--seq-parallel`` (and
+allocator to read).  ``--no-remat`` trains without rematerializing
+(the published configs rematerialize, :func:`repro_torch.models.
+transformer.remat_policy`): with remat the count holds the backward's
+recomputed products, and under FSDP the collectives its gathers again.
+The port keeps no ``--probe`` and ``--no-scan``: they exist because XLA
+counts a scanned loop body once, and the port does not scan.
+``--seq-parallel`` (and
 the reference's automatic sequence split of prefill at 32k) names the
 rules' 'seq' entry; the port's forward splits no sequence, so it is
 recorded and changes no shape.  A step that reads a tensor's value on
@@ -56,7 +60,7 @@ error, and nothing is faked around it.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch a] [--shape s]
       [--mesh single|multi|both] [--out build/dryrun] [--no-fsdp]
-      [--seq-parallel] [--microbatches N] [--flash-decode]
+      [--seq-parallel] [--microbatches N] [--flash-decode] [--no-remat]
       [--no-decode-kv-model] [--budget R] [--tag name]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --spec CELL.json
 
@@ -147,6 +151,8 @@ class CellOptions:
     fsdp: bool = True
     seq_parallel: bool = False
     microbatches: int = 1
+    #: Rematerialize where the config does (``--no-remat``: never).
+    remat: bool = True
     decode_kv_model: bool = True
     flash_decode: bool = False
     #: Run the LayerMerge-compressed network at this latency budget (its
@@ -169,7 +175,8 @@ def run_on_mesh(cfg, shape, mesh, opts: CellOptions = CellOptions(), *,
     ``units_spec`` (:func:`~repro_torch.models.transformer_host.
     plan_units_spec`'s form) gives the compressed network's units
     directly, in place of ``opts.layermerge_budget``'s plan."""
-    cfg = dataclasses.replace(cfg, decode_flash=opts.flash_decode)
+    cfg = dataclasses.replace(cfg, decode_flash=opts.flash_decode,
+                              remat=cfg.remat and opts.remat)
     shape = _shape(shape)
     seq_par = opts.seq_parallel or (shape.mode == "prefill"
                                     and shape.seq_len >= 32768)
@@ -307,6 +314,8 @@ def main(argv=None) -> int:
                     choices=["single", "multi", "both"])
     ap.add_argument("--out", default=os.path.join("build", "dryrun"))
     ap.add_argument("--no-fsdp", action="store_true")
+    ap.add_argument("--no-remat", action="store_true",
+                    help="train without rematerializing the layers")
     ap.add_argument("--no-decode-kv-model", action="store_true")
     ap.add_argument("--seq-parallel", action="store_true")
     ap.add_argument("--microbatches", type=int, default=1)
@@ -330,6 +339,7 @@ def main(argv=None) -> int:
     opts = CellOptions(fsdp=not args.no_fsdp,
                        seq_parallel=args.seq_parallel,
                        microbatches=args.microbatches,
+                       remat=not args.no_remat,
                        decode_kv_model=not args.no_decode_kv_model,
                        flash_decode=args.flash_decode,
                        layermerge_budget=args.budget)

@@ -271,15 +271,87 @@ def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def _lane(t, dim, i):
+    return t if dim is None else t.select(dim, i)
+
+
+class _ConvGrad(torch.autograd.Function):
+    """``(dx, dw)`` of :class:`_LaneConv` (``torch.ops.aten.
+    convolution_backward``, the call autograd makes for ``F.conv2d``);
+    under ``vmap`` one call per lane, like the forward."""
+
+    @staticmethod
+    def forward(gy, x, w, stride, groups, mask):
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            gy, x, w, None, [stride, stride], [0, 0], [1, 1], False,
+            [0, 0], groups, [mask[0], mask[1], False])
+        return (torch.zeros_like(x) if dx is None else dx,
+                torch.zeros_like(w) if dw is None else dw)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the Eq. 4 fine-tune takes no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, gy, x, w, stride, groups, mask):
+        outs = [_ConvGrad.forward(_lane(gy, in_dims[0], i),
+                                  _lane(x, in_dims[1], i),
+                                  _lane(w, in_dims[2], i), stride, groups,
+                                  mask) for i in range(info.batch_size)]
+        return ((torch.stack([o[0] for o in outs]),
+                 torch.stack([o[1] for o in outs])), (0, 0))
+
+
+class _LaneConv(torch.autograd.Function):
+    """``F.conv2d`` (NCHW × OIHW, VALID) whose ``vmap`` runs each lane's
+    conv as it runs alone.  The batching rule of ``F.conv2d`` folds the
+    lanes of a stacked weight into one grouped conv, which sums in
+    another order than the lane's own conv (another cuDNN algorithm on the
+    card): the vmapped Eq. 4 fine-tune
+    (:func:`repro_torch.core.importance.adam_finetune_batched`) would
+    drift from the sequential one in the last bits, and an accuracy score
+    can flip on them.  Outside ``vmap`` it is ``F.conv2d`` and its
+    gradient, call for call."""
+
+    @staticmethod
+    def forward(x, w, stride, groups):
+        return F.conv2d(x, w, stride=stride, groups=groups)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, ctx.stride, ctx.groups = inputs
+        ctx.save_for_backward(x, w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        mask = tuple(ctx.needs_input_grad[:2])
+        dx, dw = _ConvGrad.apply(gy, x, w, ctx.stride, ctx.groups, mask)
+        return (dx if mask[0] else None, dw if mask[1] else None, None,
+                None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, stride, groups):
+        return torch.stack([
+            F.conv2d(_lane(x, in_dims[0], i), _lane(w, in_dims[1], i),
+                     stride=stride, groups=groups)
+            for i in range(info.batch_size)]), 0
+
+
 def _conv(x, w, stride, depthwise, padding="VALID"):
-    """NHWC × HWIO cross-correlation (``groups = Cout`` when depthwise)."""
+    """NHWC × HWIO cross-correlation (``groups = Cout`` when depthwise);
+    under ``vmap`` one conv per lane (:class:`_LaneConv`)."""
     if padding == "SAME":
         ph = _same_pads(x.shape[1], w.shape[0], stride)
         pw = _same_pads(x.shape[2], w.shape[1], stride)
         x = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
     groups = w.shape[-1] if depthwise else 1
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                 stride=stride, groups=groups)
+    y = _LaneConv.apply(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                        stride, groups)
     return y.permute(0, 2, 3, 1)
 
 

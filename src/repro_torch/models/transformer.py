@@ -6,7 +6,13 @@ tree: ``{"groups": [stacked per layer group], "final_norm", "embed"[,
 "unembed"]}``, each group's leaves carrying a leading layer axis, so a
 params tree crosses between the packages as numpy arrays
 (:func:`params_from_numpy` / :func:`params_to_numpy`).  Layers run in plain
-Python loops (no scan, no remat).
+Python loops (no scan).  With ``cfg.remat`` a forward that records
+gradients rematerializes each layer as the reference's
+``jax.checkpoint(policy=dots_with_no_batch_dims_saveable)`` does
+(:func:`remat_policy`): the layer keeps the outputs of its products with
+no batch dims and its inputs, and its backward recomputes the rest —
+norms, RoPE, activations, attention's batched products, the kernel ops
+and, under FSDP rules, the layer's gathers.
 
 Every block of the JAX package's stack is ported: attention layers
 (``attn``, ``attn_local``; RoPE or M-RoPE), RG-LRU layers (``rglru``,
@@ -51,9 +57,12 @@ gathered) and every collective on the way carries its gradient
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import kernels
 from ..device import draw_device, drawing_on, resolve
@@ -68,8 +77,8 @@ from . import xlstm as XL
 from .cnn import params_from_numpy, params_to_numpy
 
 __all__ = ["GroupSpec", "layer_groups", "init_model", "model_axes",
-           "forward", "forward_local", "upcast_for_loss", "lm_loss",
-           "local_loss", "token_nll", "init_cache", "cache_axes",
+           "forward", "forward_local", "remat_policy", "upcast_for_loss",
+           "lm_loss", "local_loss", "token_nll", "init_cache", "cache_axes",
            "decode_step", "sublayer_kinds", "sublayer_params",
            "forward_compressed", "forward_compressed_local",
            "params_from_numpy", "params_to_numpy"]
@@ -463,6 +472,40 @@ def _layer_fn(cfg, kind, positions, mrope, lp, x):
     return x
 
 
+#: The products whose outputs a rematerialized layer keeps: those with no
+#: batch dims (``x @ W`` reaches the dispatcher as ``mm`` whatever the
+#: leading dims of ``x``; a batched product is ``bmm``).
+SAVED_PRODUCTS = frozenset({torch.ops.aten.mm.default,
+                            torch.ops.aten.addmm.default})
+
+
+def remat_policy(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of a rematerialized layer, the
+    counterpart of ``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable``: save :data:`SAVED_PRODUCTS`'
+    outputs, recompute every other op."""
+    if op in SAVED_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _layer_at(fn, gp, i, x):
+    return fn(_layer(gp, i), x)
+
+
+def _run_layer(cfg, fn, gp, i, x):
+    """Layer ``i`` of group ``gp`` on ``x``; with ``cfg.remat`` and
+    gradients recorded, under :func:`remat_policy` (the layer's FSDP
+    gathers inside the region, so its backward gathers again).  The
+    forward draws no random numbers: no RNG state is kept."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return _layer_at(fn, gp, i, x)
+    return checkpoint(_layer_at, fn, gp, i, x, use_reentrant=False,
+                      context_fn=functools.partial(
+                          create_selective_checkpoint_contexts, remat_policy),
+                      preserve_rng_state=False)
+
+
 def embed_in(cfg, params, batch):
     """``batch["tokens"]`` (B, S) through the embedding (a vocab slice of
     it under a mesh, :func:`repro_torch.models.layers.embed`), or
@@ -516,8 +559,9 @@ def forward_local(cfg, params, batch, gather_vocab: bool = True):
         positions = default_positions(x)
     mrope = mrope_of(batch, x)
     for g, gp in zip(layer_groups(cfg), params["groups"]):
+        fn = functools.partial(_layer_fn, cfg, g.kind, positions, mrope)
         for i in range(g.count):
-            x = _layer_fn(cfg, g.kind, positions, mrope, _layer(gp, i), x)
+            x = _run_layer(cfg, fn, gp, i, x)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, x, gather_vocab), batch, part
 

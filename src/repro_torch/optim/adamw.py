@@ -8,13 +8,14 @@ then apply the step and the decoupled weight decay to an fp32 copy of
 the param and cast it back.  The moments are fp32 whatever the param
 dtype; ``step`` is an int32 scalar on the params' device.
 
-The update is written in place: the params and the moments of the trees
-passed in are overwritten and the same tensors come back (PyTorch's
-optimizer idiom).  A functional update would hold two copies of params
+The update is written in place: the params, the moments and the step
+counter of the trees passed in are overwritten and the same tensors come
+back (PyTorch's optimizer idiom).  A functional update would hold two copies of params
 and moments at once, 33 GB more for RecurrentGemma-2B in fp32.  Callers
 that need the old values copy them first (:func:`repro_torch.train.loop.
 train_loop` copies the caller's params).  Nothing reads the host, so a
-step can later be captured in a CUDA graph.
+step is captured in a CUDA graph as it is
+(:func:`repro_torch.train.step.capture_train_step`).
 """
 from __future__ import annotations
 
@@ -135,7 +136,7 @@ def clip_by_global_norm(grads, max_norm):
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads, state, params, *, gnorm=None):
     """One AdamW step, in place: returns ``(params, state, metrics)``, the
-    params and moments being the tensors passed in, overwritten.  Each
+    params, moments and step being the tensors passed in, overwritten.  Each
     leaf's clipped fp32 gradient is made (and freed) in turn, the same
     arithmetic as :func:`clip_by_global_norm`.  ``gnorm`` (optional) is
     the norm to clip by, where the grads are blocks of a sharded tree
@@ -143,7 +144,7 @@ def adamw_update(cfg: AdamWConfig, grads, state, params, *, gnorm=None):
     if gnorm is None:
         gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.grad_clip)
-    step = state["step"] + 1
+    step = state["step"].add_(1)
     lr = cosine_lr(cfg, step)
     t = step.to(torch.float32)
     bc1 = 1.0 - cfg.b1 ** t

@@ -21,7 +21,13 @@ watchdog for stragglers:
   AsyncCheckpointer`).
 
 The step updates params and moments in place, so the loop trains a copy
-of the caller's params and leaves them as they were.
+of the caller's params and leaves them as they were.  On the card with no
+sharding rules the loop captures its step once in a CUDA graph
+(:func:`repro_torch.train.step.capture_train_step`), as the reference
+jits it once, and replays it per batch; a resume or a restart copies the
+checkpoint into the params and moments in place
+(:func:`repro_torch.tree.tree_copy_`), so the replay reads the restored
+values.  On the CPU and under rules the step runs eagerly.
 
 Under a mesh (the step's ambient rules, params that are this rank's
 blocks) every rank runs the loop: checkpoints gather the blocks whole
@@ -44,9 +50,10 @@ from typing import Any, Callable
 
 from repro_torch.checkpoint import ckpt as C
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
-from repro_torch.sharding.rules import sharding_of, with_sharding
-from repro_torch.train.step import make_train_step
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.sharding.rules import (active_rules, sharding_of,
+                                        with_sharding)
+from repro_torch.train.step import capture_train_step, make_train_step
+from repro_torch.tree import tree_copy_, tree_leaves, tree_map
 
 
 def _world() -> bool:
@@ -74,11 +81,11 @@ def _slowest(dt: float, like) -> float:
     return float(t.item())
 
 
-def _restore(ckpt_dir: str, step: int, like):
-    """``like``'s tree from the checkpoint of ``step``: each leaf that
-    carries a placement as this rank's block of it."""
+def _restore(ckpt_dir: str, step: int, like) -> None:
+    """The checkpoint of ``step`` copied into ``like``'s tensors in place:
+    each leaf that carries a placement as this rank's block of it."""
     places = tree_map(sharding_of, like)
-    return C.restore(ckpt_dir, step, like, shardings=places)
+    tree_copy_(like, C.restore(ckpt_dir, step, like, shardings=places))
 
 
 def _default_ckpt_dir() -> str:
@@ -122,10 +129,12 @@ def train_loop(cfg, opt_cfg: AdamWConfig, loop: LoopConfig, params, batch_fn,
     step's again."""
     step_fn = make_train_step(cfg, opt_cfg, microbatches=loop.microbatches)
     saver = C.AsyncCheckpointer(loop.ckpt_dir, keep=loop.keep)
+    init = params
     params = tree_map(lambda t: with_sharding(t.detach().clone(),
-                                              sharding_of(t)), params)
+                                              sharding_of(t)), init)
     anchor = tree_leaves(params)[0]
     opt_state = init_opt_state(params)
+    state = {"params": params, "opt": opt_state}
     losses: list[float] = []
     restarts = 0
     stragglers = 0
@@ -133,19 +142,22 @@ def train_loop(cfg, opt_cfg: AdamWConfig, loop: LoopConfig, params, batch_fn,
 
     start = C.latest_step(loop.ckpt_dir)
     if start is not None:
-        state = _restore(loop.ckpt_dir, start,
-                         {"params": params, "opt": opt_state})
-        params, opt_state = state["params"], state["opt"]
+        _restore(loop.ckpt_dir, start, state)
         logger(f"[loop] resumed from step {start}")
     step = start or 0
+    if anchor.device.type == "cuda" and active_rules() is None:
+        run = capture_train_step(step_fn, params, opt_state, batch_fn(step))
+        logger(f"[loop] step captured in {run.capture_s:.2f}s")
+    else:
+        def run(batch):
+            return step_fn(params, opt_state, batch)[2]
 
     while step < loop.total_steps:
         try:
             t0 = time.perf_counter()
             if failure_hook is not None:
                 failure_hook(step)
-            batch = batch_fn(step)
-            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            metrics = run(batch_fn(step))
             loss = float(metrics["loss"])     # waits for the step
             dt = _slowest(time.perf_counter() - t0, anchor)
             # --- straggler watchdog -------------------------------------
@@ -178,12 +190,11 @@ def train_loop(cfg, opt_cfg: AdamWConfig, loop: LoopConfig, params, batch_fn,
             last = C.latest_step(loop.ckpt_dir)
             if last is None:
                 # no checkpoint yet: restart from scratch
-                opt_state = init_opt_state(params)
+                tree_copy_(params, init)
+                tree_copy_(opt_state, init_opt_state(params))
                 step = 0
             else:
-                state = _restore(loop.ckpt_dir, last,
-                                 {"params": params, "opt": opt_state})
-                params, opt_state = state["params"], state["opt"]
+                _restore(loop.ckpt_dir, last, state)
                 step = last
             stragglers = 0
 

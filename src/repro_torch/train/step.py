@@ -5,9 +5,13 @@ returns ``(params, opt_state, batch) → (params, opt_state, metrics)``:
 the loss, its gradient over the param tree (``torch.autograd.grad``),
 clipping and AdamW (:func:`repro_torch.optim.adamw.adamw_update`, which
 writes params and moments in place), optionally accumulating the
-gradients of ``microbatches`` slices of the batch.  The step is eager:
-on the card every kernel op runs its kernel forward and its plain
-version's gradient backward (:mod:`repro_torch.kernels.ops`).
+gradients of ``microbatches`` slices of the batch.  Params, moments and
+the step counter are written in place, so the same call can be captured:
+:func:`capture_train_step` records one step in a CUDA graph (the port's
+``jax.jit`` of the step) and replays it per batch; on the CPU the step
+runs eagerly.  On the card every kernel op runs its kernel forward and
+its plain version's gradient backward, the scan its backward kernel
+(:mod:`repro_torch.kernels.ops`).
 :func:`make_serve_step` returns the one-token decode
 ``(params, cache, batch) → (logits, cache)``.
 
@@ -47,8 +51,11 @@ its own rows (:func:`make_loss_fn`); so does the plan-aware forward of
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
+from repro_torch.kernels.ops import launch_counts
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
                                      sharded_global_norm)
@@ -56,7 +63,8 @@ from repro_torch.sharding import collectives as C
 from repro_torch.sharding.rules import (Placement, _axes_of, active_rules,
                                         data_axes, sharding_of,
                                         with_sharding)
-from repro_torch.tree import flatten_tree, tree_map, tree_map_with_path
+from repro_torch.tree import (flatten_tree, tree_copy_, tree_leaves,
+                              tree_map, tree_map_with_path)
 
 
 def make_loss_fn(cfg, forward_fn=None):
@@ -163,6 +171,122 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, microbatches: int = 1,
         return params, opt_state, metrics
 
     return train_step
+
+
+def train_body(step_fn, params, opt_state, batch) -> dict:
+    """What a captured step runs: one call of ``step_fn`` (a
+    :func:`make_train_step` step, which writes params, moments and step
+    in place) on ``batch``, and its metrics — ``loss``, ``grad_norm``,
+    ``lr`` — as 0-d device tensors."""
+    _, _, metrics = step_fn(params, opt_state, batch)
+    return {k: metrics[k] for k in ("loss", "grad_norm", "lr")}
+
+
+def _snapshot(tree):
+    """A copy of ``tree``'s tensors: on their card while it takes at most
+    half of the card's free memory, else on the host."""
+    leaves = tree_leaves(tree)
+    size = sum(t.numel() * t.element_size() for t in leaves)
+    free, _ = torch.cuda.mem_get_info(leaves[0].device)
+    where = leaves[0].device if 2 * size <= free else torch.device("cpu")
+    return tree_map(lambda t: t.detach().to(where, copy=True), tree)
+
+
+class CapturedTrainStep:
+    """A train step captured in one CUDA graph (:func:`capture_train_step`).
+
+    Calling it with a batch copies the batch into the static buffers the
+    graph reads, replays the graph (the loss, ``torch.autograd.grad``,
+    the clip and AdamW, every write in place into the params and moments
+    it was captured with) and returns the step's metrics as device
+    tensors of their own.  ``capture_s`` is the seconds of the warm-up and
+    the capture; ``launches`` the kernel launches the capture counted
+    (one step's: a replay counts none)."""
+
+    def __init__(self, step_fn, params, opt_state, example_batch,
+                 warmup: int):
+        self.step_fn, self.params, self.opt_state = step_fn, params, \
+            opt_state
+        dev = tree_leaves(params)[0].device
+        self.batch = {k: None if v is None else
+                      torch.as_tensor(v, device=dev).clone()
+                      for k, v in example_batch.items()}
+        t0 = time.perf_counter()
+        if warmup:
+            state = {"params": params, "opt": opt_state}
+            saved = _snapshot(state)
+            main = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                for _ in range(warmup):
+                    self._body()
+            main.wait_stream(side)
+            # the warm-up trained: back to the state handed over, and its
+            # activations' cached blocks returned before the graph's pool
+            tree_copy_(state, saved)
+            del saved
+            torch.cuda.empty_cache()
+        before = launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = self._body()
+        after = launch_counts()
+        torch.cuda.synchronize(dev)
+        self.capture_s = time.perf_counter() - t0
+        self.launches = {k: n - before[k] for k, n in after.items()
+                         if n != before[k]}
+
+    def _body(self):
+        return train_body(self.step_fn, self.params, self.opt_state,
+                          self.batch)
+
+    def __call__(self, batch) -> dict:
+        if set(batch) != set(self.batch):
+            raise ValueError(f"the captured step reads {sorted(self.batch)}"
+                             f", got {sorted(batch)}")
+        for k, buf in self.batch.items():
+            v = batch[k]
+            if (buf is None) != (v is None) or (
+                    buf is not None and tuple(v.shape) != tuple(buf.shape)):
+                raise ValueError(f"batch[{k!r}] is "
+                                 f"{None if v is None else tuple(v.shape)}"
+                                 ", the captured step's "
+                                 f"{None if buf is None else tuple(buf.shape)}")
+            if buf is not None:
+                buf.copy_(v)
+        self.graph.replay()
+        return {k: v.clone() for k, v in self.out.items()}
+
+
+def capture_train_step(step_fn, params, opt_state, example_batch, *,
+                       warmup: int = 3) -> CapturedTrainStep:
+    """``step_fn`` (a :func:`make_train_step` step; ``microbatches > 1``
+    and ``forward_fn=`` included) captured in one CUDA graph over these
+    ``params`` and ``opt_state``, at ``example_batch``'s shapes: a callable
+    ``batch → metrics`` (:class:`CapturedTrainStep`).
+
+    ``warmup`` eager steps run first on a side stream (every kernel
+    instance loaded, the autograd engine's device thread started), on the
+    state handed over, which is then restored (:func:`tree_copy_` from a
+    copy, on the card when it fits, else on the host); the capture itself
+    runs nothing.  ``warmup=0`` skips both, for a caller that has already
+    run this step eagerly at these shapes in this process (a host copy of
+    a large state costs seconds).  Raises on the CPU (there is no graph to capture: run
+    the step eagerly) and under active sharding rules (a graph cannot
+    hold gloo's collectives; the NCCL capture is not built).  A capture
+    that fails raises: nothing falls back to the eager step."""
+    if active_rules() is not None:
+        raise RuntimeError("capture_train_step: the step runs under sharding "
+                           "rules, whose collectives a captured step cannot "
+                           "hold (gloo cannot be captured; the NCCL capture "
+                           "is not built): run the sharded step eagerly")
+    dev = tree_leaves(params)[0].device
+    if dev.type != "cuda":
+        raise RuntimeError(f"capture_train_step captures a CUDA graph, and "
+                           f"the params are on {dev}: run the step eagerly")
+    return CapturedTrainStep(step_fn, params, opt_state, example_batch,
+                             warmup)
 
 
 class _Leaf:

@@ -76,3 +76,17 @@ def unflatten_tree(flat: dict[str, Any]):
             node = node.setdefault(p, {})
         node[parts[-1]] = val
     return _listify(root)
+
+
+def tree_copy_(dst, src) -> None:
+    """Copy every leaf of ``src`` into the tensor at the same key path of
+    ``dst``, in place: ``dst``'s tensors keep their storage (a captured
+    step that reads them reads the new values).  Raises where the key
+    paths differ."""
+    flat = flatten_tree(src)
+    live = flatten_tree(dst)
+    if sorted(flat) != sorted(live):
+        missing = sorted(set(live) ^ set(flat))
+        raise ValueError(f"tree_copy_: the trees differ at {missing[:4]}")
+    for key, t in live.items():
+        t.copy_(flat[key])

@@ -101,11 +101,12 @@ def train_single(arch, arrays, microbatches=1):
                            for k, v in flatten_tree(params).items()}
 
 
-def train_sharded(arch, preset, arrays, mesh):
+def train_sharded(arch, preset, arrays, mesh, steps=STEPS, **overrides):
     """``(losses, grad norms, whole params, collectives of the last step,
-    moment shapes)`` of the sharded step under ``preset``."""
+    moment shapes)`` of ``steps`` sharded steps under ``preset``
+    (``overrides`` replace fields of the config)."""
     fsdp, zero, micro, batcher = PRESETS[preset]
-    cfg = config(arch)
+    cfg = dataclasses.replace(config(arch), **overrides)
     whole, axes = T.init_model(cfg, torch.Generator().manual_seed(0),
                                device="cpu")
     rules = make_rules(mesh, fsdp=fsdp)
@@ -119,7 +120,7 @@ def train_sharded(arch, preset, arrays, mesh):
     gb = GlobalBatcher(Batches(arrays), mesh=mesh, device="cpu")
     losses, norms = [], []
     with use_rules(rules):
-        for i in range(STEPS):
+        for i in range(steps):
             batch = gb(i) if batcher else _whole_batch(arrays, i)
             C.reset_collective_counts()
             params, opt, m = step(params, opt, batch)
@@ -451,6 +452,16 @@ def _loop_restart(spec, arrays, mesh):
     return out
 
 
+def _remat(arrays, mesh, steps=2):
+    """The reduced smollm under FSDP params with ZeRO gradient shardings,
+    ``steps`` steps with remat (each layer's backward gathering its
+    params again) and without: losses, grad norms, whole params and the
+    last step's collectives."""
+    return {remat: train_sharded("smollm-135m", "fsdp", arrays, mesh,
+                                 steps=steps, remat=remat)[:4]
+            for remat in (True, False)}
+
+
 def world_train(rank, spec_path):
     """The data 2 × model 2 world: every train case, the collectives'
     gradients, compressed_allreduce, the sharded MoE, xLSTM decode and
@@ -486,4 +497,5 @@ def world_train(rank, spec_path):
     out["xlstm"] = _xlstm_decode(arrays, mesh)
     out["elastic"] = _elastic(spec, mesh)
     out["loop"] = _loop_restart(spec, arrays, mesh)
+    out["remat"] = _remat(arrays, mesh)
     return out

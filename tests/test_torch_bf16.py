@@ -24,9 +24,13 @@ numpy from a seed and handed to both packages.
   (the JAX layer's bf16 rsqrt) is at most 2 bf16 ulps of each output, and
   the port's norm is within one ulp of the JAX layer computed in fp32 and
   rounded once;
-* one SmolLM train step at bf16 against the JAX step: the loss within
-  1e-2 relative, each gradient leaf within 5e-2 · its max |g|, params
-  bf16 and the AdamW moments fp32 on both sides;
+* one train step at bf16 against the JAX step, every transformer id
+  reduced: the loss within 1e-2 relative, each gradient leaf within
+  5e-2 · its max |g| (where the JAX package's bf16 run routes the MoE's
+  tokens apart from its fp32 run, the port no farther from the fp32
+  gradient than the JAX package; xLSTM's bf16 gradient, whose
+  stabilizers branch on rounding in both packages, finite), params bf16
+  and the AdamW moments fp32 on both sides;
 * ``init_model`` (no JAX): layers drawn one by one into stacks allocated
   once give a CPU generator's values of drawing and stacking them all;
 * the launcher trains the full SmolLM-135M config at bf16 on the CPU.
@@ -258,34 +262,120 @@ LOSS_RTOL = 1e-2
 GRAD_SHARE = 5e-2
 
 
-def test_train_step_matches_reference_at_bf16():
-    jcfg, tcfg = _configs("smollm-135m")
+def _train_batch(cfg, b=2, s=16, seed=5):
+    """Tokens and targets (the embeddings frontend: targets and bf16
+    embeddings, and M-RoPE streams where the config takes them) as numpy,
+    crossed to both packages bit for bit."""
+    rng = np.random.default_rng(seed)
+    nb = {}
+    if cfg.frontend == "tokens":
+        nb["tokens"] = rng.integers(0, cfg.vocab_size, (b, s)) \
+            .astype(np.int32)
+    nb["targets"] = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    if cfg.frontend != "tokens":
+        nb["embeds"] = _bf16(0.3 * rng.standard_normal((b, s, cfg.d_model)))
+    if cfg.rope_kind == "mrope":
+        t = np.arange(s)
+        nb["mrope_positions"] = np.broadcast_to(
+            np.stack([t, t // 3, t % 3])[:, None, :],
+            (3, b, s)).astype(np.int32).copy()
+    tb = {k: tT.params_from_numpy(v) if v.dtype == BF16
+          else torch.from_numpy(v) for k, v in nb.items()}
+    return tb, {k: jnp.asarray(v) for k, v in nb.items()}
+
+
+#: Every transformer id of the registry (RecurrentGemma's scan runs in
+#: fp32 at bf16, as the reference's).
+TRAIN_ARCHS = ("smollm-135m", "gemma-7b", "qwen2-7b", "recurrentgemma-2b",
+               "granite-moe-1b-a400m", "qwen3-moe-30b-a3b",
+               "command-r-plus-104b", "musicgen-large", "qwen2-vl-7b",
+               "xlstm-125m")
+#: MoE ids whose JAX bf16 run routes tokens to other experts than its
+#: fp32 run on this batch (the router's top-k crosses a near tie under
+#: the JAX package's extra bf16 roundings of the logits, the softmax
+#: weights and the norm's rsqrt; the port's kernels round once): the JAX
+#: bf16 gradient lies 5.3 % (granite) and 7.4 % (qwen3) of its norm from
+#: the JAX fp32 gradient, the port's 1.3 % and 2.0 % (measured).  A leaf
+#: farther than ``GRAD_SHARE`` from the JAX bf16 leaf is held to be no
+#: farther from the fp32 leaf than the JAX bf16 leaf is; so are the whole
+#: gradient and the step's gradient norm.
+REFERENCE_ROUTES_APART = ("granite-moe-1b-a400m", "qwen3-moe-30b-a3b")
+#: Ids whose bf16 gradient is held to nothing but being finite: xLSTM's
+#: stabilizers (``m = max(log f + m, log i)``, ``max(|nᵀq|, 1)``) pick
+#: another branch wherever a bf16 rounding moves a near tie, so the JAX
+#: package's own bf16 gradient lies 26 % of its norm from its fp32
+#: gradient on this batch (46 % on another), the port's 54 % (32 %):
+#: neither bounds the other.  Its loss is held, before and after the step.
+GRADIENT_NOT_HELD = ("xlstm-125m",)
+
+
+def _fp32_reference(jcfg, jp, jb):
+    """The JAX package's loss gradient at fp32 on the bf16 weights and
+    inputs, widened."""
+    cfg = dataclasses.replace(jcfg, dtype="float32")
+
+    def wide(t):
+        return t.astype(jnp.float32) if t.dtype == jnp.bfloat16 else t
+    _, g = jax.value_and_grad(JS.make_loss_fn(cfg))(
+        jax.tree.map(wide, jp), jax.tree.map(wide, jb))
+    return _jax_flat(g)
+
+
+def _norm(tree) -> float:
+    return math.sqrt(sum(float(np.square(v, dtype=np.float64).sum())
+                         for v in tree.values()))
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_matches_reference_at_bf16(arch):
+    """The loss within ``LOSS_RTOL`` and each gradient leaf within
+    ``GRAD_SHARE`` of its max |g| of the JAX package's at bf16 (the ids
+    of ``REFERENCE_ROUTES_APART`` and ``GRADIENT_NOT_HELD`` as those
+    say); one AdamW step's loss and gradient norm within ``LOSS_RTOL``,
+    params bf16 and moments fp32 on both sides."""
+    jcfg, tcfg = _configs(arch)
     tp, jp = _bf16_params(jcfg, seed=1)
-    rng = np.random.default_rng(5)
-    nb = {k: rng.integers(0, jcfg.vocab_size, (2, 16)).astype(np.int32)
-          for k in ("tokens", "targets")}
-    tb = {k: torch.from_numpy(v) for k, v in nb.items()}
-    jb = {k: jnp.asarray(v) for k, v in nb.items()}
+    tb, jb = _train_batch(jcfg)
     tl, tg = TS.value_and_grad(TS.make_loss_fn(tcfg), tp, tb)
     jl, jg = jax.value_and_grad(JS.make_loss_fn(jcfg))(jp, jb)
     assert float(tl) == pytest.approx(float(jl), rel=LOSS_RTOL)
     ft, fj = flatten_tree(tg), _jax_flat(jg)
+    assert sorted(ft) == sorted(fj)
+    apart = []
     for key, b in fj.items():
         assert ft[key].dtype == torch.bfloat16 and b.dtype == BF16, key
         a, b = _f32(ft[key]), b.astype(np.float32)
-        assert float(np.abs(a - b).max()) <= \
-            GRAD_SHARE * float(np.abs(b).max()) + 1e-12, key
+        assert np.isfinite(a).all(), key
+        if float(np.abs(a - b).max()) > \
+                GRAD_SHARE * float(np.abs(b).max()) + 1e-12:
+            apart.append(key)
+    if arch in REFERENCE_ROUTES_APART:
+        f32 = _fp32_reference(jcfg, jp, jb)
+        dp = {k: _f32(ft[k]) - v for k, v in f32.items()}
+        dj = {k: fj[k].astype(np.float32) - v for k, v in f32.items()}
+        for key in apart:
+            assert float(np.abs(dp[key]).max()) <= \
+                float(np.abs(dj[key]).max()), key
+        assert _norm(dp) <= _norm(dj)
+    elif arch not in GRADIENT_NOT_HELD:
+        assert not apart, apart
     opt = dict(lr=1e-2, warmup_steps=1, total_steps=10, weight_decay=0.1)
     tstate = TA.init_opt_state(tp)
     jstate = JA.init_opt_state(jp)
     tp, tstate, tm = TS.make_train_step(tcfg, TA.AdamWConfig(**opt))(
         tp, tstate, tb)
-    jp, jstate, jm = JS.make_train_step(jcfg, JA.AdamWConfig(**opt))(
-        jp, jstate, jb)
+    # the reference trains through the jitted step (src/repro/train/loop.py)
+    jp, jstate, jm = jax.jit(JS.make_train_step(jcfg, JA.AdamWConfig(
+        **opt)))(jp, jstate, jb)
     assert float(tm["loss"]) == pytest.approx(float(jm["loss"]),
                                               rel=LOSS_RTOL)
-    assert float(tm["grad_norm"]) == pytest.approx(float(jm["grad_norm"]),
-                                                   rel=LOSS_RTOL)
+    tn, jn = float(tm["grad_norm"]), float(jm["grad_norm"])
+    assert math.isfinite(tn)
+    if arch in REFERENCE_ROUTES_APART:
+        n32 = _norm(f32)
+        assert abs(tn - n32) <= max(abs(jn - n32), LOSS_RTOL * n32)
+    elif arch not in GRADIENT_NOT_HELD:
+        assert tn == pytest.approx(jn, rel=LOSS_RTOL)
     for t in flatten_tree(tp).values():
         assert t.dtype == torch.bfloat16
     for tree in (tstate["mu"], tstate["nu"]):

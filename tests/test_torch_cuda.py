@@ -1425,6 +1425,60 @@ def test_bf16_train_step_on_the_card_matches_the_cpu():
                for t in tree_leaves([state["mu"], state["nu"]]))
 
 
+@pytest.mark.parametrize("arch,dtype,remat,micro", [
+    ("smollm-135m", "float32", False, 1), ("smollm-135m", "bfloat16", True, 1),
+    ("smollm-135m", "float32", True, 2),
+    ("recurrentgemma-2b", "bfloat16", True, 1)])
+def test_captured_train_step_equals_eager(arch, dtype, remat, micro):
+    """``capture_train_step`` against the eager step from the same params
+    and zero moments, 3 steps: losses, grad norms and every param and
+    moment bitwise (the graph replays the eager step's kernels on the same
+    inputs); the capture counted the kernels' launches once, and the
+    capture left the state it was handed as it was."""
+    import dataclasses
+    dev = _card()
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.step import capture_train_step, make_train_step
+    from repro_torch.tree import tree_map
+    if arch == "smollm-135m":
+        cfg = dataclasses.replace(_train_cfg(dtype), remat=remat)
+    else:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype,
+                                  remat=remat)
+    p0, _ = T.init_model(cfg, torch.Generator(dev).manual_seed(0),
+                         device=dev)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in SyntheticTokens(
+        cfg.vocab_size, 2, 64, seed=0).batch_at(i).items()}
+        for i in range(3)]
+    step = make_train_step(cfg, AdamWConfig(lr=1e-2, warmup_steps=1,
+                                            total_steps=4),
+                           microbatches=micro)
+    out = {}
+    for way in ("eager", "captured"):
+        params = tree_map(lambda t: t.clone(), p0)
+        state = init_opt_state(params)
+        if way == "captured":
+            run = capture_train_step(step, params, state, batches[0])
+            assert run.launches.get("rmsnorm" if dtype == "float32"
+                                    else "rmsnorm_bf16", 0) > 0
+            assert _flat(params).keys() == _flat(p0).keys()
+            assert all(torch.equal(a, b) for a, b in zip(
+                _flat(params).values(), _flat(p0).values()))
+            assert int(state["step"]) == 0
+        else:
+            def run(b, params=params, state=state):
+                return step(params, state, b)[2]
+        ms = [run(b) for b in batches]
+        out[way] = ([(float(m["loss"]), float(m["grad_norm"])) for m in ms],
+                    _flat({"p": params, "s": state}))
+    assert out["captured"][0] == out["eager"][0]
+    for k, v in out["eager"][1].items():
+        assert torch.equal(out["captured"][1][k], v), k
+
+
 def _bf16_within(y, yr, allowance: float = 0.0) -> bool:
     """Every element of y within one bf16 ulp (of the larger of the two)
     of yr, beyond an fp32 allowance: two fp32 sums that differ by δ round

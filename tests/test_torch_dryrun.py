@@ -166,3 +166,29 @@ def test_budget_train_cell(fake_group, tmp_path, capsys):
     assert ops["all_gather"]["calls"] > 0
     assert ops["reduce_scatter:bwd"]["calls"] > 0
     assert np.isfinite(rec["cost"]["flops"]) and rec["cost"]["flops"] > 0
+
+
+def test_remat_train_cell_counts_the_recompute(fake_group):
+    """A train cell of the reduced smollm on a fake world of 4 (data 2 ×
+    model 2, FSDP): with remat the backward's recompute adds operations
+    and gathers the layers' params again; the arguments are the same
+    bytes (``--no-remat`` changes the work, not the inputs)."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import build_mesh
+    cfg = dataclasses.replace(get_config("smollm-135m").reduced(),
+                              remat=True)
+    shape = ShapeConfig("t", 16, 8, "train")
+    fake_group(4)
+    mesh = build_mesh({"data": 2, "model": 2}, range(4))
+    recs = {remat: D.run_on_mesh(cfg, shape, mesh,
+                                 D.CellOptions(remat=remat))
+            for remat in (True, False)}
+    on, off = recs[True], recs[False]
+    assert on["options"]["remat"] and not off["options"]["remat"]
+    assert on["cost"]["flops"] > off["cost"]["flops"] > 0
+    assert on["memory"]["argument_size_in_bytes"] == \
+        off["memory"]["argument_size_in_bytes"] > 0
+    assert on["collective_ops"]["all_gather"]["calls"] > \
+        off["collective_ops"]["all_gather"]["calls"]

@@ -24,6 +24,9 @@ part of the ranks' results:
 * xLSTM decode with its heads split gives the single device's tokens;
 * the elastic restore, bitwise (mirroring ``tests/test_ft.py``), and
   ``train_loop``'s restart under the mesh;
+* remat under FSDP params with ZeRO gradient shardings: 2 steps equal
+  the steps without remat bitwise, the recompute gathering the layers'
+  params again;
 * ``python -m repro_torch.launch.train --distributed`` at 2 gloo ranks.
 """
 import json
@@ -384,6 +387,22 @@ def test_loop_restarts_under_the_mesh(world):
         assert failed["losses"][:3] + failed["losses"][4:] == clean["losses"]
         for k, v in clean["params"].items():
             np.testing.assert_array_equal(failed["params"][k], v, err_msg=k)
+
+
+def test_remat_under_the_mesh_equals_no_remat_bitwise(world):
+    """The reduced smollm, FSDP params with ZeRO gradient shardings, 2
+    steps: with remat (``cfg.remat``) the losses, gradient norms and
+    params equal those without remat bitwise on every rank, and the
+    backward's recompute issues the layers' gathers again."""
+    for rank, out in enumerate(world["ranks"]):
+        (l1, n1, p1, c1), (l0, n0, p0, c0) = (out["remat"][True],
+                                              out["remat"][False])
+        assert len(l1) == 2 and l1 == l0 and n1 == n0
+        assert c1["all_gather"]["calls"] > c0["all_gather"]["calls"]
+        if rank == 0:
+            assert p1.keys() == p0.keys()
+            for k, v in p0.items():
+                np.testing.assert_array_equal(p1[k], v, err_msg=k)
 
 
 def _launch(tmp_path, *extra, nproc=2):
